@@ -1,0 +1,136 @@
+"""Fused moment sums: transform, re-bin, membership and anchored moments in
+one pass over the scan.
+
+``fused_moment_sums`` launches the CUDA kernel ``csrc/fused_moments.cu``
+on CUDA tensors and takes the plain version,
+``fused_moment_sums_reference``, only for CPU tensors.  It replaces the TPU
+kernel ``icet_tpu/ops/pallas_fused.py::_kernel`` and computes what
+``icet_tpu/solver.py::_jnp_sums`` computes.  The kernel holds the whole
+voxel table in shared memory, so it has no window: nothing overflows, and
+``IterationDiag.windowed_overflow`` is always 0 in the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from icet_tpu_torch import _build
+from icet_tpu_torch.config import ICETConfig
+from icet_tpu_torch.ops.clustering import membership
+from icet_tpu_torch.ops.geometry import cart_to_spherical, point_norm, transform_points
+from icet_tpu_torch.ops.grid import voxel_ids
+from icet_tpu_torch.ops.moments import N_FEATURES, voxel_moment_sums
+
+#: shared memory one block can hold on Hopper (227 KB)
+MAX_SHARED_BYTES = 232_448
+#: points each block walks, which sets the grid (at most 2 blocks per SM)
+POINTS_PER_BLOCK = 1024
+
+
+def fused_moment_sums_reference(
+    pts: torch.Tensor,
+    X: torch.Tensor,
+    bounds: torch.Tensor,
+    anchors: torch.Tensor,
+    cfg: ICETConfig,
+) -> torch.Tensor:
+    """Plain PyTorch version: ``(V+1, 16)`` sums of the points of ``pts``
+    transformed by ``X`` that fall inside their voxel's radial bounds,
+    gated on the raw range ``|p| >= min_range``."""
+    raw_ok = point_norm(pts) >= cfg.min_range
+    p2 = transform_points(pts, X)
+    rtp = cart_to_spherical(p2)
+    vid = voxel_ids(rtp, cfg)
+    member = membership(vid, rtp[..., 0], raw_ok, bounds, cfg.n_voxels)
+    return voxel_moment_sums(p2, vid, member, anchors, cfg.n_voxels)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_moments")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.icet_fused_moment_sums.argtypes = [
+        p, i, p, p, p, i, i, i, f, f, f, p, i, p, p,
+    ]
+    lib.icet_fused_moment_sums.restype = i
+    lib.icet_cuda_error_string.argtypes = [i]
+    lib.icet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(pts, X, bounds, anchors, cfg: ICETConfig) -> None:
+    v1 = cfg.n_voxels + 1
+    if cfg.radial_mode != "adaptive":
+        raise NotImplementedError(
+            "the fused moments kernel takes adaptive radial mode only; "
+            "fixed mode's table does not fit shared memory"
+        )
+    if v1 * 10 * 4 > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{v1} voxel rows x 40 B exceed one block's shared memory"
+        )
+    shapes = {"pts": (pts, (pts.shape[0], 3)), "X": (X, (6,)),
+              "bounds": (bounds, (v1, 2)), "anchors": (anchors, (v1, 3))}
+    for name, (t, shape) in shapes.items():
+        if t.device != pts.device:
+            raise ValueError(f"{name} is on {t.device}, pts on {pts.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if pts.shape[0] >= 2**31 // 3:
+        raise ValueError("too many points for 32-bit indexing")
+
+
+def fused_moment_sums(
+    pts: torch.Tensor,
+    X: torch.Tensor,
+    bounds: torch.Tensor,
+    anchors: torch.Tensor,
+    cfg: ICETConfig,
+) -> torch.Tensor:
+    """``(V+1, 16)`` anchored moment sums of ``pts`` transformed by ``X``.
+
+    CUDA tensors go to the kernel (``fused_moment_sums.launches`` counts
+    its launches); CPU tensors go to :func:`fused_moment_sums_reference`.
+    Columns 10-15 and the sentinel row V are zero.
+    """
+    if pts.device.type == "cpu":
+        return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no fused moments kernel for device {pts.device}")
+    _check(pts, X, bounds, anchors, cfg)
+    n = pts.shape[0]
+    v1 = cfg.n_voxels + 1
+    index = pts.device.index if pts.device.index is not None else torch.cuda.current_device()
+    blocks = max(1, min(2 * _sm_count(index), -(-n // POINTS_PER_BLOCK)))
+    partial = torch.empty((blocks, v1, 10), dtype=torch.float32, device=pts.device)
+    out = torch.empty((v1, N_FEATURES), dtype=torch.float32, device=pts.device)
+    lib = _lib()
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.icet_fused_moment_sums(
+            pts.data_ptr(), n, X.data_ptr(), bounds.data_ptr(),
+            anchors.data_ptr(), cfg.n_voxels, cfg.n_theta, cfg.n_phi,
+            cfg.phi_min, cfg.phi_max - cfg.phi_min, cfg.min_range,
+            partial.data_ptr(), blocks, out.data_ptr(), stream,
+        )
+    if err != 0:
+        msg = lib.icet_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused moments kernel launch failed: {msg} ({err})")
+    fused_moment_sums.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel (plain-version calls on CPU tensors do not count)
+fused_moment_sums.launches = 0

@@ -1,0 +1,108 @@
+"""Per-voxel Gaussian moments: anchored feature sums and their finalize.
+
+Points are accumulated relative to a per-voxel anchor (grid.voxel_anchors),
+so single-pass float32 covariance sums stay accurate.  The raw sums are a
+``(V+1, 16)`` table: columns ``[1, g, gx^2, gy^2, gz^2, gx gy, gx gz,
+gy gz]`` about the anchor, columns 10-15 zero (the JAX package's layout).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+N_FEATURES = 16  # 10 used; the JAX package's padded layout
+
+
+class VoxelMoments(NamedTuple):
+    count: torch.Tensor  # (V+1,) points per voxel
+    mean: torch.Tensor  # (V+1, 3) cartesian mean
+    cov: torch.Tensor  # (V+1, 3, 3) sample covariance (N-1 denominator)
+
+
+def _point_features(g: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
+    """Per-point features ``(N, 16)`` about the anchor offsets ``g``.
+
+    Non-members are zeroed with a select, not a multiply, so NaN offsets
+    cannot reach the sums through NaN * 0."""
+    gx, gy, gz = g[..., 0], g[..., 1], g[..., 2]
+    feats = torch.stack(
+        [torch.ones_like(gx), gx, gy, gz, gx * gx, gy * gy, gz * gz,
+         gx * gy, gx * gz, gy * gz],
+        dim=-1,
+    )
+    feats = torch.where(member[..., None], feats, torch.zeros_like(feats))
+    pad = feats.new_zeros(feats.shape[:-1] + (N_FEATURES - 10,))
+    return torch.cat([feats, pad], dim=-1)
+
+
+def voxel_moment_sums(
+    points: torch.Tensor,
+    vid: torch.Tensor,
+    member: torch.Tensor,
+    anchors: torch.Tensor,
+    n_voxels: int,
+    method: str = "segsum",
+) -> torch.Tensor:
+    """Raw ``(V+1, 16)`` anchored sums of ``points`` by voxel id
+    (``index_add_``).  Only ``"segsum"`` is ported; the JAX package's
+    ``"onehot"`` and ``"pallas"`` accumulators raise NotImplementedError."""
+    if method != "segsum":
+        raise NotImplementedError(
+            f"moment accumulation {method!r} is not ported; use 'segsum'"
+        )
+    vid = torch.where(member, vid, n_voxels).long()
+    g = points - anchors[vid]
+    feats = _point_features(g, member)
+    out = feats.new_zeros((n_voxels + 1, N_FEATURES))
+    return out.index_add_(0, vid, feats)
+
+
+def finalize_moments_planes(sums: torch.Tensor, anchors: torch.Tensor):
+    """``(count (V+1,), mean (V+1, 3), cov6 (V+1, 6))`` with ``cov6`` the
+    packed symmetric sample covariance ``[xx, yy, zz, xy, xz, yz]``."""
+    count = sums[:, 0]
+    safe_n = torch.clamp(count, min=1.0)
+    gbar = sums[:, 1:4] / safe_n[:, None]
+    mean = anchors + gbar
+    denom = torch.clamp(count - 1.0, min=1.0)
+    gx, gy, gz = gbar[:, 0], gbar[:, 1], gbar[:, 2]
+    pairs = (
+        (4, gx * gx), (5, gy * gy), (6, gz * gz),
+        (7, gx * gy), (8, gx * gz), (9, gy * gz),
+    )
+    cov6 = torch.stack(
+        [(sums[:, i] - safe_n * g2) / denom for i, g2 in pairs], dim=-1
+    )
+    return count, mean, cov6
+
+
+def cov6_to_matrix(cov6: torch.Tensor) -> torch.Tensor:
+    """(V, 6) packed symmetric planes -> (V, 3, 3)."""
+    xx, yy, zz, xy, xz, yz = (cov6[:, i] for i in range(6))
+    return torch.stack(
+        [torch.stack([xx, xy, xz], -1),
+         torch.stack([xy, yy, yz], -1),
+         torch.stack([xz, yz, zz], -1)],
+        dim=-2,
+    )
+
+
+def finalize_moments(sums: torch.Tensor, anchors: torch.Tensor) -> VoxelMoments:
+    """Raw sums -> count / mean / (V+1, 3, 3) sample covariance."""
+    count, mean, cov6 = finalize_moments_planes(sums, anchors)
+    return VoxelMoments(count=count, mean=mean, cov=cov6_to_matrix(cov6))
+
+
+def voxel_moments(
+    points: torch.Tensor,
+    vid: torch.Tensor,
+    member: torch.Tensor,
+    anchors: torch.Tensor,
+    n_voxels: int,
+    method: str = "segsum",
+) -> VoxelMoments:
+    """Per-voxel count / mean / covariance of the member points."""
+    sums = voxel_moment_sums(points, vid, member, anchors, n_voxels, method)
+    return finalize_moments(sums, anchors)

@@ -1,0 +1,437 @@
+"""The ICET registration solver on tensors (``icet_tpu/solver.py``).
+
+1. :func:`prepare_reference` fits the dense voxel model to scan 1:
+   spherical binning, radial clustering, anchored moments (the fused pass
+   at X = 0), 3x3 eigendecomposition and the extended-surface axis mask.
+2. :func:`register` runs Gauss-Newton iterations: each one is a fused
+   moments pass over scan 2 at the current X (the CUDA kernel on the
+   card), the plane-form normal equations, a 6x6 Jacobi eigensystem and a
+   condition-pruned update.
+
+Early exit: the JAX package runs the iterations in a device-side
+``lax.while_loop``; here a Python loop reads ``|dx|`` and the exit
+threshold on the host once per iteration, which executes the same
+iterations.  Diagnostics of skipped iterations repeat the last executed
+values, as in the JAX package.
+
+Every function follows the device of its input tensors; the entry points
+that take numpy input (:func:`register_pair`) choose CUDA unless told
+otherwise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from icet_tpu_torch.config import ICETConfig
+from icet_tpu_torch.device import as_points, resolve_device
+from icet_tpu_torch.ops.clustering import (
+    ClusterResult,
+    membership,
+    radial_cluster_bounds,
+)
+from icet_tpu_torch.ops.fused_moments import (
+    fused_moment_sums,
+    fused_moment_sums_reference,
+)
+from icet_tpu_torch.ops.geometry import (
+    cart_to_spherical,
+    point_norm,
+    rotation_jacobian,
+    transform_points,
+)
+from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors, voxel_ids
+from icet_tpu_torch.ops.linalg import eigh_small, eigh_small_warm_safe
+from icet_tpu_torch.ops.moments import cov6_to_matrix, finalize_moments_planes
+from icet_tpu_torch.ops.wls_planes import (
+    assemble_normal_equations,
+    eigh3_planes,
+    residual_compact_planes,
+)
+
+
+class VoxelModel(NamedTuple):
+    """Dense per-voxel reference model fitted to scan 1 (all tables V+1)."""
+
+    bounds: torch.Tensor  # (V+1, 2) radial cluster bounds
+    anchors: torch.Tensor  # (V+1, 3) cartesian anchors (bf16-rounded)
+    count: torch.Tensor  # (V+1,)
+    mean: torch.Tensor  # (V+1, 3)
+    cov: torch.Tensor  # (V+1, 3, 3)
+    basis: torch.Tensor  # (V+1, 3, 3) eigenvectors as COLUMNS (ascending)
+    lmask: torch.Tensor  # (V+1, 3) per-eigenaxis keep mask (0 = extended)
+    valid: torch.Tensor  # (V+1,) bool, voxel participates in the solve
+
+
+class IterationDiag(NamedTuple):
+    """Per-iteration diagnostics, each stacked to (n_iters,)."""
+
+    n_corr: torch.Tensor
+    condition: torch.Tensor
+    dx_norm: torch.Tensor
+    n_dropped_axes: torch.Tensor
+    n_rejected_moving: torch.Tensor
+    #: always 0: the port's moments kernel has no window to overflow
+    windowed_overflow: torch.Tensor
+
+
+class RegistrationResult(NamedTuple):
+    X: torch.Tensor  # (6,) solved state [t_xyz, phi, theta, psi]
+    pred_stds: torch.Tensor  # (6,) predicted per-component solution std
+    Q: torch.Tensor  # (6, 6) predicted solution error covariance
+    diagnostics: IterationDiag
+    static_mask: torch.Tensor  # (N2,) scan-2 points in used voxels
+    #: Gauss-Newton iterations executed (each one moments pass)
+    iterations: int
+
+
+# ---------------------------------------------------------------------------
+# Scan-1 preparation
+# ---------------------------------------------------------------------------
+
+
+def _sigma_axis_mask(model_mean, eigvals, basis, bounds, valid, cfg: ICETConfig):
+    """Keep eigen-axis k iff an endpoint ``mu +- s sqrt(lam_k) u_k`` lies
+    inside the voxel (same bin, within the radial bounds)."""
+    sq = torch.sqrt(torch.clamp(eigvals, min=0.0))
+    offsets = cfg.sigma_scale * sq[:, None, :] * basis  # (V+1, 3, 3)
+    endpoints = torch.stack(
+        [model_mean[:, :, None] + offsets, model_mean[:, :, None] - offsets], dim=0
+    )  # (2, V+1, coord, axis)
+    ep = torch.movedim(endpoints, 2, 3)  # (2, V+1, axis, coord)
+    rtp = cart_to_spherical(ep)
+    ep_vid = voxel_ids(rtp, cfg)
+    own_vid = torch.arange(
+        model_mean.shape[0], dtype=torch.int32, device=model_mean.device
+    )[None, :, None]
+    b = bounds[None, :, None, :]
+    inside = (ep_vid == own_vid) & (rtp[..., 0] >= b[..., 0]) & (rtp[..., 0] <= b[..., 1])
+    keep = inside[0] | inside[1]
+    return torch.where(valid[:, None], keep.to(model_mean.dtype), 0.0)
+
+
+def _clip_fill_mask(model_mean, eigvals, basis, bounds, valid, cfg: ICETConfig):
+    """Clip-fill guard: prune axis k when ``sigma_scale sqrt(lam_k)``
+    exceeds ``clip_fill / 2`` of the cell's extent along it (L1 box bound
+    in the local spherical frame).  Projections in float32."""
+    r = torch.linalg.norm(model_mean, dim=-1)
+    safe_r = torch.clamp(r, min=1e-6)
+    rhat = model_mean / safe_r[:, None]
+    sin_phi = torch.sqrt(
+        torch.clamp(model_mean[:, 0] ** 2 + model_mean[:, 1] ** 2, min=1e-12)
+    ) / safe_r
+    cos_th = model_mean[:, 0] / torch.clamp(sin_phi * safe_r, min=1e-9)
+    sin_th = model_mean[:, 1] / torch.clamp(sin_phi * safe_r, min=1e-9)
+    that = torch.stack([-sin_th, cos_th, torch.zeros_like(sin_th)], dim=-1)
+    phat = torch.linalg.cross(that, rhat)
+
+    d_theta = 2.0 * math.pi / cfg.n_theta
+    d_phi = (cfg.phi_max - cfg.phi_min) / cfg.n_phi
+    w_r = bounds[:, 1] - bounds[:, 0]
+    w_t = r * sin_phi * d_theta
+    w_p = r * d_phi
+
+    def proj(nv):
+        return torch.abs(torch.sum(nv[:, :, None] * basis, dim=1))
+
+    extent = (
+        proj(rhat) * w_r[:, None] + proj(that) * w_t[:, None] + proj(phat) * w_p[:, None]
+    )
+    span = cfg.sigma_scale * torch.sqrt(torch.clamp(eigvals, min=0.0))
+    keep = span <= 0.5 * cfg.clip_fill * extent
+    return torch.where(valid[:, None], keep.to(model_mean.dtype), 0.0)
+
+
+def _ndt_axis_mask(eigvals, basis, bounds, valid, cfg: ICETConfig):
+    """NDT-style test: prune axis k when any component of
+    ``|u_k| lam_k`` exceeds the voxel's radial width squared."""
+    width = bounds[:, 1] - bounds[:, 0]
+    thr = width * width
+    rotated = torch.abs(basis) * torch.clamp(eigvals, min=0.0)[:, None, :]
+    extended = torch.any(rotated > thr[:, None, None], dim=1)
+    return torch.where(valid[:, None], (~extended).to(eigvals.dtype), 0.0)
+
+
+def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
+    """(V+1, 16) moment sums of ``pts`` at X: ``"auto"``/``"fused"`` take
+    the kernel wrapper (kernel on CUDA, plain version on CPU), ``"segsum"``
+    the plain ``index_add_`` version on any device."""
+    if cfg.moment_method in ("auto", "fused"):
+        return fused_moment_sums(pts, X, bounds, anchors, cfg)
+    if cfg.moment_method == "segsum":
+        return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+    raise NotImplementedError(
+        f"moment_method {cfg.moment_method!r} is not ported; "
+        "use 'auto', 'fused' or 'segsum'"
+    )
+
+
+def prepare_reference(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
+    """Fit the dense voxel model to scan 1 ``(N, 3)`` on its device."""
+    scan1 = scan1.contiguous()
+    dev = scan1.device
+    if cfg.radial_mode == "fixed":
+        clusters = ClusterResult(
+            bounds=fixed_shell_bounds(cfg, dev),
+            found=torch.cat([
+                torch.ones(cfg.n_voxels, dtype=torch.bool, device=dev),
+                torch.zeros(1, dtype=torch.bool, device=dev),
+            ]),
+        )
+    else:
+        rtp = cart_to_spherical(scan1)
+        r = rtp[..., 0]
+        clusters = radial_cluster_bounds(
+            voxel_ids(rtp, cfg), r, r >= cfg.min_range, cfg.n_voxels,
+            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer,
+        )
+    anchors = voxel_anchors(clusters.bounds, cfg)
+    sums = _moment_sums(scan1, torch.zeros(6, dtype=scan1.dtype, device=dev),
+                        clusters.bounds, anchors, cfg)
+    count, mean, cov6 = finalize_moments_planes(sums, anchors)
+
+    valid = (
+        clusters.found
+        & (count >= cfg.min_pts)
+        & (clusters.bounds[:, 1] > cfg.min_outer_range)
+    )
+    eigvals, basis = eigh3_planes(cov6)
+    if cfg.suppression == "ndt":
+        lmask = _ndt_axis_mask(eigvals, basis, clusters.bounds, valid, cfg)
+    else:
+        lmask = _sigma_axis_mask(mean, eigvals, basis, clusters.bounds, valid, cfg)
+    if cfg.clip_fill > 0.0:
+        lmask = lmask * _clip_fill_mask(mean, eigvals, basis, clusters.bounds, valid, cfg)
+    return VoxelModel(
+        bounds=clusters.bounds, anchors=anchors, count=count, mean=mean,
+        cov=cov6_to_matrix(cov6), basis=basis, lmask=lmask, valid=valid,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-iteration Gauss-Newton update
+# ---------------------------------------------------------------------------
+
+
+def _covariance_yaw(cov: torch.Tensor) -> torch.Tensor:
+    """Moving-object heuristic: yaw of the covariance's first row,
+    ``atan2(-cov[0,1], cov[0,0])``; (V, 3, 3) or (V, 6) packed input."""
+    if cov.ndim == 2:
+        return torch.atan2(-cov[:, 3], cov[:, 0])
+    return torch.atan2(-cov[..., 0, 1], cov[..., 0, 0])
+
+
+def _iteration(
+    model: VoxelModel,
+    scan2: torch.Tensor,
+    X: torch.Tensor,
+    it: int,
+    cfg: ICETConfig,
+    corr_mask: torch.Tensor | None = None,
+    U2_warm: torch.Tensor | None = None,
+    want_range_sens: bool = False,
+):
+    sums = _moment_sums(scan2, X.contiguous(), model.bounds, model.anchors, cfg)
+    count2, mean2, cov2 = finalize_moments_planes(sums, model.anchors)
+
+    corr = model.valid & (count2 >= cfg.min_pts)
+    if corr_mask is not None:
+        corr = corr & corr_mask
+
+    n_rejected = torch.zeros((), dtype=torch.int32, device=scan2.device)
+    if cfg.remove_moving and it >= cfg.rm_start_iter:
+        res_compact = residual_compact_planes(model.basis, model.lmask, model.mean, mean2)
+        bad_res = torch.any(torch.abs(res_compact) > cfg.rm_residual_thresh, dim=-1)
+        yaw_delta = torch.abs(_covariance_yaw(model.cov) - _covariance_yaw(cov2))
+        bad = corr & (bad_res | (yaw_delta > cfg.rm_yaw_thresh))
+        n_rejected = torch.sum(bad, dtype=torch.int32)
+        corr = corr & ~bad
+
+    cm = corr.to(scan2.dtype)
+    dR = rotation_jacobian(X[3:6])
+    args = (model.basis, model.lmask, model.cov, model.count, cov2, count2,
+            model.mean, mean2, dR, cm, cfg.pinv_rcond)
+    htwg = None
+    if want_range_sens:
+        # A common-mode range offset moves the transformed voxel means along
+        # (mu2 - t) / |mu2 - t|.
+        d3 = [mean2[:, j] - X[j] for j in range(3)]
+        gn = torch.sqrt(torch.clamp(d3[0] ** 2 + d3[1] ** 2 + d3[2] ** 2, min=1e-12))
+        HTWH, HTWdz, _, htwg = assemble_normal_equations(
+            *args, extra_dz=[dj / gn for dj in d3]
+        )
+    else:
+        HTWH, HTWdz, _ = assemble_normal_equations(*args)
+
+    if U2_warm is None:
+        w6, U2 = eigh_small(HTWH)
+    else:
+        w6, U2 = eigh_small_warm_safe(HTWH, U2_warm)
+    cond_full = torch.abs(w6[-1]) / torch.clamp(torch.abs(w6[0]), min=1e-30)
+    keep = (torch.abs(w6[-1]) <= cfg.condition_cutoff * torch.abs(w6)) & (
+        torch.abs(w6) > 1e-30
+    )
+    dx = U2 @ (_inverse_where(w6, keep) * (U2.T @ HTWdz))
+    diag = (
+        torch.sum(corr, dtype=torch.int32),
+        cond_full,
+        torch.linalg.norm(dx),
+        torch.sum(~keep, dtype=torch.int32),
+        n_rejected,
+    )
+    return X + dx, w6, keep, corr, U2, diag, htwg
+
+
+def _inverse_where(w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """``1 / w`` where ``ok``, 0 elsewhere (no division by the others)."""
+    return torch.where(ok, 1.0 / torch.where(ok, w, torch.ones_like(w)),
+                       torch.zeros_like(w))
+
+
+def _exit_threshold(w6, U2, cfg: ICETConfig) -> torch.Tensor:
+    """max(tol, stat_scale * |stds|) with the UNINFLATED stds."""
+    t = torch.tensor(cfg.convergence_tol, dtype=w6.dtype, device=w6.device)
+    if cfg.convergence_stat_scale > 0.0:
+        wmax = torch.amax(torch.abs(w6))
+        inv = _inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
+        var = torch.sum(U2 * U2 * inv[None, :], dim=1)
+        t = torch.maximum(t, cfg.convergence_stat_scale * torch.sqrt(torch.sum(torch.abs(var))))
+    return t
+
+
+def _predicted_covariance(w6, U2, keep, cfg: ICETConfig, htwg=None):
+    """Predicted solution covariance and per-component stds from the final
+    eigensystem; pruned axes inflate the stds by ``|U2| @ dropped``."""
+    wmax = torch.amax(torch.abs(w6))
+    inv_all = _inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
+    Q = (U2 * inv_all[None, :]) @ U2.T
+    if htwg is not None:
+        inv_kept = torch.where(keep, inv_all, torch.zeros_like(inv_all))
+        v = U2 @ (inv_kept * (U2.T @ htwg))
+        Q = Q + (2.0 * cfg.range_sigma**2) * torch.outer(v, v)
+    pred_stds = torch.sqrt(torch.abs(torch.diagonal(Q)))
+    dropped = (~keep).to(pred_stds.dtype)
+    pred_stds = pred_stds + torch.abs(U2) @ dropped
+    return pred_stds, Q
+
+
+def _stack_diags(rows) -> IterationDiag:
+    cols = list(zip(*rows))
+    n_corr, cond, dxn, ndrop, nrej = (torch.stack(c) for c in cols)
+    return IterationDiag(
+        n_corr=n_corr, condition=cond, dx_norm=dxn, n_dropped_axes=ndrop,
+        n_rejected_moving=nrej, windowed_overflow=torch.zeros_like(n_corr),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def register(
+    model: VoxelModel,
+    scan2: torch.Tensor,
+    x0: torch.Tensor,
+    cfg: ICETConfig,
+    corr_mask: torch.Tensor | None = None,
+    want_static_mask: bool = True,
+) -> RegistrationResult:
+    """Solve for the 6-DOF transform aligning scan 2 to the voxel model.
+
+    Iteration 0 runs the cold 6x6 eigendecomposition; later iterations
+    warm-start from the previous eigenbasis.  With ``convergence_tol`` or
+    ``convergence_stat_scale`` set, iterations stop once ``|dx|`` falls
+    below the exit threshold (after ``min_it``; ``n_iters`` is the cap).
+    """
+    scan2 = scan2.contiguous()
+    X = x0.to(device=scan2.device, dtype=scan2.dtype)
+    X, w6, keep, corr, U2, d, _ = _iteration(
+        model, scan2, X, 0, cfg, corr_mask, None
+    )
+    rows = [d]
+    n_it = cfg.n_iters
+    early = cfg.convergence_tol > 0.0 or cfg.convergence_stat_scale > 0.0
+    if cfg.remove_moving:
+        min_it = min(max(cfg.rm_start_iter + 1, 1), n_it)
+    else:
+        min_it = 1
+    it = 1
+    thresh = _exit_threshold(w6, U2, cfg) if early else None
+    while it < n_it:
+        if early and it >= min_it and not bool(d[2] >= thresh):
+            break
+        X, w6, keep, corr, U2, d, _ = _iteration(
+            model, scan2, X, it, cfg, corr_mask, U2
+        )
+        rows.append(d)
+        if early:
+            thresh = _exit_threshold(w6, U2, cfg)
+        it += 1
+    iterations = it
+    rows += [rows[-1]] * (n_it - len(rows))
+    diags = _stack_diags(rows)
+
+    if cfg.range_sigma > 0.0:
+        # One extra assembly at the converged X for the range sensitivity.
+        _, w6, keep, _, U2, _, htwg = _iteration(
+            model, scan2, X, n_it - 1, cfg, corr_mask, U2,
+            want_range_sens=True,
+        )
+        pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)
+    else:
+        pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg)
+
+    if want_static_mask:
+        raw_ok = point_norm(scan2) >= cfg.min_range
+        rtp2 = cart_to_spherical(transform_points(scan2, X))
+        vid2 = voxel_ids(rtp2, cfg)
+        member2 = membership(vid2, rtp2[..., 0], raw_ok, model.bounds, cfg.n_voxels)
+        static_mask = member2 & corr[torch.where(member2, vid2, cfg.n_voxels).long()]
+    else:
+        static_mask = torch.zeros(0, dtype=torch.bool, device=scan2.device)
+
+    return RegistrationResult(
+        X=X, pred_stds=pred_stds, Q=Q, diagnostics=diags,
+        static_mask=static_mask, iterations=iterations,
+    )
+
+
+def register_pair(
+    scan1,
+    scan2,
+    x0,
+    cfg: ICETConfig,
+    device: str | torch.device | None = None,
+) -> RegistrationResult:
+    """End-to-end registration of a scan pair (numpy or tensors) on
+    ``device`` (CUDA unless told otherwise)."""
+    dev = resolve_device(device)
+    s1 = as_points(scan1, dev)
+    s2 = as_points(scan2, dev)
+    x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
+    model = prepare_reference(s1, cfg)
+    return register(model, s2, x0, cfg)
+
+
+def odometry_step(
+    model: VoxelModel, scan: torch.Tensor, x0: torch.Tensor, cfg: ICETConfig
+) -> tuple[RegistrationResult, VoxelModel]:
+    """Register ``scan`` against the previous frame's model, then fit the
+    scan's own model for the next frame."""
+    res = register(model, scan, x0, cfg, want_static_mask=False)
+    return res, prepare_reference(scan, cfg)
+
+
+__all__ = [
+    "IterationDiag",
+    "RegistrationResult",
+    "VoxelModel",
+    "odometry_step",
+    "prepare_reference",
+    "register",
+    "register_pair",
+]

@@ -1,0 +1,92 @@
+"""Package-level properties of the port: it imports neither JAX nor the
+JAX package, its entry points refuse to slip to the CPU, and its copies of
+the dataset generators produce the JAX package's arrays."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from icet_tpu.datasets import loaders as jloaders
+from icet_tpu.datasets import replay as jreplay
+from icet_tpu.datasets import synthetic as jsyn
+from icet_tpu_torch.datasets import loaders as tloaders
+from icet_tpu_torch.datasets import replay as treplay
+from icet_tpu_torch.datasets import synthetic as tsyn
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, icet_tpu_torch, icet_tpu_torch.convert, "
+        "icet_tpu_torch.datasets.replay, icet_tpu_torch.datasets.loaders\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icet_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device"])
+def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
+    import icet_tpu_torch as it
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scans = np.zeros((2, 64, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "register_pair":
+            it.register_pair(scans[0], scans[1], np.zeros(6), it.ICETConfig())
+        elif entry == "pipeline":
+            it.OdometryPipeline(it.ICETConfig())
+        else:
+            it.run_odometry_device(scans, it.ICETConfig())
+
+
+@pytest.mark.parametrize("kw", [
+    {"seed": 3, "n_beams": 16, "n_azimuth": 128},
+    {"seed": 5, "n_beams": 8, "n_azimuth": 64, "range_noise": 0.0,
+     "pose_t": np.array([1.0, -2.0, 0.3])},
+])
+def test_simulate_scan_copy(kw):
+    np.testing.assert_array_equal(tsyn.simulate_scan(**kw), jsyn.simulate_scan(**kw))
+
+
+def test_scan_pair_copy():
+    X = np.array([0.4, -0.2, 0.05, 0.02, -0.01, 0.1])
+    for a, b in zip(tsyn.scan_pair_with_ground_truth(X, seed=2, n_beams=8, n_azimuth=64),
+                    jsyn.scan_pair_with_ground_truth(X, seed=2, n_beams=8, n_azimuth=64)):
+        # The copy's rotation is numpy float32, the JAX package's XLA
+        # float32: equal to an ulp of the rotation, 1e-5 m at these ranges.
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("source", ["SyntheticTrajectorySource", "CityDriveSource"])
+def test_trajectory_sources_copy(source):
+    kw = {"n_frames": 2, "n_beams": 8, "n_azimuth": 64}
+    if source == "CityDriveSource":
+        kw.update(moving_cars=1, dropout_frac=0.1, range_bias_std=0.01)
+    got = list(getattr(treplay, source)(**kw))
+    want = list(getattr(jreplay, source)(**kw))
+    for (gs, gT), (ws, wT) in zip(got, want):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gT, wT)
+
+
+def test_loader_helpers_copy():
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(64 * 40, 3)).astype(np.float32)
+    np.testing.assert_array_equal(tloaders.to_beam_major(pts, 64),
+                                  jloaders.to_beam_major(pts, 64))
+    for n in (100, 5000):
+        np.testing.assert_array_equal(tloaders.pad_cloud(pts, n), jloaders.pad_cloud(pts, n))
+    scan = jsyn.simulate_scan(n_beams=16, n_azimuth=64)
+    az_major = scan.reshape(16, 64, 3).transpose(1, 0, 2).reshape(-1, 3)
+    assert tloaders.detect_beam_count(az_major) == jloaders.detect_beam_count(az_major)
