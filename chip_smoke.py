@@ -8,17 +8,30 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source of the port, compiled by nvcc;
-3. kernel vs plain: the fused moments kernel against its plain PyTorch
-   version on the card, on a 65,536-point 64x1024 city-drive frame with its
-   75x24 (V = 1,800) voxel model, at three transforms, in shuffled point
-   order, and with NaN and zero rows;
-4. main path: the 24-frame drive through ``run_odometry_device`` at the
-   sequence-odometry config, with the kernel's launches counted;
-5. times: CUDA-event medians of the odometry frame, the kernel and its
-   plain version.
+2. build: every CUDA source of the port, compiled by nvcc in parallel;
+3. kernels vs plain versions on the card:
+   a. fused moments on a 65,536-point 64x1024 city-drive frame with its
+      75x24 (V = 1,800) voxel model, at three transforms, in shuffled point
+      order, and with NaN and zero rows;
+   b. the BiasNet encoder on the drive's real filter input (1,801 voxels x
+      200 points, frames 0 -> 1) and on a 37-voxel batch: codes within one
+      bf16 ulp on >= 99.5% of entries, outputs within 2e-2, tiles 8/16/32
+      bitwise equal;
+   c. the moment scatter against ``index_add_`` at V = 1,800 (shared
+      table) and in fixed radial mode at V = 90,000 (global atomics);
+4. sequence odometry: the 24-frame drive through ``run_odometry_device``,
+   fused-moments launches counted;
+5. DNN-filtered odometry: the same drive through ``OdometryPipeline`` with
+   the filter on; encoder and fused-moments launches counted, ATE gated;
+6. pallas moments: the first 8 frames at ``moment_method="pallas"``,
+   scatter launches counted;
+7. fixed radial mode: one registration on the card against the CPU path;
+8. times: CUDA-event medians of the odometry frames; for each kernel, its
+   plain version and, where one exists, the one PyTorch call that computes
+   the same function, the device time a call by torch.profiler (what the
+   JSON line reports) and the CUDA-event time over back-to-back calls.
 
-It prints, before the last line, one JSON object with the kernel's numbers
+It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
 nothing of JAX or of ``icet_tpu``.
 """
@@ -36,9 +49,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 flop/s
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 flop/s,
+#: dense bf16 tensor-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 #: kernel vs plain: float32 sums of up to a few thousand terms taken in two
 #: different orders (shared-memory atomics vs index_add_)
 RTOL, ATOL = 1e-4, 1e-3
@@ -50,6 +65,15 @@ EDGE_CAP = 1e-3
 #: trajectory accuracy bound on the drive (the JAX package reaches 1.083 cm
 #: on it on the CPU)
 ATE_MAX_M = 0.03
+#: the JAX package's ATE on the DNN-filtered drive on the CPU, 0.5965 cm
+#: (tools/dnn_drive_ate_cpu.py); the card's run may be 0.5 cm worse at most
+DNN_ATE_REF_M = 0.005965255391115008
+DNN_ATE_MAX_M = DNN_ATE_REF_M + 0.005
+#: encoder kernel vs plain: codes within one bf16 ulp on this share of
+#: entries, outputs (after the float32 head) within this bound
+CODE_RTOL, CODE_SHARE, OUT_ATOL = 2.0**-7, 0.995, 2e-2
+#: frames of the pallas-moments drive, and its ATE bound
+PALLAS_FRAMES = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -86,6 +110,42 @@ def median_ms(fn, reps: int, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time a call: the summed durations of the device work (kernels,
+    memsets, copies) that ``reps`` calls run, by torch.profiler.  Unlike a
+    CUDA-event time over back-to-back calls, it leaves out the gaps where
+    the device waits for the host to launch the next call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / reps
+
+
+def kernel_times(fn, reps: int) -> tuple[float, float]:
+    """(device ms a call, CUDA-event ms a call over back-to-back calls)."""
+    return device_ms(fn, reps), median_ms(fn, reps)
+
+
+def bound(nbytes: float, nops: float, peak_ops: float):
+    """(bound ms, "bytes" or "operations") from the card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, nops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def trajectory_ate(frames, gt) -> float:
+    est = [np.eye(4)] + [f.T_world.astype(np.float64) for f in frames]
+    ref = [np.linalg.inv(gt[0]) @ T for T in gt[: len(est)]]
+    err = [np.linalg.norm(e[:3, 3] - r[:3, 3]) for e, r in zip(est, ref)]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
 def edge_points(pts, X, cfg) -> int:
     """Points past the raw range gate whose transformed theta or phi lies
     within EDGE_RAD of a bin edge (where an ulp of difference can move them
@@ -108,8 +168,8 @@ def edge_points(pts, X, cfg) -> int:
 
 
 def compare(name, pts, X, model, cfg, report):
-    """Kernel vs plain on one input; returns the max |error| over rows
-    whose counts agree."""
+    """Fused moments kernel vs plain on one input; returns the max |error|
+    over rows whose counts agree."""
     from icet_tpu_torch.ops.fused_moments import (
         fused_moment_sums,
         fused_moment_sums_reference,
@@ -142,6 +202,87 @@ def compare(name, pts, X, model, cfg, report):
     return float(err.max()), got
 
 
+def filter_input(model, samples1, scan2, X, cfg):
+    """The encoder input the DNN filter builds for ``scan2`` aligned by X
+    against ``model`` (icet_tpu_torch.filters.dnn_reject_mask, first
+    refinement step)."""
+    from icet_tpu_torch.filters import _unpack_fill_samples, model_voxel_samples
+    from icet_tpu_torch.models.bias_net import pack_voxel_samples
+    from icet_tpu_torch.ops.geometry import transform_points
+    from icet_tpu_torch.solver import _moment_sums
+
+    aligned = transform_points(scan2, X)
+    s2, _ = model_voxel_samples(model, aligned, cfg)
+    sums2 = _moment_sums(aligned, torch.zeros_like(X), model.bounds, model.anchors, cfg)
+    n2 = torch.clamp(sums2[:, 0].to(torch.int32), 0, cfg.dnn_sample_pts)
+    s1, n1 = samples1
+    return pack_voxel_samples(_unpack_fill_samples(s1, n1),
+                              _unpack_fill_samples(s2, n2)).contiguous()
+
+
+def encoder_compare(name, net, x, report) -> float:
+    """Encoder kernel vs plain on one input; returns the codes' max |error|."""
+    from icet_tpu_torch.models.bias_net import apply_bias_net
+    from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, encoder_pool_reference
+
+    w = net.encoder_weights()
+    tiles = {t: bias_encoder_pool(x, w, tile=t) for t in (8, 16, 32)}
+    want = encoder_pool_reference(x, w)
+    out = apply_bias_net(net, x)
+    torch.cuda.synchronize()
+    got = tiles[16]
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite encoder codes")
+    for t in (8, 32):
+        check(torch.equal(tiles[t], got), f"{name}: tile {t} codes differ from tile 16")
+    close = float(((got - want).abs() <= CODE_RTOL * want.abs()).float().mean())
+    check(close >= CODE_SHARE, f"{name}: only {close:.5f} of codes within one bf16 ulp")
+    heads = net.head_weights()
+    g = want
+    for hw, hb in heads[:-1]:
+        g = torch.relu(g @ hw + hb)
+    out_want = g @ heads[-1][0] + heads[-1][1]
+    out_err = float((out - out_want).abs().max())
+    check(out_err <= OUT_ATOL, f"{name}: outputs differ by {out_err}")
+    err = float((got - want).abs().max())
+    report.append(f"{name} {tuple(x.shape)}: codes within one bf16 ulp {close:.5f}, "
+                  f"codes max |err| {err:.3e}, outputs max |err| {out_err:.3e}, "
+                  f"tiles 8/16/32 bitwise equal")
+    return err
+
+
+def scatter_inputs(pts, X, bounds, anchors, cfg):
+    """(vid int32, feats (N, 16)) as ``moment_method="pallas"`` builds them."""
+    from icet_tpu_torch.ops.clustering import membership
+    from icet_tpu_torch.ops.geometry import cart_to_spherical, point_norm, transform_points
+    from icet_tpu_torch.ops.grid import voxel_ids
+    from icet_tpu_torch.ops.moments import _point_features
+
+    raw_ok = point_norm(pts) >= cfg.min_range
+    p2 = transform_points(pts, X)
+    rtp = cart_to_spherical(p2)
+    vid = voxel_ids(rtp, cfg)
+    member = membership(vid, rtp[..., 0], raw_ok, bounds, cfg.n_voxels)
+    vid = torch.where(member, vid, cfg.n_voxels).to(torch.int32)
+    feats = _point_features(p2 - anchors[vid.long()], member).contiguous()
+    return vid, feats
+
+
+def scatter_compare(name, vid, feats, n_voxels, report) -> float:
+    from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
+
+    got = moment_scatter_sums(vid, feats, n_voxels)
+    want = moment_scatter_reference(vid, feats, n_voxels)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite scatter sums")
+    check(torch.equal(got[:, 0], want[:, 0]), f"{name}: scatter counts differ")
+    err = (got - want).abs()
+    check(bool((err <= ATOL + RTOL * want.abs()).all()),
+          f"{name}: scatter sums differ by up to {float(err.max())}")
+    report.append(f"{name}: V={n_voxels}, members {int(want[:, 0].sum())}, "
+                  f"counts exact, max |err| {float(err.max()):.3e}")
+    return float(err.max())
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -156,12 +297,17 @@ def main() -> int:
     from icet_tpu_torch.config import ICETConfig, OdometryConfig
     from icet_tpu_torch.datasets.replay import CityDriveSource
     from icet_tpu_torch.device import resolve_device
-    from icet_tpu_torch.odometry import run_odometry_device
+    from icet_tpu_torch.filters import model_voxel_samples, odometry_step_dnn, pretrained_dnn
+    from icet_tpu_torch.odometry import OdometryPipeline, run_odometry_device
+    from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, encoder_pool_reference
     from icet_tpu_torch.ops.fused_moments import (
         fused_moment_sums,
         fused_moment_sums_reference,
     )
-    from icet_tpu_torch.solver import odometry_step, prepare_reference
+    from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
+    from icet_tpu_torch.ops.moment_scatter import _launch as scatter_launch
+    from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
+    from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
 
     dev = resolve_device("cuda")
     card = device_line()
@@ -170,7 +316,7 @@ def main() -> int:
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s")
+    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}.cu:\n{log.strip()}")
 
@@ -182,8 +328,10 @@ def main() -> int:
     gt = [T for _, T in frames]
     print(f"data: {scans.shape} in {time.perf_counter() - t0:.1f} s")
     cfg = ICETConfig(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0)
+    dcfg = cfg.replace(dnn_filter=True)
+    odo = OdometryConfig(divergence_clamp=2.5)
 
-    # -- kernel vs plain --------------------------------------------------
+    # -- fused moments kernel vs plain ------------------------------------
     model = prepare_reference(torch.from_numpy(scans[0]).to(dev), cfg)
     pts = torch.from_numpy(scans[1]).to(dev)
     rng = np.random.default_rng(0)
@@ -210,36 +358,123 @@ def main() -> int:
     check(bool((outs["shuffled"][:, 0] == outs["X=1m/0.02rad"][:, 0]).all()),
           "shuffled order changed the kernel's counts")
     for line in report:
-        print(f"kernel vs plain, {line}")
+        print(f"fused moments vs plain, {line}")
 
-    # -- main path --------------------------------------------------------
-    odo = OdometryConfig(divergence_clamp=2.5)
+    # -- encoder kernel vs plain ------------------------------------------
+    net = pretrained_dnn(dcfg, dev)
+    samples0 = model_voxel_samples(model, torch.from_numpy(scans[0]).to(dev), dcfg)
+    x_enc = filter_input(model, samples0, pts, X_step, dcfg)
+    tag = np.tile(np.r_[-np.ones(100), np.ones(100)].astype(np.float32), (37, 1))
+    x37 = torch.from_numpy(np.concatenate(
+        [rng.normal(size=(37, 200, 3)).astype(np.float32) * 0.5, tag[..., None]], -1)).to(dev)
+    report = []
+    enc_err = max(encoder_compare("drive filter input", net, x_enc, report),
+                  encoder_compare("37-voxel batch", net, x37, report))
+    for line in report:
+        print(f"encoder vs plain, {line}")
+
+    # -- scatter kernel vs index_add_ -------------------------------------
+    fixed = cfg.replace(radial_mode="fixed")
+    fbounds = fixed_shell_bounds(fixed, dev)
+    report = []
+    vid_s, feats_s = scatter_inputs(pts, X_step, model.bounds, model.anchors, cfg)
+    vid_f, feats_f = scatter_inputs(pts, X_step, fbounds, voxel_anchors(fbounds, fixed), fixed)
+    scat_err = max(scatter_compare("shared table", vid_s, feats_s, cfg.n_voxels, report),
+                   scatter_compare("global atomics", vid_f, feats_f, fixed.n_voxels, report))
+    for line in report:
+        print(f"scatter vs index_add_, {line}")
+
+    # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = fused_moment_sums.launches
+    fused_launches = fused_moment_sums.launches
     iters = [f.iterations for f in out]
     check(len(out) == len(scans) - 1, f"{len(out)} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in out),
           "non-finite X or pred_stds")
     check(not any(f.diverged for f in out), "a frame diverged")
-    check(launches == sum(iters) + len(scans),
-          f"kernel launches {launches} != iterations {sum(iters)} + prepares {len(scans)}")
-    est = [np.eye(4)] + [f.T_world.astype(np.float64) for f in out]
-    ref = [np.linalg.inv(gt[0]) @ T for T in gt]
-    err = [np.linalg.norm(e[:3, 3] - r[:3, 3]) for e, r in zip(est, ref)]
-    ate = float(np.sqrt(np.mean(np.square(err))))
-    print(f"main path: {len(out)} frames in {path_s:.2f} s, kernel launches "
-          f"{launches} = {sum(iters)} iterations + {len(scans)} prepares, "
+    check(fused_launches == sum(iters) + len(scans),
+          f"fused launches {fused_launches} != iterations {sum(iters)} + prepares {len(scans)}")
+    ate = trajectory_ate(out, gt)
+    print(f"sequence odometry: {len(out)} frames in {path_s:.2f} s, fused launches "
+          f"{fused_launches} = {sum(iters)} iterations + {len(scans)} prepares, "
           f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm")
     check(ate <= ATE_MAX_M, f"ATE {ate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
+
+    # -- DNN-filtered odometry --------------------------------------------
+    # n_pre = max(min(dnn_start_iter, n_iters - 1), 1) plain iterations, then
+    # n_post filtered ones, each with one filter pass (one fused-moments
+    # launch over the aligned scan, refine_steps encoder launches).
+    n_pre = max(min(dcfg.dnn_start_iter, dcfg.n_iters - 1), 1)
+    n_post = dcfg.n_iters - n_pre
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = 0
+    bias_encoder_pool.launches = 0
+    t0 = time.perf_counter()
+    dout = list(OdometryPipeline(dcfg, odo, device="cuda").run(scans))
+    torch.cuda.synchronize()
+    dnn_s = time.perf_counter() - t0
+    dnn_fused, enc_launches = fused_moment_sums.launches, bias_encoder_pool.launches
+    diters = [f.iterations for f in dout]
+    n_frames = len(dout)
+    check(n_frames == len(scans) - 1, f"DNN drive: {n_frames} frames out of {len(scans) - 1}")
+    check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in dout),
+          "DNN drive: non-finite X or pred_stds")
+    check(not any(f.diverged for f in dout), "DNN drive: a frame diverged")
+    want_enc = n_frames * n_post * dcfg.dnn_refine_steps
+    check(enc_launches == want_enc,
+          f"encoder launches {enc_launches} != {want_enc} filtered iterations")
+    want_fused = sum(diters) + n_frames * n_post + len(scans)
+    check(dnn_fused == want_fused,
+          f"DNN drive: fused launches {dnn_fused} != iterations {sum(diters)} + filter "
+          f"passes {n_frames * n_post} + prepares {len(scans)}")
+    dnn_ate = trajectory_ate(dout, gt)
+    print(f"DNN-filtered odometry: {n_frames} frames in {dnn_s:.2f} s, n_pre {n_pre}, "
+          f"n_post {n_post}, encoder launches {enc_launches}, fused launches {dnn_fused} = "
+          f"{sum(diters)} iterations + {n_frames * n_post} filter passes + {len(scans)} "
+          f"prepares, mean iterations/frame {np.mean(diters):.3f}, "
+          f"ATE {dnn_ate * 100:.4f} cm (JAX package on the CPU: {DNN_ATE_REF_M * 100:.4f} cm)")
+    print(f"DNN-filtered odometry: n_rejected per frame {[f.n_rejected for f in dout]}")
+    check(dnn_ate <= DNN_ATE_MAX_M,
+          f"DNN drive ATE {dnn_ate * 100:.4f} cm above {DNN_ATE_MAX_M * 100:.4f} cm")
+
+    # -- pallas moments ---------------------------------------------------
+    pcfg = cfg.replace(moment_method="pallas")
+    torch.cuda.synchronize()
+    moment_scatter_sums.launches = 0
+    pout = run_odometry_device(scans[:PALLAS_FRAMES], pcfg, odo, device="cuda")
+    torch.cuda.synchronize()
+    scat_launches = moment_scatter_sums.launches
+    piters = [f.iterations for f in pout]
+    check(not any(f.diverged for f in pout), "pallas drive: a frame diverged")
+    check(scat_launches == sum(piters) + PALLAS_FRAMES,
+          f"scatter launches {scat_launches} != iterations {sum(piters)} + "
+          f"prepares {PALLAS_FRAMES}")
+    pate = trajectory_ate(pout, gt)
+    print(f"pallas moments: {len(pout)} frames, scatter launches {scat_launches} = "
+          f"{sum(piters)} iterations + {PALLAS_FRAMES} prepares, ATE {pate * 100:.3f} cm")
+    check(pate <= ATE_MAX_M, f"pallas drive ATE {pate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
+
+    # -- fixed radial mode ------------------------------------------------
+    # Seeded 10 cm off the drive's 1 m step, as a warm start would be.
+    x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
+    fres = register_pair(scans[0], scans[1], x0, fixed, device="cuda")
+    fcpu = register_pair(scans[0], scans[1], x0, fixed, device="cpu")
+    fX, cX = fres.X.cpu().numpy(), fcpu.X.numpy()
+    check(bool(np.isfinite(fX).all()) and abs(fX[0] - 1.0) < 0.1, f"fixed mode: X {fX}")
+    check(float(np.abs(fX - cX).max()) <= 1e-3,
+          f"fixed mode: card X {fX} vs CPU X {cX}")
+    print(f"fixed radial mode (V = {fixed.n_voxels}): card X {np.round(fX, 5).tolist()}, "
+          f"max |card - CPU| {float(np.abs(fX - cX).max()):.3e}")
 
     # -- times ------------------------------------------------------------
     drive = torch.from_numpy(scans).to(dev)
     model0 = prepare_reference(drive[0], cfg)
+    samples_0 = model_voxel_samples(model0, drive[0], dcfg)
 
     def odometry_pass():
         m, x = model0, torch.zeros(6, device=dev)
@@ -247,44 +482,114 @@ def main() -> int:
             res, m = odometry_step(m, drive[k], x, cfg)
             x = res.X
 
-    frame_ms = median_ms(odometry_pass, reps=1, rounds=3) / (drive.shape[0] - 1)
-    X_t = X_step
-    kernel_ms = median_ms(
-        lambda: fused_moment_sums(pts, X_t, model.bounds, model.anchors, cfg), reps=100)
-    plain_ms = median_ms(
-        lambda: fused_moment_sums_reference(pts, X_t, model.bounds, model.anchors, cfg),
+    def dnn_pass():
+        m, s, x = model0, samples_0, torch.zeros(6, device=dev)
+        for k in range(1, drive.shape[0]):
+            res, m, s, _ = odometry_step_dnn(m, drive[k - 1], s, drive[k], x, dcfg, net)
+            x = res.X
+
+    steps = drive.shape[0] - 1
+    frame_ms = median_ms(odometry_pass, reps=1, rounds=3) / steps
+    dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=3) / steps
+
+    fused_ms, fused_ev = kernel_times(
+        lambda: fused_moment_sums(pts, X_step, model.bounds, model.anchors, cfg), reps=100)
+    fused_plain_ms, fused_plain_ev = kernel_times(
+        lambda: fused_moment_sums_reference(pts, X_step, model.bounds, model.anchors, cfg),
         reps=20)
     members = float(fused_moment_sums_reference(
-        pts, X_t, model.bounds, model.anchors, cfg)[:, 0].sum())
+        pts, X_step, model.bounds, model.anchors, cfg)[:, 0].sum())
     n, v1 = pts.shape[0], cfg.n_voxels + 1
     # Bytes: points, X, bounds, anchors read once; (V+1, 16) sums written.
-    nbytes = n * 12 + 6 * 4 + v1 * 8 + v1 * 12 + v1 * 16 * 4
     # Operations: per point the raw norm (6), transform (18), nan scrub and
     # r' (6), theta/phi with atan2/acos counted as 20 each (43), binning and
     # gates (10); per member the anchor offset (3) and 10 accumulated
     # features (6 products + 10 adds).
-    nops = n * 83 + members * 19
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, nops / PEAK_FP32_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / PEAK_BYTES_PER_S >= nops / PEAK_FP32_PER_S else "operations"
-    print(f"times ({card}): odometry frame {frame_ms:.4f} ms, kernel "
-          f"{kernel_ms:.5f} ms/launch at N={n} V={cfg.n_voxels}, plain version "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, "
-          f"{nops:.0f} ops); no single PyTorch call computes this fused "
-          f"function, so library_ms is null")
+    fused_bound, fused_by = bound(n * 12 + 6 * 4 + v1 * 8 + v1 * 12 + v1 * 16 * 4,
+                                  n * 83 + members * 19, PEAK_FP32_PER_S)
+
+    w = net.encoder_weights()
+    enc_ms, enc_ev = kernel_times(lambda: bias_encoder_pool(x_enc, w), reps=20)
+    enc_plain_ms, enc_plain_ev = kernel_times(lambda: encoder_pool_reference(x_enc, w), reps=5)
+    b, p, _ = x_enc.shape
+    # Operations: 2 (4*64 + 64*128 + 128*256) flop a point (bf16 products);
+    # bytes: the input read once, the codes written, the weights read.
+    enc_bytes = b * p * 16 + b * 256 * 4 + sum(t.numel() * t.element_size() for t in w)
+    enc_bound, enc_by = bound(enc_bytes, 2.0 * (4 * 64 + 64 * 128 + 128 * 256) * b * p,
+                              PEAK_BF16_PER_S)
+
+    # The launch alone (zeroing the table, the kernel), and the wrapper with
+    # its host read of the ids' range.
+    scat_ms, scat_ev = kernel_times(
+        lambda: scatter_launch(vid_s, feats_s, cfg.n_voxels), reps=100)
+    scat_wrapper_ev = median_ms(
+        lambda: moment_scatter_sums(vid_s, feats_s, cfg.n_voxels), reps=100)
+    scat_plain_ms, scat_plain_ev = kernel_times(
+        lambda: moment_scatter_reference(vid_s, feats_s, cfg.n_voxels), reps=100)
+    table = torch.zeros((v1, 16), device=dev)
+    vid_long = vid_s.long()
+    scat_lib_ms, scat_lib_ev = kernel_times(
+        lambda: table.zero_().index_add_(0, vid_long, feats_s), reps=100)
+    # Bytes: ids and features read once, the table written; one add an element.
+    scat_bound, scat_by = bound(n * 4 + n * 64 + v1 * 64, n * 16, PEAK_FP32_PER_S)
+
+    print(f"times ({card}): odometry frame {frame_ms:.4f} ms, DNN-filtered frame "
+          f"{dnn_frame_ms:.4f} ms")
+    print(f"times ({card}), device ms a call by the profiler (CUDA events over "
+          f"back-to-back calls in brackets):")
+    print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
+          f"{fused_plain_ms:.4f} ({fused_plain_ev:.4f}), bound {fused_bound:.6f} ({fused_by}); "
+          f"no single PyTorch call computes this fused function, so library_ms is null")
+    print(f"  encoder {enc_ms:.5f} ({enc_ev:.5f}) at B={b} P={p} tile 16, plain "
+          f"{enc_plain_ms:.4f} ({enc_plain_ev:.4f}), bound {enc_bound:.6f} ({enc_by}: "
+          f"{enc_bytes} B); no single PyTorch call computes Dense+LayerNorm+ReLU x3 + "
+          f"max-pool, so library_ms is null")
+    print(f"  scatter {scat_ms:.5f} ({scat_ev:.5f}; the wrapper with its id check "
+          f"({scat_wrapper_ev:.5f})) at N={n} V={cfg.n_voxels}, plain {scat_plain_ms:.5f} "
+          f"({scat_plain_ev:.5f}), index_add_ {scat_lib_ms:.5f} ({scat_lib_ev:.5f}), bound "
+          f"{scat_bound:.6f} ({scat_by})")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "fused_moment_sums",
-        "route": "cuda",
-        "source": "icet_tpu_torch/csrc/fused_moments.cu",
-        "replaces": "icet_tpu/ops/pallas_fused.py:73",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "fused_moment_sums",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/fused_moments.cu",
+            "replaces": "icet_tpu/ops/pallas_fused.py:73",
+            "launches": fused_launches,
+            "max_abs_err": max_err,
+            "ms": fused_ms,
+            "plain_ms": fused_plain_ms,
+            "bound_ms": fused_bound,
+            "bound_by": fused_by,
+            "library_ms": None,
+        },
+        {
+            "name": "bias_encoder_pool",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/bias_encoder.cu",
+            "replaces": "icet_tpu/models/bias_net.py:121",
+            "launches": enc_launches,
+            "max_abs_err": enc_err,
+            "ms": enc_ms,
+            "plain_ms": enc_plain_ms,
+            "bound_ms": enc_bound,
+            "bound_by": enc_by,
+            "library_ms": None,
+        },
+        {
+            "name": "moment_scatter_sums",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/moment_scatter.cu",
+            "replaces": "icet_tpu/ops/pallas_moments.py:39",
+            "launches": scat_launches,
+            "max_abs_err": scat_err,
+            "ms": scat_ms,
+            "plain_ms": scat_plain_ms,
+            "bound_ms": scat_bound,
+            "bound_by": scat_by,
+            "library_ms": scat_lib_ms,
+        },
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

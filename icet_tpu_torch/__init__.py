@@ -1,10 +1,12 @@
 """ICET on PyTorch and CUDA: the port of ``icet_tpu`` to an NVIDIA H100.
 
 Distribution-to-distribution LiDAR registration with spherical
-shadow-mitigation voxels, and the frame-to-frame odometry around it.  The
-per-point pass of every solver iteration is a hand-written CUDA kernel
-(``csrc/fused_moments.cu``, built by nvcc at first use); everything around
-it is plain PyTorch.  Entry points run on CUDA unless the caller passes
+shadow-mitigation voxels, the frame-to-frame odometry around it, and the
+DNN perspective-shift filter.  The per-point pass of every solver
+iteration (``csrc/fused_moments.cu``), the filter's BiasNet encoder
+(``csrc/bias_encoder.cu``) and the ``moment_method="pallas"`` scatter
+(``csrc/moment_scatter.cu``) are hand-written CUDA kernels, built by nvcc at
+first use; everything around them is plain PyTorch.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.  This package imports neither JAX nor ``icet_tpu``.
 """
 
@@ -16,6 +18,7 @@ from icet_tpu_torch.config import (
     OdometryConfig,
     PROFILES,
 )
+from icet_tpu_torch.filters import register_scans
 from icet_tpu_torch.odometry import (
     OdometryFrame,
     OdometryPipeline,
@@ -48,6 +51,7 @@ __all__ = [
     "prepare_reference",
     "register",
     "register_pair",
+    "register_scans",
     "run_odometry",
     "run_odometry_device",
 ]

@@ -25,8 +25,9 @@ class ICETConfig:
 
     # ---- radial voxelization mode -------------------------------------------
     #: "adaptive" (per-spike radial clustering) or "fixed" (geometric shells).
-    #: The fused moments kernel takes adaptive mode only; fixed mode runs on
-    #: the CPU path and raises on CUDA tensors.
+    #: The fused moments kernel takes adaptive mode only; fixed mode's sums
+    #: take the plain ``index_add_`` version (or, under "pallas", the
+    #: scatter kernel's global-atomics branch).
     radial_mode: str = "adaptive"
     n_shells: int = 50
 
@@ -59,7 +60,7 @@ class ICETConfig:
     rm_residual_thresh: float = 0.3
     rm_yaw_thresh: float = 0.1
 
-    # ---- DNN perspective-shift filter (not ported yet) ----------------------
+    # ---- DNN perspective-shift filter ---------------------------------------
     dnn_filter: bool = False
     dnn_start_iter: int = 7
     dnn_thresh: float = 0.05
@@ -70,7 +71,8 @@ class ICETConfig:
     # ---- implementation knobs -----------------------------------------------
     #: "auto"/"fused": the fused CUDA kernel on CUDA tensors, its plain
     #: PyTorch version on CPU tensors; "segsum": plain ``index_add_``;
-    #: "onehot"/"pallas": not ported (raise NotImplementedError).
+    #: "pallas": PyTorch transform and binning, then the moment scatter
+    #: kernel; "onehot": not ported (raises NotImplementedError).
     moment_method: str = "auto"
     moment_block: int = 1024
 

@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port.
 
-The system has no weights: its state is the voxel model and the config.
-These helpers move both across as plain numpy arrays and dictionaries, so
-a test can hand the JAX package's own prepared model to the port.
+The system's state is the voxel model and the config, plus the DNN
+filter's BiasNet weights.  These helpers move them across as plain numpy
+arrays and dictionaries, so a test can hand the JAX package's own prepared
+model to the port.
 """
 
 from __future__ import annotations
@@ -30,6 +31,39 @@ def voxel_model_from_numpy(arrays: dict, device="cpu") -> VoxelModel:
 def voxel_model_to_numpy(model: VoxelModel) -> dict:
     """The model's fields as a dict of numpy arrays."""
     return {k: v.cpu().numpy() for k, v in model._asdict().items()}
+
+
+def bias_net_params_from_numpy(tree: dict) -> dict:
+    """The state dict of ``models.bias_net.BiasNet`` from the JAX package's
+    flax parameter tree (``{"params": {"Dense_i": {kernel (in, out), bias},
+    "LayerNorm_i": {scale, bias}}}``, as ``load_checkpoint`` reads it).
+
+    Split as ``icet_tpu``'s ``_split_params``: one encoder stage per
+    ``LayerNorm_i`` (with ``Dense_i``), the remaining ``Dense_i`` the head.
+    Encoder kernels are kept in float32 and, pre-rounded, in bf16 in the
+    ``(in, out)`` layout the CUDA kernel reads; encoder biases in bf16;
+    LayerNorm scale and bias and the head in float32."""
+    p = tree["params"]
+
+    def f32(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    state, i = {}, 0
+    while f"LayerNorm_{i}" in p:
+        w = f32(p[f"Dense_{i}"]["kernel"])
+        state[f"enc{i}_w"] = w
+        state[f"enc{i}_w_bf16"] = w.to(torch.bfloat16)
+        state[f"enc{i}_b_bf16"] = f32(p[f"Dense_{i}"]["bias"]).to(torch.bfloat16)
+        state[f"ln{i}_scale"] = f32(p[f"LayerNorm_{i}"]["scale"])
+        state[f"ln{i}_bias"] = f32(p[f"LayerNorm_{i}"]["bias"])
+        i += 1
+    j = 0
+    while f"Dense_{i}" in p:
+        state[f"head{j}_w"] = f32(p[f"Dense_{i}"]["kernel"])
+        state[f"head{j}_b"] = f32(p[f"Dense_{i}"]["bias"])
+        i += 1
+        j += 1
+    return state
 
 
 def config_from_icet(fields: dict) -> ICETConfig:

@@ -3,8 +3,10 @@
 :class:`OdometryPipeline` takes one scan at a time; :func:`run_odometry_device`
 takes a recorded ``(F, N, 3)`` sequence, uploads it to the card block by
 block and chains the odometry step there, reading results back once per
-block.  Both give the same :class:`OdometryFrame` records.  Not ported yet:
-device-loss recovery and the DNN filter (``cfg.dnn_filter`` raises).
+block.  Both give the same :class:`OdometryFrame` records.  With
+``cfg.dnn_filter`` the pipeline runs the DNN-filtered step; the sequence
+runner refuses it, as the JAX package's does.  Not ported yet: device-loss
+recovery.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from icet_tpu_torch.config import ICETConfig, OdometryConfig
 from icet_tpu_torch.device import as_points, resolve_device
+from icet_tpu_torch.filters import model_voxel_samples, odometry_step_dnn, pretrained_dnn
 from icet_tpu_torch.ops.geometry import (
     compose_pose,
     compose_states,
@@ -61,17 +64,17 @@ class OdometryFrame:
     solve_ms: float
     #: Gauss-Newton iterations the frame's registration executed
     iterations: int = 0
-
-
-def _check_cfg(cfg: ICETConfig) -> None:
-    if cfg.dnn_filter:
-        raise NotImplementedError("the DNN filter is not ported yet")
+    #: voxels the DNN filter rejected at the frame's last filtered
+    #: iteration (0 without the filter)
+    n_rejected: int = 0
 
 
 class OdometryPipeline:
     """Streaming odometry over scans of one static (N, 3) shape: each frame
     registers against the previous scan's voxel model, then fits its own.
-    Runs on ``device`` (CUDA unless told otherwise)."""
+    With ``cfg.dnn_filter`` the bundled bias network (loaded once) filters
+    each registration, sampling the previous scan, whose samples are kept
+    from its own frame.  Runs on ``device`` (CUDA unless told otherwise)."""
 
     def __init__(
         self,
@@ -81,13 +84,15 @@ class OdometryPipeline:
     ):
         self.cfg = cfg or ICETConfig()
         self.odo_cfg = odo_cfg or OdometryConfig()
-        _check_cfg(self.cfg)
         self.device = resolve_device(device)
+        self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
         self.reset()
 
     def reset(self) -> None:
         dev = self.device
         self._model = None
+        self._scan_prev = None
+        self._samples_prev = None
         self._X_prev = torch.zeros(6, device=dev)
         self._X_prev2 = torch.zeros(6, device=dev)
         self._T_world = torch.eye(4, device=dev)
@@ -99,6 +104,9 @@ class OdometryPipeline:
         scan_dev = as_points(scan, self.device)
         if self._model is None:
             self._model = prepare_reference(scan_dev, self.cfg)
+            if self._dnn is not None:
+                self._scan_prev = scan_dev
+                self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
             self._index += 1
             return None
 
@@ -106,7 +114,16 @@ class OdometryPipeline:
             x0 = warm_start_seed(self._X_prev, self._X_prev2, self.odo_cfg.warm_start_mode)
         else:
             x0 = torch.zeros(6, device=self.device)
-        res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
+        if self._dnn is not None:
+            res, next_model, self._samples_prev, filt = odometry_step_dnn(
+                self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
+                self.cfg, self._dnn,
+            )
+            self._scan_prev = scan_dev
+            n_rejected = int(filt.n_rejected)
+        else:
+            res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
+            n_rejected = 0
         X = res.X
         diverged = bool(torch.any(torch.abs(X) > self.odo_cfg.divergence_clamp))
         if diverged:
@@ -128,6 +145,7 @@ class OdometryPipeline:
             n_corr=res.diagnostics.n_corr.cpu().numpy(),
             solve_ms=(time.perf_counter() - t0) * 1000.0,
             iterations=res.iterations,
+            n_rejected=n_rejected,
         )
         self._index += 1
         return frame
@@ -160,10 +178,16 @@ def run_odometry_device(
     uploads, with the pipeline's semantics (warm start, divergence guard,
     pose accumulation) kept on the device; results come back once per
     block.  As in the JAX package's runner, the velocity history of
-    ``warm_start_mode="extrapolate"`` restarts at each block boundary."""
+    ``warm_start_mode="extrapolate"`` restarts at each block boundary.
+    ``cfg.dnn_filter`` raises NotImplementedError: use the pipeline."""
     cfg = cfg or ICETConfig()
     odo_cfg = odo_cfg or OdometryConfig()
-    _check_cfg(cfg)
+    if cfg.dnn_filter:
+        raise NotImplementedError(
+            "run_odometry_device does not support cfg.dnn_filter; use "
+            "OdometryPipeline (per-frame steps) for the DNN-filtered mode, "
+            "whose step carries the per-frame voxel-sample state"
+        )
     dev = resolve_device(device)
     scans = np.asarray(scans, np.float32)
     model = prepare_reference(as_points(scans[0], dev), cfg)

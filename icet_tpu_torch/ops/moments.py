@@ -12,6 +12,11 @@ from typing import NamedTuple
 
 import torch
 
+from icet_tpu_torch.ops.moment_scatter import (
+    moment_scatter_reference,
+    moment_scatter_sums,
+)
+
 N_FEATURES = 16  # 10 used; the JAX package's padded layout
 
 
@@ -45,18 +50,21 @@ def voxel_moment_sums(
     n_voxels: int,
     method: str = "segsum",
 ) -> torch.Tensor:
-    """Raw ``(V+1, 16)`` anchored sums of ``points`` by voxel id
-    (``index_add_``).  Only ``"segsum"`` is ported; the JAX package's
-    ``"onehot"`` and ``"pallas"`` accumulators raise NotImplementedError."""
-    if method != "segsum":
+    """Raw ``(V+1, 16)`` anchored sums of ``points`` by voxel id.
+
+    ``"segsum"`` sums with ``index_add_``; ``"pallas"`` with the moment
+    scatter (the CUDA kernel on CUDA tensors, ``index_add_`` on CPU ones).
+    The JAX package's ``"onehot"`` accumulator raises NotImplementedError."""
+    if method not in ("segsum", "pallas"):
         raise NotImplementedError(
-            f"moment accumulation {method!r} is not ported; use 'segsum'"
+            f"moment accumulation {method!r} is not ported; use 'segsum' or 'pallas'"
         )
-    vid = torch.where(member, vid, n_voxels).long()
-    g = points - anchors[vid]
+    vid = torch.where(member, vid, n_voxels).to(torch.int32)
+    g = points - anchors[vid.long()]
     feats = _point_features(g, member)
-    out = feats.new_zeros((n_voxels + 1, N_FEATURES))
-    return out.index_add_(0, vid, feats)
+    if method == "pallas":
+        return moment_scatter_sums(vid, feats.contiguous(), n_voxels)
+    return moment_scatter_reference(vid, feats, n_voxels)
 
 
 def finalize_moments_planes(sums: torch.Tensor, anchors: torch.Tensor):

@@ -45,7 +45,11 @@ from icet_tpu_torch.ops.geometry import (
 )
 from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors, voxel_ids
 from icet_tpu_torch.ops.linalg import eigh_small, eigh_small_warm_safe
-from icet_tpu_torch.ops.moments import cov6_to_matrix, finalize_moments_planes
+from icet_tpu_torch.ops.moments import (
+    cov6_to_matrix,
+    finalize_moments_planes,
+    voxel_moment_sums,
+)
 from icet_tpu_torch.ops.wls_planes import (
     assemble_normal_equations,
     eigh3_planes,
@@ -155,17 +159,36 @@ def _ndt_axis_mask(eigvals, basis, bounds, valid, cfg: ICETConfig):
     return torch.where(valid[:, None], (~extended).to(eigvals.dtype), 0.0)
 
 
+def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
+    """``moment_method="pallas"``: transform, bin, membership and per-point
+    features in PyTorch, then the moment scatter."""
+    raw_ok = point_norm(pts) >= cfg.min_range
+    p2 = transform_points(pts, X)
+    rtp = cart_to_spherical(p2)
+    vid = voxel_ids(rtp, cfg)
+    member = membership(vid, rtp[..., 0], raw_ok, bounds, cfg.n_voxels)
+    return voxel_moment_sums(p2, vid, member, anchors, cfg.n_voxels, method="pallas")
+
+
 def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
-    """(V+1, 16) moment sums of ``pts`` at X: ``"auto"``/``"fused"`` take
-    the kernel wrapper (kernel on CUDA, plain version on CPU), ``"segsum"``
-    the plain ``index_add_`` version on any device."""
-    if cfg.moment_method in ("auto", "fused"):
+    """(V+1, 16) moment sums of ``pts`` at X.
+
+    ``"auto"``/``"fused"`` take the fused kernel's wrapper (kernel on CUDA,
+    plain version on CPU), except in fixed radial mode, whose 90,000-row
+    table does not fit the kernel's shared memory: there, as the JAX package
+    routes fixed mode to segsum, they take the plain ``index_add_`` version.
+    ``"segsum"`` is that plain version on any device; ``"pallas"`` the
+    moment scatter."""
+    method = cfg.moment_method
+    if method in ("auto", "fused") and cfg.radial_mode != "fixed":
         return fused_moment_sums(pts, X, bounds, anchors, cfg)
-    if cfg.moment_method == "segsum":
+    if method in ("auto", "fused", "segsum"):
         return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+    if method == "pallas":
+        return _scatter_sums(pts, X, bounds, anchors, cfg)
     raise NotImplementedError(
-        f"moment_method {cfg.moment_method!r} is not ported; "
-        "use 'auto', 'fused' or 'segsum'"
+        f"moment_method {method!r} is not ported; "
+        "use 'auto', 'fused', 'segsum' or 'pallas'"
     )
 
 
@@ -339,6 +362,7 @@ def register(
     cfg: ICETConfig,
     corr_mask: torch.Tensor | None = None,
     want_static_mask: bool = True,
+    it_offset: int = 0,
 ) -> RegistrationResult:
     """Solve for the 6-DOF transform aligning scan 2 to the voxel model.
 
@@ -346,17 +370,21 @@ def register(
     warm-start from the previous eigenbasis.  With ``convergence_tol`` or
     ``convergence_stat_scale`` set, iterations stop once ``|dx|`` falls
     below the exit threshold (after ``min_it``; ``n_iters`` is the cap).
+
+    ``it_offset`` is the global index of this call's first iteration, for
+    callers that split one solve into phases (the DNN filter): the
+    moving-object schedule (``it >= rm_start_iter``) sees global indices.
     """
     scan2 = scan2.contiguous()
     X = x0.to(device=scan2.device, dtype=scan2.dtype)
     X, w6, keep, corr, U2, d, _ = _iteration(
-        model, scan2, X, 0, cfg, corr_mask, None
+        model, scan2, X, it_offset, cfg, corr_mask, None
     )
     rows = [d]
     n_it = cfg.n_iters
     early = cfg.convergence_tol > 0.0 or cfg.convergence_stat_scale > 0.0
     if cfg.remove_moving:
-        min_it = min(max(cfg.rm_start_iter + 1, 1), n_it)
+        min_it = min(max(cfg.rm_start_iter + 1 - it_offset, 1), n_it)
     else:
         min_it = 1
     it = 1
@@ -365,7 +393,7 @@ def register(
         if early and it >= min_it and not bool(d[2] >= thresh):
             break
         X, w6, keep, corr, U2, d, _ = _iteration(
-            model, scan2, X, it, cfg, corr_mask, U2
+            model, scan2, X, it + it_offset, cfg, corr_mask, U2
         )
         rows.append(d)
         if early:
@@ -378,7 +406,7 @@ def register(
     if cfg.range_sigma > 0.0:
         # One extra assembly at the converged X for the range sensitivity.
         _, w6, keep, _, U2, _, htwg = _iteration(
-            model, scan2, X, n_it - 1, cfg, corr_mask, U2,
+            model, scan2, X, it_offset + n_it - 1, cfg, corr_mask, U2,
             want_range_sens=True,
         )
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)

@@ -86,5 +86,8 @@ def test_warm_start_seed_modes():
 
 
 def test_dnn_filter_not_ported():
+    """The sequence runner refuses the DNN filter, as the JAX package's
+    does (the per-frame sample state lives in OdometryPipeline)."""
     with pytest.raises(NotImplementedError):
-        todo.OdometryPipeline(TCFG.replace(dnn_filter=True), device="cpu")
+        todo.run_odometry_device(np.zeros((2, 64, 3), np.float32),
+                                 TCFG.replace(dnn_filter=True), device="cpu")

@@ -25,7 +25,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_leaves_jax_out():
     code = (
         "import sys, icet_tpu_torch, icet_tpu_torch.convert, "
-        "icet_tpu_torch.datasets.replay, icet_tpu_torch.datasets.loaders\n"
+        "icet_tpu_torch.datasets.replay, icet_tpu_torch.datasets.loaders, "
+        "icet_tpu_torch.filters, icet_tpu_torch.models.bias_net, "
+        "icet_tpu_torch.ops.bias_encoder, icet_tpu_torch.ops.moment_scatter, "
+        "icet_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icet_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -35,7 +38,8 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device"])
+@pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device",
+                                   "register_scans", "dnn_pipeline"])
 def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
     import icet_tpu_torch as it
 
@@ -46,6 +50,10 @@ def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
             it.register_pair(scans[0], scans[1], np.zeros(6), it.ICETConfig())
         elif entry == "pipeline":
             it.OdometryPipeline(it.ICETConfig())
+        elif entry == "register_scans":
+            it.register_scans(scans[0], scans[1], cfg=it.ICETConfig(dnn_filter=True))
+        elif entry == "dnn_pipeline":
+            it.OdometryPipeline(it.ICETConfig(dnn_filter=True))
         else:
             it.run_odometry_device(scans, it.ICETConfig())
 

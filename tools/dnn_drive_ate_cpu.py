@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""ATE of the DNN-filtered odometry drive on the CPU: the JAX package
+(``icet_tpu``, the reference) and, with ``--port``, the PyTorch port on its
+CPU path.
+
+The drive is the one ``chip_smoke.py`` drives on the card: 24 frames of the
+64x1024 city drive at ``ICETConfig(n_iters=7, convergence_tol=1e-4,
+convergence_stat_scale=1.0, dnn_filter=True)`` and
+``OdometryConfig(divergence_clamp=2.5)``, through each package's
+``OdometryPipeline``.  ``chip_smoke.py`` gates the card's ATE at the JAX
+package's figure printed here plus 0.5 cm.  Run from the repository root:
+
+    JAX_PLATFORMS=cpu python3 tools/dnn_drive_ate_cpu.py [--port]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def ate(frames, gt) -> float:
+    est = [np.eye(4)] + [f.T_world.astype(np.float64) for f in frames]
+    ref = [np.linalg.inv(gt[0]) @ T for T in gt]
+    err = [np.linalg.norm(e[:3, 3] - r[:3, 3]) for e, r in zip(est, ref)]
+    return float(np.sqrt(np.mean(np.square(err))))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port", action="store_true", help="also run the port's CPU path")
+    args = ap.parse_args()
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from icet_tpu.config import ICETConfig, OdometryConfig
+    from icet_tpu.datasets.replay import CityDriveSource
+    from icet_tpu.odometry import OdometryPipeline
+
+    drive = list(CityDriveSource(n_frames=24, speed=1.0, n_beams=64, n_azimuth=1024))
+    scans = [s for s, _ in drive]
+    gt = [T for _, T in drive]
+    kw = dict(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0, dnn_filter=True)
+    out = {}
+    t0 = time.perf_counter()
+    frames = list(OdometryPipeline(ICETConfig(**kw), OdometryConfig(divergence_clamp=2.5))
+                  .run(scans))
+    out["icet_tpu"] = {"ate_m": ate(frames, gt), "s": time.perf_counter() - t0,
+                       "diverged": sum(f.diverged for f in frames)}
+    if args.port:
+        import torch
+
+        import icet_tpu_torch as it
+
+        torch.set_num_threads(min(8, os.cpu_count() or 1))
+        t0 = time.perf_counter()
+        pipe = it.OdometryPipeline(it.ICETConfig(**kw), it.OdometryConfig(divergence_clamp=2.5),
+                                   device="cpu")
+        frames = list(pipe.run(scans))
+        out["icet_tpu_torch_cpu"] = {
+            "ate_m": ate(frames, gt), "s": time.perf_counter() - t0,
+            "diverged": sum(f.diverged for f in frames),
+            "iterations": [f.iterations for f in frames],
+        }
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
