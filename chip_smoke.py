@@ -26,10 +26,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. pallas moments: the first 8 frames at ``moment_method="pallas"``,
    scatter launches counted;
 7. fixed radial mode: one registration on the card against the CPU path;
-8. times: CUDA-event medians of the odometry frames; for each kernel, its
-   plain version and, where one exists, the one PyTorch call that computes
-   the same function, the device time a call by torch.profiler (what the
-   JSON line reports) and the CUDA-event time over back-to-back calls.
+8. windowed moments (kernel #2) against its plain version at block 512,
+   window 256: beam-major at X = 0 (and, with no overflow, against kernel
+   #1) and at a 1 m step, shuffled (overflow > 0), fixed radial mode at
+   V = 90,000; then its own path, one windowed pass a frame of the drive
+   at the sequence drive's solutions, launches counted;
+9. keyframe odometry: the drive through ``run_keyframe_device`` and
+   ``KeyframeOdometry`` at bench.py's keyframe config; keyframe indices of
+   the two equal, fused-moments launches counted, the block map's fill,
+   ATE gated at the JAX package's CPU figure plus 0.5 cm;
+10. DNN-filtered keyframe odometry: ``KeyframeOdometry`` with the filter;
+    encoder and fused-moments launches counted, ATE gated likewise;
+11. MapMaker at ``PROFILES["mapping"]``: launches counted, ring fill exact,
+    trajectory ATE gated likewise;
+12. ScanMatcher: 6 frames, statuses and aligned clouds;
+13. times: CUDA-event medians of the odometry, keyframe and MapMaker
+    frames; for each kernel, its plain version and, where one exists, the
+    one PyTorch call that computes the same function, the device time a
+    call by torch.profiler (what the JSON line reports) and the CUDA-event
+    time over back-to-back calls.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -74,6 +89,19 @@ DNN_ATE_MAX_M = DNN_ATE_REF_M + 0.005
 CODE_RTOL, CODE_SHARE, OUT_ATOL = 2.0**-7, 0.995, 2e-2
 #: frames of the pallas-moments drive, and its ATE bound
 PALLAS_FRAMES = 8
+#: the JAX package's figures on the keyframe, DNN-keyframe and MapMaker
+#: drives on the CPU (tools/keyframe_drive_ate_cpu.py, ATE in m); the card's
+#: runs may be 0.5 cm worse at most
+KF_ATE_REF_M = 0.005915265637431167
+KF_INDICES_REF = [0, 4, 8, 12, 16, 19, 23]
+DNN_KF_ATE_REF_M = 0.0013262779695870182
+DNN_KF_INDICES_REF = [0, 4, 7, 11, 15, 18, 22]
+MAP_ATE_REF_M = 0.010803162501453203
+ATE_SLACK_M = 0.005
+#: the windowed kernel's block and window (the TPU kernel's defaults)
+WIN_BLOCK, WIN_WINDOW = 512, 256
+#: frames of the ScanMatcher phase
+MATCHER_FRAMES = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -140,7 +168,13 @@ def bound(nbytes: float, nops: float, peak_ops: float):
 
 
 def trajectory_ate(frames, gt) -> float:
-    est = [np.eye(4)] + [f.T_world.astype(np.float64) for f in frames]
+    return pose_ate([f.T_world for f in frames], gt)
+
+
+def pose_ate(poses, gt) -> float:
+    """RMS translation error of ``[I] + poses`` against the drive's poses
+    relative to its first frame."""
+    est = [np.eye(4)] + [np.asarray(T, np.float64) for T in poses]
     ref = [np.linalg.inv(gt[0]) @ T for T in gt[: len(est)]]
     err = [np.linalg.norm(e[:3, 3] - r[:3, 3]) for e, r in zip(est, ref)]
     return float(np.sqrt(np.mean(np.square(err))))
@@ -200,6 +234,42 @@ def compare(name, pts, X, model, cfg, report):
         f"run-to-run max |diff| {run_to_run:.3e}"
     )
     return float(err.max()), got
+
+
+def windowed_compare(name, pts, X, bounds, anchors, cfg, report):
+    """Windowed moments kernel vs plain on one input; returns (max |error|
+    over rows whose counts agree, kernel sums, kernel overflow)."""
+    from icet_tpu_torch.ops.fused_moments import (
+        fused_moment_sums_windowed,
+        fused_moment_sums_windowed_reference,
+    )
+
+    got, ovf = fused_moment_sums_windowed(pts, X, bounds, anchors, cfg, WIN_BLOCK, WIN_WINDOW)
+    want, want_ovf = fused_moment_sums_windowed_reference(pts, X, bounds, anchors, cfg,
+                                                          WIN_BLOCK, WIN_WINDOW)
+    torch.cuda.synchronize()
+    ovf, want_ovf = int(ovf), int(want_ovf)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite windowed sums")
+    check(bool((got[:, 10:] == 0).all()), f"{name}: columns 10-15 not zero")
+    check(bool((got[-1] == 0).all()), f"{name}: sentinel row not zero")
+    edges = edge_points(pts, X, cfg)
+    check(edges <= EDGE_CAP * pts.shape[0],
+          f"{name}: {edges} points within {EDGE_RAD} rad of a bin edge")
+    check(abs(ovf - want_ovf) <= edges,
+          f"{name}: overflow {ovf} vs plain {want_ovf} with {edges} edge points")
+    dcount = (got[:, 0] - want[:, 0]).abs()
+    check(float(dcount.sum()) <= 2 * edges,
+          f"{name}: counts differ by {float(dcount.sum())} with {edges} edge points")
+    same = dcount == 0
+    err = (got[same, :10] - want[same, :10]).abs()
+    tol = ATOL + RTOL * want[same, :10].abs()
+    check(bool((err <= tol).all()), f"{name}: features differ by up to {float(err.max())}")
+    report.append(
+        f"{name}: V={cfg.n_voxels}, in-window members {int(want[:, 0].sum())}, overflow "
+        f"{ovf} (plain {want_ovf}), edge points {edges}, count diffs {int(dcount.sum())}, "
+        f"max |err| {float(err.max()):.3e}"
+    )
+    return float(err.max()), got, ovf
 
 
 def filter_input(model, samples1, scan2, X, cfg):
@@ -294,16 +364,28 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 1
-    from icet_tpu_torch.config import ICETConfig, OdometryConfig
+    from icet_tpu_torch.config import (
+        PROFILES,
+        BlockMapConfig,
+        ICETConfig,
+        KeyframeConfig,
+        MapConfig,
+        OdometryConfig,
+    )
     from icet_tpu_torch.datasets.replay import CityDriveSource
     from icet_tpu_torch.device import resolve_device
     from icet_tpu_torch.filters import model_voxel_samples, odometry_step_dnn, pretrained_dnn
+    from icet_tpu_torch.keyframe import KeyframeOdometry, np_pose_matrix, run_keyframe_device
+    from icet_tpu_torch.mapping import MapMaker
     from icet_tpu_torch.odometry import OdometryPipeline, run_odometry_device
     from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, encoder_pool_reference
     from icet_tpu_torch.ops.fused_moments import (
         fused_moment_sums,
         fused_moment_sums_reference,
+        fused_moment_sums_windowed,
+        fused_moment_sums_windowed_reference,
     )
+    from icet_tpu_torch.scan_matcher import ScanMatcher
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.ops.moment_scatter import _launch as scatter_launch
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
@@ -471,8 +553,181 @@ def main() -> int:
     print(f"fixed radial mode (V = {fixed.n_voxels}): card X {np.round(fX, 5).tolist()}, "
           f"max |card - CPU| {float(np.abs(fX - cX).max()):.3e}")
 
-    # -- times ------------------------------------------------------------
+    # -- windowed moments kernel vs plain, then its own path ----------------
+    zero6 = torch.zeros(6, device=dev)
+    fanchors = voxel_anchors(fbounds, fixed)
+    report = []
+    win_cases = {
+        "beam-major X=0": (pts, zero6, model.bounds, model.anchors, cfg),
+        "beam-major X=1m/0.02rad": (pts, X_step, model.bounds, model.anchors, cfg),
+        "shuffled X=1m/0.02rad": (cases["shuffled"][0], X_step, model.bounds, model.anchors,
+                                  cfg),
+        "fixed radial X=1m/0.02rad": (pts, X_step, fbounds, fanchors, fixed),
+    }
+    win_err, win_out = 0.0, {}
+    for name, args in win_cases.items():
+        err, got, ovf = windowed_compare(name, *args, report)
+        win_err, win_out[name] = max(win_err, err), (got, ovf)
+    check(win_out["shuffled X=1m/0.02rad"][1] > 0, "shuffled input did not overflow")
+    got0, ovf0 = win_out["beam-major X=0"]
+    if ovf0 == 0:
+        # At X = 0 the raw and transformed range gates agree: with nothing
+        # off-window the windowed sums are kernel #1's.
+        dense = fused_moment_sums(pts, zero6, model.bounds, model.anchors, cfg)
+        same = got0[:, 0] == dense[:, 0]
+        err = (got0[same, :10] - dense[same, :10]).abs()
+        check(bool((err <= ATOL + RTOL * dense[same, :10].abs()).all()),
+              f"windowed vs fused at X=0: features differ by up to {float(err.max())}")
+        report.append(f"beam-major X=0 vs kernel #1: rows with equal counts "
+                      f"{int(same.sum())}/{same.numel()}, max |err| {float(err.max()):.3e}")
+    for line in report:
+        print(f"windowed moments vs plain, {line}")
+    # Its own path: one windowed pass a frame at the sequence drive's
+    # solutions against the previous frame's model, as the TPU package's
+    # solver would have run it.
     drive = torch.from_numpy(scans).to(dev)
+    models = [prepare_reference(drive[k], cfg) for k in range(drive.shape[0] - 1)]
+    torch.cuda.synchronize()
+    fused_moment_sums_windowed.launches = 0
+    win_path = [fused_moment_sums_windowed(drive[k + 1], torch.from_numpy(out[k].X).to(dev),
+                                           models[k].bounds, models[k].anchors, cfg,
+                                           WIN_BLOCK, WIN_WINDOW)
+                for k in range(len(models))]
+    torch.cuda.synchronize()
+    win_launches = fused_moment_sums_windowed.launches
+    check(win_launches == len(out), f"windowed launches {win_launches} != {len(out)} frames")
+    check(all(bool(torch.isfinite(s).all()) for s, _ in win_path), "non-finite windowed sums")
+    win_ovf = [int(o) for _, o in win_path]
+    print(f"windowed moments path: {win_launches} launches (one a frame at the drive's "
+          f"solutions), overflow a frame {win_ovf}")
+
+    # -- keyframe odometry --------------------------------------------------
+    kf_cfg = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
+    bm_cfg = BlockMapConfig()
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = 0
+    t0 = time.perf_counter()
+    kout, bm = run_keyframe_device(scans, cfg, kf_cfg, bm_cfg, device="cuda")
+    torch.cuda.synchronize()
+    kf_s = time.perf_counter() - t0
+    kf_fused = fused_moment_sums.launches
+    kf_idx = [0] + [f.index for f in kout if f.is_keyframe]
+    kiters = sum(f.iterations for f in kout)
+    check(len(kout) == len(scans) - 1, f"keyframe drive: {len(kout)} frames")
+    check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in kout),
+          "keyframe drive: non-finite X or pred_stds")
+    check(not any(f.diverged for f in kout), "keyframe drive: a frame diverged")
+    check(kf_fused == kiters + len(kf_idx),
+          f"keyframe drive: fused launches {kf_fused} != iterations {kiters} + "
+          f"keyframe prepares {len(kf_idx)}")
+    check(bm.n_blocks == len(kf_idx), f"block map holds {bm.n_blocks} blocks, "
+          f"{len(kf_idx)} keyframes spawned")
+    # Every frame inserts K stratified samples once (spawn frames as their
+    # block's seed), less the samples that fall on range-gated rows: about
+    # K times each frame's share of them.
+    K = bm_cfg.points_per_scan
+    gated = (torch.sum(drive * drive, dim=-1) <= cfg.min_range**2).double().mean(dim=1)
+    want_fill = float((K * (1.0 - gated)).sum())
+    sigma = float(torch.sqrt((K * gated * (1.0 - gated)).sum()))
+    fill = int(bm.valid.sum())
+    check(abs(fill - want_fill) <= 4.0 * sigma + 1.0,
+          f"block map holds {fill} points, expected {want_fill:.1f} +- {4 * sigma + 1:.1f}")
+    kodo = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device="cuda")
+    khost = kodo.run(scans)
+    check(kodo.keyframe_indices == kf_idx,
+          f"keyframe indices: host loop {kodo.keyframe_indices}, device runner {kf_idx}")
+    check(not any(f.diverged for f in khost), "keyframe host loop: a frame diverged")
+    kf_ate, kf_host_ate = trajectory_ate(kout, gt), trajectory_ate(khost, gt)
+    print(f"keyframe odometry: {len(kout)} frames in {kf_s:.2f} s, keyframes {kf_idx} "
+          f"(JAX package on the CPU: {KF_INDICES_REF}), fused launches {kf_fused} = {kiters} "
+          f"iterations + {len(kf_idx)} keyframe prepares, block map {fill} points in "
+          f"{bm.n_blocks} blocks (expected {want_fill:.1f}), ATE {kf_ate * 100:.4f} cm, host "
+          f"loop {kf_host_ate * 100:.4f} cm (JAX package on the CPU: "
+          f"{KF_ATE_REF_M * 100:.4f} cm)")
+    for name, a in (("device runner", kf_ate), ("host loop", kf_host_ate)):
+        check(a <= KF_ATE_REF_M + ATE_SLACK_M,
+              f"keyframe {name} ATE {a * 100:.4f} cm above "
+              f"{(KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+
+    # -- DNN-filtered keyframe odometry -----------------------------------
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = 0
+    bias_encoder_pool.launches = 0
+    t0 = time.perf_counter()
+    dkodo = KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device="cuda")
+    dkout = dkodo.run(scans)
+    torch.cuda.synchronize()
+    dkf_s = time.perf_counter() - t0
+    dkf_fused, dkf_enc = fused_moment_sums.launches, bias_encoder_pool.launches
+    dk_iters = sum(f.iterations for f in dkout)
+    check(len(dkout) == len(scans) - 1, f"DNN keyframe drive: {len(dkout)} frames")
+    check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in dkout),
+          "DNN keyframe drive: non-finite X or pred_stds")
+    check(not any(f.diverged for f in dkout), "DNN keyframe drive: a frame diverged")
+    want_enc = len(dkout) * n_post * dcfg.dnn_refine_steps
+    check(dkf_enc == want_enc, f"DNN keyframe drive: encoder launches {dkf_enc} != {want_enc}")
+    n_kf = len(dkodo.keyframe_indices)
+    want_fused = dk_iters + len(dkout) * n_post + n_kf
+    check(dkf_fused == want_fused,
+          f"DNN keyframe drive: fused launches {dkf_fused} != iterations {dk_iters} + filter "
+          f"passes {len(dkout) * n_post} + keyframe prepares {n_kf}")
+    dkf_ate = trajectory_ate(dkout, gt)
+    print(f"DNN-filtered keyframe odometry: {len(dkout)} frames in {dkf_s:.2f} s, keyframes "
+          f"{dkodo.keyframe_indices} (JAX package on the CPU: {DNN_KF_INDICES_REF}), encoder "
+          f"launches {dkf_enc}, fused launches {dkf_fused} = {dk_iters} iterations + "
+          f"{len(dkout) * n_post} filter passes + {n_kf} keyframe prepares, ATE "
+          f"{dkf_ate * 100:.4f} cm (JAX package on the CPU: {DNN_KF_ATE_REF_M * 100:.4f} cm)")
+    check(dkf_ate <= DNN_KF_ATE_REF_M + ATE_SLACK_M,
+          f"DNN keyframe ATE {dkf_ate * 100:.4f} cm above "
+          f"{(DNN_KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+
+    # -- MapMaker -----------------------------------------------------------
+    mcfg, map_cfg = PROFILES["mapping"], MapConfig()
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = 0
+    t0 = time.perf_counter()
+    maker = MapMaker(mcfg, map_cfg, odo, device="cuda")
+    mout = [f for f in (maker.step(s) for s in scans) if f is not None]
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    map_fused = fused_moment_sums.launches
+    check(len(mout) == len(scans) - 1, f"MapMaker: {len(mout)} frames")
+    check(not any(f.diverged for f in mout), "MapMaker: a frame diverged")
+    check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in mout),
+          "MapMaker: non-finite X or pred_stds")
+    # The mapping profile runs every solve to n_iters (no early exit), and
+    # every scan is prepared once.
+    want_fused = len(mout) * mcfg.n_iters + len(scans)
+    check(map_fused == want_fused, f"MapMaker: fused launches {map_fused} != {want_fused}")
+    n_ok = (torch.sum(drive * drive, dim=-1) > mcfg.min_range**2).sum(dim=1)
+    want_fill = min(map_cfg.capacity, int(torch.clamp(n_ok, max=map_cfg.points_per_scan).sum()))
+    check(mout[-1].n_map_points == want_fill,
+          f"MapMaker: ring holds {mout[-1].n_map_points} points, expected {want_fill}")
+    poses, T = [], np.eye(4)
+    for f in mout:
+        T = T @ np_pose_matrix(f.X)
+        poses.append(T)
+    map_ate = pose_ate(poses, gt)
+    print(f"MapMaker: {len(mout)} frames in {map_s:.2f} s, fused launches {map_fused} = "
+          f"{len(mout)} x {mcfg.n_iters} iterations + {len(scans)} prepares, ring fill "
+          f"{mout[-1].n_map_points} (expected {want_fill}), ATE {map_ate * 100:.4f} cm (JAX "
+          f"package on the CPU: {MAP_ATE_REF_M * 100:.4f} cm)")
+    check(map_ate <= MAP_ATE_REF_M + ATE_SLACK_M,
+          f"MapMaker ATE {map_ate * 100:.4f} cm above "
+          f"{(MAP_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+
+    # -- ScanMatcher ----------------------------------------------------------
+    matcher = ScanMatcher(cfg, divergence_clamp=odo.divergence_clamp, device="cuda")
+    sres = [matcher.step(s) for s in scans[:MATCHER_FRAMES]]
+    statuses = [r.status for r in sres]
+    check(statuses == ["first_frame"] + ["ok"] * (MATCHER_FRAMES - 1),
+          f"ScanMatcher statuses {statuses}")
+    check(all(r.aligned.shape == scans[0].shape and np.isfinite(r.aligned).all() for r in sres),
+          "ScanMatcher: aligned clouds not finite or misshapen")
+    print(f"ScanMatcher: statuses {statuses}, X[0] "
+          f"{[round(float(r.X[0]), 4) for r in sres[1:]]}, trail {sres[-1].trail.shape}")
+
+    # -- times ------------------------------------------------------------
     model0 = prepare_reference(drive[0], cfg)
     samples_0 = model_voxel_samples(model0, drive[0], dcfg)
 
@@ -491,6 +746,20 @@ def main() -> int:
     steps = drive.shape[0] - 1
     frame_ms = median_ms(odometry_pass, reps=1, rounds=3) / steps
     dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=3) / steps
+    # Keyframe and MapMaker frames: the whole drive through a fresh runner
+    # (its first frame is the seed spawn or seed insert, no solve).
+    kf_frame_ms = median_ms(lambda: KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev).run(drive),
+                            reps=1, rounds=3) / steps
+    dkf_frame_ms = median_ms(
+        lambda: KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev).run(drive),
+        reps=1, rounds=3) / steps
+
+    def map_pass():
+        maker = MapMaker(mcfg, map_cfg, odo, device=dev)
+        for d in drive:
+            maker.step(d)
+
+    map_frame_ms = median_ms(map_pass, reps=1, rounds=3) / steps
 
     fused_ms, fused_ev = kernel_times(
         lambda: fused_moment_sums(pts, X_step, model.bounds, model.anchors, cfg), reps=100)
@@ -507,6 +776,16 @@ def main() -> int:
     # features (6 products + 10 adds).
     fused_bound, fused_by = bound(n * 12 + 6 * 4 + v1 * 8 + v1 * 12 + v1 * 16 * 4,
                                   n * 83 + members * 19, PEAK_FP32_PER_S)
+
+    win_args = (pts, X_step, model.bounds, model.anchors, cfg, WIN_BLOCK, WIN_WINDOW)
+    win_ms, win_ev = kernel_times(lambda: fused_moment_sums_windowed(*win_args), reps=100)
+    win_plain_ms, win_plain_ev = kernel_times(
+        lambda: fused_moment_sums_windowed_reference(*win_args), reps=20)
+    win_members = float(fused_moment_sums_windowed_reference(*win_args)[0][:, 0].sum())
+    # As kernel #1 (no raw-range gate: 6 operations fewer a point), plus
+    # the overflow word written.
+    win_bound, win_by = bound(n * 12 + 6 * 4 + v1 * 8 + v1 * 12 + v1 * 16 * 4 + 4,
+                              n * 77 + win_members * 19, PEAK_FP32_PER_S)
 
     w = net.encoder_weights()
     enc_ms, enc_ev = kernel_times(lambda: bias_encoder_pool(x_enc, w), reps=20)
@@ -534,12 +813,17 @@ def main() -> int:
     scat_bound, scat_by = bound(n * 4 + n * 64 + v1 * 64, n * 16, PEAK_FP32_PER_S)
 
     print(f"times ({card}): odometry frame {frame_ms:.4f} ms, DNN-filtered frame "
-          f"{dnn_frame_ms:.4f} ms")
+          f"{dnn_frame_ms:.4f} ms, keyframe frame {kf_frame_ms:.4f} ms, DNN-filtered "
+          f"keyframe frame {dkf_frame_ms:.4f} ms, MapMaker frame {map_frame_ms:.4f} ms")
     print(f"times ({card}), device ms a call by the profiler (CUDA events over "
           f"back-to-back calls in brackets):")
     print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
           f"{fused_plain_ms:.4f} ({fused_plain_ev:.4f}), bound {fused_bound:.6f} ({fused_by}); "
           f"no single PyTorch call computes this fused function, so library_ms is null")
+    print(f"  windowed moments {win_ms:.5f} ({win_ev:.5f}) at N={n} V={cfg.n_voxels} block "
+          f"{WIN_BLOCK} window {WIN_WINDOW}, plain {win_plain_ms:.4f} ({win_plain_ev:.4f}), "
+          f"bound {win_bound:.6f} ({win_by}); no single PyTorch call computes this fused "
+          f"function, so library_ms is null")
     print(f"  encoder {enc_ms:.5f} ({enc_ev:.5f}) at B={b} P={p} tile 16, plain "
           f"{enc_plain_ms:.4f} ({enc_plain_ev:.4f}), bound {enc_bound:.6f} ({enc_by}: "
           f"{enc_bytes} B); no single PyTorch call computes Dense+LayerNorm+ReLU x3 + "
@@ -561,6 +845,19 @@ def main() -> int:
             "plain_ms": fused_plain_ms,
             "bound_ms": fused_bound,
             "bound_by": fused_by,
+            "library_ms": None,
+        },
+        {
+            "name": "fused_moment_sums_windowed",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/fused_moments_windowed.cu",
+            "replaces": "icet_tpu/ops/pallas_fused.py:171",
+            "launches": win_launches,
+            "max_abs_err": win_err,
+            "ms": win_ms,
+            "plain_ms": win_plain_ms,
+            "bound_ms": win_bound,
+            "bound_by": win_by,
             "library_ms": None,
         },
         {

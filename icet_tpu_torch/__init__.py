@@ -1,11 +1,13 @@
 """ICET on PyTorch and CUDA: the port of ``icet_tpu`` to an NVIDIA H100.
 
 Distribution-to-distribution LiDAR registration with spherical
-shadow-mitigation voxels, the frame-to-frame odometry around it, and the
+shadow-mitigation voxels, the frame-to-frame and keyframe odometry around
+it, the keyframe block map, the ring-map MapMaker, the ScanMatcher, and the
 DNN perspective-shift filter.  The per-point pass of every solver
 iteration (``csrc/fused_moments.cu``), the filter's BiasNet encoder
-(``csrc/bias_encoder.cu``) and the ``moment_method="pallas"`` scatter
-(``csrc/moment_scatter.cu``) are hand-written CUDA kernels, built by nvcc at
+(``csrc/bias_encoder.cu``), the ``moment_method="pallas"`` scatter
+(``csrc/moment_scatter.cu``) and the windowed moments pass
+(``csrc/fused_moments_windowed.cu``) are hand-written CUDA kernels, built by nvcc at
 first use; everything around them is plain PyTorch.  Entry points run on CUDA unless the caller passes
 ``device="cpu"``.  This package imports neither JAX nor ``icet_tpu``.
 """
@@ -19,6 +21,8 @@ from icet_tpu_torch.config import (
     PROFILES,
 )
 from icet_tpu_torch.filters import register_scans
+from icet_tpu_torch.keyframe import BlockMap, KeyframeOdometry, run_keyframe_device
+from icet_tpu_torch.mapping import MapMaker
 from icet_tpu_torch.odometry import (
     OdometryFrame,
     OdometryPipeline,
@@ -34,24 +38,30 @@ from icet_tpu_torch.solver import (
     register,
     register_pair,
 )
+from icet_tpu_torch.scan_matcher import ScanMatcher
 
 __all__ = [
+    "BlockMap",
     "BlockMapConfig",
     "ICETConfig",
     "IterationDiag",
     "KeyframeConfig",
+    "KeyframeOdometry",
     "MapConfig",
+    "MapMaker",
     "OdometryConfig",
     "OdometryFrame",
     "OdometryPipeline",
     "PROFILES",
     "RegistrationResult",
+    "ScanMatcher",
     "VoxelModel",
     "odometry_step",
     "prepare_reference",
     "register",
     "register_pair",
     "register_scans",
+    "run_keyframe_device",
     "run_odometry",
     "run_odometry_device",
 ]

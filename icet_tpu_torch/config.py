@@ -110,7 +110,7 @@ class OdometryConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MapConfig:
-    """HD-map accumulator configuration (not ported yet)."""
+    """HD-map accumulator configuration."""
 
     capacity: int = 600_000
     points_per_scan: int = 2_000
@@ -118,9 +118,9 @@ class MapConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KeyframeConfig:
-    """Keyframe odometry configuration (not ported yet).  ``ovf_spawn``
-    never fires on the port: its moments kernel has no window, so there is
-    no overflow to spawn on."""
+    """Keyframe odometry configuration.  ``ovf_spawn`` never fires on the
+    port: its moments kernel has no window, so there is no overflow to
+    spawn on (as in the JAX package off the TPU)."""
 
     spawn: str = "auto"
     stds_growth: float = 2.5
@@ -133,7 +133,7 @@ class KeyframeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BlockMapConfig:
-    """Keyframe block map configuration (not ported yet)."""
+    """Keyframe block map configuration."""
 
     n_blocks: int = 64
     block_capacity: int = 16_384

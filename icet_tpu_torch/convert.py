@@ -1,9 +1,9 @@
 """Carry state between the JAX package and the port.
 
-The system's state is the voxel model and the config, plus the DNN
-filter's BiasNet weights.  These helpers move them across as plain numpy
-arrays and dictionaries, so a test can hand the JAX package's own prepared
-model to the port.
+The system's state is the voxel model and the config, the DNN filter's
+BiasNet weights, the keyframe block map and the MapMaker's ring map.  These
+helpers move them across as plain numpy arrays and dictionaries, so a test
+can hand the JAX package's own prepared model or map to the port.
 """
 
 from __future__ import annotations
@@ -31,6 +31,53 @@ def voxel_model_from_numpy(arrays: dict, device="cpu") -> VoxelModel:
 def voxel_model_to_numpy(model: VoxelModel) -> dict:
     """The model's fields as a dict of numpy arrays."""
     return {k: v.cpu().numpy() for k, v in model._asdict().items()}
+
+
+def _state_from_numpy(cls, arrays: dict, device) -> tuple:
+    """``cls`` from numpy arrays by field name: 0-d counters as host ints."""
+    fields = {}
+    for name in cls._fields:
+        a = np.asarray(arrays[name])
+        if a.ndim == 0:
+            fields[name] = int(a)
+        else:
+            dtype = torch.bool if a.dtype == np.bool_ else torch.float32
+            fields[name] = torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+    return cls(**fields)
+
+
+def _state_to_numpy(state) -> dict:
+    return {k: (np.asarray(v, np.int32) if isinstance(v, int) else v.cpu().numpy())
+            for k, v in state._asdict().items()}
+
+
+def blockmap_from_numpy(arrays: dict, device="cpu"):
+    """A :class:`~icet_tpu_torch.keyframe.BlockMap` from a dict of numpy
+    arrays keyed by field name (e.g. ``{k: np.asarray(v) for k, v in
+    jax_blockmap._asdict().items()}``); the counters become host ints."""
+    # Imported here: keyframe.py imports filters.py, which imports this module.
+    from icet_tpu_torch.keyframe import BlockMap
+
+    return _state_from_numpy(BlockMap, arrays, device)
+
+
+def blockmap_to_numpy(bm) -> dict:
+    """The block map's fields as numpy arrays (counters as int32 scalars)."""
+    return _state_to_numpy(bm)
+
+
+def map_state_from_numpy(arrays: dict, device="cpu"):
+    """A :class:`~icet_tpu_torch.mapping.MapState` from a dict of numpy
+    arrays keyed by field name; the ring cursor and trail length become
+    host ints."""
+    from icet_tpu_torch.mapping import MapState
+
+    return _state_from_numpy(MapState, arrays, device)
+
+
+def map_state_to_numpy(state) -> dict:
+    """The ring map's fields as numpy arrays (counters as int32 scalars)."""
+    return _state_to_numpy(state)
 
 
 def bias_net_params_from_numpy(tree: dict) -> dict:

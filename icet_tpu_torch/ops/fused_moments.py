@@ -8,12 +8,19 @@ kernel ``icet_tpu/ops/pallas_fused.py::_kernel`` and computes what
 ``icet_tpu/solver.py::_jnp_sums`` computes.  The kernel holds the whole
 voxel table in shared memory, so it has no window: nothing overflows, and
 ``IterationDiag.windowed_overflow`` is always 0 in the port.
+
+``fused_moment_sums_windowed`` is the port of the TPU's windowed variant
+(``_windowed_kernel``, kernel ``csrc/fused_moments_windowed.cu``): each
+block of points sums only into a narrow band of voxel ids and counts the
+points off its band.  No solver path calls it, in either package; it is
+exposed as the JAX package exposes it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -134,3 +141,142 @@ def fused_moment_sums(
 
 #: launches of the CUDA kernel (plain-version calls on CPU tensors do not count)
 fused_moment_sums.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Windowed variant (kernel #2)
+# ---------------------------------------------------------------------------
+
+
+def _windowed_v_pad(n_voxels: int, window: int) -> int:
+    """The TPU kernel's padded voxel axis: ``max(round_up(V+1, 128),
+    2 * window)``; window starts never pass ``v_pad - window``."""
+    return max(-(-(n_voxels + 1) // 128) * 128, 2 * window)
+
+
+def fused_moment_sums_windowed_reference(
+    pts: torch.Tensor,
+    X: torch.Tensor,
+    bounds: torch.Tensor,
+    anchors: torch.Tensor,
+    cfg: ICETConfig,
+    block: int = 512,
+    window: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_moment_sums_windowed`,
+    vectorised over the point blocks: ``((V+1, 16) sums, overflow int32)``.
+
+    The range gate reads the TRANSFORMED range ``|R p + t| >= min_range``,
+    as the TPU kernel does (unlike :func:`fused_moment_sums_reference`,
+    which gates the raw range as the solver's ``_jnp_sums`` does)."""
+    n, V = pts.shape[0], cfg.n_voxels
+    p2 = transform_points(pts, X)
+    rtp = cart_to_spherical(p2)
+    vid = voxel_ids(rtp, cfg)
+    ok = vid < V
+    nb = -(-n // block)
+    pad = nb * block - n
+    big = torch.iinfo(torch.int32).max
+    vid_b = torch.nn.functional.pad(torch.where(ok, vid, big), (0, pad), value=big)
+    vmin = vid_b.reshape(nb, block).amin(dim=1) if nb else vid_b.new_zeros(0)
+    vmin = torch.where(vmin == big, 0, vmin)
+    v_pad = _windowed_v_pad(V, window)
+    start = torch.clamp(torch.clamp((vmin // 128) * 128, max=v_pad - window), min=0)
+    start = torch.repeat_interleave(start, block)[:n]
+    in_win = ok & (vid >= start) & (vid < start + window - 1)
+    overflow = torch.sum(ok & ~in_win, dtype=torch.int32)
+    member = membership(vid, rtp[..., 0], in_win, bounds, V)
+    return voxel_moment_sums(p2, vid, member, anchors, V), overflow
+
+
+@functools.lru_cache(maxsize=None)
+def _windowed_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_moments_windowed")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.icet_fused_moment_sums_windowed.argtypes = [
+        p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, p, p, p, p, p, p,
+    ]
+    lib.icet_fused_moment_sums_windowed.restype = i
+    lib.icet_cuda_error_string.argtypes = [i]
+    lib.icet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_windowed(pts, X, bounds, anchors, cfg: ICETConfig, block: int, window: int) -> None:
+    v1 = cfg.n_voxels + 1
+    shapes = {"pts": (pts, (pts.shape[0], 3)), "X": (X, (6,)),
+              "bounds": (bounds, (v1, 2)), "anchors": (anchors, (v1, 3))}
+    for name, (t, shape) in shapes.items():
+        if t.device != pts.device:
+            raise ValueError(f"{name} is on {t.device}, pts on {pts.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    # window <= v_pad holds by construction (v_pad >= 2 * window).
+    if block < 1 or window < 1:
+        raise ValueError(f"block {block} and window {window} must be positive")
+    # Shared memory of one block: the (window, 10) table and 20 B a point.
+    if window * 40 + block * 20 > MAX_SHARED_BYTES:
+        raise ValueError(f"block {block} and window {window} exceed one block's shared memory")
+    if pts.shape[0] >= 2**31 // 3 or v1 * N_FEATURES >= 2**31:
+        raise ValueError("too many points or voxels for 32-bit indexing")
+
+
+def fused_moment_sums_windowed(
+    pts: torch.Tensor,
+    X: torch.Tensor,
+    bounds: torch.Tensor,
+    anchors: torch.Tensor,
+    cfg: ICETConfig,
+    block: int = 512,
+    window: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``((V+1, 16) sums, overflow int32 scalar tensor)``: the fused moment
+    sums with each ``block``-point block restricted to a ``window``-wide band
+    of voxel ids starting at its least valid id rounded down to 128; points
+    off their block's band are left out of the sums and counted in
+    ``overflow``.  Adaptive and fixed radial modes.
+
+    CUDA tensors go to ``csrc/fused_moments_windowed.cu``
+    (``fused_moment_sums_windowed.launches`` counts its launches); CPU
+    tensors go to :func:`fused_moment_sums_windowed_reference`.  It
+    replaces the TPU kernel ``icet_tpu/ops/pallas_fused.py::_windowed_kernel``,
+    which, as here, no solver path reaches: the port's solver uses
+    :func:`fused_moment_sums`, which has no window.
+    """
+    if pts.device.type == "cpu":
+        return fused_moment_sums_windowed_reference(pts, X, bounds, anchors, cfg, block, window)
+    if pts.device.type != "cuda":
+        raise ValueError(f"no windowed fused moments kernel for device {pts.device}")
+    _check_windowed(pts, X, bounds, anchors, cfg, block, window)
+    n, v1 = pts.shape[0], cfg.n_voxels + 1
+    blocks = -(-n // block)
+    dev = pts.device
+    partial = torch.empty((max(blocks, 1), window, 10), dtype=torch.float32, device=dev)
+    starts = torch.empty(max(blocks, 1), dtype=torch.int32, device=dev)
+    block_ovf = torch.empty(max(blocks, 1), dtype=torch.int32, device=dev)
+    out = torch.empty((v1, N_FEATURES), dtype=torch.float32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    lib = _windowed_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.icet_fused_moment_sums_windowed(
+            pts.data_ptr(), n, X.data_ptr(), bounds.data_ptr(), anchors.data_ptr(),
+            cfg.n_voxels, cfg.n_theta, cfg.n_phi, cfg.phi_min, cfg.phi_max - cfg.phi_min,
+            cfg.min_range, int(cfg.radial_mode == "fixed"), cfg.n_shells,
+            math.log(cfg.shell_growth), block, window, _windowed_v_pad(cfg.n_voxels, window),
+            partial.data_ptr(), starts.data_ptr(), block_ovf.data_ptr(), out.data_ptr(),
+            overflow.data_ptr(), stream,
+        )
+    if err != 0:
+        msg = lib.icet_cuda_error_string(err).decode()
+        raise RuntimeError(f"windowed fused moments kernel launch failed: {msg} ({err})")
+    fused_moment_sums_windowed.launches += 1
+    return out, overflow
+
+
+#: launches of the CUDA kernel (plain-version calls on CPU tensors do not count)
+fused_moment_sums_windowed.launches = 0

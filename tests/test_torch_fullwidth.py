@@ -57,3 +57,27 @@ def test_full_width_frame_pair():
     np.testing.assert_allclose(t.pred_stds.numpy(), np.asarray(j.pred_stds), rtol=1e-3)
     np.testing.assert_array_equal(t.diagnostics.n_corr.numpy(),
                                   np.asarray(j.diagnostics.n_corr))
+
+
+@pytest.mark.slow
+def test_full_width_keyframe_drive():
+    """The keyframe runner at bench.py's keyframe config on the first 6
+    frames of the 64x1024 drive: keyframe flags equal to the JAX package's
+    host loop, world poses within 1e-3 m."""
+    from icet_tpu import keyframe as jkf
+    from icet_tpu.config import BlockMapConfig as JBlockMap
+    from icet_tpu.config import KeyframeConfig as JKeyframe
+    from icet_tpu_torch.config import BlockMapConfig, KeyframeConfig
+    from icet_tpu_torch.keyframe import run_keyframe_device
+
+    kf = dict(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
+    scans = np.stack([s for s, _ in CityDriveSource(n_frames=6, speed=1.0, n_beams=64,
+                                                     n_azimuth=1024)])
+    want = jkf.KeyframeOdometry(CFG, JKeyframe(**kf), JBlockMap()).run(iter(scans))
+    got, bm = run_keyframe_device(scans, config_from_icet(dataclasses.asdict(CFG)),
+                                  KeyframeConfig(**kf), BlockMapConfig(), device="cpu")
+    assert [g.is_keyframe for g in got] == [w.is_keyframe for w in want]
+    assert any(g.is_keyframe for g in got) and not any(g.diverged for g in got)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.T_world, w.T_world, rtol=0, atol=1e-3)
+    assert bm.n_blocks == 1 + sum(g.is_keyframe for g in got)

@@ -100,10 +100,19 @@ def test_register_pair_pallas(pair, radial):
                          jnp.zeros(6, jnp.float32), cfg)
     t = ts.register_pair(pair[0], pair[1], np.zeros(6, np.float32),
                          config_from_icet(dataclasses.asdict(cfg)), device="cpu")
-    np.testing.assert_allclose(t.X.numpy(), np.asarray(j.X), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(t.pred_stds.numpy(), np.asarray(j.pred_stds), rtol=stds_rtol)
+    jn, tn = np.asarray(j.diagnostics.n_corr), t.diagnostics.n_corr.numpy()
+    margins = (
+        f"|dX| {np.abs(t.X.numpy() - np.asarray(j.X)).max():.3e} (X port "
+        f"{t.X.numpy()}, JAX {np.asarray(j.X)}), pred_stds ratio - 1 "
+        f"{np.abs(t.pred_stds.numpy() / np.asarray(j.pred_stds) - 1).max():.3e}, "
+        f"n_corr port {tn} JAX {jn}, iterations {t.iterations}"
+    )
+    np.testing.assert_allclose(t.X.numpy(), np.asarray(j.X), rtol=0, atol=1e-5,
+                               err_msg=margins)
+    np.testing.assert_allclose(t.pred_stds.numpy(), np.asarray(j.pred_stds), rtol=stds_rtol,
+                               err_msg=margins)
     Q = np.asarray(j.Q)
-    np.testing.assert_allclose(t.Q.numpy(), Q, rtol=0, atol=stds_rtol * np.abs(Q).max())
-    np.testing.assert_array_equal(t.diagnostics.n_corr.numpy(),
-                                  np.asarray(j.diagnostics.n_corr))
+    np.testing.assert_allclose(t.Q.numpy(), Q, rtol=0, atol=stds_rtol * np.abs(Q).max(),
+                               err_msg=margins)
+    np.testing.assert_array_equal(tn, jn, err_msg=margins)
     assert t.diagnostics.n_corr.numpy()[-1] > 20

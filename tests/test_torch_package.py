@@ -28,6 +28,8 @@ def test_import_leaves_jax_out():
         "icet_tpu_torch.datasets.replay, icet_tpu_torch.datasets.loaders, "
         "icet_tpu_torch.filters, icet_tpu_torch.models.bias_net, "
         "icet_tpu_torch.ops.bias_encoder, icet_tpu_torch.ops.moment_scatter, "
+        "icet_tpu_torch.ops.fused_moments, icet_tpu_torch.keyframe, "
+        "icet_tpu_torch.mapping, icet_tpu_torch.scan_matcher, "
         "icet_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icet_tpu')]\n"
         "print(bad)\n"
@@ -39,7 +41,9 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device",
-                                   "register_scans", "dnn_pipeline"])
+                                   "register_scans", "dnn_pipeline", "keyframe",
+                                   "dnn_keyframe", "run_keyframe_device", "mapmaker",
+                                   "scan_matcher"])
 def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
     import icet_tpu_torch as it
 
@@ -54,6 +58,16 @@ def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
             it.register_scans(scans[0], scans[1], cfg=it.ICETConfig(dnn_filter=True))
         elif entry == "dnn_pipeline":
             it.OdometryPipeline(it.ICETConfig(dnn_filter=True))
+        elif entry == "keyframe":
+            it.KeyframeOdometry(it.ICETConfig())
+        elif entry == "dnn_keyframe":
+            it.KeyframeOdometry(it.ICETConfig(dnn_filter=True))
+        elif entry == "run_keyframe_device":
+            it.run_keyframe_device(scans, it.ICETConfig())
+        elif entry == "mapmaker":
+            it.MapMaker()
+        elif entry == "scan_matcher":
+            it.ScanMatcher()
         else:
             it.run_odometry_device(scans, it.ICETConfig())
 

@@ -2,8 +2,10 @@
 """Where the port's odometry spends its time on one GPU.
 
 Runs the 24-frame 64x1024 city drive (the drive chip_smoke.py drives) at the
-sequence-odometry config through ``odometry_step`` (or, with ``--dnn``, the
-DNN-filtered ``odometry_step_dnn``), once to warm up and once under
+sequence-odometry config through ``odometry_step`` (with ``--dnn``, the
+DNN-filtered ``odometry_step_dnn``; with ``--keyframe``, ``KeyframeOdometry``
+at bench.py's keyframe config, filtered too with both), once to warm up and
+once under
 ``torch.profiler``, and prints one JSON object: wall ms per frame (CUDA
 events), CUDA kernels launched per frame, device busy ms per frame (union
 of kernel and copy intervals), the device's idle share, each hand-written
@@ -13,7 +15,7 @@ time.  With ``--dnn`` it also profiles the filter's point sampling
 device time and that of its sort as shares of the frame's busy time.  Run
 from the repository root:
 
-    python3 tools/profile_torch_odometry.py [--dnn]
+    python3 tools/profile_torch_odometry.py [--dnn] [--keyframe]
 
 It imports nothing of JAX or of ``icet_tpu``.
 """
@@ -32,13 +34,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from icet_tpu_torch.config import ICETConfig  # noqa: E402
+from icet_tpu_torch.config import BlockMapConfig, ICETConfig, KeyframeConfig  # noqa: E402
 from icet_tpu_torch.datasets.replay import CityDriveSource  # noqa: E402
 from icet_tpu_torch.filters import (  # noqa: E402
     model_voxel_samples,
     odometry_step_dnn,
     pretrained_dnn,
 )
+from icet_tpu_torch.keyframe import KeyframeOdometry  # noqa: E402
 from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool  # noqa: E402
 from icet_tpu_torch.ops.fused_moments import fused_moment_sums  # noqa: E402
 from icet_tpu_torch.solver import odometry_step, prepare_reference  # noqa: E402
@@ -84,6 +87,8 @@ def _us_matching(by_name, part: str) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dnn", action="store_true", help="profile the DNN-filtered step")
+    ap.add_argument("--keyframe", action="store_true",
+                    help="profile keyframe odometry (KeyframeOdometry) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_odometry: CUDA is not available", file=sys.stderr)
@@ -101,7 +106,15 @@ def main() -> int:
     n_steps = drive.shape[0] - 1
     net = pretrained_dnn(cfg, dev) if args.dnn else None
 
+    kf_cfg = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
+
+    def keyframe_pass():
+        frames = KeyframeOdometry(cfg, kf_cfg, BlockMapConfig(), device=dev).run(drive)
+        return sum(f.iterations for f in frames)
+
     def odometry_pass():
+        if args.keyframe:
+            return keyframe_pass()
         iters = 0
         m, x = prepare_reference(drive[0], cfg), torch.zeros(6, device=dev)
         s = model_voxel_samples(m, drive[0], cfg) if args.dnn else None
@@ -131,7 +144,8 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     out = {
         "card": card,
-        "step": "odometry_step_dnn" if args.dnn else "odometry_step",
+        "step": ("KeyframeOdometry" if args.keyframe else "odometry_step")
+        + (" (dnn_filter)" if args.dnn else ""),
         "frames": n_steps,
         "iterations": iters,
         "wall_ms_per_frame": wall_ms / n_steps,
@@ -144,7 +158,7 @@ def main() -> int:
         out[f"{key}_launches_per_frame"] = wrapper.launches / n_steps
         out[f"{key}_device_ms_per_frame"] = us / 1e3 / n_steps if n_dev else None
         out[f"{key}_device_share"] = us / 1e3 / busy_ms if n_dev else None
-    if args.dnn and n_dev:
+    if args.dnn and not args.keyframe and n_dev:
         # The sampling pass on its own: the filter's aligned scan and the new
         # frame's model each take one call a frame.
         model = prepare_reference(drive[1], cfg)
