@@ -8,15 +8,19 @@ Run from the repository root on a machine with an NVIDIA H100:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: every CUDA source of the port, compiled by nvcc in parallel;
+2. build: every CUDA source of the port, compiled by nvcc in parallel,
+   with each kernel's registers, shared memory and spills (-Xptxas -v);
 3. kernels vs plain versions on the card:
    a. fused moments on a 65,536-point 64x1024 city-drive frame with its
       75x24 (V = 1,800) voxel model, at three transforms, in shuffled point
-      order, and with NaN and zero rows;
+      order, and with NaN and zero rows; then 65,536 points in one voxel
+      (the worst contention), no member at all, N = 1 and N = 65,537 (a
+      ragged last block); each with its run-to-run difference;
    b. the BiasNet encoder on the drive's real filter input (1,801 voxels x
-      200 points, frames 0 -> 1) and on a 37-voxel batch: codes within one
-      bf16 ulp on >= 99.5% of entries, outputs within 2e-2, tiles 8/16/32
-      bitwise equal;
+      200 points, frames 0 -> 1), on a 37-voxel batch and at P in {1, 63,
+      64, 65, 200} x B in {1, 37, 1,801}: codes within one bf16 ulp on
+      >= 99.5% of entries, outputs within 2e-2, tiles 8/16/32 bitwise
+      equal;
    c. the moment scatter against ``index_add_`` at V = 1,800 (shared
       table) and in fixed radial mode at V = 90,000 (global atomics);
 4. sequence odometry: the 24-frame drive through ``run_odometry_device``,
@@ -44,7 +48,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     frames; for each kernel, its plain version and, where one exists, the
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
-    time over back-to-back calls.
+    time over back-to-back calls; the encoder's LayerNorm-epilogue floor.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -55,9 +59,11 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -353,6 +359,45 @@ def scatter_compare(name, vid, feats, n_voxels, report) -> float:
     return float(err.max())
 
 
+def ptxas_usage(logs: dict) -> dict:
+    """Each kernel's registers, shared memory and spills from the build's
+    ``-Xptxas -v`` logs: ``{kernel: "N registers, ..."}``."""
+    out = {}
+    for log in logs.values():
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and kernel:
+                out[kernel] = f"spill stores {m.group(2)} B, spill loads {m.group(3)} B"
+            m = re.search(r"Used (\d+) registers(.*)", line)
+            if m and kernel:
+                out[kernel] = f"{m.group(1)} registers{m.group(2)}; " + out.get(kernel, "")
+    return out
+
+
+def one_voxel_case(cfg, dev, n, rng):
+    """``n`` points in one voxel (a 0.5 m cube at 20 m range, on a 1/16 m
+    lattice) with bounds that admit every range and that voxel's anchor at
+    the cube's centre: at X = 0 every offset, square and product is a short
+    dyadic number and every sum of them is exact in float32, so kernel and
+    plain version agree whatever their order of addition."""
+    it, ip = 10, 12
+    theta = (it + 0.5) * 2 * np.pi / cfg.n_theta
+    phi = cfg.phi_min + (ip + 0.5) * (cfg.phi_max - cfg.phi_min) / cfg.n_phi
+    c = np.round(20.0 * np.array([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+                                  np.cos(phi)]) * 16) / 16
+    pts = (c + rng.integers(-4, 5, size=(n, 3)) / 16.0).astype(np.float32)
+    bounds = torch.zeros((cfg.n_voxels + 1, 2), device=dev)
+    bounds[:, 1] = 1000.0
+    anchors = torch.zeros((cfg.n_voxels + 1, 3), device=dev)
+    anchors[ip * cfg.n_theta + it] = torch.from_numpy(c.astype(np.float32)).to(dev)
+    return torch.from_numpy(pts).to(dev), types.SimpleNamespace(bounds=bounds, anchors=anchors)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -401,6 +446,8 @@ def main() -> int:
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"nvcc {name}.cu:\n{log.strip()}")
+    for name, usage in ptxas_usage(logs).items():
+        print(f"ptxas {name}: {usage}")
 
     # -- data: the drive bench.py times -----------------------------------
     t0 = time.perf_counter()
@@ -439,6 +486,30 @@ def main() -> int:
         max_err = max(max_err, err)
     check(bool((outs["shuffled"][:, 0] == outs["X=1m/0.02rad"][:, 0]).all()),
           "shuffled order changed the kernel's counts")
+    zero6 = torch.zeros(6, device=dev)
+    vox_pts, vox_model = one_voxel_case(cfg, dev, pts.shape[0], rng)
+    far = types.SimpleNamespace(bounds=torch.full_like(model.bounds, 1e4),
+                                anchors=model.anchors)
+    single = next(k for k in range(0, pts.shape[0], 97)
+                  if edge_points(pts[k:k + 1], X_step, cfg) == 0
+                  and float(fused_moment_sums_reference(pts[k:k + 1], X_step, model.bounds,
+                                                        model.anchors, cfg)[:, 0].sum()) == 1.0)
+    edge_cases = {
+        "one voxel, N=65536": (vox_pts, zero6, vox_model),
+        "no member": (pts, X_step, far),
+        "N=1": (pts[single:single + 1].contiguous(), X_step, model),
+        "N=65537": (torch.cat([pts, pts[single:single + 1]]).contiguous(), X_step, model),
+    }
+    for name, (p, X, m) in edge_cases.items():
+        err, outs[name] = compare(name, p, X, m, cfg, report)
+        max_err = max(max_err, err)
+    vox = outs["one voxel, N=65536"][:, 0]
+    check(float(vox.sum()) == vox_pts.shape[0] and int((vox > 0).sum()) == 1,
+          "one voxel: not every point counted in one row")
+    check(bool((outs["no member"] == 0).all()), "no member: nonzero sums")
+    check(float(outs["N=1"][:, 0].sum()) == 1.0, "N=1: the point is not counted once")
+    check(torch.equal(outs["N=65537"][:, 0] - outs["X=1m/0.02rad"][:, 0], outs["N=1"][:, 0]),
+          "N=65537: counts are not N=65536's plus N=1's")
     for line in report:
         print(f"fused moments vs plain, {line}")
 
@@ -452,6 +523,13 @@ def main() -> int:
     report = []
     enc_err = max(encoder_compare("drive filter input", net, x_enc, report),
                   encoder_compare("37-voxel batch", net, x37, report))
+    for b_enc in (1, 37, 1801):
+        for p_enc in (1, 63, 64, 65, 200):
+            xyz = rng.normal(size=(b_enc, p_enc, 3)).astype(np.float32) * 0.5
+            tag = np.where(np.arange(p_enc) < p_enc // 2, -1.0, 1.0).astype(np.float32)
+            xs = np.concatenate([xyz, np.broadcast_to(tag[None, :, None], (b_enc, p_enc, 1))], -1)
+            enc_err = max(enc_err, encoder_compare(f"B={b_enc} P={p_enc}", net,
+                                                   torch.from_numpy(xs).to(dev), report))
     for line in report:
         print(f"encoder vs plain, {line}")
 
@@ -554,7 +632,6 @@ def main() -> int:
           f"max |card - CPU| {float(np.abs(fX - cX).max()):.3e}")
 
     # -- windowed moments kernel vs plain, then its own path ----------------
-    zero6 = torch.zeros(6, device=dev)
     fanchors = voxel_anchors(fbounds, fixed)
     report = []
     win_cases = {
@@ -796,6 +873,12 @@ def main() -> int:
     enc_bytes = b * p * 16 + b * 256 * 4 + sum(t.numel() * t.element_size() for t in w)
     enc_bound, enc_by = bound(enc_bytes, 2.0 * (4 * 64 + 64 * 128 + 128 * 256) * b * p,
                               PEAK_BF16_PER_S)
+    # The second floor: ~16 float32 instructions an element of the three
+    # LayerNorm epilogues (64 + 128 + 256 elements a point), at the card's
+    # float32 issue rate (half the published flop rate, which counts an FMA
+    # as two).
+    epi_instr = 16.0 * (64 + 128 + 256) * b * p
+    epi_floor = epi_instr / (PEAK_FP32_PER_S / 2) * 1e3
 
     # The launch alone (zeroing the table, the kernel), and the wrapper with
     # its host read of the ids' range.
@@ -826,7 +909,8 @@ def main() -> int:
           f"function, so library_ms is null")
     print(f"  encoder {enc_ms:.5f} ({enc_ev:.5f}) at B={b} P={p} tile 16, plain "
           f"{enc_plain_ms:.4f} ({enc_plain_ev:.4f}), bound {enc_bound:.6f} ({enc_by}: "
-          f"{enc_bytes} B); no single PyTorch call computes Dense+LayerNorm+ReLU x3 + "
+          f"{enc_bytes} B), epilogue floor {epi_floor:.6f} ({epi_instr:.3e} float32 "
+          f"instructions); no single PyTorch call computes Dense+LayerNorm+ReLU x3 + "
           f"max-pool, so library_ms is null")
     print(f"  scatter {scat_ms:.5f} ({scat_ev:.5f}; the wrapper with its id check "
           f"({scat_wrapper_ev:.5f})) at N={n} V={cfg.n_voxels}, plain {scat_plain_ms:.5f} "

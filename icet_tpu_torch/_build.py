@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface, ``_build/<name>-<hash>.so``, where the hash covers the
-source and the flags: an edited source builds anew, an unchanged one is
-loaded as it is.  Several sources build in parallel, one ``nvcc`` each.
+source, the shared headers ``csrc/*.cuh`` and the flags: an edited source
+or header builds anew, an unchanged one is loaded as it is.  Several sources build in parallel, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -43,9 +43,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """``_build/<name>-<hash>.so``, the hash over the source, every shared
+    header of ``csrc/`` (``*.cuh``, which a source may include) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:

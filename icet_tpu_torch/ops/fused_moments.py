@@ -7,7 +7,9 @@ on CUDA tensors and takes the plain version,
 kernel ``icet_tpu/ops/pallas_fused.py::_kernel`` and computes what
 ``icet_tpu/solver.py::_jnp_sums`` computes.  The kernel holds the whole
 voxel table in shared memory, so it has no window: nothing overflows, and
-``IterationDiag.windowed_overflow`` is always 0 in the port.
+``IterationDiag.windowed_overflow`` is always 0 in the port.  One launch a
+call: after a grid barrier the blocks sum each other's compacted partials
+(``launch_plan`` and ``scratch_floats`` size them).
 
 ``fused_moment_sums_windowed`` is the port of the TPU's windowed variant
 (``_windowed_kernel``, kernel ``csrc/fused_moments_windowed.cu``): each
@@ -33,8 +35,10 @@ from icet_tpu_torch.ops.moments import N_FEATURES, voxel_moment_sums
 
 #: shared memory one block can hold on Hopper (227 KB)
 MAX_SHARED_BYTES = 232_448
-#: points each block walks, which sets the grid (at most 2 blocks per SM)
-POINTS_PER_BLOCK = 1024
+#: threads a block of the kernel (``kThreads`` in ``csrc/fused_moments.cu``)
+THREADS = 512
+#: the fewest points a block takes before the grid stops growing
+MIN_POINTS_PER_BLOCK = 256
 
 
 def fused_moment_sums_reference(
@@ -60,7 +64,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_moments")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icet_fused_moment_sums.argtypes = [
-        p, i, p, p, p, i, i, i, f, f, f, p, i, p, p,
+        p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p,
     ]
     lib.icet_fused_moment_sums.restype = i
     lib.icet_cuda_error_string.argtypes = [i]
@@ -73,6 +77,35 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def bitmap_words(n_voxels: int) -> int:
+    """32-bit words of a block's touched-row bitmap over the V+1 rows."""
+    return -(-(n_voxels + 1) // 32)
+
+
+def shared_bytes(n_voxels: int) -> int:
+    """Dynamic shared memory of one block: the (V+1, 10) float table, the
+    bitmap and its per-word prefix counts; or, if larger, the combine's
+    (THREADS, 10) run sums."""
+    return 4 * max((n_voxels + 1) * 10 + 2 * bitmap_words(n_voxels), THREADS * 10)
+
+
+def launch_plan(n: int, n_voxels: int, sm_count: int) -> tuple[int, int, int]:
+    """``(blocks, points a block, cap)`` of one launch: at most one block an
+    SM and at least ``MIN_POINTS_PER_BLOCK`` points a block (one block when
+    ``n`` is 0), each block a contiguous slice of ``ceil(n / blocks)``
+    points; ``cap`` bounds the rows one block can touch (its points, and
+    the V voxel rows; the sentinel row is never a member's)."""
+    blocks = max(1, min(sm_count, -(-n // MIN_POINTS_PER_BLOCK)))
+    per_block = -(-n // blocks)
+    return blocks, per_block, max(1, min(n_voxels, per_block))
+
+
+def scratch_floats(blocks: int, cap: int, n_voxels: int) -> int:
+    """32-bit elements of the kernel's scratch: each block's compacted
+    (cap, 10) rows, then its bitmap and its prefix counts."""
+    return blocks * cap * 10 + 2 * blocks * bitmap_words(n_voxels)
+
+
 def _check(pts, X, bounds, anchors, cfg: ICETConfig) -> None:
     v1 = cfg.n_voxels + 1
     if cfg.radial_mode != "adaptive":
@@ -80,9 +113,9 @@ def _check(pts, X, bounds, anchors, cfg: ICETConfig) -> None:
             "the fused moments kernel takes adaptive radial mode only; "
             "fixed mode's table does not fit shared memory"
         )
-    if v1 * 10 * 4 > MAX_SHARED_BYTES:
+    if shared_bytes(cfg.n_voxels) > MAX_SHARED_BYTES:
         raise ValueError(
-            f"{v1} voxel rows x 40 B exceed one block's shared memory"
+            f"{v1} voxel rows x 40 B and their bitmap exceed one block's shared memory"
         )
     shapes = {"pts": (pts, (pts.shape[0], 3)), "X": (X, (6,)),
               "bounds": (bounds, (v1, 2)), "anchors": (anchors, (v1, 3))}
@@ -108,29 +141,29 @@ def fused_moment_sums(
 ) -> torch.Tensor:
     """``(V+1, 16)`` anchored moment sums of ``pts`` transformed by ``X``.
 
-    CUDA tensors go to the kernel (``fused_moment_sums.launches`` counts
-    its launches); CPU tensors go to :func:`fused_moment_sums_reference`.
-    Columns 10-15 and the sentinel row V are zero.
+    CUDA tensors go to the kernel, one launch a call
+    (``fused_moment_sums.launches`` counts its launches); CPU tensors go to
+    :func:`fused_moment_sums_reference`.  Columns 10-15 and the sentinel
+    row V are zero.
     """
     if pts.device.type == "cpu":
         return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
     if pts.device.type != "cuda":
         raise ValueError(f"no fused moments kernel for device {pts.device}")
     _check(pts, X, bounds, anchors, cfg)
-    n = pts.shape[0]
-    v1 = cfg.n_voxels + 1
+    n, V = pts.shape[0], cfg.n_voxels
     index = pts.device.index if pts.device.index is not None else torch.cuda.current_device()
-    blocks = max(1, min(2 * _sm_count(index), -(-n // POINTS_PER_BLOCK)))
-    partial = torch.empty((blocks, v1, 10), dtype=torch.float32, device=pts.device)
-    out = torch.empty((v1, N_FEATURES), dtype=torch.float32, device=pts.device)
+    blocks, per_block, cap = launch_plan(n, V, _sm_count(index))
+    scratch = torch.empty(scratch_floats(blocks, cap, V), dtype=torch.float32, device=pts.device)
+    out = torch.empty((V + 1, N_FEATURES), dtype=torch.float32, device=pts.device)
     lib = _lib()
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.icet_fused_moment_sums(
             pts.data_ptr(), n, X.data_ptr(), bounds.data_ptr(),
-            anchors.data_ptr(), cfg.n_voxels, cfg.n_theta, cfg.n_phi,
+            anchors.data_ptr(), V, cfg.n_theta, cfg.n_phi,
             cfg.phi_min, cfg.phi_max - cfg.phi_min, cfg.min_range,
-            partial.data_ptr(), blocks, out.data_ptr(), stream,
+            scratch.data_ptr(), blocks, per_block, cap, out.data_ptr(), stream,
         )
     if err != 0:
         msg = lib.icet_cuda_error_string(err).decode()
