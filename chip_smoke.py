@@ -22,7 +22,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
       >= 99.5% of entries, outputs within 2e-2, tiles 8/16/32 bitwise
       equal;
    c. the moment scatter against ``index_add_`` at V = 1,800 (shared
-      table) and in fixed radial mode at V = 90,000 (global atomics);
+      table) and in fixed radial mode at V = 90,000 (global atomics); then
+      shuffled ids, 65,536 points in one voxel, every id on the sentinel,
+      N = 1, N = 65,537 and out-of-range ids (dropped) at V = 1,800, and
+      out-of-range ids at V = 90,000; counts exact, each with its
+      run-to-run difference; one device operation a call and no host
+      synchronisation in both branches;
 4. sequence odometry: the 24-frame drive through ``run_odometry_device``,
    fused-moments launches counted;
 5. DNN-filtered odometry: the same drive through ``OdometryPipeline`` with
@@ -33,7 +38,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. windowed moments (kernel #2) against its plain version at block 512,
    window 256: beam-major at X = 0 (and, with no overflow, against kernel
    #1) and at a 1 m step, shuffled (overflow > 0), fixed radial mode at
-   V = 90,000; then its own path, one windowed pass a frame of the drive
+   V = 90,000; then block 64 (more point blocks than SMs), windows 128
+   and 512, a ragged N, one voxel and no member, overflow and counts
+   exact; one device operation a call and no host synchronisation in both
+   radial modes; then its own path, one windowed pass a frame of the drive
    at the sequence drive's solutions, launches counted;
 9. keyframe odometry: the drive through ``run_keyframe_device`` and
    ``KeyframeOdometry`` at bench.py's keyframe config; keyframe indices of
@@ -44,8 +52,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. MapMaker at ``PROFILES["mapping"]``: launches counted, ring fill exact,
     trajectory ATE gated likewise;
 12. ScanMatcher: 6 frames, statuses and aligned clouds;
-13. times: CUDA-event medians of the odometry, keyframe and MapMaker
-    frames; for each kernel, its plain version and, where one exists, the
+13. times: CUDA-event medians of the odometry, keyframe, MapMaker and
+    pallas-moments frames; for each kernel, its plain version and, where one exists, the
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
     time over back-to-back calls; the encoder's LayerNorm-epilogue floor.
@@ -144,11 +152,15 @@ def median_ms(fn, reps: int, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time a call: the summed durations of the device work (kernels,
-    memsets, copies) that ``reps`` calls run, by torch.profiler.  Unlike a
-    CUDA-event time over back-to-back calls, it leaves out the gaps where
-    the device waits for the host to launch the next call."""
+def device_profile(fn, reps: int) -> dict[str, tuple[float, float]]:
+    """``{device operation: (ms a call, recorded a call)}`` over ``reps``
+    calls of ``fn``, by torch.profiler: kernels, memsets, copies.  The
+    profiler can miss an operation's record now and then (on the H100, 12
+    of 20 encoder launches recorded in one run), and a missed record would
+    read as a shorter call.  So an operation's ms a call is its mean
+    recorded duration times the whole number of times a call runs it,
+    ``ceil(recorded / reps)``; with every record there, that is the summed
+    duration over ``reps``."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -156,10 +168,26 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / reps
+    us, seen = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+            seen[e.name] = seen.get(e.name, 0) + 1
+    return {name: (us[name] / seen[name] * -(-seen[name] // reps) / 1e3, seen[name] / reps)
+            for name in us}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time a call (:func:`device_profile`, summed over the device
+    operations).  Unlike a CUDA-event time over back-to-back calls, it
+    leaves out the gaps where the device waits for the host to launch the
+    next call."""
+    ops = device_profile(fn, reps)
+    check(bool(ops), "the profiler recorded no device time")
+    for name, (_, k) in ops.items():
+        if k != round(k):
+            print(f"profiler: {k:g} records a call of {name[:60]}: some were missed")
+    return sum(ms for ms, _ in ops.values())
 
 
 def kernel_times(fn, reps: int) -> tuple[float, float]:
@@ -242,17 +270,21 @@ def compare(name, pts, X, model, cfg, report):
     return float(err.max()), got
 
 
-def windowed_compare(name, pts, X, bounds, anchors, cfg, report):
+def windowed_compare(name, pts, X, bounds, anchors, cfg, report, block=WIN_BLOCK,
+                     window=WIN_WINDOW, exact=False):
     """Windowed moments kernel vs plain on one input; returns (max |error|
-    over rows whose counts agree, kernel sums, kernel overflow)."""
+    over rows whose counts agree, kernel sums, kernel overflow).  With
+    ``exact``, overflow and counts must match exactly, with no slack for the
+    points near a bin edge."""
     from icet_tpu_torch.ops.fused_moments import (
         fused_moment_sums_windowed,
         fused_moment_sums_windowed_reference,
     )
 
-    got, ovf = fused_moment_sums_windowed(pts, X, bounds, anchors, cfg, WIN_BLOCK, WIN_WINDOW)
+    got, ovf = fused_moment_sums_windowed(pts, X, bounds, anchors, cfg, block, window)
+    again, _ = fused_moment_sums_windowed(pts, X, bounds, anchors, cfg, block, window)
     want, want_ovf = fused_moment_sums_windowed_reference(pts, X, bounds, anchors, cfg,
-                                                          WIN_BLOCK, WIN_WINDOW)
+                                                          block, window)
     torch.cuda.synchronize()
     ovf, want_ovf = int(ovf), int(want_ovf)
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite windowed sums")
@@ -261,21 +293,50 @@ def windowed_compare(name, pts, X, bounds, anchors, cfg, report):
     edges = edge_points(pts, X, cfg)
     check(edges <= EDGE_CAP * pts.shape[0],
           f"{name}: {edges} points within {EDGE_RAD} rad of a bin edge")
-    check(abs(ovf - want_ovf) <= edges,
+    slack = 0 if exact else edges
+    check(abs(ovf - want_ovf) <= slack,
           f"{name}: overflow {ovf} vs plain {want_ovf} with {edges} edge points")
     dcount = (got[:, 0] - want[:, 0]).abs()
-    check(float(dcount.sum()) <= 2 * edges,
+    check(float(dcount.sum()) <= 2 * slack,
           f"{name}: counts differ by {float(dcount.sum())} with {edges} edge points")
     same = dcount == 0
     err = (got[same, :10] - want[same, :10]).abs()
     tol = ATOL + RTOL * want[same, :10].abs()
     check(bool((err <= tol).all()), f"{name}: features differ by up to {float(err.max())}")
     report.append(
-        f"{name}: V={cfg.n_voxels}, in-window members {int(want[:, 0].sum())}, overflow "
-        f"{ovf} (plain {want_ovf}), edge points {edges}, count diffs {int(dcount.sum())}, "
-        f"max |err| {float(err.max()):.3e}"
+        f"{name}: N={pts.shape[0]} V={cfg.n_voxels} block {block} window {window}, in-window "
+        f"members {int(want[:, 0].sum())}, overflow {ovf} (plain {want_ovf}), edge points "
+        f"{edges}, count diffs {int(dcount.sum())}, max |err| {float(err.max()):.3e}, "
+        f"run-to-run max |diff| {float((got - again).abs().max()):.3e}"
     )
     return float(err.max()), got, ovf
+
+
+def check_one_launch(what: str, fn, wrapper, kernel: str, report, reps: int = 10) -> None:
+    """``fn`` runs ``kernel`` and no other device operation (no memset, no
+    copy, no second kernel), at most once a call, with any host
+    synchronisation an error (``torch.cuda.set_sync_debug_mode``), and
+    ``wrapper``'s launch counter rises by one a call.  The profiler can
+    miss a record (:func:`device_profile`), so fewer than one recorded a
+    call is reported, not failed."""
+
+    def strict():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    before = wrapper.launches
+    prof = device_profile(strict, reps)
+    launched = wrapper.launches - before
+    ops = sum(k for _, k in prof.values())
+    others = sorted(name for name in prof if kernel not in name)
+    check(not others and 0 < ops <= 1 and launched == reps + 1,
+          f"{what}: {ops} device operations a call, others than {kernel}: {others}, "
+          f"{launched} launches counted in {reps + 1} calls")
+    report.append(f"{what}: only {kernel} on the device, {ops:g} a call, no host "
+                  f"synchronisation")
 
 
 def filter_input(model, samples1, scan2, X, cfg):
@@ -344,9 +405,12 @@ def scatter_inputs(pts, X, bounds, anchors, cfg):
 
 
 def scatter_compare(name, vid, feats, n_voxels, report) -> float:
+    """Moment scatter kernel vs plain on one input, twice (the run-to-run
+    difference); counts exact.  Returns the max |error|."""
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
 
     got = moment_scatter_sums(vid, feats, n_voxels)
+    again = moment_scatter_sums(vid, feats, n_voxels)
     want = moment_scatter_reference(vid, feats, n_voxels)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite scatter sums")
@@ -354,9 +418,36 @@ def scatter_compare(name, vid, feats, n_voxels, report) -> float:
     err = (got - want).abs()
     check(bool((err <= ATOL + RTOL * want.abs()).all()),
           f"{name}: scatter sums differ by up to {float(err.max())}")
-    report.append(f"{name}: V={n_voxels}, members {int(want[:, 0].sum())}, "
-                  f"counts exact, max |err| {float(err.max()):.3e}")
+    report.append(f"{name}: N={vid.shape[0]} V={n_voxels}, count {int(want[:, 0].sum())}, "
+                  f"counts exact, max |err| {float(err.max()):.3e}, run-to-run max |diff| "
+                  f"{float((got - again).abs().max()):.3e}")
     return float(err.max())
+
+
+def scatter_edge_cases(vid, feats, n_voxels, rng):
+    """Phase 3c's edge inputs from the drive's (vid, feats): {name: (vid,
+    feats)}.  Where every row lands in one row, the features are dyadic
+    (multiples of 1/16 below 4, a count column of ones), so every sum is
+    exact in float32 whatever the order of addition."""
+    n, dev = vid.shape[0], vid.device
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    dyadic = torch.from_numpy(rng.integers(-63, 64, size=(n, 16)) / 16.0).float().to(dev)
+    dyadic[:, 0] = 1.0
+    bad = vid.clone()
+    rows = torch.from_numpy(rng.permutation(n)[:5 * 1000]).to(dev).reshape(5, 1000)
+    v_pad = -(-(n_voxels + 1) // 128) * 128
+    for k, v in enumerate((-1, n_voxels + 1, v_pad + 5, 2**31 - 1, -2**31)):
+        bad[rows[k]] = v
+    single = int(torch.nonzero(feats[:, 0])[0])
+    return {
+        "shuffled ids": (vid[perm].contiguous(), feats[perm].contiguous()),
+        "one voxel, N=65536": (torch.full_like(vid, 37), dyadic),
+        "all on the sentinel": (torch.full_like(vid, n_voxels), dyadic),
+        "N=1": (vid[single:single + 1].contiguous(), feats[single:single + 1].contiguous()),
+        "N=65537": (torch.cat([vid, vid[single:single + 1]]).contiguous(),
+                    torch.cat([feats, feats[single:single + 1]]).contiguous()),
+        "out-of-range ids": (bad, feats),
+    }
 
 
 def ptxas_usage(logs: dict) -> dict:
@@ -432,7 +523,6 @@ def main() -> int:
     )
     from icet_tpu_torch.scan_matcher import ScanMatcher
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
-    from icet_tpu_torch.ops.moment_scatter import _launch as scatter_launch
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
 
@@ -541,6 +631,31 @@ def main() -> int:
     vid_f, feats_f = scatter_inputs(pts, X_step, fbounds, voxel_anchors(fbounds, fixed), fixed)
     scat_err = max(scatter_compare("shared table", vid_s, feats_s, cfg.n_voxels, report),
                    scatter_compare("global atomics", vid_f, feats_f, fixed.n_voxels, report))
+    scat_cases = scatter_edge_cases(vid_s, feats_s, cfg.n_voxels, rng)
+    for name, (v, f) in scat_cases.items():
+        scat_err = max(scat_err, scatter_compare(name, v, f, cfg.n_voxels, report))
+    v_big = scat_cases["out-of-range ids"][0].clone()
+    v_big[v_big == cfg.n_voxels + 1] = fixed.n_voxels + 1
+    scat_err = max(scat_err, scatter_compare("out-of-range ids, V=90000", v_big, feats_f,
+                                             fixed.n_voxels, report))
+    one = moment_scatter_sums(*scat_cases["one voxel, N=65536"], cfg.n_voxels)
+    sentinel = moment_scatter_sums(*scat_cases["all on the sentinel"], cfg.n_voxels)
+    dropped = moment_scatter_sums(*scat_cases["out-of-range ids"], cfg.n_voxels)
+    kept = scat_cases["out-of-range ids"][0] == vid_s
+    n = vid_s.shape[0]
+    check(float(one[37, 0]) == n and float(one[:, 0].sum()) == n,
+          "one voxel: not every point counted in its row")
+    check(float(sentinel[-1, 0]) == n and bool((sentinel[:-1] == 0).all()),
+          "all on the sentinel: not every point counted in row V")
+    check(int(kept.sum()) == n - 5000
+          and float(dropped[:, 0].sum()) == float(feats_s[kept, 0].sum()),
+          "out-of-range ids: not dropped")
+    # One device operation a call (no memset, no second kernel) and no host
+    # synchronisation, in both table branches.
+    for name, (v, f, nv) in {"shared table": (vid_s, feats_s, cfg.n_voxels),
+                             "global atomics": (vid_f, feats_f, fixed.n_voxels)}.items():
+        check_one_launch(name, lambda: moment_scatter_sums(v, f, nv), moment_scatter_sums,
+                         "scatter_kernel", report)
     for line in report:
         print(f"scatter vs index_add_, {line}")
 
@@ -646,6 +761,31 @@ def main() -> int:
         err, got, ovf = windowed_compare(name, *args, report)
         win_err, win_out[name] = max(win_err, err), (got, ovf)
     check(win_out["shuffled X=1m/0.02rad"][1] > 0, "shuffled input did not overflow")
+    # Edge inputs, overflow and counts exact: more point blocks than SMs,
+    # narrower and wider windows, a ragged last block, one voxel, no member.
+    ragged = torch.cat([pts, pts[:217]]).contiguous()
+    win_edge = {
+        "block 64": (pts, X_step, model.bounds, model.anchors, cfg, 64, WIN_WINDOW),
+        "window 128": (pts, X_step, model.bounds, model.anchors, cfg, WIN_BLOCK, 128),
+        "window 512": (pts, X_step, model.bounds, model.anchors, cfg, WIN_BLOCK, 512),
+        "ragged N=65753": (ragged, X_step, model.bounds, model.anchors, cfg, WIN_BLOCK,
+                           WIN_WINDOW),
+        "one voxel, N=65536": (vox_pts, zero6, vox_model.bounds, vox_model.anchors, cfg,
+                               WIN_BLOCK, WIN_WINDOW),
+        "no member": (pts, X_step, far.bounds, far.anchors, cfg, WIN_BLOCK, WIN_WINDOW),
+    }
+    for name, (*args, blk, win) in win_edge.items():
+        err, got, ovf = windowed_compare(name, *args, report, blk, win, exact=True)
+        win_err, win_out[name] = max(win_err, err), (got, ovf)
+    vox = win_out["one voxel, N=65536"]
+    check(float(vox[0][:, 0].sum()) == vox_pts.shape[0] and vox[1] == 0,
+          "windowed, one voxel: not every point counted in its row")
+    check(bool((win_out["no member"][0] == 0).all()) and win_out["no member"][1] > 0,
+          "windowed, no member: nonzero sums or no overflow")
+    for name, args in {"adaptive": win_cases["beam-major X=1m/0.02rad"],
+                       "fixed radial": win_cases["fixed radial X=1m/0.02rad"]}.items():
+        check_one_launch(name, lambda: fused_moment_sums_windowed(*args, WIN_BLOCK, WIN_WINDOW),
+                         fused_moment_sums_windowed, "windowed_kernel", report)
     got0, ovf0 = win_out["beam-major X=0"]
     if ovf0 == 0:
         # At X = 0 the raw and transformed range gates agree: with nothing
@@ -838,6 +978,14 @@ def main() -> int:
 
     map_frame_ms = median_ms(map_pass, reps=1, rounds=3) / steps
 
+    def pallas_pass():
+        m, x = model0, torch.zeros(6, device=dev)
+        for k in range(1, PALLAS_FRAMES):
+            res, m = odometry_step(m, drive[k], x, pcfg)
+            x = res.X
+
+    pallas_frame_ms = median_ms(pallas_pass, reps=1, rounds=3) / (PALLAS_FRAMES - 1)
+
     fused_ms, fused_ev = kernel_times(
         lambda: fused_moment_sums(pts, X_step, model.bounds, model.anchors, cfg), reps=100)
     fused_plain_ms, fused_plain_ev = kernel_times(
@@ -880,11 +1028,7 @@ def main() -> int:
     epi_instr = 16.0 * (64 + 128 + 256) * b * p
     epi_floor = epi_instr / (PEAK_FP32_PER_S / 2) * 1e3
 
-    # The launch alone (zeroing the table, the kernel), and the wrapper with
-    # its host read of the ids' range.
     scat_ms, scat_ev = kernel_times(
-        lambda: scatter_launch(vid_s, feats_s, cfg.n_voxels), reps=100)
-    scat_wrapper_ev = median_ms(
         lambda: moment_scatter_sums(vid_s, feats_s, cfg.n_voxels), reps=100)
     scat_plain_ms, scat_plain_ev = kernel_times(
         lambda: moment_scatter_reference(vid_s, feats_s, cfg.n_voxels), reps=100)
@@ -897,7 +1041,8 @@ def main() -> int:
 
     print(f"times ({card}): odometry frame {frame_ms:.4f} ms, DNN-filtered frame "
           f"{dnn_frame_ms:.4f} ms, keyframe frame {kf_frame_ms:.4f} ms, DNN-filtered "
-          f"keyframe frame {dkf_frame_ms:.4f} ms, MapMaker frame {map_frame_ms:.4f} ms")
+          f"keyframe frame {dkf_frame_ms:.4f} ms, MapMaker frame {map_frame_ms:.4f} ms, "
+          f"pallas-moments frame {pallas_frame_ms:.4f} ms")
     print(f"times ({card}), device ms a call by the profiler (CUDA events over "
           f"back-to-back calls in brackets):")
     print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
@@ -912,8 +1057,8 @@ def main() -> int:
           f"{enc_bytes} B), epilogue floor {epi_floor:.6f} ({epi_instr:.3e} float32 "
           f"instructions); no single PyTorch call computes Dense+LayerNorm+ReLU x3 + "
           f"max-pool, so library_ms is null")
-    print(f"  scatter {scat_ms:.5f} ({scat_ev:.5f}; the wrapper with its id check "
-          f"({scat_wrapper_ev:.5f})) at N={n} V={cfg.n_voxels}, plain {scat_plain_ms:.5f} "
+    print(f"  scatter {scat_ms:.5f} ({scat_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
+          f"{scat_plain_ms:.5f} "
           f"({scat_plain_ev:.5f}), index_add_ {scat_lib_ms:.5f} ({scat_lib_ev:.5f}), bound "
           f"{scat_bound:.6f} ({scat_by})")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

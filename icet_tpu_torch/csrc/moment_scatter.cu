@@ -1,129 +1,208 @@
 // Moment scatter: out[vid[i], f] += feats[i, f] for N points and 16
-// feature columns, the accumulator of moment_method="pallas".
+// feature columns, the accumulator of moment_method="pallas".  Ids outside
+// [0, rows) are dropped.
 //
 // Replaces the TPU kernel icet_tpu/ops/pallas_moments.py::_moment_kernel
 // (wrapper pallas_moment_sums, pallas_call at pallas_moments.py:86), which
 // built a (block, V) one-hot matrix in VMEM and contracted it with the
-// feature block on the MXU.  On Hopper the scatter is done directly with
-// atomics; there is no one-hot.
+// feature block on the MXU; an id that matches no one-hot column (negative,
+// or past the table) adds nothing, and so it is dropped here.  On Hopper the
+// scatter is done directly with atomics; there is no one-hot.
 //
 // Bound on the card: the call must read the ids and the features (68 B a
 // point, 4.46 MB at N = 65,536) and write the (V+1, 16) table (115 KB at
 // V = 1,800): 1.36 us at 3.35 TB/s.  One add a feature element, so bytes
-// bound it.
+// bound it.  At this size the call is set by latency: the loads in flight,
+// the adds that collide on one row, and the sum across blocks.
 //
-// Design: one thread per (point, column) element, so the 16 lanes that
-// share a point add into 16 different columns of its row and a warp's
-// atomics land on at most two rows.  Reads of the features are coalesced.
-//   * shared branch (table of (V+1) x 16 floats fits one block's shared
-//     memory: V+1 <= 3,631): each block takes a contiguous slice of the
-//     elements, finds the band of rows its nonzero elements go to, sums
-//     them into a shared copy of that band with shared-memory atomics, then
-//     adds the band's nonzero entries into the output with global atomics.
-//     A beam-major scan sends a slice to a narrow band of voxels (about one
-//     ring of 75 azimuth bins at 1,024 points a slice), and the moment
-//     features of non-members are zero, so the band stays small.
-//   * global branch (larger tables, e.g. fixed radial mode's 90,001 rows):
-//     grid-stride over the elements, global atomics straight into the
-//     output.
-// The output is zeroed on the stream first.  Float atomics commit in
-// hardware order, so the feature sums can differ in their last bits from
-// run to run; a count column of ones is exact.
+// Design, one cooperative launch a call, no memset:
+// - Four lanes a point, each loading one 16-byte quarter of its 64-byte
+//   row (a warp reads 8 consecutive rows, 512 contiguous bytes), and the
+//   point's id; at most one block of 1,024 threads an SM, each block a
+//   contiguous slice of the points, the next round's loads issued before
+//   this round's adds.
+// - Warp aggregation: the lanes of one column quarter that share an id
+//   form a group (__match_any_sync); the group's lowest lane sums the
+//   group's float4s (a shuffle tree when the whole warp shares one id,
+//   the common case of a beam-major scan, else ordered shuffles) and alone
+//   adds the sum, skipping an all-zero one (a non-member's features).
+// - Tables of up to 3,631 rows (the drive's 1,801): the whole table in the
+//   block's shared memory, summed with shared atomics; then, after a grid
+//   barrier, every nonzero float4 of it is added to the output with one
+//   16-byte global atomic (sm_90).  The output is zeroed by the grid before
+//   the barrier.  The barrier is cooperative_groups' grid sync: the launch
+//   is cooperative, so all blocks are resident.
+// - Larger tables (fixed radial mode's 90,001 rows): the output is zeroed,
+//   then after the grid barrier the groups' sums go straight to it with
+//   16-byte global atomics.
+// The cross-block sum is in hardware order, not a fixed one: within a block
+// the shared atomics of different warps commit in hardware order anyway, so
+// a fixed-order combine would not make the sums reproducible, and the
+// atomics need no round trip after the barrier.  The float sums can differ
+// in their last bits from run to run; a count column of ones is exact.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCols = 16;
+constexpr int kThreads = 1024;
+constexpr int kQuarters = 4;                          // float4s of a 16-float row
+constexpr int kPointsPerRound = kThreads / kQuarters;  // 256
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-scatter_shared(const int* __restrict__ vid, const float* __restrict__ feats,
-               long long elements, int rows, long long per_block,
-               float* __restrict__ out) {
-  extern __shared__ float band[];
-  __shared__ int span[2];
-  if (threadIdx.x == 0) {
-    span[0] = rows;
-    span[1] = -1;
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+                     __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+}
+
+__device__ __forceinline__ float4 shfl_xor4(float4 v, int mask) {
+  return make_float4(__shfl_xor_sync(kFull, v.x, mask), __shfl_xor_sync(kFull, v.y, mask),
+                     __shfl_xor_sync(kFull, v.z, mask), __shfl_xor_sync(kFull, v.w, mask));
+}
+
+__device__ __forceinline__ bool nonzero(float4 v) {
+  return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
+}
+
+// Sums into f, on the lowest lane of each group of lanes with the same key
+// and the same column quarter, the group's float4s; returns true on that
+// lane when its key is a row (>= 0).  Every lane of the warp calls it.
+__device__ __forceinline__ bool aggregate(int key, float4& f) {
+  const int lane = threadIdx.x % 32;
+  const unsigned same = __match_any_sync(kFull, key);
+  if (same == kFull) {  // one key in the whole warp: a tree over the 8 points
+    f = add4(f, shfl_xor4(f, 4));
+    f = add4(f, shfl_xor4(f, 8));
+    f = add4(f, shfl_xor4(f, 16));
+    return key >= 0 && lane < kQuarters;
   }
-  __syncthreads();
-
-  // The band [lo, hi] of rows this block's slice adds nonzero values to
-  // (adding zero changes no sum, so zero elements are skipped throughout).
-  const long long begin = (long long)blockIdx.x * per_block;
-  const long long end = min(begin + per_block, elements);
-  int lo = rows, hi = -1;
-  for (long long e = begin + threadIdx.x; e < end; e += blockDim.x) {
-    if (feats[e] != 0.0f) {
-      const int v = vid[e / kCols];
-      lo = min(lo, v);
-      hi = max(hi, v);
-    }
+  const unsigned group = same & (0x11111111u << (lane % kQuarters));
+  const bool leader = key >= 0 && lane == __ffs(group) - 1;
+  unsigned rest = leader ? group & (group - 1u) : 0u;  // the group less its leader
+  const float4 mine = f;
+  while (__any_sync(kFull, rest != 0u)) {
+    const float4 v = shfl4(mine, rest ? __ffs(rest) - 1 : lane);
+    if (rest) f = add4(f, v);
+    rest &= rest - 1u;
   }
-  atomicMin(span, lo);
-  atomicMax(span + 1, hi);
-  __syncthreads();
-  lo = span[0];
-  hi = span[1];
-  if (hi < lo) return;  // the whole block sees the same span
-  const int cells = (hi - lo + 1) * kCols;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) band[i] = 0.0f;
-  __syncthreads();
+  return leader;
+}
 
-  for (long long e = begin + threadIdx.x; e < end; e += blockDim.x) {
-    const float s = feats[e];
-    if (s != 0.0f) atomicAdd(band + (vid[e / kCols] - lo) * kCols + (int)(e % kCols), s);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float s = band[i];
-    if (s != 0.0f) atomicAdd(out + (long long)lo * kCols + i, s);
+// The id (-1 when outside [0, rows) or past the slice) and the features'
+// quarter of point i.
+__device__ __forceinline__ void load_point(const int* __restrict__ vid,
+                                           const float4* __restrict__ feats, int i, int p1,
+                                           int rows, int& key, float4& f) {
+  key = -1;
+  f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < p1) {
+    const int v = __ldg(vid + i);
+    f = __ldg(feats + (size_t)i * kQuarters + threadIdx.x % kQuarters);
+    if ((unsigned)v < (unsigned)rows) key = v;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_global(const int* __restrict__ vid, const float* __restrict__ feats,
-               long long elements, float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < elements; e += stride) {
-    const float s = feats[e];
-    if (s != 0.0f) atomicAdd(out + (long long)vid[e / kCols] * kCols + e % kCols, s);
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+scatter_kernel(const int* __restrict__ vid, const float4* __restrict__ feats, int n,
+               int per_block, int rows, float4* __restrict__ out) {
+  extern __shared__ float4 table[];  // rows x 4 float4s (shared-table variant)
+  const int quarter = threadIdx.x % kQuarters;
+  const int p0 = blockIdx.x * per_block;
+  const int p1 = min(n, p0 + per_block);
+  // The first round's point, loaded before the zeroing so the load overlaps it.
+  int next_key;
+  float4 next_f;
+  load_point(vid, feats, p0 + threadIdx.x / kQuarters, p1, rows, next_key, next_f);
+
+  const int cells = rows * kQuarters;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int k = blockIdx.x * kThreads + threadIdx.x; k < cells; k += gridDim.x * kThreads)
+    out[k] = zero;
+  if (kShared) {
+    for (int k = threadIdx.x; k < cells; k += kThreads) table[k] = zero;
+    __syncthreads();
+  } else {
+    cooperative_groups::this_grid().sync();  // the output is zero everywhere
   }
+
+  // Every thread of the block runs the same number of rounds, so each
+  // round's warp-wide collectives see all 32 lanes.
+  for (int base = p0; base < p1; base += kPointsPerRound) {
+    int key = next_key;
+    float4 f = next_f;
+    load_point(vid, feats, base + kPointsPerRound + threadIdx.x / kQuarters, p1, rows,
+               next_key, next_f);
+    if (aggregate(key, f) && nonzero(f)) {
+      if (kShared) {
+        float* cell = reinterpret_cast<float*>(table + key * kQuarters + quarter);
+        atomicAdd(cell + 0, f.x);
+        atomicAdd(cell + 1, f.y);
+        atomicAdd(cell + 2, f.z);
+        atomicAdd(cell + 3, f.w);
+      } else {
+        atomicAdd(out + (size_t)key * kQuarters + quarter, f);
+      }
+    }
+  }
+
+  if (kShared) {
+    // Grid barrier: the output is zero everywhere and this block's table is
+    // complete; then its nonzero float4s are added to the output.
+    cooperative_groups::this_grid().sync();
+    for (int k = threadIdx.x; k < cells; k += kThreads) {
+      const float4 v = table[k];
+      if (nonzero(v)) atomicAdd(out + k, v);
+    }
+  }
+}
+
+// Above 48 KB of dynamic shared memory needs an opt-in, which is kept per
+// device: set it once a device and size (the current device may differ
+// from one call to the next).
+cudaError_t opt_in_shared(int smem) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static int opted_in[64] = {};
+  if (device < 64 && opted_in[device] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(scatter_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && device < 64) opted_in[device] = smem;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Zeroes out and launches one branch on `stream`; returns
-// cudaGetLastError() (0 = ok).  vid (n,) int32 in [0, rows), feats (n, 16)
-// float32, out (rows, 16) float32, all device arrays.
-int icet_moment_scatter(const void* vid, const void* feats, int n, int rows,
-                        void* out, int blocks, int shared, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)rows * kCols * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  const long long elements = (long long)n * kCols;
-  if (elements == 0) return (int)cudaGetLastError();
+// Launches the kernel on `stream`: `blocks` blocks of `per_block` points
+// each, the table in shared memory when `shared` is nonzero.  vid (n,)
+// int32, feats (n, 16) float32 (16-byte aligned), out (rows, 16) float32,
+// all device arrays.  A cooperative launch: it fails, rather than waits, if
+// the blocks cannot all be resident.  Returns cudaGetLastError() (0 = ok).
+int icet_moment_scatter(const void* vid, const void* feats, int n, int rows, void* out,
+                        int blocks, int per_block, int shared, void* stream) {
+  const int* p_vid = static_cast<const int*>(vid);
+  const float4* p_feats = static_cast<const float4*>(feats);
+  float4* p_out = static_cast<float4*>(out);
+  void* args[] = {&p_vid, &p_feats, &n, &per_block, &rows, &p_out};
+  const int smem = shared ? rows * kQuarters * (int)sizeof(float4) : 0;
+  cudaError_t err = cudaSuccess;
   if (shared) {
-    const int smem = rows * kCols * (int)sizeof(float);
-    // Above 48 KB of dynamic shared memory needs an opt-in, kept per
-    // device: set it on every call (the current device may differ).
-    err = cudaFuncSetAttribute(scatter_shared,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = opt_in_shared(smem);
     if (err != cudaSuccess) return (int)err;
-    const long long per_block = (elements + blocks - 1) / blocks;
-    scatter_shared<<<blocks, kThreads, smem, s>>>(
-        static_cast<const int*>(vid), static_cast<const float*>(feats),
-        elements, rows, per_block, static_cast<float*>(out));
-  } else {
-    scatter_global<<<blocks, kThreads, 0, s>>>(
-        static_cast<const int*>(vid), static_cast<const float*>(feats),
-        elements, static_cast<float*>(out));
   }
+  const void* kernel = shared ? reinterpret_cast<const void*>(scatter_kernel<true>)
+                              : reinterpret_cast<const void*>(scatter_kernel<false>);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

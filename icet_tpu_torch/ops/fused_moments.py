@@ -222,14 +222,49 @@ def fused_moment_sums_windowed_reference(
     return voxel_moment_sums(p2, vid, member, anchors, V), overflow
 
 
+#: most threads a block of the windowed kernel (``kMaxThreads`` in
+#: ``csrc/fused_moments_windowed.cu``)
+WIN_THREADS = 512
+#: the windowed kernel's static shared memory, bytes (its ``-Xptxas -v``)
+WIN_STATIC_SHARED = 16
+
+
+def windowed_plan(n: int, block: int, window: int) -> tuple[int, int, int, int]:
+    """``(point blocks, threads a block, cap, bitmap words)`` of one launch
+    of the windowed kernel: ``ceil(n / block)`` point blocks, blocks of
+    ``block`` threads rounded up to a warp (at most ``WIN_THREADS``), ``cap``
+    bounds the rows one point block can touch (its points, and the
+    window's ``window - 1`` columns; the last is the overflow slot), and
+    ``ceil(window / 32)`` words of its touched-row bitmap."""
+    threads = min(WIN_THREADS, -(-block // 32) * 32)
+    return -(-n // block), threads, max(1, min(window - 1, block)), -(-window // 32)
+
+
+def windowed_scratch_words(nb: int, cap: int, words: int) -> int:
+    """32-bit elements of the windowed kernel's scratch: each point block's
+    compacted (cap, 12) rows, its bitmap words with their prefix counts,
+    and its start and overflow count."""
+    return nb * cap * 12 + nb * words * 2 + nb * 2
+
+
+def windowed_shared_bytes(window: int) -> int:
+    """Dynamic shared memory of one block of the windowed kernel: the
+    (window, 10) float table, its bitmap and the bitmap's prefix counts."""
+    return window * 40 + 8 * (-(-window // 32))
+
+
 @functools.lru_cache(maxsize=None)
 def _windowed_lib() -> ctypes.CDLL:
     lib = _build.load("fused_moments_windowed")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icet_fused_moment_sums_windowed.argtypes = [
-        p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, p, p, p, p, p, p,
+        p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, i, i, p, p, p, p,
     ]
     lib.icet_fused_moment_sums_windowed.restype = i
+    lib.icet_windowed_shared_bytes.argtypes = [i]
+    lib.icet_windowed_shared_bytes.restype = i
+    if lib.icet_windowed_shared_bytes(256) != windowed_shared_bytes(256):
+        raise RuntimeError("the windowed kernel and its wrapper disagree on shared memory")
     lib.icet_cuda_error_string.argtypes = [i]
     lib.icet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -251,9 +286,10 @@ def _check_windowed(pts, X, bounds, anchors, cfg: ICETConfig, block: int, window
     # window <= v_pad holds by construction (v_pad >= 2 * window).
     if block < 1 or window < 1:
         raise ValueError(f"block {block} and window {window} must be positive")
-    # Shared memory of one block: the (window, 10) table and 20 B a point.
-    if window * 40 + block * 20 > MAX_SHARED_BYTES:
-        raise ValueError(f"block {block} and window {window} exceed one block's shared memory")
+    # Only the window lives in shared memory: any block size is taken, as
+    # the TPU kernel takes it.
+    if windowed_shared_bytes(window) > MAX_SHARED_BYTES - WIN_STATIC_SHARED:
+        raise ValueError(f"window {window} exceeds one block's shared memory")
     if pts.shape[0] >= 2**31 // 3 or v1 * N_FEATURES >= 2**31:
         raise ValueError("too many points or voxels for 32-bit indexing")
 
@@ -273,8 +309,8 @@ def fused_moment_sums_windowed(
     off their block's band are left out of the sums and counted in
     ``overflow``.  Adaptive and fixed radial modes.
 
-    CUDA tensors go to ``csrc/fused_moments_windowed.cu``
-    (``fused_moment_sums_windowed.launches`` counts its launches); CPU
+    CUDA tensors go to ``csrc/fused_moments_windowed.cu``, one launch a
+    call (``fused_moment_sums_windowed.launches`` counts its launches); CPU
     tensors go to :func:`fused_moment_sums_windowed_reference`.  It
     replaces the TPU kernel ``icet_tpu/ops/pallas_fused.py::_windowed_kernel``,
     which, as here, no solver path reaches: the port's solver uses
@@ -286,11 +322,10 @@ def fused_moment_sums_windowed(
         raise ValueError(f"no windowed fused moments kernel for device {pts.device}")
     _check_windowed(pts, X, bounds, anchors, cfg, block, window)
     n, v1 = pts.shape[0], cfg.n_voxels + 1
-    blocks = -(-n // block)
+    nb, threads, cap, words = windowed_plan(n, block, window)
     dev = pts.device
-    partial = torch.empty((max(blocks, 1), window, 10), dtype=torch.float32, device=dev)
-    starts = torch.empty(max(blocks, 1), dtype=torch.int32, device=dev)
-    block_ovf = torch.empty(max(blocks, 1), dtype=torch.int32, device=dev)
+    scratch = torch.empty(max(1, windowed_scratch_words(nb, cap, words)), dtype=torch.float32,
+                          device=dev)
     out = torch.empty((v1, N_FEATURES), dtype=torch.float32, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
     lib = _windowed_lib()
@@ -301,8 +336,7 @@ def fused_moment_sums_windowed(
             cfg.n_voxels, cfg.n_theta, cfg.n_phi, cfg.phi_min, cfg.phi_max - cfg.phi_min,
             cfg.min_range, int(cfg.radial_mode == "fixed"), cfg.n_shells,
             math.log(cfg.shell_growth), block, window, _windowed_v_pad(cfg.n_voxels, window),
-            partial.data_ptr(), starts.data_ptr(), block_ovf.data_ptr(), out.data_ptr(),
-            overflow.data_ptr(), stream,
+            threads, cap, scratch.data_ptr(), out.data_ptr(), overflow.data_ptr(), stream,
         )
     if err != 0:
         msg = lib.icet_cuda_error_string(err).decode()

@@ -127,7 +127,11 @@ def test_wrapper_checks():
         ((pts, X[:5], bounds, anchors, cfg, 512, 64), ValueError),
         ((torch.zeros(3, 300).T, X, bounds, anchors, cfg, 512, 64), ValueError),  # strided
         ((pts, X, bounds, anchors, cfg, 0, 64), ValueError),
-        ((pts, X, bounds, anchors, cfg, 16_384, 64), ValueError),  # shared memory
+        ((pts, X, bounds, anchors, cfg, 512, 6_000), ValueError),  # shared memory
     ):
         with pytest.raises(exc):
             tfm._check_windowed(*args)
+    # No point is staged in shared memory any more: any block is taken, as
+    # the TPU kernel takes it (tests/test_torch_fused_windowed_edges.py
+    # holds the plain version at such a block against the TPU kernel).
+    tfm._check_windowed(pts, X, bounds, anchors, cfg, 16_384, 64)

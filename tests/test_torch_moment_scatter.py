@@ -79,17 +79,28 @@ def test_wrapper_checks():
     feats = torch.zeros(3, 16)
     with pytest.raises(ValueError):
         tsc.moment_scatter_sums(vid.to("meta"), feats.to("meta"), 10)
-    tsc._check(vid, feats, 10)
+    tsc._check(vid, feats)
+    # Ids outside [0, V] are no longer refused: they are dropped, as the
+    # TPU kernel drops them, and the other rows are summed as before.
+    ones = torch.ones(3, 16)
+    for bad_vid in (torch.tensor([0, 3, 11], dtype=torch.int32),  # id > V
+                    torch.tensor([-1, 3, 4], dtype=torch.int32)):  # id < 0
+        tsc._check(bad_vid, ones)
+        got = tsc.moment_scatter_sums(bad_vid, ones, 10)
+        kept = (bad_vid >= 0) & (bad_vid <= 10)
+        want = torch.zeros(11, 16).index_add_(0, bad_vid[kept].long(), ones[kept])
+        assert got.shape == (11, 16)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert float(got[:, 0].sum()) == 2.0
     for bad_vid, bad_feats, exc in (
-        (torch.tensor([0, 3, 11], dtype=torch.int32), feats, ValueError),  # id > V
-        (torch.tensor([-1, 3, 4], dtype=torch.int32), feats, ValueError),  # id < 0
         (vid.long(), feats, TypeError),
         (vid, feats.double(), TypeError),
         (vid, torch.zeros(3, 10), ValueError),
         (vid, torch.zeros(16, 3).T, ValueError),  # not contiguous
+        (vid, torch.zeros(49)[1:].reshape(3, 16), ValueError),  # not 16-byte aligned
     ):
         with pytest.raises(exc):
-            tsc._check(bad_vid, bad_feats, 10)
+            tsc._check(bad_vid, bad_feats)
 
 
 @pytest.mark.parametrize("radial", ["adaptive", "fixed"])
