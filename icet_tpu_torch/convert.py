@@ -87,9 +87,10 @@ def bias_net_params_from_numpy(tree: dict) -> dict:
 
     Split as ``icet_tpu``'s ``_split_params``: one encoder stage per
     ``LayerNorm_i`` (with ``Dense_i``), the remaining ``Dense_i`` the head.
-    Encoder kernels are kept in float32 and, pre-rounded, in bf16 in the
-    ``(in, out)`` layout the CUDA kernel reads; encoder biases in bf16;
-    LayerNorm scale and bias and the head in float32."""
+    Encoder kernels and biases are kept in float32 and, pre-rounded, in
+    bf16 (kernels in the ``(in, out)`` layout the CUDA kernel reads; the
+    kernel reads only the bf16 copies); LayerNorm scale and bias and the
+    head in float32."""
     p = tree["params"]
 
     def f32(a):
@@ -100,7 +101,9 @@ def bias_net_params_from_numpy(tree: dict) -> dict:
         w = f32(p[f"Dense_{i}"]["kernel"])
         state[f"enc{i}_w"] = w
         state[f"enc{i}_w_bf16"] = w.to(torch.bfloat16)
-        state[f"enc{i}_b_bf16"] = f32(p[f"Dense_{i}"]["bias"]).to(torch.bfloat16)
+        b = f32(p[f"Dense_{i}"]["bias"])
+        state[f"enc{i}_b"] = b
+        state[f"enc{i}_b_bf16"] = b.to(torch.bfloat16)
         state[f"ln{i}_scale"] = f32(p[f"LayerNorm_{i}"]["scale"])
         state[f"ln{i}_bias"] = f32(p[f"LayerNorm_{i}"]["bias"])
         i += 1
@@ -111,6 +114,29 @@ def bias_net_params_from_numpy(tree: dict) -> dict:
         i += 1
         j += 1
     return state
+
+
+def bias_net_params_to_numpy(module) -> dict:
+    """The JAX package's flax parameter tree, float32 numpy, from a port
+    BiasNet (the serving ``models.bias_net.BiasNet`` or the trainable
+    ``models.bias_net.TrainableBiasNet``): ``{"params": {"Dense_i":
+    {kernel (in, out), bias}, "LayerNorm_i": {scale, bias}}}``, the encoder
+    stages first, then the head, numbered as flax numbers them."""
+    sd = module.state_dict()
+
+    def f32(name):
+        return sd[name].detach().to(torch.float32).cpu().numpy()
+
+    p, i = {}, 0
+    while f"enc{i}_w" in sd:
+        p[f"Dense_{i}"] = {"kernel": f32(f"enc{i}_w"), "bias": f32(f"enc{i}_b")}
+        p[f"LayerNorm_{i}"] = {"scale": f32(f"ln{i}_scale"), "bias": f32(f"ln{i}_bias")}
+        i += 1
+    j = 0
+    while f"head{j}_w" in sd:
+        p[f"Dense_{i + j}"] = {"kernel": f32(f"head{j}_w"), "bias": f32(f"head{j}_b")}
+        j += 1
+    return {"params": p}
 
 
 def config_from_icet(fields: dict) -> ICETConfig:

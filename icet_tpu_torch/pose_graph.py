@@ -1,0 +1,428 @@
+"""Pose-graph back end (``icet_tpu/pose_graph.py``): Gauss-Newton refinement
+of a trajectory from relative-pose factors, and loop closure.
+
+Factors are relative-pose measurements in the solver's convention (``p_i =
+R(-angs) p_j + t`` for a measurement X_ij between poses i and j), weighted
+by 6x6 information matrices: ``psd_pinv(res.Q)`` of a registration puts
+ICET's own predicted covariance to work.  Every residual and Jacobian is
+evaluated as one batch (``torch.func.vmap`` of ``jacfwd``), in float32.
+
+* :func:`optimize_poses`: dense Gauss-Newton, the (6K, 6K) normals and
+  their Cholesky (library calls, as the JAX package leaves them to XLA).
+* :func:`optimize_poses_sparse`: block-sparse Gauss-Newton with
+  preconditioned conjugate gradients, never densifying the normals.  The
+  "tridiag" preconditioner solves the odometry backbone exactly with the
+  CUDA kernels of ``ops/tridiag.py`` on the card; "jacobi" is one batched
+  6x6 Cholesky.  Fixed iteration counts, no read back to the host inside.
+* :func:`close_loops` verifies loop candidates by registration.
+
+Entry points run on CUDA unless given ``device="cpu"``.  Not ported yet:
+the sharded variants (``optimize_poses_sharded``,
+``optimize_poses_sparse_sharded``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from icet_tpu_torch.config import ICETConfig
+from icet_tpu_torch.device import as_points, resolve_device
+from icet_tpu_torch.ops.geometry import pose_matrix, pose_to_state
+from icet_tpu_torch.ops.linalg import psd_pinv
+from icet_tpu_torch.ops.tridiag import cholesky, tridiag_apply, tridiag_factor
+from icet_tpu_torch.solver import prepare_reference, register
+
+
+class PoseGraph(NamedTuple):
+    #: (F,) int64 indices of the "from" pose of each factor
+    idx_i: torch.Tensor
+    #: (F,) int64 indices of the "to" pose
+    idx_j: torch.Tensor
+    #: (F, 6) measured relative states X_ij
+    meas: torch.Tensor
+    #: (F, 6, 6) information (inverse covariance) of each measurement
+    info: torch.Tensor
+
+    def to(self, device) -> "PoseGraph":
+        """The graph on ``device``: indices int64, the rest float32."""
+        return PoseGraph(
+            idx_i=torch.as_tensor(self.idx_i).to(device=device, dtype=torch.int64),
+            idx_j=torch.as_tensor(self.idx_j).to(device=device, dtype=torch.int64),
+            meas=torch.as_tensor(self.meas).to(device=device, dtype=torch.float32),
+            info=torch.as_tensor(self.info).to(device=device, dtype=torch.float32),
+        )
+
+
+def _inv_pose(T: torch.Tensor) -> torch.Tensor:
+    """Rigid inverse ``[R^T | -R^T t]`` of a 4x4 pose."""
+    R = T[:3, :3]
+    t = T[:3, 3]
+    top = torch.cat([R.T, -(R.T @ t)[:, None]], dim=1)
+    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=T.dtype, device=T.device)
+    return torch.cat([top, bottom], dim=0)
+
+
+def _wrap(a: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+
+
+def _factor_residual(x_i: torch.Tensor, x_j: torch.Tensor, meas: torch.Tensor) -> torch.Tensor:
+    """6-DOF residual of one relative-pose factor: the state of ``T_i^-1
+    T_j`` minus the measurement, angles wrapped to [-pi, pi)."""
+    rel = _inv_pose(pose_matrix(x_i)) @ pose_matrix(x_j)
+    r = pose_to_state(rel) - meas
+    return torch.cat([r[:3], _wrap(r[3:])])
+
+
+def _factor_blocks(states: torch.Tensor, graph: PoseGraph):
+    """Per-factor normal-equation pieces, batched over the factors:
+    ``blocks (F, 4, 6, 6)`` (the ii, ij, ji, jj blocks) and ``rhs (F, 2,
+    6)`` (the i and j gradient pieces)."""
+
+    def one(xi, xj, meas, info):
+        r = _factor_residual(xi, xj, meas)
+        # Forward mode promotes a tangent to float64 on a division by a
+        # Python float; the products are taken in float32.
+        Ji, Jj = (J.to(xi.dtype) for J in
+                  torch.func.jacfwd(_factor_residual, argnums=(0, 1))(xi, xj, meas))
+        WJi = info @ Ji
+        WJj = info @ Jj
+        blocks = torch.stack([Ji.T @ WJi, Ji.T @ WJj, Jj.T @ WJi, Jj.T @ WJj])
+        Wr = info @ r
+        rhs = torch.stack([Ji.T @ Wr, Jj.T @ Wr])
+        return blocks, rhs
+
+    return torch.func.vmap(one)(
+        states[graph.idx_i], states[graph.idx_j], graph.meas, graph.info
+    )
+
+
+def _build_normals(states: torch.Tensor, graph: PoseGraph, prior_weight: float):
+    """The dense (6K, 6K) Gauss-Newton normals and the (6K,) gradient, with
+    the gauge prior pinning pose 0."""
+    K = states.shape[0]
+    blocks, rhs = _factor_blocks(states, graph)
+    bi, bj = graph.idx_i, graph.idx_j
+    H = states.new_zeros((K, K, 6, 6))
+    H.index_put_((bi, bi), blocks[:, 0], accumulate=True)
+    H.index_put_((bi, bj), blocks[:, 1], accumulate=True)
+    H.index_put_((bj, bi), blocks[:, 2], accumulate=True)
+    H.index_put_((bj, bj), blocks[:, 3], accumulate=True)
+    b = states.new_zeros((K, 6)).index_add_(0, bi, rhs[:, 0]).index_add_(0, bj, rhs[:, 1])
+    H[0, 0] += prior_weight * torch.eye(6, dtype=states.dtype, device=states.device)
+    return H.permute(0, 2, 1, 3).reshape(6 * K, 6 * K), b.reshape(6 * K)
+
+
+def _on_device(states0, graph: PoseGraph, device):
+    dev = resolve_device(device)
+    states = torch.as_tensor(states0).to(device=dev, dtype=torch.float32)
+    return states, graph.to(dev)
+
+
+def optimize_poses(
+    states0,
+    graph: PoseGraph,
+    n_iters: int = 10,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Dense Gauss-Newton refinement of ``(K, 6)`` pose states (numpy or a
+    tensor) from relative factors, on ``device`` (CUDA unless told
+    otherwise).  Returns the refined ``(K, 6)`` states; pose 0 is
+    gauge-fixed by a prior of ``prior_weight``."""
+    states, graph = _on_device(states0, graph, device)
+    K = states.shape[0]
+    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
+    for _ in range(n_iters):
+        H, b = _build_normals(states, graph, prior_weight)
+        H = H + damping * torch.trace(H) / (6 * K) * eye
+        dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
+        states = states + dx.reshape(K, 6)
+    return states
+
+
+def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0):
+    """The block-sparse normal equations at ``states``: the gradient ``b
+    (K, 6)``, the damped diagonal blocks ``diag_d (K, 6, 6)``, the
+    off-diagonal blocks of each factor ``off_ij, off_ji (F, 6, 6)`` and the
+    backbone's super-diagonal blocks ``E (K-1, 6, 6)`` (the consecutive
+    factors' ij blocks)."""
+    K = states.shape[0]
+    eye6 = torch.eye(6, dtype=states.dtype, device=states.device)
+    if robust_delta > 0.0:
+        # Cauchy IRLS: factor weight 1 / (1 + chi2 / delta^2), from the
+        # original information at the current states (a redescending
+        # kernel: a grossly wrong loop factor is switched off).
+        r = torch.func.vmap(_factor_residual)(
+            states[graph.idx_i], states[graph.idx_j], graph.meas
+        )
+        chi2 = torch.einsum("fa,fab,fb->f", r, graph.info, r)
+        w = 1.0 / (1.0 + chi2 / robust_delta**2)
+        graph = graph._replace(info=graph.info * w[:, None, None])
+    blocks, rhs = _factor_blocks(states, graph)
+    bi, bj = graph.idx_i, graph.idx_j
+
+    b = states.new_zeros((K, 6)).index_add_(0, bi, rhs[:, 0]).index_add_(0, bj, rhs[:, 1])
+    diag = states.new_zeros((K, 6, 6)).index_add_(0, bi, blocks[:, 0]).index_add_(
+        0, bj, blocks[:, 3])
+    diag[0] += prior_weight * eye6
+    # The dense path's damping scale: damping * trace(H) / (6K).
+    scale = damping * torch.diagonal(diag, dim1=-2, dim2=-1).sum() / (6 * K)
+    diag_d = diag + scale * eye6
+    # Consecutive factors form the backbone; the others go to a dropped row.
+    consec = bj == bi + 1
+    sent = torch.where(consec, bi, K - 1)
+    E = states.new_zeros((K, 6, 6)).index_add_(
+        0, sent, torch.where(consec[:, None, None], blocks[:, 1], 0.0))
+    return b, diag_d.contiguous(), blocks[:, 1], blocks[:, 2], E[: K - 1].contiguous()
+
+
+def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+                    precond_kind="tridiag", robust_delta=0.0):
+    """One Gauss-Newton step without densifying H: the system is applied
+    factor by factor (block-sparse matvec) and solved by ``cg_iters``
+    preconditioned CG iterations.  Returns the updated states."""
+    b, diag_d, off_ij, off_ji, E = _sparse_normals(states, graph, prior_weight, damping,
+                                                   robust_delta)
+    bi, bj = graph.idx_i, graph.idx_j
+
+    def matvec(v):
+        off = torch.zeros_like(v)
+        off.index_add_(0, bi, torch.einsum("fab,fb->fa", off_ij, v[bj]))
+        off.index_add_(0, bj, torch.einsum("fab,fb->fa", off_ji, v[bi]))
+        return torch.einsum("kab,kb->ka", diag_d, v) + off
+
+    if precond_kind == "tridiag":
+        # The odometry backbone solved exactly: CG is left only the loop
+        # couplings (tens of iterations instead of hundreds).
+        S_inv, U = tridiag_factor(diag_d, E)
+
+        def precond(r):
+            return tridiag_apply(S_inv, U, r.contiguous())
+
+    elif precond_kind == "jacobi":
+        chol = cholesky(diag_d)
+
+        def precond(r):
+            y = torch.linalg.solve_triangular(chol, r[..., None], upper=False)
+            return torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)[..., 0]
+
+    else:
+        raise ValueError(f"unknown preconditioner {precond_kind!r}")
+
+    x = torch.zeros_like(b)
+    r = -b
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for _ in range(cg_iters):
+        Hp = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Hp
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + beta * p
+        rz = rz_new
+    return states + x
+
+
+def optimize_poses_sparse(
+    states0,
+    graph: PoseGraph,
+    n_iters: int = 10,
+    cg_iters: int = 100,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    precond: str = "tridiag",
+    robust_delta: float = 0.0,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Block-sparse Gauss-Newton refinement with a PCG inner solver, on
+    ``device`` (CUDA unless told otherwise): :func:`optimize_poses`'s
+    result without the dense system.
+
+    ``precond``: "tridiag" solves the odometry backbone exactly at each CG
+    application (one factor launch a step and one apply launch a CG
+    iteration on the card); "jacobi" is block-diagonal.  ``robust_delta >
+    0`` reweights each factor by the Cauchy weight ``1 / (1 + chi2 /
+    robust_delta**2)`` every step."""
+    states, graph = _on_device(states0, graph, device)
+    for _ in range(n_iters):
+        states = _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+                                 precond, robust_delta)
+    return states
+
+
+def states_to_poses(states) -> np.ndarray:
+    """``(K, 6)`` states -> ``(K, 4, 4)`` float32 pose matrices (numpy)."""
+    s = torch.as_tensor(np.asarray(_host(states), np.float32))
+    return torch.func.vmap(pose_matrix)(s).numpy()
+
+
+def poses_to_states(poses) -> np.ndarray:
+    """``(K, 4, 4)`` pose matrices -> ``(K, 6)`` float32 states (numpy)."""
+    return pose_to_state(torch.as_tensor(np.asarray(_host(poses), np.float32))).numpy()
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+# ---------------------------------------------------------------------------
+# Graph construction from odometry + loop closures
+# ---------------------------------------------------------------------------
+
+
+def graph_from_odometry(frames, loop_factors=()) -> tuple[np.ndarray, PoseGraph]:
+    """Initial states and a factor graph from an odometry run.
+
+    ``frames``: the port's ``OdometryFrame`` records; consecutive factors
+    take each frame's X and a diagonal information from its pred_stds
+    (floored at 1e-4; at 1e3 on a diverged frame, whose X the guard zeroed).
+    ``loop_factors``: ``(i, j, X_ij (6,), info (6, 6))``.  Returns ``(states0
+    (K, 6) numpy, PoseGraph on the CPU)``; pose 0 is the first scan."""
+    poses = [np.eye(4, dtype=np.float32)] + [f.T_world for f in frames]
+    states0 = poses_to_states(np.stack(poses)).astype(np.float32)
+
+    idx_i, idx_j, meas, info = [], [], [], []
+    for k, f in enumerate(frames):
+        idx_i.append(k)
+        idx_j.append(k + 1)
+        meas.append(f.X)
+        stds = np.maximum(np.asarray(f.pred_stds), 1e-4)
+        if getattr(f, "diverged", False):
+            stds = np.maximum(stds, 1e3)
+        info.append(np.diag(1.0 / stds**2))
+    for (i, j, x_ij, w) in loop_factors:
+        idx_i.append(i)
+        idx_j.append(j)
+        meas.append(np.asarray(x_ij))
+        info.append(np.asarray(w))
+
+    graph = PoseGraph(
+        idx_i=torch.as_tensor(np.asarray(idx_i, np.int64)),
+        idx_j=torch.as_tensor(np.asarray(idx_j, np.int64)),
+        meas=torch.as_tensor(np.stack(meas).astype(np.float32)),
+        info=torch.as_tensor(np.stack(info).astype(np.float32)),
+    )
+    return states0, graph
+
+
+def detect_loop_candidates(
+    positions: np.ndarray,
+    radius: float = 3.0,
+    min_gap: int = 10,
+    k: int = 1,
+) -> list[tuple[int, int]]:
+    """Index pairs whose poses are near in space (``< radius``) but far in
+    time (``j >= i + min_gap``): loop candidates to verify by registration.
+    Up to ``k`` nearest candidates per ``i``, sorted by ``(i, distance)``.
+
+    A vectorised spatial hash (numpy, a copy of the JAX package's): cells of
+    side ``radius``, every pose's neighbours in the 3^d adjacent cells
+    enumerated at once; O(n + P) for P pairs within the radius."""
+    positions = np.asarray(positions, np.float64)
+    n, d = positions.shape
+    if n == 0:
+        return []
+    cells = np.floor(positions / radius).astype(np.int64)
+    lo = cells.min(axis=0) - 1
+    dims = (cells.max(axis=0) - lo + 3).astype(np.int64)  # room for +-1
+
+    # Flatten integer cells to one sortable int64 key (row-major).
+    key = cells[:, 0] - lo[0]
+    for a in range(1, d):
+        key = key * dims[a] + (cells[:, a] - lo[a])
+    order = np.argsort(key, kind="stable")
+    uniq, starts, counts = np.unique(key[order], return_index=True, return_counts=True)
+
+    offsets = np.stack(
+        np.meshgrid(*([np.arange(-1, 2)] * d), indexing="ij"), axis=-1
+    ).reshape(-1, d).astype(np.int64)
+    deltas = offsets[:, 0]
+    for a in range(1, d):
+        deltas = deltas * dims[a] + offsets[:, a]
+
+    pair_i, pair_j = [], []
+    for delta in deltas:
+        nk = key + delta
+        pos = np.searchsorted(uniq, nk)
+        pos_c = np.minimum(pos, len(uniq) - 1)
+        hit = uniq[pos_c] == nk
+        cnt = np.where(hit, counts[pos_c], 0)
+        total = int(cnt.sum())
+        if total == 0:
+            continue
+        ii = np.repeat(np.arange(n), cnt)
+        ends = np.cumsum(cnt)
+        within = np.arange(total) - np.repeat(ends - cnt, cnt)
+        jj = order[np.repeat(np.where(hit, starts[pos_c], 0), cnt) + within]
+        keep = jj >= ii + min_gap  # far in time, i < j
+        pair_i.append(ii[keep])
+        pair_j.append(jj[keep])
+
+    if not pair_i:
+        return []
+    ii = np.concatenate(pair_i)
+    jj = np.concatenate(pair_j)
+    if ii.size == 0:
+        return []
+    dist = np.linalg.norm(positions[ii] - positions[jj], axis=1)
+    near = dist < radius
+    ii, jj, dist = ii[near], jj[near], dist[near]
+    if ii.size == 0:
+        return []
+    # Up to k nearest per i: sort by (i, dist), keep within-group rank < k.
+    srt = np.lexsort((dist, ii))
+    ii, jj = ii[srt], jj[srt]
+    first = np.r_[True, ii[1:] != ii[:-1]]
+    group_start = np.maximum.accumulate(np.where(first, np.arange(ii.size), 0))
+    rank = np.arange(ii.size) - group_start
+    sel = rank < k
+    return list(zip(ii[sel].tolist(), jj[sel].tolist()))
+
+
+#: a loop registration is kept when its last |dx| is at most this (m)
+LOOP_DX_GATE = 0.05
+
+
+def close_loops(
+    scans,
+    candidates: list,
+    cfg: ICETConfig,
+    x0_fn=None,
+    device: str | torch.device | None = None,
+) -> list:
+    """Verify loop candidates ``(i, j)`` by registering scan j to scan i on
+    ``device`` (CUDA unless told otherwise), warm-started at ``x0_fn(i, j)``
+    (zero without it).  Returns the loop factors ``(i, j, X_ij, info)``
+    (numpy) of the pairs whose last ``|dx|`` is finite and at most
+    :data:`LOOP_DX_GATE`, with ``info = psd_pinv(Q)``.
+
+    One registration a pair (the JAX package batches them in chunks of 16
+    with ``vmap``); the results are read back to the host once, after the
+    last pair."""
+    dev = resolve_device(device)
+    if not candidates:
+        return []
+    X, Q, dx = [], [], []
+    for i, j in candidates:
+        x0 = np.zeros(6, np.float32) if x0_fn is None else np.asarray(x0_fn(i, j), np.float32)
+        model = prepare_reference(as_points(scans[i], dev), cfg)
+        res = register(model, as_points(scans[j], dev), torch.from_numpy(x0).to(dev), cfg,
+                       want_static_mask=False)
+        X.append(res.X)
+        Q.append(res.Q)
+        dx.append(res.diagnostics.dx_norm[-1])
+    X = torch.stack(X).cpu().numpy()
+    info = psd_pinv(torch.stack(Q)).cpu().numpy()
+    dx = torch.stack(dx).cpu().numpy()
+    return [(i, j, X[b], info[b]) for b, (i, j) in enumerate(candidates)
+            if np.isfinite(dx[b]) and dx[b] <= LOOP_DX_GATE]

@@ -34,8 +34,10 @@ from icet_tpu_torch.ops.clustering import (
     radial_cluster_bounds,
 )
 from icet_tpu_torch.ops.fused_moments import (
+    MAX_SHARED_BYTES,
     fused_moment_sums,
     fused_moment_sums_reference,
+    shared_bytes,
 )
 from icet_tpu_torch.ops.geometry import (
     cart_to_spherical,
@@ -170,26 +172,42 @@ def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
     return voxel_moment_sums(p2, vid, member, anchors, cfg.n_voxels, method="pallas")
 
 
-def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
-    """(V+1, 16) moment sums of ``pts`` at X.
+def moment_route(cfg: ICETConfig) -> str:
+    """Which moments pass a solve with ``cfg`` takes, decided from the
+    config alone before any launch: ``"fused"`` (the fused kernel's
+    wrapper: kernel on CUDA, plain version on CPU), ``"plain"`` (the plain
+    ``index_add_`` version on any device) or ``"scatter"`` (the moment
+    scatter).
 
-    ``"auto"``/``"fused"`` take the fused kernel's wrapper (kernel on CUDA,
-    plain version on CPU), except in fixed radial mode, whose 90,000-row
-    table does not fit the kernel's shared memory: there, as the JAX package
-    routes fixed mode to segsum, they take the plain ``index_add_`` version.
-    ``"segsum"`` is that plain version on any device; ``"pallas"`` the
-    moment scatter."""
+    ``"auto"``/``"fused"`` take the fused kernel when its whole table fits
+    one block's shared memory (adaptive radial mode, V <= 5,774 voxels).
+    Fixed radial mode's 90,000-row table and larger adaptive grids do not
+    fit: there, as the JAX package computes fixed mode and its segsum
+    outside any Pallas kernel, they take the plain version.  ``"segsum"``
+    is the plain version, ``"pallas"`` the scatter."""
     method = cfg.moment_method
-    if method in ("auto", "fused") and cfg.radial_mode != "fixed":
-        return fused_moment_sums(pts, X, bounds, anchors, cfg)
-    if method in ("auto", "fused", "segsum"):
-        return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+    if method in ("auto", "fused"):
+        fits = (cfg.radial_mode != "fixed"
+                and shared_bytes(cfg.n_voxels) <= MAX_SHARED_BYTES)
+        return "fused" if fits else "plain"
+    if method == "segsum":
+        return "plain"
     if method == "pallas":
-        return _scatter_sums(pts, X, bounds, anchors, cfg)
+        return "scatter"
     raise NotImplementedError(
         f"moment_method {method!r} is not ported; "
         "use 'auto', 'fused', 'segsum' or 'pallas'"
     )
+
+
+def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
+    """(V+1, 16) moment sums of ``pts`` at X, by :func:`moment_route`."""
+    route = moment_route(cfg)
+    if route == "fused":
+        return fused_moment_sums(pts, X, bounds, anchors, cfg)
+    if route == "plain":
+        return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+    return _scatter_sums(pts, X, bounds, anchors, cfg)
 
 
 def prepare_reference(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
@@ -458,6 +476,7 @@ __all__ = [
     "IterationDiag",
     "RegistrationResult",
     "VoxelModel",
+    "moment_route",
     "odometry_step",
     "prepare_reference",
     "register",

@@ -30,8 +30,11 @@ def test_import_leaves_jax_out():
         "icet_tpu_torch.ops.bias_encoder, icet_tpu_torch.ops.moment_scatter, "
         "icet_tpu_torch.ops.fused_moments, icet_tpu_torch.keyframe, "
         "icet_tpu_torch.mapping, icet_tpu_torch.scan_matcher, "
-        "icet_tpu_torch.utils.checkpoint\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icet_tpu')]\n"
+        "icet_tpu_torch.utils.checkpoint, icet_tpu_torch.utils.metrics, "
+        "icet_tpu_torch.models.train_data, icet_tpu_torch.pose_graph, "
+        "icet_tpu_torch.ops.tridiag\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'icet_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -43,7 +46,8 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device",
                                    "register_scans", "dnn_pipeline", "keyframe",
                                    "dnn_keyframe", "run_keyframe_device", "mapmaker",
-                                   "scan_matcher"])
+                                   "scan_matcher", "train_bias_net", "train_bias_net_mixed",
+                                   "optimize_poses", "optimize_poses_sparse", "close_loops"])
 def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
     import icet_tpu_torch as it
 
@@ -68,6 +72,17 @@ def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
             it.MapMaker()
         elif entry == "scan_matcher":
             it.ScanMatcher()
+        elif entry == "train_bias_net":
+            it.train_bias_net(torch.Generator().manual_seed(0), steps=1, batch=2, sample_pts=4)
+        elif entry == "train_bias_net_mixed":
+            it.train_bias_net_mixed(steps=1, batch=2, sample_pts=4, n_pairs=1)
+        elif entry in ("optimize_poses", "optimize_poses_sparse"):
+            graph = it.PoseGraph(torch.zeros(1, dtype=torch.int64),
+                                 torch.ones(1, dtype=torch.int64), torch.zeros(1, 6),
+                                 torch.eye(6)[None])
+            getattr(it, entry)(np.zeros((2, 6), np.float32), graph, 1)
+        elif entry == "close_loops":
+            it.close_loops(scans, [], it.ICETConfig())
         else:
             it.run_odometry_device(scans, it.ICETConfig())
 

@@ -10,7 +10,14 @@ convergence_stat_scale=1.0, dnn_filter=True)`` and
 ``OdometryPipeline``.  ``chip_smoke.py`` gates the card's ATE at the JAX
 package's figure printed here plus 0.5 cm.  Run from the repository root:
 
-    JAX_PLATFORMS=cpu python3 tools/dnn_drive_ate_cpu.py [--port]
+    JAX_PLATFORMS=cpu python3 tools/dnn_drive_ate_cpu.py [--port] [--fused-reference]
+
+``--fused-reference`` makes the JAX package's filter run its BiasNet
+through the fused Pallas encoder in interpret mode (``apply_bias_net(...,
+fused=True, interpret=True)``), which rounds as the port always does, in
+place of the flax forward it takes off the TPU.  With ``--port`` the output
+then also holds both packages' per-frame X and correspondence counts, and
+the first frame where they differ.
 """
 
 from __future__ import annotations
@@ -34,14 +41,42 @@ def ate(frames, gt) -> float:
     return float(np.sqrt(np.mean(np.square(err))))
 
 
+def force_fused_reference() -> None:
+    """The JAX package's ``apply_bias_net`` on its fused kernel, in
+    interpret mode, whatever the backend."""
+    from icet_tpu.models import bias_net
+
+    plain = bias_net.apply_bias_net
+    bias_net.apply_bias_net = lambda net, params, x, **kw: plain(
+        net, params, x, fused=True, interpret=True)
+
+
+def first_difference(a, b, atol: float = 1e-5) -> dict:
+    """Per-frame X and n_corr of two runs, and the first frame where X
+    differs by more than ``atol`` or the counts differ (None if none)."""
+    xa = np.stack([f.X for f in a]).astype(np.float64)
+    xb = np.stack([f.X for f in b]).astype(np.float64)
+    dx = np.abs(xa - xb).max(axis=1)
+    corr = [bool(np.array_equal(np.asarray(getattr(f, "n_corr", [])),
+                                np.asarray(getattr(g, "n_corr", []))))
+            for f, g in zip(a, b)]
+    bad = [k for k in range(len(a)) if dx[k] > atol or not corr[k]]
+    return {"max_abs_dX_per_frame": dx.tolist(), "n_corr_equal_per_frame": corr,
+            "first_differing_frame": bad[0] + 1 if bad else None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", action="store_true", help="also run the port's CPU path")
+    ap.add_argument("--fused-reference", action="store_true",
+                    help="run the JAX package's BiasNet on its fused kernel (interpret mode)")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.fused_reference:
+        force_fused_reference()
     from icet_tpu.config import ICETConfig, OdometryConfig
     from icet_tpu.datasets.replay import CityDriveSource
     from icet_tpu.odometry import OdometryPipeline
@@ -55,7 +90,9 @@ def main() -> int:
     frames = list(OdometryPipeline(ICETConfig(**kw), OdometryConfig(divergence_clamp=2.5))
                   .run(scans))
     out["icet_tpu"] = {"ate_m": ate(frames, gt), "s": time.perf_counter() - t0,
-                       "diverged": sum(f.diverged for f in frames)}
+                       "diverged": sum(f.diverged for f in frames),
+                       "fused_reference": args.fused_reference}
+    ref_frames = frames
     if args.port:
         import torch
 
@@ -70,7 +107,9 @@ def main() -> int:
             "ate_m": ate(frames, gt), "s": time.perf_counter() - t0,
             "diverged": sum(f.diverged for f in frames),
             "iterations": [f.iterations for f in frames],
+            "n_rejected": [f.n_rejected for f in frames],
         }
+        out["per_frame"] = first_difference(ref_frames, frames)
     print(json.dumps(out))
     return 0
 

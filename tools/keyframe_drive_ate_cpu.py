@@ -19,7 +19,13 @@ n_azimuth=1024)``).
 ``chip_smoke.py`` gates the card's ATE on each drive at the JAX package's
 figure printed here plus 0.5 cm.  Run from the repository root:
 
-    JAX_PLATFORMS=cpu python3 tools/keyframe_drive_ate_cpu.py [--port]
+    JAX_PLATFORMS=cpu python3 tools/keyframe_drive_ate_cpu.py [--port] [--fused-reference]
+
+``--fused-reference`` runs the JAX package's BiasNet through its fused
+Pallas encoder in interpret mode, which rounds as the port does (see
+``tools/dnn_drive_ate_cpu.py``); with ``--port`` each drive's output then
+also holds both packages' per-frame X and correspondence counts and the
+first frame where they differ.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+from tools.dnn_drive_ate_cpu import first_difference, force_fused_reference  # noqa: E402
 
 DRIVES = ("keyframe", "dnn_keyframe", "mapmaker")
 
@@ -83,7 +91,7 @@ def run(pkg, name: str, scans, gt, device_kw: dict) -> dict:
         frames = [f for f in (maker.step(s) for s in scans) if f is not None]
         return {"ate_m": ate(composed(frames), gt), "s": time.perf_counter() - t0,
                 "diverged": sum(f.diverged for f in frames),
-                "n_map_points": int(frames[-1].n_map_points)}
+                "n_map_points": int(frames[-1].n_map_points), "frames": frames}
     cfg = pkg.ICETConfig(dnn_filter=name == "dnn_keyframe", **cfg_kw)
     kf = pkg.KeyframeOdometry(
         cfg, pkg.KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5),
@@ -92,17 +100,21 @@ def run(pkg, name: str, scans, gt, device_kw: dict) -> dict:
     return {"ate_m": ate([f.T_world for f in frames], gt), "s": time.perf_counter() - t0,
             "diverged": sum(f.diverged for f in frames),
             "keyframe_indices": [int(i) for i in kf.keyframe_indices],
-            "map_points": int(kf.map_points().shape[0])}
+            "map_points": int(kf.map_points().shape[0]), "frames": frames}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", action="store_true", help="also run the port's CPU path")
+    ap.add_argument("--fused-reference", action="store_true",
+                    help="run the JAX package's BiasNet on its fused kernel (interpret mode)")
     args = ap.parse_args()
 
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.fused_reference:
+        force_fused_reference()
     import icet_tpu
     from icet_tpu.datasets.replay import CityDriveSource
 
@@ -111,15 +123,19 @@ def main() -> int:
     gt = [T for _, T in drive]
     out = {}
     for name in DRIVES:
-        out[name] = {"icet_tpu": run(icet_tpu, name, scans, gt, {})}
+        ref = run(icet_tpu, name, scans, gt, {})
+        out[name] = {"icet_tpu": ref}
         if args.port:
             import torch
 
             import icet_tpu_torch
 
             torch.set_num_threads(min(8, os.cpu_count() or 1))
-            out[name]["icet_tpu_torch_cpu"] = run(icet_tpu_torch, name, scans, gt,
-                                                  {"device": "cpu"})
+            port = run(icet_tpu_torch, name, scans, gt, {"device": "cpu"})
+            out[name]["icet_tpu_torch_cpu"] = port
+            out[name]["per_frame"] = first_difference(ref.pop("frames"), port.pop("frames"))
+        ref.pop("frames", None)
+        out[name]["fused_reference"] = args.fused_reference
         print(json.dumps({name: out[name]}), flush=True)
     print(json.dumps(out))
     return 0
