@@ -77,7 +77,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     loop candidates, ``close_loops``, ``graph_from_odometry``,
     ``optimize_poses_sparse(..., 10, 50, robust_delta=3.5)``; launches
     counted, at least 30 loops, the refined ATE below the odometry ATE and
-    within ATE_SLACK_M of the JAX package's CPU figure.
+    within ATE_SLACK_M of the JAX package's CPU figure;
+18. the in-process mesh (``parallel.sharding``) on repeats of the card at
+    (dp, sp) in SHARD_SHAPES, 4 pairs of the drive: each pair against the
+    unsharded ``register_pair`` at the JAX package's sharding tolerances,
+    fused launches sp x (prepares + iterations); the distributed
+    clustering on 4 shards bit-identical to the replicated one at capacity
+    2.0 and 0.02, beam-major and shuffled; ms a pair per shape; the
+    keyframe drive with its block map over two repeats of the card
+    (``shard_blockmap``) against the unsharded map;
+19. ``run_distributed_registration`` as spawned processes (this script
+    with ``--worker``), each joined with a timeout: two over gloo at
+    (1, 2) and at (2, 1), one over NCCL at (1, 1); results against the
+    unsharded solve and phase 18's at the same shape, equal iterations on
+    the ranks of a row, launches counted; ms, collectives and bytes a pair;
+20. the elastic runner on four repeats of the card, prefer_dp 2: one step
+    raises and one probe entry fails, the runner rebuilds to (1, 3),
+    results within the tolerances; a blocking probe returns within its
+    1 s timeout;
+21. recovery: ``OdometryPipeline`` (plain and DNN), ``KeyframeOdometry``
+    and ``MapMaker`` on the drive with one step raising a RuntimeError at
+    frame FAIL_AT: one recovery, the frames against a clean run within a
+    bound from two clean runs (the keyframe runner re-seeds a keyframe
+    there, as the JAX package's does), ATE and ms a recovery; then a
+    resume of the odometry and keyframe runners from a mid-drive
+    checkpoint.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -591,6 +615,482 @@ def block_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     g, w = got.reshape(got.shape[0], -1), want.reshape(want.shape[0], -1)
     scale = torch.clamp(w.abs().amax(dim=1), min=1e-30)
     return float(((g - w).abs().amax(dim=1) / scale).max())
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-21: sharded, multi-process and elastic registration, recovery
+# ---------------------------------------------------------------------------
+
+#: mesh shapes of phase 18 (repeats of the one card); phase 19 runs (1, 2)
+#: and (2, 1) as processes and (1, 1) as one NCCL process
+SHARD_SHAPES = [(1, 1), (1, 2), (2, 1), (1, 4), (2, 2)]
+#: pairs of the drive that phases 18-20 register
+SHARD_PAIRS = 4
+#: the JAX package's sharding tolerances (tests/test_parallel.py:56-75)
+SHARD_X_ATOL, SHARD_STD_RTOL, SHARD_STD_ATOL, SHARD_FLIPS = 5e-4, 0.05, 1e-5, 5
+#: a spawned process's limit (start, CUDA and group set-up, two passes)
+WORKER_TIMEOUT_S = 150
+#: phase 19's cases: (name, processes, sp, backend, mesh shape)
+PROCESS_CASES = [("gloo_1x2", 2, 2, "gloo", (1, 2)), ("gloo_2x1", 2, 1, "gloo", (2, 1)),
+                 ("nccl_1x1", 1, 1, "nccl", (1, 1))]
+#: the frame whose step raises in phase 21 (the step's 3rd call)
+FAIL_AT = 3
+#: phase 21: a recovered run may differ from a clean one by this many
+#: times two clean runs' largest |dX| (kernel #1's float atomics vary
+#: between runs), and by at least this floor (m)
+RECOVERY_SPREAD, RECOVERY_FLOOR_M = 10.0, 1e-5
+#: phase 21, keyframe runner: after the re-seed the frames solve against
+#: another keyframe than the clean run's; their steps may differ by this (m)
+KF_DELTA_ATOL_M = 0.01
+
+
+def shard_gate(what: str, X, stds, mask, ref, cut=slice(None)) -> float:
+    """Hold one pair's sharded result (numpy) against the unsharded one
+    (``mask`` covers the points ``cut``); returns max |dX|."""
+    rX, rs, rm = (t.cpu().numpy() for t in (ref.X, ref.pred_stds, ref.static_mask[cut]))
+    dX = float(np.abs(X - rX).max())
+    check(dX <= SHARD_X_ATOL, f"{what}: X differs by {dX:.3e} from the unsharded solve")
+    bad = np.abs(stds - rs) > SHARD_STD_ATOL + SHARD_STD_RTOL * np.abs(rs)
+    check(not bad.any(), f"{what}: pred_stds {stds} vs unsharded {rs}")
+    flips = int((mask != rm).sum())
+    check(flips <= SHARD_FLIPS, f"{what}: {flips} static-mask flips")
+    return dX
+
+
+def wall_ms(fn, rounds: int = 3) -> float:
+    """Median host-clock ms of ``fn`` (ended by a synchronise) over
+    ``rounds``, after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_sharded(s1, s2, x0s, cfg, dev, card):
+    """Phase 18: the in-process mesh on repeats of the one card."""
+    from icet_tpu_torch.ops.clustering import (
+        distributed_radial_cluster_bounds,
+        radial_cluster_bounds,
+    )
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.ops.geometry import cart_to_spherical
+    from icet_tpu_torch.ops.grid import voxel_ids
+    from icet_tpu_torch.parallel.sharding import (
+        DeviceAxis,
+        make_sharded_register,
+        registration_mesh,
+        shard_scan_batch,
+    )
+    from icet_tpu_torch.solver import register_pair
+
+    B = s1.shape[0]
+    ref = [register_pair(s1[b], s2[b], x0s[b], cfg, device=dev) for b in range(B)]
+    ref_ms = wall_ms(lambda: [register_pair(s1[b], s2[b], x0s[b], cfg, device=dev)
+                              for b in range(B)], rounds=5) / B
+    results = {}
+    for dp, sp in SHARD_SHAPES:
+        mesh = registration_mesh(dp, sp, [dev] * (dp * sp))
+        step = make_sharded_register(cfg, mesh)
+        batch = shard_scan_batch(s1, s2, x0s, mesh)
+        torch.cuda.synchronize()
+        fused_moment_sums.launches = 0
+        res = step(*batch)
+        torch.cuda.synchronize()
+        launches = fused_moment_sums.launches
+        iters = res.iterations.tolist()
+        want = sp * sum(1 + it for it in iters)
+        check(launches == want, f"sharded ({dp}, {sp}): fused launches {launches} != sp x "
+              f"(prepares + iterations) = {want}")
+        host = {k: getattr(res, k).cpu().numpy() for k in ("X", "pred_stds", "static_mask")}
+        dX = max(shard_gate(f"sharded ({dp}, {sp}) pair {b}", host["X"][b], host["pred_stds"][b],
+                            host["static_mask"][b], ref[b]) for b in range(B))
+        ms = wall_ms(lambda: step(*batch), rounds=5) / B
+        results[(dp, sp)] = dict(host, iterations=iters, ms=ms)
+        print(f"sharded register ({dp}, {sp}) on {dp * sp} x {dev}: {ms:.2f} ms a pair ({card}), "
+              f"iterations {iters}, fused launches {launches} = {sp} x {sum(1 + it for it in iters)}, "
+              f"max |dX| vs unsharded {dX:.3e}")
+    print(f"unsharded register_pair: {ref_ms:.2f} ms a pair ({card}), iterations "
+          f"{[r.iterations for r in ref]}")
+
+    # The distributed clustering on the card: the first scan on 2 and 4
+    # shards.  Its points crowd the middle beam rows, whose voxel ids one or
+    # two shards own, so most cases overflow their buckets and take the
+    # gather; shuffled on 2 shards at capacity 2.0 they fit.
+    scan = torch.from_numpy(s1[0]).to(dev)
+    rtp = cart_to_spherical(scan)
+    vid, r = voxel_ids(rtp, cfg), rtp[..., 0]
+    ok = r >= cfg.min_range
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(r.shape[0])).to(dev)
+    args = (cfg.n_voxels, cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer)
+    golden = radial_cluster_bounds(vid, r, ok, *args)
+    paths = []
+    for order, (v, rr, o) in {"beam-major": (vid, r, ok),
+                              "shuffled": (vid[perm], r[perm], ok[perm])}.items():
+        for shards in (2, 4):
+            for cf in (2.0, 0.02):
+                axis = DeviceAxis([dev] * shards)
+                n = rr.shape[0] // shards
+                cut = [slice(i * n, (i + 1) * n) for i in range(shards)]
+                got = distributed_radial_cluster_bounds(
+                    [v[c] for c in cut], [rr[c] for c in cut], [o[c] for c in cut], *args, axis,
+                    capacity_factor=cf)
+                check(torch.equal(got.bounds, golden.bounds)
+                      and torch.equal(got.found, golden.found),
+                      f"distributed clustering ({order}, {shards} shards, capacity {cf}) is not "
+                      "bit-identical")
+                path = "sharded" if axis.collectives == 3 else "gather"
+                paths.append(f"{order} {shards}x {cf}: {path}")
+    check(any(p.endswith("sharded") for p in paths), "the sharded clustering path was not taken")
+    print(f"distributed clustering bit-identical to the replicated one ({'; '.join(paths)})")
+    return ref, results
+
+
+def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
+    """Phase 18's block map: the keyframe drive with the map's block axis
+    over two repeats of the card, against the unsharded map."""
+    from icet_tpu_torch.keyframe import KeyframeOdometry, shard_blockmap, whole_table
+    from icet_tpu_torch.parallel.sharding import registration_mesh
+
+    plain = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+    sharded = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+    sharded.blockmap = shard_blockmap(sharded.blockmap, registration_mesh(2, 1, [dev] * 2))
+    a, b = plain.run(scans), sharded.run(scans)
+    check(plain.keyframe_indices == sharded.keyframe_indices,
+          f"sharded block map: keyframes {sharded.keyframe_indices} vs {plain.keyframe_indices}")
+    dT = max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(a, b))
+    check(dT <= 1e-4, f"sharded block map: poses differ by {dT:.3e}")
+    pts = [whole_table(bm.points)[whole_table(bm.valid)] for bm in (plain.blockmap,
+                                                                  sharded.blockmap)]
+    check(pts[0].shape == pts[1].shape, f"sharded block map: {pts[1].shape[0]} points, "
+          f"unsharded {pts[0].shape[0]}")
+    dP = float((pts[0] - pts[1].to(pts[0].device)).abs().max())
+    check(dP <= 1e-3, f"sharded block map: points differ by {dP:.3e}")
+    print(f"sharded block map over 2 x {dev}: {len(b)} keyframe frames, keyframes "
+          f"{sharded.keyframe_indices}, {pts[1].shape[0]} points; max |dT| {dT:.3e}, max |dp| "
+          f"{dP:.3e} vs the unsharded map")
+
+
+def worker(spec: dict) -> int:
+    """A spawned process of phase 19: one rank of a process-group mesh."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from icet_tpu_torch.config import ICETConfig
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.parallel.distributed import (
+        global_registration_mesh,
+        init_distributed,
+        run_distributed_registration,
+    )
+
+    init_distributed(num_processes=spec["world"], process_id=spec["rank"],
+                     init_method=f"file://{spec['store']}", backend=spec["backend"],
+                     device=spec["device"], timeout_s=WORKER_TIMEOUT_S)
+    cfg = ICETConfig(**spec["cfg"])
+    mesh = global_registration_mesh(sp=spec["sp"])
+    data = np.load(spec["data"])
+    b_local = data["s1"].shape[0] // mesh.shape["dp"]
+    rows = slice(mesh.row * b_local, (mesh.row + 1) * b_local)
+    args = (data["s1"][rows], data["s2"][rows], data["x0"][rows], cfg, mesh)
+    run_distributed_registration(*args)  # first pass: group and kernel set-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    axis = mesh.axis("sp")
+    c0, b0 = axis.collectives, axis.bytes
+    fused_moment_sums.launches = 0
+    res, local = run_distributed_registration(*args)
+    torch.cuda.synchronize()
+    launches, collectives, nbytes = fused_moment_sums.launches, axis.collectives, axis.bytes
+    times = []
+    for _ in range(3):
+        dist.barrier()
+        t0 = time.perf_counter()
+        run_distributed_registration(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / b_local)
+    np.savez(spec["out"], X=res.X.cpu().numpy(), pred_stds=res.pred_stds.cpu().numpy(),
+             static_mask=res.static_mask.cpu().numpy(), iterations=res.iterations.numpy(),
+             start=local.start, row=mesh.row, col=mesh.col, ms=float(np.median(times)),
+             launches=launches, collectives=collectives - c0, bytes=nbytes - b0)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_case(tmp: str, name: str, world: int, sp: int, backend: str, cfg, dev) -> list:
+    """Run one phase-19 case as ``world`` processes; each is joined with a
+    timeout and killed after it.  Returns each rank's results."""
+    import dataclasses
+
+    procs = []
+    for rank in range(world):
+        spec = dict(rank=rank, world=world, sp=sp, backend=backend, cfg=dataclasses.asdict(cfg),
+                    device=str(dev),
+                    store=os.path.join(tmp, f"{name}.store"), data=os.path.join(tmp, "pairs.npz"),
+                    out=os.path.join(tmp, f"{name}.{rank}.npz"))
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker",
+                                        json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), spec))
+    outs = []
+    try:
+        for p, _ in procs:
+            try:
+                outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+            except subprocess.TimeoutExpired:
+                outs.append(None)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    got = []
+    for (p, spec), out in zip(procs, outs):
+        check(out is not None, f"{name}: rank {spec['rank']} did not end in {WORKER_TIMEOUT_S} s")
+        check(p.returncode == 0, f"{name}: rank {spec['rank']} failed:\n{(out or '')[-3000:]}")
+        with np.load(spec["out"]) as z:
+            got.append({k: z[k] for k in z.files})
+    return got
+
+
+def phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card):
+    """Phase 19: ``run_distributed_registration`` as processes on the card."""
+    import tempfile
+
+    n = s1.shape[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "pairs.npz"), s1=s1, s2=s2, x0=x0s)
+        for name, world, sp, backend, shape in PROCESS_CASES:
+            t0 = time.perf_counter()
+            ranks = spawn_case(tmp, name, world, sp, backend, cfg, dev)
+            wall = time.perf_counter() - t0
+            same = sharded[shape]
+            for g in ranks:
+                start, col, nl = int(g["start"]), int(g["col"]), n // sp
+                b_local = g["X"].shape[0]
+                # One shard a rank: one launch a prepare and an iteration.
+                want = sum(1 + int(it) for it in g["iterations"])
+                check(int(g["launches"]) == want, f"{name}: rank launches {int(g['launches'])} != "
+                      f"prepares + iterations {want}")
+                for k in range(b_local):
+                    b = start + k
+                    shard_gate(f"{name} pair {b}", g["X"][k], g["pred_stds"][k],
+                               g["static_mask"][k], ref[b], slice(col * nl, (col + 1) * nl))
+                    dX = float(np.abs(g["X"][k] - same["X"][b]).max())
+                    check(dX <= SHARD_X_ATOL, f"{name} pair {b}: X differs by {dX:.3e} from "
+                          f"phase 18's {shape}")
+            rows = {}
+            for g in ranks:
+                rows.setdefault(int(g["row"]), []).append(g["iterations"].tolist())
+            for row, its in rows.items():
+                check(all(i == its[0] for i in its), f"{name}: row {row} iterations differ {its}")
+            per = [(float(g["ms"]), int(g["collectives"]) / g["X"].shape[0],
+                    int(g["bytes"]) / g["X"].shape[0]) for g in ranks]
+            print(f"processes {name} (mesh {shape}, {world} process(es) on one card): ms a pair "
+                  f"{[round(p[0], 2) for p in per]} ({card}), collectives a pair "
+                  f"{[p[1] for p in per]}, bytes a pair {[int(p[2]) for p in per]}, iterations "
+                  f"{sorted(rows.items())}, launches a rank {[int(g['launches']) for g in ranks]}, "
+                  f"{wall:.1f} s with start-up")
+
+
+def phase_elastic(s1, s2, x0s, cfg, dev, ref, card):
+    """Phase 20: the elastic runner on four repeats of the card."""
+    import threading
+
+    import icet_tpu_torch.parallel.elastic as elastic
+
+    runner = elastic.ElasticRegistrationRunner(cfg, prefer_dp=2, devices=[dev] * 4)
+    check(runner.shape == (2, 2), f"elastic runner shape {runner.shape}")
+    armed = {"step": True, "probe": 0}
+    lock = threading.Lock()
+    real_step, real_probe = runner._step, elastic.probe_devices
+
+    def failing_step(*args):
+        if armed["step"]:
+            armed["step"] = False
+            raise RuntimeError("simulated device failure")
+        return real_step(*args)
+
+    def one_entry_fails(d):
+        with lock:
+            armed["probe"] += 1
+            k = armed["probe"]
+        if k == 1:
+            raise RuntimeError("simulated probe failure")
+        return elastic._default_probe_op(d)
+
+    runner._step = failing_step
+    elastic.probe_devices = lambda devs=None, timeout_s=60.0, _op=None: real_probe(
+        devs, timeout_s, _op=one_entry_fails)
+    try:
+        t0 = time.perf_counter()
+        res = runner.run(s1, s2, x0s)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        elastic.probe_devices = real_probe
+    check(runner.rebuilds == 1 and runner.shape == (1, 3),
+          f"elastic: {runner.rebuilds} rebuilds, shape {runner.shape}")
+    # The runner padded the points to a multiple of sp = 3 with zeros.
+    dX = max(shard_gate(f"elastic pair {b}", res.X[b], res.pred_stds[b],
+                        res.static_mask[b][: s1.shape[1]], ref[b]) for b in range(s1.shape[0]))
+    release = threading.Event()
+
+    def blocking(d):
+        release.wait()
+        return True
+
+    t0 = time.perf_counter()
+    healthy = elastic.probe_devices([dev] * 4, timeout_s=1.0, _op=blocking)
+    blocked_s = time.perf_counter() - t0
+    release.set()
+    check(healthy == [] and blocked_s < 2.0, f"blocking probe: {healthy} after {blocked_s:.2f} s")
+    t0 = time.perf_counter()
+    check(len(elastic.probe_devices([dev] * 4)) == 4, "the real probe lost a device")
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    print(f"elastic: (2, 2) -> (1, 3) after one failed step and one failed probe entry, "
+          f"{runner.rebuilds} rebuild, {s1.shape[0]} pairs in {run_s:.2f} s with the rebuild "
+          f"({card}), max |dX| vs unsharded {dX:.3e}; blocking probe returned {healthy} in "
+          f"{blocked_s:.2f} s (timeout 1 s); a 4-device probe {probe_ms:.2f} ms")
+
+
+def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev, card,
+                   earlier: dict):
+    """Phase 21: one step of each runner raises at frame FAIL_AT; recovery
+    and retry, then a resume from a mid-drive checkpoint.  ``earlier``
+    holds clean runs of the same runners from phases 5, 9 and 11."""
+    import tempfile
+
+    import icet_tpu_torch.keyframe as kf_mod
+    import icet_tpu_torch.mapping as map_mod
+    import icet_tpu_torch.odometry as odo_mod
+    from icet_tpu_torch.keyframe import np_pose_matrix
+    from icet_tpu_torch.utils.checkpoint import (
+        keyframe_state,
+        load_checkpoint,
+        odometry_state,
+        restore_keyframe,
+        restore_odometry,
+        save_checkpoint,
+    )
+
+    def indexed_ate(frames, poses=None) -> float:
+        poses = poses or [f.T_world for f in frames]
+        ref = [np.linalg.inv(gt[0]) @ gt[f.index] for f in frames]
+        err = [np.linalg.norm(np.asarray(T)[:3, 3] - R[:3, 3]) for T, R in zip(poses, ref)]
+        return float(np.sqrt(np.mean(np.square(err))))
+
+    def composed(frames):
+        T, out = np.eye(4), []
+        for f in frames:
+            T = T @ np_pose_matrix(f.X)
+            out.append(T)
+        return out
+
+    runners = {
+        "odometry": (lambda: odo_mod.OdometryPipeline(cfg, odo, device=dev), odo_mod,
+                     "odometry_step"),
+        "dnn_odometry": (lambda: odo_mod.OdometryPipeline(dcfg, odo, device=dev), odo_mod,
+                         "odometry_step_dnn"),
+        "keyframe": (lambda: kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev), kf_mod,
+                     "keyframe_step"),
+        "mapmaker": (lambda: map_mod.MapMaker(mcfg, map_cfg, odo, device=dev), map_mod,
+                     "map_step"),
+    }
+
+    def drive(make, module=None, name=None):
+        real = getattr(module, name) if module else None
+        calls = {"n": 0}
+
+        def flaky(*args, **kw):
+            calls["n"] += 1
+            if calls["n"] == FAIL_AT:
+                raise RuntimeError("simulated device failure")
+            return real(*args, **kw)
+
+        if module:
+            setattr(module, name, flaky)
+        try:
+            runner = make()
+            frames = [f for f in (runner.step(s) for s in scans) if f is not None]
+        finally:
+            if module:
+                setattr(module, name, real)
+        torch.cuda.synchronize()
+        return runner, frames
+
+    def max_dx(a, b) -> float:
+        return float(max(np.abs(np.asarray(f.X) - np.asarray(g.X)).max() for f, g in zip(a, b)))
+
+    clean_runs = {}
+    for what, (make, module, name) in runners.items():
+        c1 = earlier[what] if what in earlier else drive(make)[1]
+        _, c2 = drive(make)
+        clean_runs[what] = c1
+        spread = max_dx(c1, c2)
+        bound_m = max(RECOVERY_SPREAD * spread, RECOVERY_FLOOR_M)
+        runner, frames = drive(make, module, name)
+        check(runner.recoveries == 1, f"{what}: {runner.recoveries} recoveries")
+        if what == "keyframe":
+            # The retried frame re-seeds a keyframe (it returns no frame);
+            # the frames after it solve against that keyframe.
+            check(len(frames) == len(c1) - 1, f"{what}: {len(frames)} frames")
+            before = frames[: FAIL_AT - 1]
+            check(max_dx(before, c1) <= bound_m, f"{what}: frames before the failure moved")
+            after = {f.index: f for f in frames[FAIL_AT - 1:]}
+            d_after = max(float(np.abs(after[f.index].X - f.X).max()) for f in c1
+                          if f.index in after)
+            check(d_after <= KF_DELTA_ATOL_M, f"{what}: steps after the re-seed differ by "
+                  f"{d_after:.3e} m from the clean run's")
+            dx, ate, ate_clean = d_after, indexed_ate(frames), indexed_ate(c1)
+        else:
+            check(len(frames) == len(c1), f"{what}: {len(frames)} frames, clean {len(c1)}")
+            dx = max_dx(frames, c1)
+            check(dx <= bound_m, f"{what}: recovered run differs by {dx:.3e} m, bound "
+                  f"{bound_m:.3e} m (two clean runs: {spread:.3e} m)")
+            poses = composed(frames) if what == "mapmaker" else None
+            ate = indexed_ate(frames, poses)
+            ate_clean = indexed_ate(c1, composed(c1) if what == "mapmaker" else None)
+        recoveries = runner.recoveries
+        rec_ms = wall_ms(runner._recover)
+        print(f"recovery {what}: recoveries {recoveries}, {len(frames)} frames, "
+              f"max |dX| vs clean {dx:.3e} m (two clean runs {spread:.3e} m, bound "
+              f"{bound_m:.3e} m), ATE {ate * 100:.4f} cm (clean {ate_clean * 100:.4f} cm), "
+              f"{rec_ms:.2f} ms a recovery ({card})")
+
+    # Resume from a mid-drive checkpoint, on the checkpointed frame itself
+    # (its re-seed advances the frame index by one, as in the JAX package).
+    mid = len(scans) // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe = odo_mod.OdometryPipeline(cfg, odo, device=dev)
+        for s in scans[: mid + 1]:
+            pipe.step(s)
+        save_checkpoint(os.path.join(tmp, "odo"), odometry_state(pipe))
+        resumed = odo_mod.OdometryPipeline(cfg, odo, device=dev)
+        restore_odometry(resumed, load_checkpoint(os.path.join(tmp, "odo")))
+        frames = [f for f in (resumed.step(s) for s in scans[mid:]) if f is not None]
+        clean = clean_runs["odometry"][mid:]
+        check([f.index - 1 for f in frames] == [f.index for f in clean], "odometry resume: indices")
+        d_odo = max_dx(frames, clean)
+        t_odo = max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(frames, clean))
+        check(d_odo <= 1e-4 and t_odo <= 1e-3, f"odometry resume: X {d_odo:.3e}, T {t_odo:.3e}")
+        ko = kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+        for s in scans[: mid + 1]:
+            ko.step(s)
+        save_checkpoint(os.path.join(tmp, "kf"), keyframe_state(ko))
+        kr = kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+        restore_keyframe(kr, load_checkpoint(os.path.join(tmp, "kf")), replay_overlap=True)
+        kframes = [f for f in (kr.step(s) for s in scans[mid:]) if f is not None]
+        kclean = {f.index: f for f in clean_runs["keyframe"]}
+        d_kf = max(float(np.abs(f.X - kclean[f.index - 1].X).max()) for f in kframes)
+        check(len(kframes) == len(scans) - mid - 1 and d_kf <= KF_DELTA_ATOL_M,
+              f"keyframe resume: {len(kframes)} frames, steps differ by {d_kf:.3e} m")
+    print(f"resume at frame {mid}: {len(frames)} odometry frames within {d_odo:.3e} m (X) and "
+          f"{t_odo:.3e} (T_world) of the clean run; {len(kframes)} keyframe steps within "
+          f"{d_kf:.3e} m")
 
 
 def main() -> int:
@@ -1443,6 +1943,25 @@ def main() -> int:
           f"plain apply {big_k['plain_apply_ms']:.2f} (CUDA events, once); bound "
           f"{tri_bound:.6f} ({tri_by}), chain-latency floor {tri_chain_ms:.4f} ms; no single "
           f"PyTorch call solves a block-tridiagonal system, so library_ms is null")
+
+    # -- 18-21: sharded, multi-process and elastic registration; recovery --
+    # Pairs k -> k+1 of the drive, each seeded with the previous pair's
+    # solution from the sequence drive (the "previous" warm start).
+    s1, s2 = scans[:SHARD_PAIRS], scans[1:SHARD_PAIRS + 1]
+    x0s = np.stack([np.zeros(6, np.float32)]
+                   + [out[k].X for k in range(SHARD_PAIRS - 1)]).astype(np.float32)
+    t0 = time.perf_counter()
+    ref, sharded = phase_sharded(s1, s2, x0s, cfg, dev, card)
+    phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev)
+    t18 = time.perf_counter() - t0
+    phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card)
+    t19 = time.perf_counter() - t0 - t18
+    phase_elastic(s1, s2, x0s, cfg, dev, ref, card)
+    t20 = time.perf_counter() - t0 - t18 - t19
+    phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev, card,
+                   {"dnn_odometry": dout, "keyframe": khost, "mapmaker": mout})
+    t21 = time.perf_counter() - t0 - t18 - t19 - t20
+    print(f"phases 18-21: {t18:.1f} / {t19:.1f} / {t20:.1f} / {t21:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -1521,6 +2040,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+        sys.exit(worker(json.loads(sys.argv[2])))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -25,13 +25,17 @@ Differences from the JAX package, none of which changes a trajectory:
 * the moments kernel has no window, so ``windowed_overflow`` is 0 and the
   "auto" policy's ``ovf_spawn`` term never fires (as in the JAX package
   off the TPU);
-* not ported: device-loss recovery and snapshots (``snapshot_every``,
-  ``_recover``) and ``shard_blockmap``.
+* the keyframe step updates the block map in place (the JAX package
+  donates it), so a failed step may leave it half-written: recovery
+  restores the newest host snapshot, as the JAX package's does;
+* :func:`shard_blockmap` splits the block axis into per-device chunks
+  (:class:`BlockShards`) in place of a sharded array.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +52,8 @@ from icet_tpu_torch.ops.geometry import (
     transform_points,
 )
 from icet_tpu_torch.solver import VoxelModel, prepare_reference, register
+
+_log = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # Host pose math (numpy twins of ops/geometry.py, float64)
@@ -123,12 +129,68 @@ def _uniforms(gen: torch.Generator, k: int, device) -> torch.Tensor:
     return torch.rand(k, generator=gen, device=device)
 
 
+class BlockShards:
+    """A block-map table split along its block axis over devices
+    (:func:`shard_blockmap`): chunk k holds blocks ``[k c, (k + 1) c)`` on
+    its own device."""
+
+    def __init__(self, chunks: list):
+        self.chunks = list(chunks)
+        self.per = self.chunks[0].shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return (self.per * len(self.chunks),) + tuple(self.chunks[0].shape[1:])
+
+    def block(self, slot: int) -> torch.Tensor:
+        """Block ``slot`` (a view, on its owning device)."""
+        k, i = divmod(slot, self.per)
+        return self.chunks[k][i]
+
+    def clone(self) -> "BlockShards":
+        return BlockShards([c.clone() for c in self.chunks])
+
+
+def whole_table(table) -> torch.Tensor:
+    """A block-map table as one tensor (a sharded one gathered onto its
+    first chunk's device)."""
+    if isinstance(table, BlockShards):
+        return torch.cat([c.to(table.chunks[0].device) for c in table.chunks])
+    return table
+
+
+def _row(table, slot: int) -> torch.Tensor:
+    """Block ``slot`` of a block-map table, a view on its device."""
+    return table.block(slot) if isinstance(table, BlockShards) else table[slot]
+
+
+def shard_blockmap(bm: BlockMap, mesh, axis: str = "dp") -> BlockMap:
+    """The map with its block axis split over the devices of ``mesh``'s
+    ``axis`` (an in-process ``parallel.sharding.Mesh``).  Inserts and
+    spawns touch one block, on the device that owns it;
+    :func:`blockmap_world_points` gathers.  Raises ValueError where the
+    block count does not divide.  A checkpoint restore or a recovery gives
+    an unsharded map back."""
+    devices = mesh.axis(axis).devices
+    B = bm.points.shape[0]
+    if B % len(devices):
+        raise ValueError(f"{B} blocks do not divide over {len(devices)} devices")
+    c = B // len(devices)
+
+    def split(t):
+        t = whole_table(t)
+        return BlockShards([t[k * c:(k + 1) * c].to(d, copy=True) for k, d in enumerate(devices)])
+
+    return bm._replace(points=split(bm.points), valid=split(bm.valid), poses=split(bm.poses))
+
+
 def _blockmap_spawn(bm: BlockMap, pose_state: torch.Tensor) -> BlockMap:
     """Open a new (empty) active block anchored at ``pose_state``."""
     nb = bm.n_blocks + 1
     slot = (nb - 1) % bm.points.shape[0]
-    bm.valid[slot] = False
-    bm.poses[slot] = pose_state.to(bm.poses)
+    _row(bm.valid, slot).fill_(False)
+    pose = _row(bm.poses, slot)
+    pose.copy_(pose_state.to(pose))
     return bm._replace(n_blocks=nb, cursor=0)
 
 
@@ -142,7 +204,7 @@ def _blockmap_insert(
     enabled: bool = True,
 ) -> BlockMap:
     """Fold a range-gated stratified downsample of ``scan`` into the active
-    block, in place.
+    block, in place (on the block's device).
 
     ``X_rel`` maps the scan's sensor frame into the active keyframe's frame.
     Sample k of K is scan row ``floor((k + u[k]) N / K)`` (``u``: K uniforms
@@ -166,16 +228,20 @@ def _blockmap_insert(
     new_ok = ok[take]
     slot = (bm.n_blocks - 1) % B
     rows = slice(bm.cursor, bm.cursor + k)
-    bm.points[slot, rows] = torch.where(new_ok[:, None], local[take], bm.points[slot, rows])
-    bm.valid[slot, rows] |= new_ok
+    pts, valid = _row(bm.points, slot), _row(bm.valid, slot)
+    new_ok = new_ok.to(pts.device)
+    pts[rows] = torch.where(new_ok[:, None], local[take].to(pts.device), pts[rows])
+    valid[rows] |= new_ok
     return bm._replace(cursor=cursor)
 
 
 def blockmap_world_points(bm: BlockMap) -> tuple[torch.Tensor, torch.Tensor]:
-    """All map points in the world frame: ``((B*P, 3), (B*P,) validity)``."""
-    rot = euler_R(-bm.poses[:, 3:6])  # (B, 3, 3)
-    world = torch.einsum("bpi,bji->bpj", bm.points, rot) + bm.poses[:, None, :3]
-    return world.reshape(-1, 3), bm.valid.reshape(-1)
+    """All map points in the world frame: ``((B*P, 3), (B*P,) validity)``
+    (a sharded map gathered)."""
+    points, valid, poses = (whole_table(t) for t in (bm.points, bm.valid, bm.poses))
+    rot = euler_R(-poses[:, 3:6])  # (B, 3, 3)
+    world = torch.einsum("bpi,bji->bpj", points, rot) + poses[:, None, :3]
+    return world.reshape(-1, 3), valid.reshape(-1)
 
 
 def blockmap_refresh_poses(bm: BlockMap, keyframe_states: np.ndarray) -> BlockMap:
@@ -195,7 +261,7 @@ def blockmap_refresh_poses(bm: BlockMap, keyframe_states: np.ndarray) -> BlockMa
         )
     poses = bm.poses.clone()
     for spawn_idx in range(max(0, n - B), n):
-        poses[spawn_idx % B] = torch.from_numpy(states[spawn_idx])
+        _row(poses, spawn_idx % B).copy_(torch.from_numpy(states[spawn_idx]))
     return bm._replace(poses=poses)
 
 
@@ -458,12 +524,18 @@ class KeyframeOdometry:
         bm_cfg: BlockMapConfig | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        snapshot_every: int = 10,
     ):
         self.cfg = cfg or ICETConfig()
         self.kf_cfg = kf_cfg or KeyframeConfig()
         self.bm_cfg = bm_cfg or BlockMapConfig()
         self.device = resolve_device(device)
         self._seed = seed
+        #: host-snapshot cadence for recovery: a failed step may leave the
+        #: block map half-written, so recovery restores the newest snapshot
+        #: (a :func:`~icet_tpu_torch.utils.checkpoint.keyframe_state`, taken
+        #: every ``snapshot_every`` frames); inserts since it are lost.
+        self.snapshot_every = snapshot_every
         self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
         self.reset()
 
@@ -483,6 +555,16 @@ class KeyframeOdometry:
         self._index = 0
         self.keyframe_states: list[np.ndarray] = []
         self.keyframe_indices: list[int] = []
+        #: world pose at which the next seed spawn opens (identity for a
+        #: fresh run; a restore or a recovery sets it)
+        self._resume_T = np.eye(4)
+        #: whether the next spawn seeds its block with its scan (a restore
+        #: with ``replay_overlap`` clears it for one spawn)
+        self._resume_seed_insert = True
+        self._snapshot: dict | None = None
+        #: the newest completed world pose (recovery spawns there)
+        self._T_world_host = np.eye(4)
+        self.recoveries = 0
 
     def _uniforms(self) -> torch.Tensor:
         return _uniforms(self._gen, self.bm_cfg.points_per_scan, self.device)
@@ -491,8 +573,9 @@ class KeyframeOdometry:
         state = np_pose_to_state(T_world).astype(np.float32)
         self._model, self.blockmap = keyframe_spawn(
             self.blockmap, scan_dev, torch.from_numpy(state).to(self.device),
-            self._uniforms(), True, self.cfg, self.bm_cfg,
+            self._uniforms(), self._resume_seed_insert, self.cfg, self.bm_cfg,
         )
+        self._resume_seed_insert = True
         self._T_key = T_world
         if self._dnn is not None:
             self._key_scan = scan_dev
@@ -506,10 +589,53 @@ class KeyframeOdometry:
         self.keyframe_indices.append(self._index)
 
     def step(self, scan) -> KeyframeFrame | None:
-        """Feed one scan; returns None for the very first frame."""
+        """Feed one scan; returns None for the very first frame.
+
+        Survives a failed step: on any exception but a TypeError or a
+        ValueError the pipeline probes the device, restores the newest
+        host snapshot (every ``snapshot_every`` frames; the generator state
+        included) and retries; the retried frame spawns a keyframe at the
+        newest completed pose (and returns None), inserts since the
+        snapshot are lost, odometry goes on.  ``recoveries`` counts these.
+        On CUDA this covers failures that leave the context usable; after
+        a sticky error the probe finds no device or the retry raises."""
+        try:
+            frame = self._step_device(scan)
+        except (TypeError, ValueError):
+            raise
+        except Exception:
+            _log.warning("frame %d failed; recovering", self._index, exc_info=True)
+            self._recover()
+            frame = self._step_device(scan)
+        if self._index % self.snapshot_every == 0:
+            from icet_tpu_torch.utils.checkpoint import keyframe_state
+
+            self._snapshot = keyframe_state(self)
+        return frame
+
+    def _recover(self) -> None:
+        from icet_tpu_torch.parallel.elastic import probe_devices
+
+        if not probe_devices([self.device]):
+            raise RuntimeError(f"device {self.device} does not answer")
+        self.recoveries += 1
+        idx, rec, T_last = self._index, self.recoveries, self._T_world_host
+        if self._snapshot is None:
+            self.reset()
+        else:
+            from icet_tpu_torch.utils.checkpoint import restore_keyframe
+
+            restore_keyframe(self, self._snapshot)
+        self._index, self.recoveries = idx, rec
+        self._T_world_host = T_last
+        # Spawn at the newest completed pose, not the snapshot's: block
+        # poses describe themselves, so a newer keyframe fits an older map.
+        self._resume_T = T_last
+
+    def _step_device(self, scan) -> KeyframeFrame | None:
         scan_dev = as_points(scan, self.device)
         if self._model is None:
-            self._spawn(scan_dev, np.eye(4))
+            self._spawn(scan_dev, self._resume_T)
             self._index += 1
             return None
 
@@ -534,6 +660,7 @@ class KeyframeOdometry:
                           health[:1]]).cpu().numpy()
         X_rel, delta_np, cur_stds = host[0:6], host[6:12], host[12:18]
         T_world = self._T_key @ np_pose_matrix(X_rel)
+        self._T_world_host = T_world
 
         # The reported X is the consecutive-frame DELTA (the difference of
         # two keyframe-relative solves), so its stds bound the delta's:
@@ -574,6 +701,7 @@ class KeyframeOdometry:
 
 __all__ = [
     "BlockMap",
+    "BlockShards",
     "KeyframeFrame",
     "KeyframeOdometry",
     "blockmap_init",
@@ -586,5 +714,7 @@ __all__ = [
     "np_pose_matrix",
     "np_pose_to_state",
     "run_keyframe_device",
+    "shard_blockmap",
     "update_health0",
+    "whole_table",
 ]

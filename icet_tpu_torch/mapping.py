@@ -10,14 +10,14 @@ short-fall slots invalid.
 Differences from the JAX package, none of which changes a trajectory: the
 ring cursor and trail length are host integers; the downsample's uniforms
 come from a ``torch.Generator`` seeded from ``seed`` (and are an argument
-of :func:`map_update`, so a test can pass the JAX package's draws in); not
-ported: device-loss recovery and snapshots (``snapshot_every``,
-``_recover``).
+of :func:`map_update`, so a test can pass the JAX package's draws in).
+:meth:`MapMaker.step` survives a failed step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +27,8 @@ from icet_tpu_torch.config import PROFILES, ICETConfig, MapConfig, OdometryConfi
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.ops.geometry import euler_R
 from icet_tpu_torch.solver import prepare_reference, register
+
+_log = logging.getLogger(__name__)
 
 
 class MapState(NamedTuple):
@@ -131,6 +133,7 @@ class MapMaker:
         odo_cfg: OdometryConfig | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        snapshot_every: int = 25,
     ):
         self.cfg = cfg or PROFILES["mapping"]
         self.map_cfg = map_cfg or MapConfig()
@@ -141,12 +144,66 @@ class MapMaker:
         self._model = None
         self._index = 0
         self.state = init_map(self.map_cfg, device=self.device)
+        # Recovery: the ring map is copied to the host every
+        # ``snapshot_every`` frames; the last scan and the generator state
+        # are mirrored every frame (the voxel model is refit from the scan).
+        # At most ``snapshot_every`` frames of map points are lost; the
+        # trajectory goes on from the refit model.
+        self.snapshot_every = max(int(snapshot_every), 1)
+        self._last_scan = None
+        self._gen_host = self._gen.get_state()
+        self._snapshot: MapState | None = None
+        self.recoveries = 0
 
     def _uniforms(self, n: int) -> torch.Tensor:
         return torch.rand(n, generator=self._gen, device=self.device)
 
     def step(self, scan) -> MapFrame | None:
-        """Feed one scan; returns None for the first, which seeds the map."""
+        """Feed one scan; returns None for the first, which seeds the map.
+
+        Survives a failed step: on any exception but a TypeError or a
+        ValueError the pipeline probes the device, restores the newest map
+        snapshot and the generator state, refits the model from the last
+        scan and retries once; ``recoveries`` counts these.  With
+        ``snapshot_every=1`` the recovered run equals an unfailed one.  On
+        CUDA this covers failures that leave the context usable; after a
+        sticky error the probe finds no device or the retry raises."""
+        if not isinstance(scan, torch.Tensor):
+            scan = np.asarray(scan, np.float32)
+        try:
+            frame = self._step_device(scan)
+        except (TypeError, ValueError):
+            raise
+        except Exception:
+            _log.warning("frame %d failed; recovering", self._index, exc_info=True)
+            self._recover()
+            frame = self._step_device(scan)
+        self._last_scan = scan
+        self._gen_host = self._gen.get_state()
+        if self._index % self.snapshot_every == 0:
+            st = self.state
+            self._snapshot = st._replace(**{k: getattr(st, k).to("cpu", copy=True)
+                                            for k in ("points", "valid", "trail")})
+        return frame
+
+    def _recover(self) -> None:
+        from icet_tpu_torch.parallel.elastic import probe_devices
+
+        if not probe_devices([self.device]):
+            raise RuntimeError(f"device {self.device} does not answer")
+        self.recoveries += 1
+        dev = self.device
+        self._gen.set_state(self._gen_host)
+        if self._snapshot is None:
+            self.state = init_map(self.map_cfg, device=dev)
+        else:
+            snap = self._snapshot
+            self.state = snap._replace(**{k: getattr(snap, k).to(dev, copy=True)
+                                          for k in ("points", "valid", "trail")})
+        self._model = (prepare_reference(as_points(self._last_scan, dev), self.cfg)
+                       if self._last_scan is not None else None)
+
+    def _step_device(self, scan) -> MapFrame | None:
         scan_dev = as_points(scan, self.device)
         u = self._uniforms(scan_dev.shape[0])
         if self._model is None:

@@ -5,13 +5,14 @@ takes a recorded ``(F, N, 3)`` sequence, uploads it to the card block by
 block and chains the odometry step there, reading results back once per
 block.  Both give the same :class:`OdometryFrame` records.  With
 ``cfg.dnn_filter`` the pipeline runs the DNN-filtered step; the sequence
-runner refuses it, as the JAX package's does.  Not ported yet: device-loss
-recovery.
+runner refuses it, as the JAX package's does.  The pipeline survives a
+failed step (:meth:`OdometryPipeline.step`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Iterable, Iterator
 
@@ -28,6 +29,8 @@ from icet_tpu_torch.ops.geometry import (
     relative_state,
 )
 from icet_tpu_torch.solver import odometry_step, prepare_reference
+
+_log = logging.getLogger(__name__)
 
 
 def warm_start_seed(x_prev: torch.Tensor, x_prev2: torch.Tensor, mode: str) -> torch.Tensor:
@@ -97,9 +100,63 @@ class OdometryPipeline:
         self._X_prev2 = torch.zeros(6, device=dev)
         self._T_world = torch.eye(4, device=dev)
         self._index = 0
+        # Host mirrors for recovery: the pose state and the last scan (the
+        # voxel model is a function of it, so recovery refits it).
+        self._last_scan = None
+        self._X_host = np.zeros(6, np.float32)
+        self._T_host = np.eye(4, dtype=np.float32)
+        self.recoveries = 0
 
     def step(self, scan) -> OdometryFrame | None:
-        """Feed one scan; returns None for the very first frame."""
+        """Feed one scan; returns None for the very first frame.
+
+        Survives a failed step: on any exception but a TypeError or a
+        ValueError (deterministic errors, raised at once) the pipeline
+        probes the devices, re-uploads the host-mirrored pose, refits the
+        reference model from the retained previous scan (the same model
+        the failed step held) and retries the frame once; ``recoveries``
+        counts these.  On CUDA this covers failures that leave the
+        process's context usable; after a sticky error (an illegal address,
+        an Xid) the probe finds no device or the retry raises, and a new
+        process must resume from a checkpoint
+        (:func:`~icet_tpu_torch.utils.checkpoint.restore_odometry`)."""
+        if not isinstance(scan, torch.Tensor):
+            scan = np.asarray(scan, np.float32)
+        try:
+            frame = self._step_device(scan)
+        except (TypeError, ValueError):
+            raise
+        except Exception:
+            _log.warning("frame %d failed; recovering", self._index, exc_info=True)
+            self._recover()
+            frame = self._step_device(scan)
+        # The mirrors move only once the frame has completed: a failure in
+        # its read-back must not refit the model from the retried scan.
+        self._last_scan = scan
+        if frame is not None:
+            self._X_host = frame.X
+            self._T_host = frame.T_world
+        return frame
+
+    def _recover(self) -> None:
+        from icet_tpu_torch.parallel.elastic import probe_devices
+
+        if not probe_devices([self.device]):
+            raise RuntimeError(f"device {self.device} does not answer")
+        self.recoveries += 1
+        dev = self.device
+        self._X_prev = torch.from_numpy(self._X_host).to(dev)
+        self._X_prev2 = self._X_prev  # re-lock: no velocity history
+        self._T_world = torch.from_numpy(self._T_host).to(dev)
+        self._model = self._scan_prev = self._samples_prev = None
+        if self._last_scan is not None:
+            scan_dev = as_points(self._last_scan, dev)
+            self._model = prepare_reference(scan_dev, self.cfg)
+            if self._dnn is not None:
+                self._scan_prev = scan_dev
+                self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
+
+    def _step_device(self, scan) -> OdometryFrame | None:
         t0 = time.perf_counter()
         scan_dev = as_points(scan, self.device)
         if self._model is None:
@@ -155,6 +212,10 @@ class OdometryPipeline:
             frame = self.step(scan)
             if frame is not None:
                 yield frame
+
+    @property
+    def trajectory_pose(self) -> np.ndarray:
+        return self._T_world.cpu().numpy()
 
 
 def run_odometry(

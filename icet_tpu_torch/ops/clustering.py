@@ -9,6 +9,9 @@ and the sentinel row, get bounds (0, 0) and ``found = False``.
 
 Here the lexicographic order comes from two stable sorts and the per-voxel
 first run from one ``scatter_reduce(amin)``; nothing reads back to the host.
+A voxel's bounds depend only on the multiset of its points' ranges, so the
+distributed variant, which clusters each voxel on the shard that owns it,
+is bit-identical to the replicated one.
 """
 
 from __future__ import annotations
@@ -69,6 +72,74 @@ def radial_cluster_bounds(
         dim=-1,
     )
     return ClusterResult(bounds=bounds, found=found)
+
+
+def distributed_radial_cluster_bounds(
+    vid: list,
+    r: list,
+    valid: list,
+    n_voxels: int,
+    min_pts: int,
+    gap: float,
+    buffer: float,
+    axis,
+    capacity_factor: float = 2.0,
+) -> ClusterResult:
+    """:func:`radial_cluster_bounds` with the points sharded over ``axis``
+    (``icet_tpu/ops/clustering.py::distributed_radial_cluster_bounds``).
+
+    ``vid``, ``r`` and ``valid`` are lists over the axis's local shards,
+    all of one size.  Each shard buckets its points by the shard that owns
+    their voxel range (``ceil(V / S)`` voxels a shard), at most ``cap =
+    ceil(int(capacity_factor * N_local) / S)`` points a bucket; one
+    ``all_to_all`` delivers the buckets, each shard clusters its own
+    voxels, and one ``all_gather`` assembles the ``(V+1,)`` tables on
+    ``axis.device``.  When any bucket overflows anywhere (the summed
+    overflow is read on the host), the points' ``(vid, r)`` are gathered
+    and clustered whole instead.  Either way the result is bit-identical
+    to :func:`radial_cluster_bounds` on the whole cloud."""
+    S = axis.size
+    n_local = r[0].shape[0]
+    vps = -(-n_voxels // S)
+    cap = -(-int(capacity_factor * n_local) // S)
+    sends, overflow = [], []
+    for v, rr, ok in zip(vid, r, valid):
+        dev = rr.device
+        v = torch.where(ok, v, n_voxels).to(torch.int32)
+        # Invalid points go to a bucket S that is never sent.
+        dst = torch.clamp(v // vps, max=S - 1)
+        key = torch.where(ok & (v < n_voxels), dst, S)
+        order = torch.argsort(key, stable=True)
+        counts = torch.bincount(key, minlength=S + 1)
+        offsets = (torch.cumsum(counts, 0) - counts)[:S]
+        within = torch.arange(cap, device=dev)
+        take = torch.clamp(offsets[:, None] + within, 0, n_local - 1)
+        slot_ok = within < counts[:S, None]
+        v_s, r_s = v[order][take], rr.to(torch.float32)[order][take]
+        # (S, cap, 2) int32: the voxel id and the range's bits.
+        sends.append(torch.stack([torch.where(slot_ok, v_s, n_voxels),
+                                  torch.where(slot_ok, r_s, 0.0).view(torch.int32)], -1))
+        overflow.append(torch.clamp(counts[:S] - cap, min=0).sum())
+    if int(axis.psum(overflow)) > 0:
+        both = axis.all_gather([torch.stack([torch.where(ok, v, n_voxels).to(torch.int32),
+                                             rr.to(torch.float32).view(torch.int32)], -1)
+                                for v, rr, ok in zip(vid, r, valid)])
+        v_full, r_full = both[:, 0], both[:, 1].view(torch.float32)
+        return radial_cluster_bounds(v_full, r_full, v_full < n_voxels, n_voxels,
+                                     min_pts, gap, buffer)
+    tables = []
+    for idx, recv in zip(axis.index, axis.all_to_all(sends)):
+        recv_vid = recv[..., 0].reshape(-1)
+        recv_r = recv[..., 1].reshape(-1).view(torch.float32)
+        lo = idx * vps
+        in_range = (recv_vid >= lo) & (recv_vid < lo + vps)
+        cr = radial_cluster_bounds(torch.where(in_range, recv_vid - lo, vps), recv_r,
+                                   in_range, vps, min_pts, gap, buffer)
+        tables.append(torch.cat([cr.bounds[:vps], cr.found[:vps, None].to(cr.bounds)], -1))
+    table = axis.all_gather(tables)
+    zero = torch.zeros((1, 3), dtype=table.dtype, device=table.device)
+    table = torch.cat([table[:n_voxels], zero])
+    return ClusterResult(bounds=table[:, :2].contiguous(), found=table[:, 2] > 0.5)
 
 
 def membership(

@@ -16,9 +16,11 @@ evaluated as one batch (``torch.func.vmap`` of ``jacfwd``), in float32.
   6x6 Cholesky.  Fixed iteration counts, no read back to the host inside.
 * :func:`close_loops` verifies loop candidates by registration.
 
-Entry points run on CUDA unless given ``device="cpu"``.  Not ported yet:
-the sharded variants (``optimize_poses_sharded``,
-``optimize_poses_sparse_sharded``).
+* :func:`optimize_poses_sharded` and :func:`optimize_poses_sparse_sharded`
+  shard the factors over a mesh's first axis (``icet_tpu_torch.parallel``).
+
+Entry points run on CUDA unless given ``device="cpu"``; the sharded ones
+run on their mesh's devices.
 """
 
 from __future__ import annotations
@@ -146,14 +148,13 @@ def optimize_poses(
     return states
 
 
-def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0):
-    """The block-sparse normal equations at ``states``: the gradient ``b
-    (K, 6)``, the damped diagonal blocks ``diag_d (K, 6, 6)``, the
-    off-diagonal blocks of each factor ``off_ij, off_ji (F, 6, 6)`` and the
-    backbone's super-diagonal blocks ``E (K-1, 6, 6)`` (the consecutive
-    factors' ij blocks)."""
+def _sparse_local(states, graph, robust_delta):
+    """One factor set's share of the block-sparse normals: the gradient
+    ``b (K, 6)``, the diagonal blocks ``(K, 6, 6)`` (no prior), the
+    backbone's super-diagonal blocks ``(K, 6, 6)`` (row K-1 takes the
+    non-consecutive factors and is dropped later) and each factor's
+    off-diagonal blocks ``off_ij, off_ji (F, 6, 6)``."""
     K = states.shape[0]
-    eye6 = torch.eye(6, dtype=states.dtype, device=states.device)
     if robust_delta > 0.0:
         # Cauchy IRLS: factor weight 1 / (1 + chi2 / delta^2), from the
         # original information at the current states (a redescending
@@ -170,32 +171,70 @@ def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0):
     b = states.new_zeros((K, 6)).index_add_(0, bi, rhs[:, 0]).index_add_(0, bj, rhs[:, 1])
     diag = states.new_zeros((K, 6, 6)).index_add_(0, bi, blocks[:, 0]).index_add_(
         0, bj, blocks[:, 3])
-    diag[0] += prior_weight * eye6
-    # The dense path's damping scale: damping * trace(H) / (6K).
-    scale = damping * torch.diagonal(diag, dim1=-2, dim2=-1).sum() / (6 * K)
-    diag_d = diag + scale * eye6
     # Consecutive factors form the backbone; the others go to a dropped row.
     consec = bj == bi + 1
     sent = torch.where(consec, bi, K - 1)
     E = states.new_zeros((K, 6, 6)).index_add_(
         0, sent, torch.where(consec[:, None, None], blocks[:, 1], 0.0))
-    return b, diag_d.contiguous(), blocks[:, 1], blocks[:, 2], E[: K - 1].contiguous()
+    return b, diag, E, blocks[:, 1], blocks[:, 2]
+
+
+def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0, axis=None):
+    """The block-sparse normal equations at ``states``: the gradient ``b
+    (K, 6)``, the damped diagonal blocks ``diag_d (K, 6, 6)``, the
+    off-diagonal blocks of each factor ``off_ij, off_ji (F, 6, 6)`` and the
+    backbone's super-diagonal blocks ``E (K-1, 6, 6)`` (the consecutive
+    factors' ij blocks).
+
+    Under a factor ``axis``, ``graph`` is the list of local factor shards:
+    ``b``, the diagonal and ``E`` are summed over the axis in one ``(K,
+    78)`` collective, and ``off_ij``, ``off_ji`` are lists over the shards."""
+    K = states.shape[0]
+    eye6 = torch.eye(6, dtype=states.dtype, device=states.device)
+    if axis is None:
+        b, diag, E, off_ij, off_ji = _sparse_local(states, graph, robust_delta)
+    else:
+        parts = [_sparse_local(states.to(g.meas.device), g, robust_delta) for g in graph]
+        packed = axis.psum([torch.cat([p[0], p[1].reshape(K, 36), p[2].reshape(K, 36)], 1)
+                            for p in parts])
+        b, diag, E = (packed[:, :6], packed[:, 6:42].reshape(K, 6, 6).contiguous(),
+                      packed[:, 42:].reshape(K, 6, 6))
+        off_ij, off_ji = [p[3] for p in parts], [p[4] for p in parts]
+    diag[0] += prior_weight * eye6
+    # The dense path's damping scale: damping * trace(H) / (6K).
+    scale = damping * torch.diagonal(diag, dim1=-2, dim2=-1).sum() / (6 * K)
+    diag_d = diag + scale * eye6
+    return b, diag_d.contiguous(), off_ij, off_ji, E[: K - 1].contiguous()
+
+
+def _offdiag(v, graph, off_ij, off_ji):
+    """One factor set's off-diagonal product ``H_off v``."""
+    bi, bj = graph.idx_i, graph.idx_j
+    off = torch.zeros_like(v)
+    off.index_add_(0, bi, torch.einsum("fab,fb->fa", off_ij, v[bj]))
+    off.index_add_(0, bj, torch.einsum("fab,fb->fa", off_ji, v[bi]))
+    return off
 
 
 def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
-                    precond_kind="tridiag", robust_delta=0.0):
+                    precond_kind="tridiag", robust_delta=0.0, axis=None):
     """One Gauss-Newton step without densifying H: the system is applied
     factor by factor (block-sparse matvec) and solved by ``cg_iters``
-    preconditioned CG iterations.  Returns the updated states."""
+    preconditioned CG iterations.  Returns the updated states.  Under a
+    factor ``axis`` (``graph`` the local shards), each matvec sums the
+    shards' off-diagonal products in one ``(K, 6)`` collective; the CG
+    state and the backbone factor are replicated."""
     b, diag_d, off_ij, off_ji, E = _sparse_normals(states, graph, prior_weight, damping,
-                                                   robust_delta)
-    bi, bj = graph.idx_i, graph.idx_j
+                                                   robust_delta, axis)
 
-    def matvec(v):
-        off = torch.zeros_like(v)
-        off.index_add_(0, bi, torch.einsum("fab,fb->fa", off_ij, v[bj]))
-        off.index_add_(0, bj, torch.einsum("fab,fb->fa", off_ji, v[bi]))
-        return torch.einsum("kab,kb->ka", diag_d, v) + off
+    if axis is None:
+        def matvec(v):
+            return torch.einsum("kab,kb->ka", diag_d, v) + _offdiag(v, graph, off_ij, off_ji)
+    else:
+        def matvec(v):
+            off = axis.psum([_offdiag(v.to(g.meas.device), g, oij, oji)
+                             for g, oij, oji in zip(graph, off_ij, off_ji)])
+            return torch.einsum("kab,kb->ka", diag_d, v) + off
 
     if precond_kind == "tridiag":
         # The odometry backbone solved exactly: CG is left only the loop
@@ -257,6 +296,87 @@ def optimize_poses_sparse(
     for _ in range(n_iters):
         states = _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
                                  precond, robust_delta)
+    return states
+
+
+def _pad_factors(graph: PoseGraph, n_shards: int) -> PoseGraph:
+    """Pad to a multiple of the shard count with zero-information factors
+    (between pose 0 and itself)."""
+    F = graph.idx_i.shape[0]
+    pad = (-F) % n_shards
+    if not pad:
+        return graph
+    g = graph.to("cpu")
+    return PoseGraph(
+        idx_i=torch.cat([g.idx_i, torch.zeros(pad, dtype=torch.int64)]),
+        idx_j=torch.cat([g.idx_j, torch.zeros(pad, dtype=torch.int64)]),
+        meas=torch.cat([g.meas, torch.zeros((pad, 6))]),
+        info=torch.cat([g.info, torch.zeros((pad, 6, 6))]),
+    )
+
+
+def _factor_shards(graph: PoseGraph, axis) -> list:
+    """The axis's local factor shards: ``graph`` padded to a multiple of
+    ``axis.size`` and cut into that many contiguous pieces, each of this
+    process's on its shard's device."""
+    graph = _pad_factors(graph.to("cpu"), axis.size)
+    f = graph.idx_i.shape[0] // axis.size
+    return [PoseGraph(*(t[i * f:(i + 1) * f] for t in graph)).to(d)
+            for i, d in zip(axis.index, axis.shard_devices)]
+
+
+def optimize_poses_sharded(
+    states0,
+    graph: PoseGraph,
+    mesh,
+    n_iters: int = 10,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+) -> torch.Tensor:
+    """:func:`optimize_poses` with the factors sharded over the mesh's
+    first axis (an in-process ``parallel.sharding.Mesh`` or a
+    ``parallel.distributed.ProcessMesh``).  Each shard assembles its
+    factors' dense normals; one sum of ``(H, b)`` over the axis a GN step
+    gives the whole system, solved on the axis's first device (every
+    process of a process mesh solves it).  The gauge prior is added once,
+    after the sum."""
+    axis = mesh.axis(mesh.axis_names[0])
+    shards = _factor_shards(graph, axis)
+    states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    K = states.shape[0]
+    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
+    for _ in range(n_iters):
+        parts = [_build_normals(states.to(g.meas.device), g, 0.0) for g in shards]
+        Hb = axis.psum([torch.cat([H.reshape(-1), b]) for H, b in parts])
+        H, b = Hb[: 36 * K * K].reshape(6 * K, 6 * K), Hb[36 * K * K:]
+        H[:6, :6] += prior_weight * eye[:6, :6]
+        H = H + damping * torch.trace(H) / (6 * K) * eye
+        dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
+        states = states + dx.reshape(K, 6)
+    return states
+
+
+def optimize_poses_sparse_sharded(
+    states0,
+    graph: PoseGraph,
+    mesh,
+    n_iters: int = 10,
+    cg_iters: int = 50,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    robust_delta: float = 0.0,
+) -> torch.Tensor:
+    """:func:`optimize_poses_sparse` (the "tridiag" preconditioner) with the
+    factors sharded over the mesh's first axis: one ``(K, 78)`` sum of the
+    gradient, diagonal and backbone blocks a GN step and one ``(K, 6)`` sum
+    a CG matvec.  The CG state and the backbone kernels run replicated, on
+    the axis's first device."""
+    axis = mesh.axis(mesh.axis_names[0])
+    shards = _factor_shards(graph, axis)
+    states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    for _ in range(n_iters):
+        states = _sparse_gn_step(states, shards, prior_weight, damping, cg_iters,
+                                 "tridiag", robust_delta, axis)
     return states
 
 

@@ -17,6 +17,17 @@ values, as in the JAX package.
 Every function follows the device of its input tensors; the entry points
 that take numpy input (:func:`register_pair`) choose CUDA unless told
 otherwise.
+
+Point sharding: :func:`prepare_reference` and :func:`register` take a
+shard ``axis`` (``icet_tpu_torch.parallel``: the in-process mesh's or the
+process group's), in the place of the JAX package's ``axis_name``.  The
+scan is then a list of this process's point shards, each on its own
+device; each shard's moments pass runs there, and ``axis.psum`` adds the
+``(V+1, 16)`` sums on ``axis.device``, where the replicated per-voxel math
+runs.  The radial clustering routes points to the shard owning their
+voxel range (:func:`~icet_tpu_torch.ops.clustering.
+distributed_radial_cluster_bounds`).  Every exit decision reads the
+reduced values only, so every shard runs the same iterations.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.ops.clustering import (
     ClusterResult,
+    distributed_radial_cluster_bounds,
     membership,
     radial_cluster_bounds,
 )
@@ -89,7 +101,7 @@ class RegistrationResult(NamedTuple):
     pred_stds: torch.Tensor  # (6,) predicted per-component solution std
     Q: torch.Tensor  # (6, 6) predicted solution error covariance
     diagnostics: IterationDiag
-    static_mask: torch.Tensor  # (N2,) scan-2 points in used voxels
+    static_mask: torch.Tensor  # (N2,) scan-2 points in used voxels (local shards)
     #: Gauss-Newton iterations executed (each one moments pass)
     iterations: int
 
@@ -210,10 +222,33 @@ def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
     return _scatter_sums(pts, X, bounds, anchors, cfg)
 
 
-def prepare_reference(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
-    """Fit the dense voxel model to scan 1 ``(N, 3)`` on its device."""
-    scan1 = scan1.contiguous()
-    dev = scan1.device
+def _sums(pts, X, bounds, anchors, cfg: ICETConfig, axis=None) -> torch.Tensor:
+    """(V+1, 16) moment sums of ``pts`` at X; under ``axis``, of every
+    shard of ``pts`` on its own device, summed over the axis."""
+    if axis is None:
+        return _moment_sums(pts, X, bounds, anchors, cfg)
+    return axis.psum([
+        _moment_sums(p, X.to(p.device), bounds.to(p.device), anchors.to(p.device), cfg)
+        for p in pts
+    ])
+
+
+def _local(pts, axis):
+    """The local point shards as contiguous tensors, and the device of the
+    replicated math."""
+    if axis is None:
+        pts = pts.contiguous()
+        return pts, pts.device
+    return [p.contiguous() for p in pts], axis.device
+
+
+def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
+    """Fit the dense voxel model to scan 1 ``(N, 3)`` on its device.
+
+    Under ``axis``, ``scan1`` is the list of local point shards: the
+    clustering runs distributed and the moments are summed over the axis;
+    the model lies on ``axis.device``."""
+    scan1, dev = _local(scan1, axis)
     if cfg.radial_mode == "fixed":
         clusters = ClusterResult(
             bounds=fixed_shell_bounds(cfg, dev),
@@ -221,6 +256,13 @@ def prepare_reference(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
                 torch.ones(cfg.n_voxels, dtype=torch.bool, device=dev),
                 torch.zeros(1, dtype=torch.bool, device=dev),
             ]),
+        )
+    elif axis is not None:
+        rtps = [cart_to_spherical(p) for p in scan1]
+        clusters = distributed_radial_cluster_bounds(
+            [voxel_ids(rtp, cfg) for rtp in rtps], [rtp[..., 0] for rtp in rtps],
+            [rtp[..., 0] >= cfg.min_range for rtp in rtps], cfg.n_voxels,
+            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer, axis,
         )
     else:
         rtp = cart_to_spherical(scan1)
@@ -230,8 +272,9 @@ def prepare_reference(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
             cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer,
         )
     anchors = voxel_anchors(clusters.bounds, cfg)
-    sums = _moment_sums(scan1, torch.zeros(6, dtype=scan1.dtype, device=dev),
-                        clusters.bounds, anchors, cfg)
+    dtype = (scan1 if axis is None else scan1[0]).dtype
+    sums = _sums(scan1, torch.zeros(6, dtype=dtype, device=dev),
+                 clusters.bounds, anchors, cfg, axis)
     count, mean, cov6 = finalize_moments_planes(sums, anchors)
 
     valid = (
@@ -267,22 +310,23 @@ def _covariance_yaw(cov: torch.Tensor) -> torch.Tensor:
 
 def _iteration(
     model: VoxelModel,
-    scan2: torch.Tensor,
+    scan2,
     X: torch.Tensor,
     it: int,
     cfg: ICETConfig,
     corr_mask: torch.Tensor | None = None,
     U2_warm: torch.Tensor | None = None,
     want_range_sens: bool = False,
+    axis=None,
 ):
-    sums = _moment_sums(scan2, X.contiguous(), model.bounds, model.anchors, cfg)
+    sums = _sums(scan2, X.contiguous(), model.bounds, model.anchors, cfg, axis)
     count2, mean2, cov2 = finalize_moments_planes(sums, model.anchors)
 
     corr = model.valid & (count2 >= cfg.min_pts)
     if corr_mask is not None:
         corr = corr & corr_mask
 
-    n_rejected = torch.zeros((), dtype=torch.int32, device=scan2.device)
+    n_rejected = torch.zeros((), dtype=torch.int32, device=X.device)
     if cfg.remove_moving and it >= cfg.rm_start_iter:
         res_compact = residual_compact_planes(model.basis, model.lmask, model.mean, mean2)
         bad_res = torch.any(torch.abs(res_compact) > cfg.rm_residual_thresh, dim=-1)
@@ -291,7 +335,7 @@ def _iteration(
         n_rejected = torch.sum(bad, dtype=torch.int32)
         corr = corr & ~bad
 
-    cm = corr.to(scan2.dtype)
+    cm = corr.to(X.dtype)
     dR = rotation_jacobian(X[3:6])
     args = (model.basis, model.lmask, model.cov, model.count, cov2, count2,
             model.mean, mean2, dR, cm, cfg.pinv_rcond)
@@ -375,12 +419,13 @@ def _stack_diags(rows) -> IterationDiag:
 
 def register(
     model: VoxelModel,
-    scan2: torch.Tensor,
+    scan2,
     x0: torch.Tensor,
     cfg: ICETConfig,
     corr_mask: torch.Tensor | None = None,
     want_static_mask: bool = True,
     it_offset: int = 0,
+    axis=None,
 ) -> RegistrationResult:
     """Solve for the 6-DOF transform aligning scan 2 to the voxel model.
 
@@ -392,11 +437,18 @@ def register(
     ``it_offset`` is the global index of this call's first iteration, for
     callers that split one solve into phases (the DNN filter): the
     moving-object schedule (``it >= rm_start_iter``) sees global indices.
+
+    Under ``axis``, ``scan2`` is the list of local point shards and the
+    returned ``static_mask`` covers those shards, concatenated in order;
+    everything else is replicated over the axis.  The early exit reads
+    ``|dx|`` and its threshold, both computed from the summed moments, so
+    every shard of the axis takes the same decision.
     """
-    scan2 = scan2.contiguous()
-    X = x0.to(device=scan2.device, dtype=scan2.dtype)
+    scan2, dev = _local(scan2, axis)
+    dtype = (scan2 if axis is None else scan2[0]).dtype
+    X = x0.to(device=dev, dtype=dtype)
     X, w6, keep, corr, U2, d, _ = _iteration(
-        model, scan2, X, it_offset, cfg, corr_mask, None
+        model, scan2, X, it_offset, cfg, corr_mask, None, axis=axis
     )
     rows = [d]
     n_it = cfg.n_iters
@@ -411,7 +463,7 @@ def register(
         if early and it >= min_it and not bool(d[2] >= thresh):
             break
         X, w6, keep, corr, U2, d, _ = _iteration(
-            model, scan2, X, it + it_offset, cfg, corr_mask, U2
+            model, scan2, X, it + it_offset, cfg, corr_mask, U2, axis=axis
         )
         rows.append(d)
         if early:
@@ -425,25 +477,50 @@ def register(
         # One extra assembly at the converged X for the range sensitivity.
         _, w6, keep, _, U2, _, htwg = _iteration(
             model, scan2, X, it_offset + n_it - 1, cfg, corr_mask, U2,
-            want_range_sens=True,
+            want_range_sens=True, axis=axis,
         )
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)
     else:
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg)
 
-    if want_static_mask:
-        raw_ok = point_norm(scan2) >= cfg.min_range
-        rtp2 = cart_to_spherical(transform_points(scan2, X))
-        vid2 = voxel_ids(rtp2, cfg)
-        member2 = membership(vid2, rtp2[..., 0], raw_ok, model.bounds, cfg.n_voxels)
-        static_mask = member2 & corr[torch.where(member2, vid2, cfg.n_voxels).long()]
+    if want_static_mask and axis is None:
+        static_mask = _static_mask(scan2, X, model.bounds, corr, cfg)
+    elif want_static_mask:
+        static_mask = torch.cat([
+            _static_mask(p, X.to(p.device), model.bounds.to(p.device),
+                         corr.to(p.device), cfg).to(dev)
+            for p in scan2
+        ])
     else:
-        static_mask = torch.zeros(0, dtype=torch.bool, device=scan2.device)
+        static_mask = torch.zeros(0, dtype=torch.bool, device=dev)
 
     return RegistrationResult(
         X=X, pred_stds=pred_stds, Q=Q, diagnostics=diags,
         static_mask=static_mask, iterations=iterations,
     )
+
+
+def _static_mask(scan2, X, bounds, corr, cfg: ICETConfig) -> torch.Tensor:
+    """Scan-2 points inside used voxels at X."""
+    raw_ok = point_norm(scan2) >= cfg.min_range
+    rtp2 = cart_to_spherical(transform_points(scan2, X))
+    vid2 = voxel_ids(rtp2, cfg)
+    member2 = membership(vid2, rtp2[..., 0], raw_ok, bounds, cfg.n_voxels)
+    return member2 & corr[torch.where(member2, vid2, cfg.n_voxels).long()]
+
+
+def register_pair_impl(
+    scan1,
+    scan2,
+    x0: torch.Tensor,
+    cfg: ICETConfig,
+    axis=None,
+    want_static_mask: bool = True,
+) -> RegistrationResult:
+    """Registration of a pair of tensors (local shards under ``axis``) on
+    their device: :func:`prepare_reference`, then :func:`register`."""
+    model = prepare_reference(scan1, cfg, axis)
+    return register(model, scan2, x0, cfg, want_static_mask=want_static_mask, axis=axis)
 
 
 def register_pair(
@@ -459,8 +536,7 @@ def register_pair(
     s1 = as_points(scan1, dev)
     s2 = as_points(scan2, dev)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
-    model = prepare_reference(s1, cfg)
-    return register(model, s2, x0, cfg)
+    return register_pair_impl(s1, s2, x0, cfg)
 
 
 def odometry_step(
@@ -481,4 +557,5 @@ __all__ = [
     "prepare_reference",
     "register",
     "register_pair",
+    "register_pair_impl",
 ]

@@ -32,7 +32,8 @@ def test_import_leaves_jax_out():
         "icet_tpu_torch.mapping, icet_tpu_torch.scan_matcher, "
         "icet_tpu_torch.utils.checkpoint, icet_tpu_torch.utils.metrics, "
         "icet_tpu_torch.models.train_data, icet_tpu_torch.pose_graph, "
-        "icet_tpu_torch.ops.tridiag\n"
+        "icet_tpu_torch.ops.tridiag, icet_tpu_torch.parallel.sharding, "
+        "icet_tpu_torch.parallel.distributed, icet_tpu_torch.parallel.elastic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'icet_tpu')]\n"
         "print(bad)\n"
@@ -47,7 +48,9 @@ def test_import_leaves_jax_out():
                                    "register_scans", "dnn_pipeline", "keyframe",
                                    "dnn_keyframe", "run_keyframe_device", "mapmaker",
                                    "scan_matcher", "train_bias_net", "train_bias_net_mixed",
-                                   "optimize_poses", "optimize_poses_sparse", "close_loops"])
+                                   "optimize_poses", "optimize_poses_sparse", "close_loops",
+                                   "registration_mesh", "probe_devices", "elastic_runner",
+                                   "init_distributed"])
 def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
     import icet_tpu_torch as it
 
@@ -83,6 +86,22 @@ def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
             getattr(it, entry)(np.zeros((2, 6), np.float32), graph, 1)
         elif entry == "close_loops":
             it.close_loops(scans, [], it.ICETConfig())
+        elif entry == "registration_mesh":
+            from icet_tpu_torch.parallel.sharding import registration_mesh
+
+            registration_mesh()
+        elif entry == "probe_devices":
+            from icet_tpu_torch.parallel.elastic import probe_devices
+
+            probe_devices()
+        elif entry == "elastic_runner":
+            from icet_tpu_torch.parallel.elastic import ElasticRegistrationRunner
+
+            ElasticRegistrationRunner(it.ICETConfig())
+        elif entry == "init_distributed":
+            from icet_tpu_torch.parallel.distributed import init_distributed
+
+            init_distributed("localhost:1", 1, 0)
         else:
             it.run_odometry_device(scans, it.ICETConfig())
 

@@ -10,14 +10,18 @@ convergence_stat_scale=1.0, dnn_filter=True)`` and
 ``OdometryPipeline``.  ``chip_smoke.py`` gates the card's ATE at the JAX
 package's figure printed here plus 0.5 cm.  Run from the repository root:
 
-    JAX_PLATFORMS=cpu python3 tools/dnn_drive_ate_cpu.py [--port] [--fused-reference]
+    JAX_PLATFORMS=cpu python3 tools/dnn_drive_ate_cpu.py [--port] [--fused-reference] [--eager-reference]
 
 ``--fused-reference`` makes the JAX package's filter run its BiasNet
 through the fused Pallas encoder in interpret mode (``apply_bias_net(...,
-fused=True, interpret=True)``), which rounds as the port always does, in
-place of the flax forward it takes off the TPU.  With ``--port`` the output
-then also holds both packages' per-frame X and correspondence counts, and
-the first frame where they differ.
+fused=True, interpret=True)``) in place of the flax forward it takes off
+the TPU.  ``--eager-reference`` runs the JAX package's pipeline under
+``jax.disable_jit()`` (~2.5 min): its jitted CPU program evaluates the
+BiasNet's bf16 bias adds in float32 (XLA drops the bf16 rounding the code
+states, in the flax forward and the interpret-mode kernel alike), its eager
+evaluation rounds as the code, the TPU and the port do.  With ``--port``
+the output also holds both packages' per-frame X and correspondence
+counts, and the first frame where they differ.
 """
 
 from __future__ import annotations
@@ -51,6 +55,16 @@ def force_fused_reference() -> None:
         net, params, x, fused=True, interpret=True)
 
 
+def reference_mode(eager: bool):
+    """``jax.disable_jit()`` when ``eager``, else a context that does
+    nothing."""
+    import contextlib
+
+    import jax
+
+    return jax.disable_jit() if eager else contextlib.nullcontext()
+
+
 def first_difference(a, b, atol: float = 1e-5) -> dict:
     """Per-frame X and n_corr of two runs, and the first frame where X
     differs by more than ``atol`` or the counts differ (None if none)."""
@@ -70,6 +84,8 @@ def main() -> int:
     ap.add_argument("--port", action="store_true", help="also run the port's CPU path")
     ap.add_argument("--fused-reference", action="store_true",
                     help="run the JAX package's BiasNet on its fused kernel (interpret mode)")
+    ap.add_argument("--eager-reference", action="store_true",
+                    help="run the JAX package's pipeline without jit (jax.disable_jit)")
     args = ap.parse_args()
 
     import jax
@@ -87,11 +103,13 @@ def main() -> int:
     kw = dict(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0, dnn_filter=True)
     out = {}
     t0 = time.perf_counter()
-    frames = list(OdometryPipeline(ICETConfig(**kw), OdometryConfig(divergence_clamp=2.5))
-                  .run(scans))
+    with reference_mode(args.eager_reference):
+        frames = list(OdometryPipeline(ICETConfig(**kw), OdometryConfig(divergence_clamp=2.5))
+                      .run(scans))
     out["icet_tpu"] = {"ate_m": ate(frames, gt), "s": time.perf_counter() - t0,
                        "diverged": sum(f.diverged for f in frames),
-                       "fused_reference": args.fused_reference}
+                       "fused_reference": args.fused_reference,
+                       "eager_reference": args.eager_reference}
     ref_frames = frames
     if args.port:
         import torch

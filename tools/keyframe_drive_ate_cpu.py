@@ -19,13 +19,14 @@ n_azimuth=1024)``).
 ``chip_smoke.py`` gates the card's ATE on each drive at the JAX package's
 figure printed here plus 0.5 cm.  Run from the repository root:
 
-    JAX_PLATFORMS=cpu python3 tools/keyframe_drive_ate_cpu.py [--port] [--fused-reference]
+    JAX_PLATFORMS=cpu python3 tools/keyframe_drive_ate_cpu.py [--port] [--fused-reference] [--eager-reference]
 
 ``--fused-reference`` runs the JAX package's BiasNet through its fused
-Pallas encoder in interpret mode, which rounds as the port does (see
-``tools/dnn_drive_ate_cpu.py``); with ``--port`` each drive's output then
-also holds both packages' per-frame X and correspondence counts and the
-first frame where they differ.
+Pallas encoder in interpret mode; ``--eager-reference`` runs the JAX
+package's drives under ``jax.disable_jit()``, which rounds the BiasNet's
+bf16 stages as the code states (see ``tools/dnn_drive_ate_cpu.py``); with
+``--port`` each drive's output also holds both packages' per-frame X and
+correspondence counts and the first frame where they differ.
 """
 
 from __future__ import annotations
@@ -41,7 +42,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from tools.dnn_drive_ate_cpu import first_difference, force_fused_reference  # noqa: E402
+from tools.dnn_drive_ate_cpu import (  # noqa: E402
+    first_difference,
+    force_fused_reference,
+    reference_mode,
+)
 
 DRIVES = ("keyframe", "dnn_keyframe", "mapmaker")
 
@@ -108,6 +113,8 @@ def main() -> int:
     ap.add_argument("--port", action="store_true", help="also run the port's CPU path")
     ap.add_argument("--fused-reference", action="store_true",
                     help="run the JAX package's BiasNet on its fused kernel (interpret mode)")
+    ap.add_argument("--eager-reference", action="store_true",
+                    help="run the JAX package's drives without jit (jax.disable_jit)")
     args = ap.parse_args()
 
     import jax
@@ -123,7 +130,8 @@ def main() -> int:
     gt = [T for _, T in drive]
     out = {}
     for name in DRIVES:
-        ref = run(icet_tpu, name, scans, gt, {})
+        with reference_mode(args.eager_reference):
+            ref = run(icet_tpu, name, scans, gt, {})
         out[name] = {"icet_tpu": ref}
         if args.port:
             import torch
@@ -136,6 +144,7 @@ def main() -> int:
             out[name]["per_frame"] = first_difference(ref.pop("frames"), port.pop("frames"))
         ref.pop("frames", None)
         out[name]["fused_reference"] = args.fused_reference
+        out[name]["eager_reference"] = args.eager_reference
         print(json.dumps({name: out[name]}), flush=True)
     print(json.dumps(out))
     return 0
