@@ -72,12 +72,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     1,000 poses, one device operation a call; then
     ``optimize_poses_sparse`` on that graph, launches counted, the mean
     position error at most half the initial one;
-17. the loop-closure drive (examples/eval_citydrive.py's pipeline on
-    tests/test_citydrive.py's block at 64x1024, 250 frames): odometry,
-    loop candidates, ``close_loops``, ``graph_from_odometry``,
-    ``optimize_poses_sparse(..., 10, 50, robust_delta=3.5)``; launches
-    counted, at least 30 loops, the refined ATE below the odometry ATE and
-    within ATE_SLACK_M of the JAX package's CPU figure;
+17. the loop-closure drive through ``icet_tpu_torch.examples.eval_citydrive.run``
+    (tests/test_citydrive.py's block at 64x1024, 250 frames): odometry, loop
+    candidates, ``close_loops``, ``optimize_poses_sparse(..., 10, 50,
+    robust_delta=3.5)``; launches counted, at least 30 loops, the refined
+    ATE below the odometry ATE and within ATE_SLACK_M of the JAX package's
+    CPU figure;
 18. the in-process mesh (``parallel.sharding``) on repeats of the card at
     (dp, sp) in SHARD_SHAPES, 4 pairs of the drive: each pair against the
     unsharded ``register_pair`` at the JAX package's sharding tolerances,
@@ -101,7 +101,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     bound from two clean runs (the keyframe runner re-seeds a keyframe
     there, as the JAX package's does), ATE and ms a recovery; then a
     resume of the odometry and keyframe runners from a mid-drive
-    checkpoint.
+    checkpoint;
+22. KITTI evaluation at KITTI scale: the 24-frame city drive at 64x2048
+    (131,072 rays a sweep) written as a KITTI sequence with a non-identity
+    ``calib.txt``, through ``eval_kitti.run`` with the native prefetch
+    queue: plain (TUM files and the HTML map written), ``--keyframe``,
+    ``--dnn`` and ``--refine --strict-real``; launches of #1, #4 and the
+    backbone counted, ATE gated at the JAX package's CPU figure
+    (tools/kitti_eval_ate_cpu.py) plus 0.5 cm, the TUM files read back,
+    ms a frame by CUDA events and the StageTimer split;
+23. replay and prefetch: the sequence's first 8 scans as .bin and .npy;
+    ``NativeReplaySource`` and ``KittiOdometrySource(prefetch=True)``
+    bit-identical to the numpy readers; ``eval_odometry.run`` through
+    ``ReplaySource``, launches counted;
+24. ``eval_citydrive.run`` on a 16-frame drive: stepped, ``--chained`` and a
+    ``--state --chunk`` run stopped and resumed once, the chained and
+    resumed trajectories within phase 21's bound of the stepped one;
+25. leftovers: a registration at ``moment_method="onehot"`` against the CPU
+    path and the fused route; ``device_time_ms`` of kernel #1 within 25%
+    of phase 13's CUDA-event measurement, taken again in turns beside it;
+    ``trace()`` (in a fresh process) writing a Chrome trace that names the
+    fused-moments kernel; phase 22's HTML map.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -775,8 +795,38 @@ def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
           f"{dP:.3e} vs the unsharded map")
 
 
+def trace_worker(spec: dict) -> int:
+    """A spawned process of phase 25: ``TRACE_LAUNCHES`` launches of kernel
+    #1 on the saved inputs inside ``utils.profiling.trace``; writes the
+    Chrome trace's kernel event names to ``spec["out"]``."""
+    sys.path.insert(0, ROOT)
+    from icet_tpu_torch.config import ICETConfig
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.utils.profiling import trace
+
+    cfg = ICETConfig(**spec["cfg"])
+    with np.load(spec["data"]) as z:
+        pts, X, bounds, anchors = (torch.from_numpy(z[k]).cuda()
+                                   for k in ("pts", "X", "bounds", "anchors"))
+    fused_moment_sums(pts, X, bounds, anchors, cfg)  # build and load outside the trace
+    torch.cuda.synchronize()
+    with trace(spec["dir"]) as path:
+        for _ in range(TRACE_LAUNCHES):
+            fused_moment_sums(pts, X, bounds, anchors, cfg)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    with open(spec["out"], "w") as f:
+        json.dump({"kernels": kernels, "events": len(events),
+                   "bytes": os.path.getsize(path)}, f)
+    return 0
+
+
 def worker(spec: dict) -> int:
-    """A spawned process of phase 19: one rank of a process-group mesh."""
+    """A spawned process of phase 19 (one rank of a process-group mesh) or,
+    with ``kind`` "trace", of phase 25."""
+    if spec.get("kind") == "trace":
+        return trace_worker(spec)
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
@@ -1093,6 +1143,341 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
           f"{d_kf:.3e} m")
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: the user entry points, replay and prefetch, the leftovers
+# ---------------------------------------------------------------------------
+
+#: phase 22's sequence: make_kitti_sequence's arguments, the 24-frame city
+#: drive at 64x2048 (131,072 rays a sweep, an HDL-64E's ~0.18 deg azimuth
+#: step) with a non-identity calib.txt (tools/kitti_eval_ate_cpu.py FIXTURE)
+KITTI_FIXTURE = ["--frames", "24", "--speed", "1.0", "--beams", "64", "--azimuth", "2048",
+                 "--calib"]
+#: the JAX package's eval_kitti ATE on that sequence on the CPU, in cm as
+#: its summary rounds them (tools/kitti_eval_ate_cpu.py); the card's runs
+#: may be 0.5 cm worse at most
+KITTI_ATE_REF_CM = {"plain": 5.1, "keyframe": 0.93, "dnn": 5.49}
+#: phase 23: scans of the replay directory
+REPLAY_FRAMES = 8
+#: phase 24's short drive (no loop candidates at this length)
+CD_SHORT = ["--frames", "16", "--beams", "64", "--azimuth", "1024"]
+#: phase 24: a resumed or chained run's positions against the stepped
+#: run's (phase 21's T_world bound, m)
+RESUME_T_ATOL_M = 1e-3
+#: phase 25: X of the onehot registration against the CPU path and the
+#: fused route (tests/test_torch_solver.py's early-exit tolerance)
+ONEHOT_X_ATOL = 1e-4
+#: phase 25: device_time_ms of kernel #1 against phase 13's CUDA events,
+#: each taken this many times in alternating turns (their medians compared)
+DEVICE_TIME_RTOL, DEVICE_TIME_TURNS = 0.25, 5
+#: phase 25: launches of kernel #1 inside trace()
+TRACE_LAUNCHES = 50
+
+
+def tum_positions(path: str) -> np.ndarray:
+    rows = np.loadtxt(path)
+    check(rows.ndim == 2 and rows.shape[1] == 8 and bool(np.isfinite(rows).all()),
+          f"{path}: not a finite TUM trajectory")
+    return rows[:, 1:4]
+
+
+def phase_kitti(tmp: str, dev, card) -> dict:
+    """Phase 22: ``eval_kitti.run`` at KITTI scale on the card, plain (with
+    --out), --keyframe, --dnn, and --refine --strict-real; launches of
+    kernels #1, #4 and the backbone counted, ATE gated."""
+    from icet_tpu_torch.config import ICETConfig
+    from icet_tpu_torch.datasets.kitti import load_calib_tr
+    from icet_tpu_torch.examples import eval_kitti, make_kitti_sequence
+    from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.ops.tridiag import tridiag_apply, tridiag_factor
+
+    t0 = time.perf_counter()
+    seq = make_kitti_sequence.run(make_kitti_sequence.build_parser().parse_args(
+        ["--out", os.path.join(tmp, "seq"), *KITTI_FIXTURE]))["dir"]
+    data_s = time.perf_counter() - t0
+    tr = load_calib_tr(os.path.join(seq, "calib.txt"))
+    check(tr is not None and not np.allclose(tr, np.eye(4)), "calib.txt Tr is the identity")
+    n_scans = int(KITTI_FIXTURE[1])
+    base = ["--sequence", seq, "--poses", os.path.join(seq, "poses.txt"), "--clamp", "2.5",
+            "--device", dev.type, "--prefetch", "on"]
+    out_prefix = os.path.join(tmp, "kitti")
+
+    def run(extra):
+        torch.cuda.synchronize()
+        fused_moment_sums.launches = bias_encoder_pool.launches = 0
+        tridiag_factor.launches = tridiag_apply.launches = 0
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        s = eval_kitti.run(eval_kitti.build_parser().parse_args(base + extra))
+        ev1.record()
+        torch.cuda.synchronize()
+        launches = dict(fused=fused_moment_sums.launches, encoder=bias_encoder_pool.launches,
+                        factor=tridiag_factor.launches, apply=tridiag_apply.launches)
+        check(s["frames"] == n_scans - 1, f"eval_kitti {extra}: {s['frames']} frames")
+        check(s["divergences"] == 0, f"eval_kitti {extra}: {s['divergences']} divergences")
+        return s, launches, ev0.elapsed_time(ev1) / s["frames"]
+
+    runs = {}
+    dcfg = ICETConfig(dnn_filter=True)
+    n_post = dcfg.n_iters - max(min(dcfg.dnn_start_iter, dcfg.n_iters - 1), 1)
+    for mode, extra in (("plain", ["--out", out_prefix]), ("keyframe", ["--keyframe"]),
+                        ("dnn", ["--dnn"]), ("refine", ["--refine", "--strict-real"])):
+        s, lc, ms = run(extra)
+        runs[mode] = (s, lc, ms)
+        n = s["frames"]
+        if mode == "keyframe":
+            want = s["iterations"] + len(s["keyframes"])
+            what = f"{s['iterations']} iterations + {len(s['keyframes'])} keyframe prepares"
+        elif mode == "dnn":
+            want = s["iterations"] + n * n_post + n_scans
+            what = (f"{s['iterations']} iterations + {n * n_post} filter passes + {n_scans} "
+                    "prepares")
+            check(lc["encoder"] == n * n_post * dcfg.dnn_refine_steps,
+                  f"eval_kitti --dnn: encoder launches {lc['encoder']} != "
+                  f"{n * n_post * dcfg.dnn_refine_steps} filtered iterations")
+        else:
+            # --refine: 24 frames hold no loop candidate 100 frames apart,
+            # so close_loops registers nothing
+            check(s.get("loop_candidates", 0) == 0, f"eval_kitti {mode}: loop candidates")
+            want = s["iterations"] + n_scans
+            what = f"{s['iterations']} iterations + {n_scans} prepares"
+        check(lc["fused"] == want, f"eval_kitti {mode}: fused launches {lc['fused']} != {what}")
+        if mode in KITTI_ATE_REF_CM:
+            ref = KITTI_ATE_REF_CM[mode]
+            check(s["ate_odometry_cm"] <= ref + ATE_SLACK_M * 100,
+                  f"eval_kitti {mode}: ATE {s['ate_odometry_cm']} cm above {ref} + "
+                  f"{ATE_SLACK_M * 100} cm")
+        print(f"eval_kitti {mode} at 64x2048 (N = 131,072, sequence written in {data_s:.1f} "
+              f"s): {n} frames, ATE {s['ate_odometry_cm']} cm (JAX package on the CPU: "
+              f"{KITTI_ATE_REF_CM.get(mode, 'n/a')} cm), RPE {s['rpe_t_cm']} cm / "
+              f"{s['rpe_r_deg']} deg, {s['iterations']} iterations, launches {lc} ({what}), "
+              f"{ms:.3f} ms a frame by CUDA events ({card})"
+              + (f", keyframes {s['keyframes']}" if mode == "keyframe" else ""))
+    s, lc, _ = runs["refine"]
+    check((lc["factor"], lc["apply"]) == (10, 10 * 51),
+          f"eval_kitti --refine: factor/apply launches {(lc['factor'], lc['apply'])}")
+    check(np.isfinite(s["ate_refined_cm"]), "eval_kitti --refine: refined ATE not finite")
+    print(f"eval_kitti --refine --strict-real: {s['loop_factors']} loop factors, refined ATE "
+          f"{s['ate_refined_cm']} cm (odometry {s['ate_odometry_cm']} cm), factor/apply "
+          f"launches {(lc['factor'], lc['apply'])}")
+    # The TUM files read back: the odometry trajectory scores the same ATE.
+    est, gt_pos = tum_positions(out_prefix + ".odo.tum"), tum_positions(out_prefix + ".gt.tum")
+    check(est.shape == gt_pos.shape == (n_scans, 3), f"TUM files hold {est.shape} poses")
+    ate_tum = float(np.sqrt(np.mean(np.sum((est - gt_pos) ** 2, axis=1)))) * 100
+    plain = runs["plain"][0]
+    check(abs(ate_tum - plain["ate_odometry_cm"]) <= 0.01,
+          f"TUM files score {ate_tum:.4f} cm, the run {plain['ate_odometry_cm']} cm")
+    stages = {k: {m: round(v[m], 3) for m in ("n", "mean_ms", "p50_ms", "p95_ms")}
+              for k, v in {**plain["stages"], "refine": s["stages"]["refine"]}.items()}
+    print(f"eval_kitti StageTimer ({card}): {json.dumps(stages)}")
+    return {"seq": seq, "map_html": out_prefix + ".map.html", "runs": runs}
+
+
+def phase_replay(seq: str, dev, card) -> None:
+    """Phase 23: the first REPLAY_FRAMES scans of phase 22's sequence as
+    .bin and .npy; the native queue and the prefetched KITTI source bit
+    for bit against the numpy readers; eval_odometry through ReplaySource."""
+    import shutil
+    import tempfile
+
+    from icet_tpu_torch.datasets.kitti import KittiOdometrySource, load_poses
+    from icet_tpu_torch.datasets.loaders import load_kitti_bin, load_npy
+    from icet_tpu_torch.examples import eval_odometry
+    from icet_tpu_torch.native import NativeReplaySource
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+
+    vel = os.path.join(seq, "velodyne")
+    bins = sorted(os.listdir(vel))[:REPLAY_FRAMES]
+    with tempfile.TemporaryDirectory() as tmp:
+        bdir, ndir = os.path.join(tmp, "bin"), os.path.join(tmp, "npy")
+        os.makedirs(bdir)
+        os.makedirs(ndir)
+        for b in bins:
+            shutil.copy(os.path.join(vel, b), bdir)
+            raw = np.fromfile(os.path.join(vel, b), np.float32).reshape(-1, 4)[:, :3]
+            np.save(os.path.join(ndir, b.replace(".bin", ".npy")), raw)
+        t0 = time.perf_counter()
+        nat_bin = list(NativeReplaySource(bdir, max_points=131072))
+        nat_npy = list(NativeReplaySource(ndir, max_points=131072))
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        np_bin = [load_kitti_bin(os.path.join(bdir, b), 131072) for b in bins]
+        np_npy = [load_npy(os.path.join(ndir, b.replace(".bin", ".npy")), 131072) for b in bins]
+        np_s = time.perf_counter() - t0
+        check(len(nat_bin) == len(nat_npy) == REPLAY_FRAMES, "native replay: frame count")
+        for a, b in zip(nat_bin + nat_npy, np_bin + np_npy):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  "native replay: a scan differs from the numpy reader's")
+        kw = dict(poses_file=os.path.join(seq, "poses.txt"), end=REPLAY_FRAMES)
+        pre = list(KittiOdometrySource(seq, prefetch=True, **kw))
+        plain = list(KittiOdometrySource(seq, prefetch=False, **kw))
+        check(len(pre) == len(plain) == REPLAY_FRAMES, "KITTI source: frame count")
+        for (sa, Ta), (sb, Tb) in zip(pre, plain):
+            check(np.array_equal(sa, sb) and np.array_equal(Ta, Tb),
+                  "KittiOdometrySource(prefetch=True) differs from the numpy reader")
+        print(f"replay ({REPLAY_FRAMES} scans of 131,072 points): native queue .bin and .npy "
+              f"bit-identical to the numpy readers ({nat_s:.2f} s vs {np_s:.2f} s on the host), "
+              f"KittiOdometrySource(prefetch=True) bit-identical to prefetch=False")
+        # Velodyne-frame ground truth for eval_odometry (it reads no calib).
+        poses = os.path.join(tmp, "poses.txt")
+        tr = np.loadtxt(os.path.join(seq, "calib.txt"), usecols=range(1, 13)).reshape(3, 4)
+        T_tr = np.eye(4)
+        T_tr[:3] = tr
+        velo = load_poses(os.path.join(seq, "poses.txt"))[:REPLAY_FRAMES] @ T_tr
+        np.savetxt(poses, velo[:, :3, :].reshape(-1, 12), fmt="%.9e")
+        torch.cuda.synchronize()
+        fused_moment_sums.launches = 0
+        s = eval_odometry.run(eval_odometry.build_parser().parse_args(
+            ["--scans", ndir, "--poses", poses, "--device", dev.type]))
+        torch.cuda.synchronize()
+        check(s["frames"] == REPLAY_FRAMES - 1 and s["divergences"] == 0,
+              f"eval_odometry: {s}")
+        check(fused_moment_sums.launches == s["iterations"] + REPLAY_FRAMES,
+              f"eval_odometry: fused launches {fused_moment_sums.launches} != "
+              f"{s['iterations']} iterations + {REPLAY_FRAMES} prepares")
+        print(f"eval_odometry through ReplaySource: {s['frames']} frames, ATE {s['ate_cm']} cm, "
+              f"RPE {s['rpe_t_cm']} cm, fused launches {fused_moment_sums.launches}, mean "
+              f"solve {s['mean_solve_ms']} ms ({card})")
+
+
+def phase_citydrive_entry(tmp: str, dev, card) -> None:
+    """Phase 24: eval_citydrive.run on a short drive: stepped, --chained
+    and a --state --chunk run stopped and resumed once; the chained and
+    resumed trajectories against the stepped one."""
+    from icet_tpu_torch.examples import eval_citydrive
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+
+    def run(extra):
+        torch.cuda.synchronize()
+        fused_moment_sums.launches = 0
+        t0 = time.perf_counter()
+        s = eval_citydrive.run(eval_citydrive.build_parser().parse_args(
+            CD_SHORT + ["--device", dev.type] + extra))
+        torch.cuda.synchronize()
+        return s, fused_moment_sums.launches, time.perf_counter() - t0
+
+    n = int(CD_SHORT[1])
+    stepped, f_step, t_step = run(["--out", os.path.join(tmp, "cd_step")])
+    chained, f_chain, t_chain = run(["--chained", "--out", os.path.join(tmp, "cd_chain")])
+    state = os.path.join(tmp, "cd_state", "drive")
+    first, _, t_first = run(["--state", state, "--chunk", str(n // 2)])
+    check(first.get("chunk_done") and first["next_k"] == n // 2,
+          f"eval_citydrive --chunk: {first}")
+    resumed, f_res, t_res = run(["--state", state, "--chunk", str(n // 2),
+                                 "--out", os.path.join(tmp, "cd_res")])
+    for name, s, f in (("stepped", stepped, f_step), ("chained", chained, f_chain)):
+        check(s["frames"] == n - 1 and s["divergences"] == 0, f"eval_citydrive {name}: {s}")
+        check(f == s["iterations"] + n, f"eval_citydrive {name}: fused launches {f} != "
+              f"{s['iterations']} iterations + {n} prepares")
+    check(resumed["frames"] == n - 1, f"eval_citydrive resumed: {resumed}")
+    ref = tum_positions(os.path.join(tmp, "cd_step.odo.tum"))
+    d_chain = float(np.abs(tum_positions(os.path.join(tmp, "cd_chain.odo.tum")) - ref).max())
+    d_res = float(np.abs(tum_positions(os.path.join(tmp, "cd_res.odo.tum")) - ref).max())
+    check(d_chain <= RESUME_T_ATOL_M and d_res <= RESUME_T_ATOL_M,
+          f"eval_citydrive: chained {d_chain:.3e} m, resumed {d_res:.3e} m from the stepped run")
+    print(f"eval_citydrive short drive ({n} frames of 64x1024): stepped ATE "
+          f"{stepped['ate_odometry_cm']} cm in {t_step:.1f} s, chained "
+          f"{chained['ate_odometry_cm']} cm in {t_chain:.1f} s (max |dp| {d_chain:.3e} m), "
+          f"--chunk {n // 2} + resume {resumed['ate_odometry_cm']} cm in {t_first:.1f} + "
+          f"{t_res:.1f} s (max |dp| {d_res:.3e} m, {f_res} fused launches after the resume); "
+          f"stepped StageTimer ({card}): "
+          f"{json.dumps({k: round(v['mean_ms'], 3) for k, v in stepped['stages'].items()})} "
+          "ms mean")
+
+
+def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) -> None:
+    """Phase 25: a registration at moment_method="onehot"; device_time_ms of
+    kernel #1 against phase 13; trace(); phase 22's HTML map."""
+    import tempfile
+
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.solver import moment_route, register_pair
+    from icet_tpu_torch.utils.profiling import device_time_ms
+
+    ocfg = cfg.replace(moment_method="onehot")
+    check(moment_route(ocfg) == "onehot", f"onehot route: {moment_route(ocfg)}")
+    x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
+    torch.cuda.synchronize()
+    before = fused_moment_sums.launches
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    card_res = register_pair(scans[0], scans[1], x0, ocfg, device=dev)
+    ev1.record()
+    torch.cuda.synchronize()
+    onehot_fused = fused_moment_sums.launches - before
+    onehot_ms = ev0.elapsed_time(ev1)
+    cpu_res = register_pair(scans[0], scans[1], x0, ocfg, device="cpu")
+    fused_res = register_pair(scans[0], scans[1], x0, cfg, device=dev)
+    oX, cX, fX = (r.X.cpu().numpy() for r in (card_res, cpu_res, fused_res))
+    d_cpu, d_fused = float(np.abs(oX - cX).max()), float(np.abs(oX - fX).max())
+    check(onehot_fused == 0, f"onehot registration launched kernel #1 {onehot_fused} times")
+    check(bool(np.isfinite(oX).all()) and d_cpu <= ONEHOT_X_ATOL and d_fused <= ONEHOT_X_ATOL,
+          f"onehot X {oX}: {d_cpu:.3e} from the CPU path, {d_fused:.3e} from the fused route")
+    print(f"onehot registration (N = {scans.shape[1]}, V = {cfg.n_voxels}, block "
+          f"{cfg.moment_block}): {card_res.iterations} iterations in {onehot_ms:.2f} ms "
+          f"(CUDA events, {card}), max |X - CPU| {d_cpu:.3e}, max |X - fused| {d_fused:.3e}")
+
+    # device_time_ms against phase 13's measurement (median_ms: CUDA events
+    # over 100 back-to-back calls, median of 5), taken again here in
+    # alternating turns: back-to-back calls of #1 are bound by the wrapper's
+    # host time (~0.04-0.06 ms against the kernel's ~0.011), which drifts
+    # with the host's load (0.058 in phase 13 against 0.038 in phase 25 of
+    # one run; 0.044 and 0.062 in consecutive calls of another).
+    pts, X, bounds, anchors = timed
+
+    def fused():
+        return fused_moment_sums(pts, X, bounds, anchors, cfg)
+
+    evs, dts = [], []
+    for turn in range(2 * DEVICE_TIME_TURNS):
+        if turn % 4 in (0, 3):
+            evs.append(median_ms(fused, reps=100))
+        else:
+            dts.append(device_time_ms(lambda p, x, b, a: fused_moment_sums(p, x, b, a, cfg),
+                                      pts, X, bounds, anchors, inner=100, trials=5))
+    dt, ev_here = float(np.median(dts)), float(np.median(evs))
+    check(abs(dt - ev_here) <= DEVICE_TIME_RTOL * ev_here,
+          f"device_time_ms {np.round(dts, 5).tolist()} ms vs phase 13's CUDA-event "
+          f"measurement in turns {np.round(evs, 5).tolist()} ms (phase 13 read {fused_ev:.5f})")
+    # trace() in a fresh process, as a user calls it: in this process, after
+    # the earlier phases' many profiler sessions, a trace of 20 launches
+    # recorded no kernel event on an H100, while a fresh process recorded
+    # every launch.
+    import dataclasses
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "in.npz"), pts=pts.cpu().numpy(), X=X.cpu().numpy(),
+                 bounds=bounds.cpu().numpy(), anchors=anchors.cpu().numpy())
+        spec = dict(kind="trace", cfg=dataclasses.asdict(cfg), data=os.path.join(tmp, "in.npz"),
+                    dir=os.path.join(tmp, "trace"), out=os.path.join(tmp, "trace.json"))
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
+                            json.dumps(spec)], cwd=ROOT, capture_output=True, text=True,
+                           timeout=WORKER_TIMEOUT_S)
+        check(r.returncode == 0, f"trace worker failed:\n{(r.stdout + r.stderr)[-3000:]}")
+        with open(spec["out"]) as f:
+            traced = json.load(f)
+    recorded = sum("fused_moments_kernel" in n for n in traced["kernels"])
+    trace_kb = traced["bytes"] / 1024
+    check(recorded > 0, f"trace(): the Chrome trace names no fused_moments_kernel "
+          f"({traced['events']} events, kernels {sorted(set(traced['kernels']))[:5]})")
+    html = kitti["map_html"]
+    check(os.path.exists(html) and os.path.getsize(html) > 100_000,
+          f"{html}: the HTML map is missing or nearly empty")
+    with open(html) as f:
+        text = f.read()
+    start = text.index("const SCENE = ") + len("const SCENE = ")
+    scene = json.loads(text[start:text.index(";\n", start)])
+    layers = [(L["label"], L["n"]) for L in scene["layers"]]
+    check(layers[0][0] == "map" and layers[0][1] > 100_000 and layers[1][0] == "trail",
+          f"HTML map layers {layers}")
+    print(f"device_time_ms(fused_moment_sums) median {dt:.5f} ms of "
+          f"{np.round(dts, 5).tolist()} vs phase 13's CUDA-event measurement in turns, median "
+          f"{ev_here:.5f} of {np.round(evs, 5).tolist()} (phase 13 read {fused_ev:.5f}; "
+          f"{card}); trace() in a fresh process: {trace_kb:.0f} KB Chrome "
+          f"trace, {recorded} of {TRACE_LAUNCHES} launches of fused_moments_kernel recorded; "
+          f"eval_kitti's HTML map {os.path.getsize(html) / 1e6:.1f} MB, layers {layers}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1139,7 +1524,7 @@ def main() -> int:
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        print(f"nvcc {name}.cu:\n{log.strip()}")
+        print(f"build {name}:\n{log.strip()}")
     for name, usage in ptxas_usage(logs).items():
         print(f"ptxas {name}: {usage}")
 
@@ -1837,84 +2222,52 @@ def main() -> int:
           f"graph, 10, 25) {ring_solve_ms:.2f} ms (CUDA events, {card}), factor/apply launches "
           f"{ring_launches}, mean position error {err0:.4f} -> {err1:.4f} m")
 
-    # -- 17. the loop-closure drive at full width -----------------------------
-    from icet_tpu_torch.datasets.synthetic import Scene
-    from icet_tpu_torch.keyframe import np_pose_to_state
-    from icet_tpu_torch.pose_graph import (
-        close_loops,
-        detect_loop_candidates,
-        graph_from_odometry,
-        states_to_poses,
-    )
-    from icet_tpu_torch.utils.metrics import ate_rmse, rpe
+    # -- 17. the loop-closure drive at full width, through eval_citydrive ------
+    from icet_tpu_torch.examples import eval_citydrive
 
-    t0 = time.perf_counter()
-    lc_drive = list(CityDriveSource(scene=Scene(), **LC_DRIVE))
-    lc_scans = [s for s, _ in lc_drive]
-    lc_gt = [T for _, T in lc_drive]
-    lc_data_s = time.perf_counter() - t0
+    lc_argv = ["--frames", str(LC_DRIVE["n_frames"]), "--speed", str(LC_DRIVE["speed"]),
+               "--beams", str(LC_DRIVE["n_beams"]), "--azimuth", str(LC_DRIVE["n_azimuth"]),
+               "--scene", "block", "--rect", *map(str, LC_DRIVE["rect"]),
+               "--radius", "6", "--min-gap", "80", "--device", "cuda"]
     lcfg = ICETConfig()
     torch.cuda.synchronize()
     fused_moment_sums.launches = tridiag_factor.launches = tridiag_apply.launches = 0
     t0 = time.perf_counter()
-    lc_frames = list(OdometryPipeline(lcfg, odo, device="cuda").run(lc_scans))
+    lc = eval_citydrive.run(eval_citydrive.build_parser().parse_args(lc_argv))
     torch.cuda.synchronize()
-    lc_odo_s = time.perf_counter() - t0
-    lc_odo_fused = fused_moment_sums.launches
-    lc_iters = sum(f.iterations for f in lc_frames)
-    check(len(lc_frames) == len(lc_scans) - 1, f"loop-closure drive: {len(lc_frames)} frames")
-    check(not any(f.diverged for f in lc_frames), "loop-closure drive: a frame diverged")
-    check(lc_odo_fused == lc_iters + len(lc_scans),
-          f"loop-closure drive: fused launches {lc_odo_fused} != iterations {lc_iters} + "
-          f"prepares {len(lc_scans)}")
-    est = [np.eye(4)] + [np.asarray(f.T_world, np.float64) for f in lc_frames]
-    lc_ref = [np.linalg.inv(lc_gt[0]) @ T for T in lc_gt]
-    lc_ate_odo = ate_rmse(est, lc_ref)
-    t_err, r_err = rpe(est, lc_ref)
-    cands = detect_loop_candidates(np.stack([T[:3, 3] for T in est]), radius=6.0, min_gap=80)
-
-    def x0_fn(i, j):
-        return np_pose_to_state(np.linalg.inv(est[i]) @ est[j]).astype(np.float32)
-
-    t0 = time.perf_counter()
-    loops = close_loops(lc_scans, cands, lcfg, x0_fn=x0_fn, device="cuda")
-    torch.cuda.synchronize()
-    lc_loops_s = time.perf_counter() - t0
-    lc_loop_fused = fused_moment_sums.launches - lc_odo_fused
-    # One prepare a pair and its iterations: all n_iters of them in
-    # ICETConfig(), which has no early exit.
-    check(lc_loop_fused == len(cands) * (1 + lcfg.n_iters),
-          f"close_loops: {lc_loop_fused} fused launches for {len(cands)} pairs")
-    check(len(loops) >= 30, f"loop-closure drive: {len(loops)} verified loops")
-    lc_states0, lc_graph = graph_from_odometry(lc_frames, loop_factors=loops)
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    lc_opt = optimize_poses_sparse(lc_states0, lc_graph, 10, 50, robust_delta=3.5,
-                                   device="cuda")
-    ev1.record()
-    torch.cuda.synchronize()
-    lc_solve_ms = ev0.elapsed_time(ev1)
+    lc_s = time.perf_counter() - t0
+    lc_fused = fused_moment_sums.launches
     lc_tri = (tridiag_factor.launches, tridiag_apply.launches)
+    n_lc = LC_DRIVE["n_frames"]
+    check(lc["frames"] == n_lc - 1, f"loop-closure drive: {lc['frames']} frames")
+    check(lc["divergences"] == 0, "loop-closure drive: a frame diverged")
+    # Odometry: its iterations and one prepare a scan; close_loops: one
+    # prepare a candidate pair and all n_iters iterations (ICETConfig() has
+    # no early exit).
+    want_lc = lc["iterations"] + n_lc + lc["loop_candidates"] * (1 + lcfg.n_iters)
+    check(lc_fused == want_lc,
+          f"loop-closure drive: fused launches {lc_fused} != iterations {lc['iterations']} + "
+          f"prepares {n_lc} + {lc['loop_candidates']} candidate pairs x {1 + lcfg.n_iters}")
+    check(lc["loop_factors"] >= 30, f"loop-closure drive: {lc['loop_factors']} verified loops")
     check(lc_tri == (10, 10 * 51), f"loop-closure solve: factor/apply launches {lc_tri}")
-    lc_opt = lc_opt.cpu().numpy()
-    check(bool(np.isfinite(lc_opt).all()), "loop-closure solve: non-finite states")
-    lc_ate = ate_rmse(list(states_to_poses(lc_opt)), lc_ref)
-    print(f"loop-closure drive ({len(lc_scans)} frames of {LC_DRIVE['n_beams']}x"
-          f"{LC_DRIVE['n_azimuth']} made in {lc_data_s:.1f} s): "
-          f"odometry ATE {lc_ate_odo * 100:.4f} cm (JAX package on the CPU: "
-          f"{LC_ODO_ATE_REF_M * 100:.4f} cm), RPE {t_err.mean() * 100:.4f} cm / "
-          f"{np.degrees(r_err.mean()):.5f} deg a frame, {len(cands)} candidates, {len(loops)} "
-          f"verified loops (JAX package: {LC_LOOPS_REF}), refined ATE {lc_ate * 100:.4f} cm "
-          f"(JAX package on the CPU: {LC_ATE_REF_M * 100:.4f} cm)")
-    print(f"loop-closure drive times ({card}): odometry {lc_odo_s / len(lc_frames) * 1e3:.2f} "
-          f"ms a frame, close_loops {lc_loops_s / max(len(cands), 1) * 1e3:.2f} ms a pair, "
-          f"pose-graph solve {lc_solve_ms:.2f} ms; fused launches {lc_odo_fused} (odometry: "
-          f"{lc_iters} iterations + {len(lc_scans)} prepares) + {lc_loop_fused} (close_loops), "
-          f"factor/apply launches {lc_tri}")
-    check(lc_ate < lc_ate_odo, f"refined ATE {lc_ate * 100:.4f} cm not below odometry "
-          f"{lc_ate_odo * 100:.4f} cm")
-    check(lc_ate <= LC_ATE_REF_M + ATE_SLACK_M,
-          f"refined ATE {lc_ate * 100:.4f} cm above {(LC_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+    st = lc["stages"]
+    print(f"loop-closure drive through eval_citydrive.run ({n_lc} frames of "
+          f"{LC_DRIVE['n_beams']}x{LC_DRIVE['n_azimuth']}, {lc_s:.1f} s with the drive's "
+          f"raycasting): odometry ATE {lc['ate_odometry_cm']} cm (JAX package on the CPU: "
+          f"{LC_ODO_ATE_REF_M * 100:.4f} cm), RPE {lc['rpe_t_cm']} cm / {lc['rpe_r_deg']} deg "
+          f"a frame, {lc['loop_candidates']} candidates, {lc['loop_factors']} verified loops "
+          f"(JAX package: {LC_LOOPS_REF}), refined ATE {lc['ate_refined_cm']} cm (JAX package "
+          f"on the CPU: {LC_ATE_REF_M * 100:.4f} cm)")
+    print(f"loop-closure drive times ({card}): odometry step {st['step']['mean_ms']:.2f} ms a "
+          f"frame, close_loops {st['loops']['mean_ms'] / max(lc['loop_candidates'], 1):.2f} ms a "
+          f"pair, pose-graph solve {st['solve']['mean_ms']:.2f} ms (StageTimer, synchronised); "
+          f"fused launches {lc_fused} ({lc['iterations']} iterations + {n_lc} prepares + "
+          f"{lc['loop_candidates']} x {1 + lcfg.n_iters}), factor/apply launches {lc_tri}")
+    check(lc["ate_refined_cm"] < lc["ate_odometry_cm"],
+          f"refined ATE {lc['ate_refined_cm']} cm not below odometry {lc['ate_odometry_cm']} cm")
+    check(lc["ate_refined_cm"] <= (LC_ATE_REF_M + ATE_SLACK_M) * 100,
+          f"refined ATE {lc['ate_refined_cm']} cm above "
+          f"{(LC_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
 
     # Times of the backbone kernels at K = 10,000: one factor and one apply,
     # by CUDA events over back-to-back calls.  torch.profiler records only
@@ -1962,6 +2315,22 @@ def main() -> int:
                    {"dnn_odometry": dout, "keyframe": khost, "mapmaker": mout})
     t21 = time.perf_counter() - t0 - t18 - t19 - t20
     print(f"phases 18-21: {t18:.1f} / {t19:.1f} / {t20:.1f} / {t21:.1f} s")
+
+    # -- 22-25: the user entry points, replay and prefetch, the leftovers --
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        kitti = phase_kitti(tmp, dev, card)
+        t22 = time.perf_counter() - t0
+        phase_replay(kitti["seq"], dev, card)
+        t23 = time.perf_counter() - t0 - t22
+        phase_citydrive_entry(tmp, dev, card)
+        t24 = time.perf_counter() - t0 - t22 - t23
+        phase_leftovers(kitti, scans, cfg, dev, card, fused_ev,
+                        (pts, X_step, model.bounds, model.anchors))
+        t25 = time.perf_counter() - t0 - t22 - t23 - t24
+    print(f"phases 22-25: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

@@ -72,7 +72,8 @@ class ICETConfig:
     #: "auto"/"fused": the fused CUDA kernel on CUDA tensors, its plain
     #: PyTorch version on CPU tensors; "segsum": plain ``index_add_``;
     #: "pallas": PyTorch transform and binning, then the moment scatter
-    #: kernel; "onehot": not ported (raises NotImplementedError).
+    #: kernel; "onehot": the same binning, then blocked one-hot products of
+    #: ``moment_block`` points in float32 (``torch.matmul``, any device).
     moment_method: str = "auto"
     moment_block: int = 1024
 

@@ -1,11 +1,66 @@
-"""Synthetic scan sources with exact ground truth; a copy of the two
-trajectory sources of ``icet_tpu/datasets/replay.py`` that needs no JAX."""
+"""Deterministic scan replay sources; a copy of
+``icet_tpu/datasets/replay.py`` that needs no JAX.
+
+``ReplaySource`` replays recorded cloud files as the reference's
+fake_lidar node does (src/fake_lidar.py:85-196): in sorted order,
+optionally paced at the sensor rate and looping.  The two trajectory
+sources raycast scans with exact ground truth.
+"""
 
 from __future__ import annotations
 
+import glob
+import os
+import time
+from typing import Iterator
+
 import numpy as np
 
+from icet_tpu_torch.datasets.loaders import DEFAULT_MAX_POINTS, load_cloud
 from icet_tpu_torch.datasets.synthetic import Scene, simulate_scan
+
+
+class ReplaySource:
+    """Replay a directory/glob of cloud files in sorted order.
+
+    Args:
+      pattern: glob for cloud files (npy/bin/csv/ply).
+      rate_hz: if set, sleep to pace frames at this rate (the reference's
+        10 Hz publisher, fake_lidar.py:80); None = as fast as possible.
+      loop: restart at the sequence end (fake_lidar.py:191-196).
+    """
+
+    def __init__(
+        self,
+        pattern: str,
+        rate_hz: float | None = None,
+        loop: bool = False,
+        max_points: int = DEFAULT_MAX_POINTS,
+    ):
+        if os.path.isdir(pattern):
+            pattern = os.path.join(pattern, "*")
+        self.paths = sorted(p for p in glob.glob(pattern) if os.path.isfile(p))
+        if not self.paths:
+            raise FileNotFoundError(f"no cloud files match {pattern}")
+        self.rate_hz = rate_hz
+        self.loop = loop
+        self.max_points = max_points
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        period = 1.0 / self.rate_hz if self.rate_hz else 0.0
+        while True:
+            for p in self.paths:
+                t0 = time.perf_counter()
+                yield load_cloud(p, self.max_points)
+                if period:
+                    dt = time.perf_counter() - t0
+                    if dt < period:
+                        time.sleep(period - dt)
+            if not self.loop:
+                return
 
 
 class SyntheticTrajectorySource:

@@ -109,6 +109,20 @@ def transform_points(pts: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     )
 
 
+def measurement_jacobian(mu: torch.Tensor, angs: torch.Tensor) -> torch.Tensor:
+    """Per-voxel measurement Jacobian ``H``: ``(V, 3) -> (V, 3, 6)``.
+
+    ``H = [-I_3 | J_phi@mu | J_theta@mu | J_psi@mu]`` at the current angles
+    with the current (already transformed) voxel means, as the reference
+    computes it (icet.cpp:323-329, ICET_spherical.py:424-425); the
+    broadcast sum of ``icet_tpu.ops.geometry.measurement_jacobian``."""
+    dR = rotation_jacobian(angs)  # (3, 3, 3), [..., k] = dR/da_k
+    rot_block = torch.sum(dR[None] * mu[:, None, :, None], dim=2)
+    eye = -torch.eye(3, dtype=mu.dtype, device=mu.device)
+    eye = eye.expand(mu.shape[0], 3, 3)
+    return torch.cat([eye, rot_block], dim=-1)
+
+
 def pose_matrix(X: torch.Tensor) -> torch.Tensor:
     """4x4 homogeneous matrix of the transform ``p' = R(-angs) p + t``."""
     rot = euler_R(-X[3:6])

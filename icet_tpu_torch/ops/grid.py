@@ -75,3 +75,24 @@ def voxel_anchors(bounds: torch.Tensor, cfg: ICETConfig) -> torch.Tensor:
     anchors = spherical_to_cart(torch.stack([r_mid, theta_c, phi_c], dim=-1))
     anchors = torch.cat([anchors, anchors.new_zeros((1, 3))], dim=0)
     return anchors.to(torch.bfloat16).float()
+
+
+def voxel_corners(bounds: torch.Tensor, cfg: ICETConfig) -> torch.Tensor:
+    """Spherical-space corner coordinates ``(V, 8, 3)`` of each voxel
+    frustum, ``(r, theta, phi)`` over r in the bounds, then theta, then
+    phi (visualisation and export; the reference's get_corners_cluster,
+    ICET_spherical.py:864-882)."""
+    dev = bounds.device
+    ang = torch.arange(cfg.n_voxels, dtype=torch.int32, device=dev) % cfg.n_angular
+    itheta = (ang % cfg.n_theta).to(torch.float32)
+    iphi = (ang // cfg.n_theta).to(torch.float32)
+    th0 = itheta / cfg.n_theta * TWO_PI
+    th1 = (itheta + 1.0) / cfg.n_theta * TWO_PI
+    phi_span = cfg.phi_max - cfg.phi_min
+    ph0 = cfg.phi_min + iphi / cfg.n_phi * phi_span
+    ph1 = cfg.phi_min + (iphi + 1.0) / cfg.n_phi * phi_span
+    r0 = bounds[: cfg.n_voxels, 0]
+    r1 = bounds[: cfg.n_voxels, 1]
+    corners = [torch.stack([r, th, ph], dim=-1)
+               for r in (r0, r1) for th in (th0, th1) for ph in (ph0, ph1)]
+    return torch.stack(corners, dim=1)

@@ -42,6 +42,43 @@ def _point_features(g: torch.Tensor, member: torch.Tensor) -> torch.Tensor:
     return torch.cat([feats, pad], dim=-1)
 
 
+def _split3_bf16(x: torch.Tensor):
+    """Exact 3-way bfloat16 split ``x == hi + mid + lo`` (float32), each
+    part representable in bf16 (``icet_tpu.ops.moments._split3_bf16``)."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _accumulate_onehot(feats: torch.Tensor, vid: torch.Tensor, n_voxels: int,
+                       block: int) -> torch.Tensor:
+    """``moment_method="onehot"``: blocks of ``block`` points (the last
+    padded with the sentinel id), each contracted as a ``(block, V+1)``
+    one-hot matrix against the three bf16 parts of its features, the three
+    products added to the accumulator in that order, as the JAX package's
+    ``lax.scan`` does (moments.py:87-122).  The parts are widened to
+    float32 before the product: a bf16 x bf16 ``matmul`` returns bf16 and
+    would round the sums away.  Each product of a one-hot entry and a
+    part is exact; the sums are float32, without TF32
+    (``device.set_fp32_precision``)."""
+    n = feats.shape[0]
+    pad = (-n) % block
+    if pad:
+        feats = torch.cat([feats, feats.new_zeros((pad, N_FEATURES))])
+        vid = torch.cat([vid, vid.new_full((pad,), n_voxels)])
+    feats = feats.reshape(-1, block, N_FEATURES)
+    vid = vid.reshape(-1, block)
+    volume = torch.arange(n_voxels + 1, dtype=vid.dtype, device=vid.device)
+    acc = feats.new_zeros((n_voxels + 1, N_FEATURES))
+    for f, v in zip(feats, vid):
+        onehot_t = (volume[:, None] == v[None, :]).to(torch.float32)
+        for part in _split3_bf16(f):
+            acc = acc + onehot_t @ part.float()
+    return acc
+
+
 def voxel_moment_sums(
     points: torch.Tensor,
     vid: torch.Tensor,
@@ -49,21 +86,23 @@ def voxel_moment_sums(
     anchors: torch.Tensor,
     n_voxels: int,
     method: str = "segsum",
+    block: int = 1024,
 ) -> torch.Tensor:
     """Raw ``(V+1, 16)`` anchored sums of ``points`` by voxel id.
 
     ``"segsum"`` sums with ``index_add_``; ``"pallas"`` with the moment
-    scatter (the CUDA kernel on CUDA tensors, ``index_add_`` on CPU ones).
-    The JAX package's ``"onehot"`` accumulator raises NotImplementedError."""
-    if method not in ("segsum", "pallas"):
-        raise NotImplementedError(
-            f"moment accumulation {method!r} is not ported; use 'segsum' or 'pallas'"
-        )
+    scatter (the CUDA kernel on CUDA tensors, ``index_add_`` on CPU ones);
+    ``"onehot"`` as blocked one-hot products of ``block`` points
+    (:func:`_accumulate_onehot`), on any device."""
+    if method not in ("segsum", "pallas", "onehot"):
+        raise ValueError(f"unknown moment accumulation {method!r}")
     vid = torch.where(member, vid, n_voxels).to(torch.int32)
     g = points - anchors[vid.long()]
     feats = _point_features(g, member)
     if method == "pallas":
         return moment_scatter_sums(vid, feats.contiguous(), n_voxels)
+    if method == "onehot":
+        return _accumulate_onehot(feats, vid, n_voxels, block)
     return moment_scatter_reference(vid, feats, n_voxels)
 
 
@@ -110,7 +149,8 @@ def voxel_moments(
     anchors: torch.Tensor,
     n_voxels: int,
     method: str = "segsum",
+    block: int = 1024,
 ) -> VoxelMoments:
     """Per-voxel count / mean / covariance of the member points."""
-    sums = voxel_moment_sums(points, vid, member, anchors, n_voxels, method)
+    sums = voxel_moment_sums(points, vid, member, anchors, n_voxels, method, block)
     return finalize_moments(sums, anchors)

@@ -173,30 +173,35 @@ def _ndt_axis_mask(eigvals, basis, bounds, valid, cfg: ICETConfig):
     return torch.where(valid[:, None], (~extended).to(eigvals.dtype), 0.0)
 
 
-def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
-    """``moment_method="pallas"``: transform, bin, membership and per-point
-    features in PyTorch, then the moment scatter."""
+def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig, method: str) -> torch.Tensor:
+    """``moment_method="pallas"`` or ``"onehot"``: transform, bin,
+    membership and per-point features in PyTorch, then the moment scatter
+    or the blocked one-hot products."""
     raw_ok = point_norm(pts) >= cfg.min_range
     p2 = transform_points(pts, X)
     rtp = cart_to_spherical(p2)
     vid = voxel_ids(rtp, cfg)
     member = membership(vid, rtp[..., 0], raw_ok, bounds, cfg.n_voxels)
-    return voxel_moment_sums(p2, vid, member, anchors, cfg.n_voxels, method="pallas")
+    return voxel_moment_sums(p2, vid, member, anchors, cfg.n_voxels, method=method,
+                             block=cfg.moment_block)
 
 
 def moment_route(cfg: ICETConfig) -> str:
     """Which moments pass a solve with ``cfg`` takes, decided from the
     config alone before any launch: ``"fused"`` (the fused kernel's
     wrapper: kernel on CUDA, plain version on CPU), ``"plain"`` (the plain
-    ``index_add_`` version on any device) or ``"scatter"`` (the moment
-    scatter).
+    ``index_add_`` version on any device), ``"scatter"`` (the moment
+    scatter) or ``"onehot"`` (blocked one-hot products, on any device,
+    where the JAX package's ``_moment_method`` sends ``"onehot"``).
 
     ``"auto"``/``"fused"`` take the fused kernel when its whole table fits
     one block's shared memory (adaptive radial mode, V <= 5,774 voxels).
     Fixed radial mode's 90,000-row table and larger adaptive grids do not
     fit: there, as the JAX package computes fixed mode and its segsum
     outside any Pallas kernel, they take the plain version.  ``"segsum"``
-    is the plain version, ``"pallas"`` the scatter."""
+    is the plain version, ``"pallas"`` the scatter, ``"onehot"`` the
+    one-hot products (an XLA ``dot_general`` in the JAX package, not a
+    Pallas kernel, so ``torch.matmul`` here)."""
     method = cfg.moment_method
     if method in ("auto", "fused"):
         fits = (cfg.radial_mode != "fixed"
@@ -206,9 +211,11 @@ def moment_route(cfg: ICETConfig) -> str:
         return "plain"
     if method == "pallas":
         return "scatter"
-    raise NotImplementedError(
-        f"moment_method {method!r} is not ported; "
-        "use 'auto', 'fused', 'segsum' or 'pallas'"
+    if method == "onehot":
+        return "onehot"
+    raise ValueError(
+        f"unknown moment_method {method!r}; "
+        "use 'auto', 'fused', 'segsum', 'pallas' or 'onehot'"
     )
 
 
@@ -219,7 +226,8 @@ def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
         return fused_moment_sums(pts, X, bounds, anchors, cfg)
     if route == "plain":
         return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
-    return _scatter_sums(pts, X, bounds, anchors, cfg)
+    return _scatter_sums(pts, X, bounds, anchors, cfg,
+                         "pallas" if route == "scatter" else "onehot")
 
 
 def _sums(pts, X, bounds, anchors, cfg: ICETConfig, axis=None) -> torch.Tensor:

@@ -133,8 +133,17 @@ def test_segsum_and_finalize(scene, xname):
     np.testing.assert_allclose(tcov6.numpy(), np.asarray(jcov6), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(tmom.cov6_to_matrix(tcov6).numpy(),
                                   np.asarray(jmom.cov6_to_matrix(jnp.asarray(tcov6.numpy()))))
-    with pytest.raises(NotImplementedError):
-        tmom.voxel_moment_sums(_t(pts), _t(vid), _t(member), _t(anchors), V, "onehot")
+    # "onehot": blocked one-hot products of the three bf16 parts, as the
+    # JAX package's accumulator; float32 sums in another order, within 1e-6
+    # of each column's largest magnitude, the counts exact.
+    j1h = np.asarray(jmom.voxel_moment_sums(jnp.asarray(pts), jnp.asarray(vid),
+                                            jnp.asarray(member), jnp.asarray(anchors), V,
+                                            method="onehot", block=CFG.moment_block))
+    t1h = tmom.voxel_moment_sums(_t(pts), _t(vid), _t(member), _t(anchors), V, "onehot",
+                                 CFG.moment_block).numpy()
+    np.testing.assert_array_equal(t1h[:, 0], j1h[:, 0])
+    err = np.abs(t1h - j1h) / np.maximum(np.abs(j1h).max(axis=0), 1e-30)
+    assert err.max() <= 1e-6, err.max(axis=0)
     np.testing.assert_array_equal(
         tmom.voxel_moment_sums(_t(pts), _t(vid), _t(member), _t(anchors), V, "pallas").numpy(),
         got)

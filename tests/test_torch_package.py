@@ -33,7 +33,14 @@ def test_import_leaves_jax_out():
         "icet_tpu_torch.utils.checkpoint, icet_tpu_torch.utils.metrics, "
         "icet_tpu_torch.models.train_data, icet_tpu_torch.pose_graph, "
         "icet_tpu_torch.ops.tridiag, icet_tpu_torch.parallel.sharding, "
-        "icet_tpu_torch.parallel.distributed, icet_tpu_torch.parallel.elastic\n"
+        "icet_tpu_torch.parallel.distributed, icet_tpu_torch.parallel.elastic, "
+        "icet_tpu_torch.native, icet_tpu_torch.datasets.kitti, icet_tpu_torch.viz_html, "
+        "icet_tpu_torch.utils.profiling, icet_tpu_torch.examples.eval_kitti, "
+        "icet_tpu_torch.examples.eval_odometry, icet_tpu_torch.examples.eval_citydrive, "
+        "icet_tpu_torch.examples.make_kitti_sequence, "
+        "icet_tpu_torch.examples.train_bias_net, icet_tpu_torch.examples.demo_registration, "
+        "icet_tpu_torch.examples.demo_odometry, icet_tpu_torch.examples.demo_mapping, "
+        "icet_tpu_torch.examples.demo_keyframe_map\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'icet_tpu')]\n"
         "print(bad)\n"
@@ -44,13 +51,44 @@ def test_import_leaves_jax_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_import_leaves_matplotlib_out():
+    """``import icet_tpu_torch`` and every entry point import no matplotlib
+    (the card's machine has none); only ``icet_tpu_torch.viz`` does."""
+    code = (
+        "import sys, icet_tpu_torch, icet_tpu_torch.viz_html\n"
+        "from icet_tpu_torch.examples import demo_keyframe_map, demo_mapping, "
+        "demo_odometry, demo_registration, eval_citydrive, eval_kitti, eval_odometry, "
+        "make_kitti_sequence, train_bias_net\n"
+        "before = 'matplotlib' in sys.modules\n"
+        "import icet_tpu_torch.viz\n"
+        "print(before, 'matplotlib' in sys.modules)\n"
+        "sys.exit(1 if before or 'matplotlib' not in sys.modules else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+#: each new entry point's minimal command line (``--device`` left at cuda)
+CLI_ARGS = {
+    "eval_kitti": ["--sequence", "no_such_dir"],
+    "eval_odometry": ["--synthetic", "2"],
+    "eval_citydrive": ["--frames", "2"],
+    "train_bias_net": ["--steps", "1"],
+    "demo_registration": [],
+    "demo_odometry": [],
+    "demo_mapping": [],
+    "demo_keyframe_map": [],
+}
+
+
 @pytest.mark.parametrize("entry", ["register_pair", "pipeline", "run_odometry_device",
                                    "register_scans", "dnn_pipeline", "keyframe",
                                    "dnn_keyframe", "run_keyframe_device", "mapmaker",
                                    "scan_matcher", "train_bias_net", "train_bias_net_mixed",
                                    "optimize_poses", "optimize_poses_sparse", "close_loops",
                                    "registration_mesh", "probe_devices", "elastic_runner",
-                                   "init_distributed"])
+                                   "init_distributed", *sorted(CLI_ARGS)])
 def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
     import icet_tpu_torch as it
 
@@ -102,6 +140,11 @@ def test_entry_points_without_device_raise_when_no_cuda(entry, monkeypatch):
             from icet_tpu_torch.parallel.distributed import init_distributed
 
             init_distributed("localhost:1", 1, 0)
+        elif entry in CLI_ARGS:
+            import importlib
+
+            mod = importlib.import_module(f"icet_tpu_torch.examples.{entry}")
+            mod.run(mod.build_parser().parse_args(CLI_ARGS[entry]))
         else:
             it.run_odometry_device(scans, it.ICETConfig())
 

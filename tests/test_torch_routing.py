@@ -1,7 +1,8 @@
 """The moments pass's route (``solver.moment_route``): grids whose table fits
 the fused kernel's shared memory take it; larger adaptive grids and fixed
 radial mode take the plain ``index_add_`` sums on every device, as the JAX
-package computes them with its segsum, outside any Pallas kernel.
+package computes them with its segsum, outside any Pallas kernel;
+``"onehot"`` takes the blocked one-hot products on every grid.
 
 The 150x48 registration (V = 7,200, above the kernel's 5,774) runs on the
 CPU against ``icet_tpu``'s segsum path.  Its sweep has 1,021 columns
@@ -52,8 +53,13 @@ def test_moment_route(kw, route):
 
 
 def test_moment_route_refuses_unported():
-    with pytest.raises(NotImplementedError):
-        ts.moment_route(ICETConfig(moment_method="onehot"))
+    """``"onehot"`` takes its own route (the blocked one-hot products), on
+    every grid, as the JAX package's ``_moment_method`` passes it through;
+    an unknown method is refused."""
+    for kw in ({}, {"n_theta": 150, "n_phi": 48}, {"radial_mode": "fixed"}):
+        assert ts.moment_route(ICETConfig(moment_method="onehot", **kw)) == "onehot"
+    with pytest.raises(ValueError):
+        ts.moment_route(ICETConfig(moment_method="dense"))
 
 
 def _edge_distance(scan, cfg):

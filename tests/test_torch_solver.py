@@ -177,6 +177,15 @@ def test_register_pair_fixed_mode(pair):
 
 
 def test_unported_moment_methods_raise(pair):
-    with pytest.raises(NotImplementedError):
+    """``moment_method="onehot"`` (blocked one-hot products of three bf16
+    parts, in float32) against the JAX package's onehot solve, at the
+    fixed-run-length tolerances."""
+    cfg = CFG.replace(moment_method="onehot")
+    j = js.register_pair(jnp.asarray(pair[0]), jnp.asarray(pair[1]),
+                         jnp.zeros(6, jnp.float32), cfg)
+    t = ts.register_pair(pair[0], pair[1], np.zeros(6, np.float32), _tc(cfg), device="cpu")
+    _result_close(t, j, 1e-5, 1e-4)
+    assert t.iterations == cfg.n_iters
+    with pytest.raises(ValueError):
         ts.register_pair(pair[0], pair[1], np.zeros(6), _tc(CFG.replace(
-            moment_method="onehot")), device="cpu")
+            moment_method="dense")), device="cpu")
