@@ -69,9 +69,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     module's; the bundled s100 net's MAE below 0.12 through the kernel;
 16. the backbone kernels (factor and apply) against their plain versions
     on the 10,000-pose graph of tests/test_pose_graph.py and its first
-    1,000 poses, one device operation a call; then
+    1,000 poses, and on the synthetic chains of ``backbone_cases`` (K = 1,
+    2, 3, the edges of the kernels' ring stage and ring, forced fallbacks
+    at k = 1, at two consecutive k across a stage edge and at k = K - 1,
+    inputs one float into their buffers), one launch a call, one device
+    operation a call; then
     ``optimize_poses_sparse`` on that graph, launches counted, the mean
-    position error at most half the initial one;
+    position error at most half the initial one; the kernels' times at K =
+    10,000 and 1,000 beside the chain floor, and their registers;
 17. the loop-closure drive through ``icet_tpu_torch.examples.eval_citydrive.run``
     (tests/test_citydrive.py's block at 64x1024, 250 frames): odometry, loop
     candidates, ``close_loops``, ``optimize_poses_sparse(..., 10, 50,
@@ -147,6 +152,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: dense bf16 tensor-core flop/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+#: float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_FP64_PER_S = 34e12
 PEAK_BF16_PER_S = 989e12
 #: kernel vs plain: float32 sums of up to a few thousand terms taken in two
 #: different orders (shared-memory atomics vs index_add_)
@@ -625,6 +632,50 @@ def ring_graph(K: int):
         states0.append(np_pose_to_state(T))
     rel_true = rel_states(np.broadcast_to(s_true[0], s_true.shape), s_true)
     return np.stack(states0).astype(np.float32), graph, rel_true
+
+
+def backbone_cases() -> list:
+    """Phase 16's synthetic chains, (K, blocks forced to the fallback, offset
+    of the inputs in floats): K = 1, 2, 3; the edges of a ring stage and of
+    the whole ring of the kernels (``tridiag.CHUNK`` steps a stage,
+    ``tridiag.STAGES`` stages); 1,000 poses; fallbacks at k = 1, at two
+    consecutive k across a stage edge and at k = K - 1; and inputs one float
+    into their buffers, which the kernels' bulk copies cannot take."""
+    from icet_tpu_torch.ops.tridiag import CHUNK, STAGES
+
+    ring = CHUNK * STAGES
+    edges = [(K, (), 0) for K in (1, 2, 3, CHUNK - 1, CHUNK, CHUNK + 1, ring - 1, ring, ring + 1)]
+    return edges + [(3 * CHUNK + 1, (1, CHUNK, CHUNK + 1, 3 * CHUNK), 0),
+                    (1000, (1, 500, 501, 999), 0), (3 * CHUNK + 1, (CHUNK,), 1)]
+
+
+def on_device(x: np.ndarray, dev, offset: int = 0) -> torch.Tensor:
+    """``x`` as a contiguous float32 tensor on ``dev`` that starts ``offset``
+    floats into its buffer."""
+    flat = torch.empty(x.size + offset, dtype=torch.float32, device=dev)
+    t = flat[offset:].view(x.shape)
+    t.copy_(torch.from_numpy(np.ascontiguousarray(x, np.float32)))
+    return t
+
+
+def backbone_chain(K: int, seed: int, fallback_at=()):
+    """A random SPD block chain as tools/check_tridiag_kernel.py builds it:
+    diagonal blocks ``A A^T + 20 I``, block 0 with the 1e8 gauge prior,
+    super-diagonal blocks of scale 2, and r (K, 6).  Each k in
+    ``fallback_at`` gets ``D_k = I`` and ``E_{k-1} = c I`` with ``c^2`` above
+    the smallest eigenvalue of ``S_{k-1}`` (1e5 after the prior's block,
+    else 100), which makes the Schur complement ``I - c^2 S_{k-1}^{-1}``
+    indefinite: the block takes the block-Jacobi fallback."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(K, 6, 6))
+    D = (A @ A.transpose(0, 2, 1) + 20 * np.eye(6)).astype(np.float32)
+    D[0] += 1e8 * np.eye(6, dtype=np.float32)
+    E = (rng.normal(size=(K - 1, 6, 6)) * 2).astype(np.float32)
+    for k in fallback_at:
+        D[k] = np.eye(6, dtype=np.float32)
+        E[k - 1] = (1e5 if k == 1 else 100) * np.eye(6, dtype=np.float32)
+    r = rng.normal(size=(K, 6)).astype(np.float32)
+    return D, E, r
 
 
 def block_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2192,6 +2243,29 @@ def main() -> int:
         report.append(f"K={K}: relative error S_inv {errs[0]:.3e}, U {errs[1]:.3e}, y "
                       f"{errs[2]:.3e}; max |y err| {tri[K]['err']:.3e}; run-to-run max |diff| "
                       f"{rtr:.3e}")
+    # Synthetic chains (backbone_cases): the ring's edges and the forced
+    # fallbacks; one launch a call, counted by the wrappers.
+    for K, forced, offset in backbone_cases():
+        Dn, En, rn = backbone_chain(K, seed=K, fallback_at=forced)
+        D, E, r = (on_device(x, dev, offset) for x in (Dn, En, rn))
+        before = (tridiag_factor.launches, tridiag_apply.launches)
+        S, U = tridiag_factor(D, E)
+        y = tridiag_apply(S, U, r)
+        counted = (tridiag_factor.launches - before[0], tridiag_apply.launches - before[1])
+        Sr, Ur = tridiag_factor_reference(D, E)
+        yr = tridiag_apply_reference(Sr, Ur, r)
+        torch.cuda.synchronize()
+        errs = (block_rel_err(S, Sr), block_rel_err(U, Ur), block_rel_err(y[None], yr[None]))
+        check(all(np.isfinite(errs)) and max(errs) <= TRI_RTOL and counted == (1, 1),
+              f"backbone K={K}, fallbacks {forced}, offset {offset}: relative errors "
+              f"S_inv/U/y {errs}, launches {counted}")
+        taken = [k for k in range(1, K) if bool((U[k - 1] == 0).all())]
+        taken_plain = [k for k in range(1, K) if bool((Ur[k - 1] == 0).all())]
+        check(set(forced) <= set(taken) and taken == taken_plain,
+              f"backbone K={K}: fallbacks at {taken}, plain at {taken_plain}, forced {forced}")
+        report.append(f"K={K}{', inputs one float in' if offset else ''}: relative error "
+                      f"S_inv {errs[0]:.3e}, U {errs[1]:.3e}, y {errs[2]:.3e}; fallbacks at "
+                      f"{taken} (plain {taken_plain}); one launch each")
     big_k = tri[RING_POSES]
     check_one_launch("apply K=10000",
                      lambda: tridiag_apply(big_k["S"], big_k["U"], big_k["r"]),
@@ -2276,26 +2350,39 @@ def main() -> int:
     # device time, so the events time the kernels.
     tri_f_ms = median_ms(lambda: tridiag_factor(big_k["D"], big_k["E"]), reps=5, rounds=3)
     tri_a_ms = median_ms(lambda: tridiag_apply(big_k["S"], big_k["U"], big_k["r"]), reps=20)
+    k1 = tri[1000]
+    tri_f1_ms = median_ms(lambda: tridiag_factor(k1["D"], k1["E"]), reps=20, rounds=3)
+    tri_a1_ms = median_ms(lambda: tridiag_apply(k1["S"], k1["U"], k1["r"]), reps=50, rounds=3)
     tri_ms = tri_f_ms + tri_a_ms
     tri_plain_ms = big_k["plain_factor_ms"] + big_k["plain_apply_ms"]
     Kb = RING_POSES
     # Bytes: D, E read and S_inv, U written (factor); S_inv, U, r read and y
-    # written (apply).  Operations a step: factor ~1,500 float32 flop (two
-    # 6x6 products, the Cholesky, the triangular inverse, L^-T L^-1);
-    # apply 216 (three 6x6 matrix-vector products).
+    # written (apply).  Operations a step: the factor's ~1,270 float64 flop
+    # (the Cholesky ~115, six columns of L^-T L^-1 432, W = L^-1 E 216, the
+    # 21 entries of D - W^T W 294, U = L^-T W 216), taken at the float64 rate
+    # as float32-rate equivalents; the apply's 216 float32 flop (three 6x6
+    # matrix-vector products).
     tri_bytes = 4 * (Kb * 36 + (Kb - 1) * 36) * 2 + 4 * (Kb * 36 + (Kb - 1) * 36 + 2 * Kb * 6)
-    tri_bound, tri_by = bound(tri_bytes, Kb * (1500 + 216), PEAK_FP32_PER_S)
+    tri_ops = Kb * (1270 * PEAK_FP32_PER_S / PEAK_FP64_PER_S + 216)
+    tri_bound, tri_by = bound(tri_bytes, tri_ops, PEAK_FP32_PER_S)
     # The chain's floor: each step depends on the one before.  Dependent
     # instructions a factor step: 7 (U) + 8 (S) + 12 divisions and square
     # roots of the Cholesky and 6 of the inverse at ~10 each + 60 products
     # and sums between them + 7 (L^-T L^-1) = 262; an apply step: 9 a sweep,
     # two sweeps.
     tri_chain_ms = Kb * (262 + 18) * FMA_LATENCY_CYCLES / BOOST_HZ * 1e3
-    print(f"  backbone at K={Kb} (CUDA events over back-to-back calls): factor "
-          f"{tri_f_ms:.4f}, apply {tri_a_ms:.4f}; plain factor {big_k['plain_factor_ms']:.2f}, "
-          f"plain apply {big_k['plain_apply_ms']:.2f} (CUDA events, once); bound "
-          f"{tri_bound:.6f} ({tri_by}), chain-latency floor {tri_chain_ms:.4f} ms; no single "
-          f"PyTorch call solves a block-tridiagonal system, so library_ms is null")
+    f_floor, a_floor = (Kb * n * FMA_LATENCY_CYCLES / BOOST_HZ * 1e3 for n in (262, 18))
+    print(f"  backbone at K={Kb} (CUDA events over back-to-back calls; {card}): factor "
+          f"{tri_f_ms:.4f} (chain floor {f_floor:.4f}, {tri_f_ms / f_floor:.2f}x), apply "
+          f"{tri_a_ms:.4f} (floor {a_floor:.4f}, {tri_a_ms / a_floor:.2f}x); at K=1000 factor "
+          f"{tri_f1_ms:.4f}, apply {tri_a1_ms:.4f}; plain factor "
+          f"{big_k['plain_factor_ms']:.2f}, plain apply {big_k['plain_apply_ms']:.2f} (CUDA "
+          f"events, once); bound {tri_bound:.6f} ({tri_by}), chain-latency floor "
+          f"{tri_chain_ms:.4f} ms; no single PyTorch call solves a block-tridiagonal system, "
+          f"so library_ms is null")
+    for name, usage in ptxas_usage(logs).items():
+        if "tridiag" in name:
+            print(f"  ptxas {name}: {usage}")
 
     # -- 18-21: sharded, multi-process and elastic registration; recovery --
     # Pairs k -> k+1 of the drive, each seeded with the previous pair's

@@ -23,6 +23,10 @@ from icet_tpu_torch import _build
 
 #: block size (a pose's six degrees of freedom)
 B = 6
+#: steps a stage of the kernels' shared-memory ring, and its stages
+#: (``kChunk`` and ``kStages`` in ``csrc/tridiag_backbone.cu``): the edges
+#: that the tests and ``chip_smoke.py`` hold the kernels at
+CHUNK, STAGES = 32, 4
 
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:

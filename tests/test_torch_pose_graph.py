@@ -181,15 +181,24 @@ def test_robust_kernel_resists_outlier_loop():
 
 def _backbone(K, rng, fallback_at=None):
     """Damped diagonal blocks and super-diagonal blocks of an SPD chain;
-    ``fallback_at`` makes that block's Schur complement indefinite."""
+    each k of ``fallback_at`` (one k or a tuple) gets ``D_k = I`` and
+    ``E_{k-1} = c I`` with ``c^2`` above the smallest eigenvalue of
+    ``S_{k-1}`` (1e5 after the prior's block, else 100), which makes that
+    block's Schur complement indefinite."""
     A = rng.normal(size=(K, 6, 6))
     D = (A @ A.transpose(0, 2, 1) + 20 * np.eye(6)).astype(np.float32)
     D[0] += 1e8 * np.eye(6, dtype=np.float32)
     E = (rng.normal(size=(K - 1, 6, 6)) * 2).astype(np.float32)
-    if fallback_at is not None:
-        D[fallback_at] = np.eye(6, dtype=np.float32)
-        E[fallback_at - 1] = 100 * np.eye(6, dtype=np.float32)
+    for k in _as_tuple(fallback_at):
+        D[k] = np.eye(6, dtype=np.float32)
+        E[k - 1] = (1e5 if k == 1 else 100) * np.eye(6, dtype=np.float32)
     return D, E
+
+
+def _as_tuple(fallback_at):
+    if fallback_at is None:
+        return ()
+    return fallback_at if isinstance(fallback_at, tuple) else (fallback_at,)
 
 
 def _rel_close(got, want, tol=1e-4):
@@ -199,7 +208,13 @@ def _rel_close(got, want, tol=1e-4):
     assert np.all(np.abs(got - want) <= tol * scale), np.max(np.abs(got - want) / scale)
 
 
-@pytest.mark.parametrize("K,fallback_at", [(1, None), (2, None), (7, None), (40, 5), (40, 39)])
+_RING = td.CHUNK * td.STAGES
+
+
+@pytest.mark.parametrize("K,fallback_at", [
+    (1, None), (2, None), (7, None), (40, 5), (40, 39), (40, 1), (40, (20, 21)),
+    (td.CHUNK - 1, None), (td.CHUNK, None), (td.CHUNK + 1, None),
+    (_RING - 1, None), (_RING, None), (_RING + 1, None)])
 def test_tridiag_plain_matches_jax(K, fallback_at):
     rng = np.random.default_rng(K)
     D, E = _backbone(K, rng, fallback_at)
@@ -214,12 +229,131 @@ def test_tridiag_plain_matches_jax(K, fallback_at):
     _rel_close(S.numpy(), np.asarray(jS))
     if K > 1:
         _rel_close(U.numpy(), np.asarray(jU))
-    if fallback_at is not None:
+    for k in _as_tuple(fallback_at):
         # The indefinite block took block-Jacobi: inv(D_k), U = 0.
-        np.testing.assert_allclose(S[fallback_at].numpy(), np.eye(6), atol=1e-6)
-        assert bool((U[fallback_at - 1] == 0).all())
+        np.testing.assert_allclose(S[k].numpy(), np.eye(6), atol=1e-6)
+        assert bool((U[k - 1] == 0).all())
     y = td.tridiag_apply(S, U, torch.from_numpy(r))
     _rel_close(y.numpy()[None], np.asarray(jy)[None])
+
+
+# A float64 and float32 model of the order in which csrc/tridiag_backbone.cu
+# evaluates, which differs from the plain recurrence: the factor carries
+# the Cholesky factor L_k of S_k in float64, one reciprocal square root a
+# pivot, W = L_k^-1 E_k by forward substitution and S_{k+1} = D - W^T W;
+# S_inv_k = L^-T L^-1 and U_k = L^-T W by substitutions, rounded to float32;
+# a failed pivot or a non-finite float32 inverse takes D_k.  The apply sums
+# each step's six products pairwise, in float32.
+
+
+def _model_cholesky(A):
+    a, ri, ok = A.copy(), np.zeros(6), True
+    for j in range(6):
+        s = a[j, j]
+        ok = ok and s > 0
+        ri[j] = 1 / np.sqrt(s) if s > 0 else np.nan
+        a[j + 1:, j] = a[j + 1:, j] * ri[j]
+        for i in range(j + 1, 6):
+            for m in range(j + 1, i + 1):
+                a[i, m] = a[i, m] - a[i, j] * a[m, j]
+    return a, ri, ok
+
+
+def _model_lower_solve(L, ri, x):
+    x = x.copy()
+    for i in range(6):
+        t = x[i].copy()
+        for m in range(i):
+            t = t - L[i, m] * x[m]
+        x[i] = t * ri[i]
+    return x
+
+
+def _model_upper_solve(L, ri, y):
+    y = y.copy()
+    for i in range(5, -1, -1):
+        t = y[i].copy()
+        for m in range(5, i, -1):
+            t = t - L[m, i] * y[m]
+        y[i] = t * ri[i]
+    return y
+
+
+def _model_factor(D, E):
+    K = len(D)
+    sym = [0.5 * (d.astype(np.float64) + d.astype(np.float64).T) for d in D]
+    S_inv = np.zeros((K, 6, 6), np.float32)
+    U = np.zeros((K - 1, 6, 6), np.float32)
+    S_cur, u_prev = sym[0], None
+    for k in range(K):
+        L, ri, ok = _model_cholesky(S_cur)
+        fallback = k > 0 and not ok
+        if fallback:
+            L, ri, _ = _model_cholesky(sym[k])
+        inv = _model_upper_solve(L, ri, _model_lower_solve(L, ri, np.eye(6))).astype(np.float32)
+        if k > 0 and not fallback and not np.isfinite(inv).all():
+            fallback = True
+            L, ri, _ = _model_cholesky(sym[k])
+            inv = _model_upper_solve(L, ri, _model_lower_solve(L, ri, np.eye(6)))
+        S_inv[k] = inv
+        if k > 0:
+            U[k - 1] = 0.0 if fallback else u_prev
+        if k + 1 < K:
+            W = _model_lower_solve(L, ri, E[k].astype(np.float64))
+            t = W[0][:, None] * W[0][None, :]
+            for m in range(1, 6):
+                t = t + W[m][:, None] * W[m][None, :]
+            S_cur = sym[k + 1] - t
+            u_prev = _model_upper_solve(L, ri, W).astype(np.float32)
+    return S_inv, U
+
+
+def _model_apply(S_inv, U, r):
+    def minus_sum6(b, p):
+        return ((b - p[0]) - (p[1] + p[2])) - ((p[3] + p[4]) + p[5])
+
+    K = len(r)
+    z = np.zeros((K, 6), np.float32)
+    z[0] = r[0]
+    for k in range(1, K):
+        z[k] = minus_sum6(r[k], U[k - 1] * z[k - 1][:, None])  # p[m][a] = U[m][a] z[m]
+    q = S_inv * z[:, None, :]  # q[k][a][m] = S_inv[a][m] z[m]
+    Sz = ((q[..., 0] + q[..., 1]) + (q[..., 2] + q[..., 3])) + (q[..., 4] + q[..., 5])
+    y = np.zeros((K, 6), np.float32)
+    y[K - 1] = Sz[K - 1]
+    for k in range(K - 2, -1, -1):
+        y[k] = minus_sum6(Sz[k], (U[k] * y[k + 1][None, :]).T)  # p[m][a] = U[a][m] y[m]
+    return y
+
+
+@pytest.mark.parametrize("K,fallback_at", [(2000, None), (2000, (1, 1000, 1001, 1999))])
+def test_tridiag_kernel_order_matches_jax(K, fallback_at):
+    rng = np.random.default_rng(K + len(_as_tuple(fallback_at)))
+    D, E = _backbone(K, rng, fallback_at)
+    r = rng.normal(size=(K, 6)).astype(np.float32)
+    eye6 = jnp.eye(6, dtype=jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        jS, jU = jp._tridiag_factor(jnp.asarray(D), jnp.asarray(E), eye6)
+        jy = jp._tridiag_apply(jS, jU, jnp.asarray(r))
+    S, U = _model_factor(D, E)
+    _rel_close(S, np.asarray(jS))
+    _rel_close(U, np.asarray(jU))
+    for k in _as_tuple(fallback_at):
+        np.testing.assert_allclose(S[k], np.eye(6), atol=1e-6)
+        assert (U[k - 1] == 0).all()
+    y = _model_apply(S, U, r)
+    _rel_close(y[None], np.asarray(jy)[None])
+
+
+def test_tridiag_ring_constants_match_source():
+    """CHUNK and STAGES, which the tests and chip_smoke.py place their edge
+    cases by, are the kernel source's kChunk and kStages."""
+    import re
+    from pathlib import Path
+
+    src = (Path(td.__file__).resolve().parents[1] / "csrc" / "tridiag_backbone.cu").read_text()
+    assert int(re.search(r"constexpr int kChunk = (\d+);", src).group(1)) == td.CHUNK
+    assert int(re.search(r"constexpr int kStages = (\d+);", src).group(1)) == td.STAGES
 
 
 def test_tridiag_counts_only_kernel_launches():
