@@ -28,8 +28,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
       out-of-range ids at V = 90,000; counts exact, each with its
       run-to-run difference; one device operation a call and no host
       synchronisation in both branches;
-4. sequence odometry: the 24-frame drive through ``run_odometry_device``,
-   fused-moments launches counted;
+4. sequence odometry: the 24-frame drive through ``run_odometry_device``
+   (the compiled runner, ``odometry_sequence_jit``), fused-moments
+   launches counted with the warm-ups before each graph's capture;
 5. DNN-filtered odometry: the same drive through ``OdometryPipeline`` with
    the filter on; encoder and fused-moments launches counted, ATE gated;
 6. pallas moments: the first 8 frames at ``moment_method="pallas"``,
@@ -100,9 +101,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     raises and one probe entry fails, the runner rebuilds to (1, 3),
     results within the tolerances; a blocking probe returns within its
     1 s timeout;
-21. recovery: ``OdometryPipeline`` (plain and DNN), ``KeyframeOdometry``
-    and ``MapMaker`` on the drive with one step raising a RuntimeError at
-    frame FAIL_AT: one recovery, the frames against a clean run within a
+21. recovery: ``OdometryPipeline`` (plain, through ``odometry_step_jit``,
+    and DNN), ``KeyframeOdometry`` and ``MapMaker`` on the drive with one
+    step raising a RuntimeError at frame FAIL_AT: one recovery (the plain
+    pipeline's graphs captured anew), the frames against a clean run within a
     bound from two clean runs (the keyframe runner re-seeds a keyframe
     there, as the JAX package's does), ATE and ms a recovery; then a
     resume of the odometry and keyframe runners from a mid-drive
@@ -112,7 +114,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``calib.txt``, through ``eval_kitti.run`` with the native prefetch
     queue: plain (TUM files and the HTML map written), ``--keyframe``,
     ``--dnn`` and ``--refine --strict-real``; launches of #1, #4 and the
-    backbone counted, ATE gated at the JAX package's CPU figure
+    backbone counted (plain and --refine through the compiled pipeline,
+    graph replays counted), ATE gated at the JAX package's CPU figure
     (tools/kitti_eval_ate_cpu.py) plus 0.5 cm, the TUM files read back,
     ms a frame by CUDA events and the StageTimer split;
 23. replay and prefetch: the sequence's first 8 scans as .bin and .npy;
@@ -126,7 +129,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     path and the fused route; ``device_time_ms`` of kernel #1 within 25%
     of phase 13's CUDA-event measurement, taken again in turns beside it;
     ``trace()`` (in a fresh process) writing a Chrome trace that names the
-    fused-moments kernel; phase 22's HTML map.
+    fused-moments kernel; phase 22's HTML map;
+26. the compiled entry points: the sequence drive's graphs captured
+    under ``torch.cuda.set_sync_debug_mode("error")``; ``odometry_step_jit``
+    against the eager ``odometry_step`` on every frame (same model and
+    seed: iterations equal, X within 1e-6 m, pred_stds within 1e-6
+    relative, prepared models equal; bit-identical or not, and what
+    differs); ``run_odometry_device`` and ``OdometryPipeline`` against the
+    eager chain (ATE gated and within 1e-4 cm of it, kernel #1's launches
+    equal, no warm-up); phase 22's compiled eval_kitti; frame times
+    compiled and eager in turns at 64x1024 and 64x2048 (CUDA events), host
+    operations a frame, device operations and idle share (torch.profiler).
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -209,6 +222,8 @@ LC_LOOPS_REF = 94
 LC_ATE_REF_M = 0.037278022472340286
 #: the loop-closure drive (tests/test_citydrive.py's block at full width)
 LC_DRIVE = dict(n_frames=250, speed=1.0, rect=(-24, 24, -19, 19), n_beams=64, n_azimuth=1024)
+#: frames of phase 26's profiled chains (prepare, then PROFILE_FRAMES - 1 steps)
+PROFILE_FRAMES = 6
 #: the Hopper FP32 pipe's latency between dependent instructions (cycles) and the H100
 #: SXM's boost clock, for the backbone's chain-latency floor
 FMA_LATENCY_CYCLES, BOOST_HZ = 4, 1.98e9
@@ -221,6 +236,23 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def zero_warmups() -> None:
+    """Zero the compiled path's record of warm-up launches (each graph's
+    stage runs once eagerly before its capture; those launches of kernel #1
+    are real and counted, so the gates below add them)."""
+    from icet_tpu_torch import graphs
+
+    for k in graphs.warmup_launches:
+        graphs.warmup_launches[k] = 0
+
+
+def warmups() -> int:
+    """Kernel #1's warm-up launches since :func:`zero_warmups`."""
+    from icet_tpu_torch import graphs
+
+    return graphs.warmup_launches["fused_moment_sums"]
 
 
 def device_line() -> str:
@@ -1068,6 +1100,7 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
     import icet_tpu_torch.keyframe as kf_mod
     import icet_tpu_torch.mapping as map_mod
     import icet_tpu_torch.odometry as odo_mod
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.keyframe import np_pose_matrix
     from icet_tpu_torch.utils.checkpoint import (
         keyframe_state,
@@ -1093,7 +1126,7 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
 
     runners = {
         "odometry": (lambda: odo_mod.OdometryPipeline(cfg, odo, device=dev), odo_mod,
-                     "odometry_step"),
+                     "odometry_step_jit"),
         "dnn_odometry": (lambda: odo_mod.OdometryPipeline(dcfg, odo, device=dev), odo_mod,
                          "odometry_step_dnn"),
         "keyframe": (lambda: kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev), kf_mod,
@@ -1133,8 +1166,15 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
         clean_runs[what] = c1
         spread = max_dx(c1, c2)
         bound_m = max(RECOVERY_SPREAD * spread, RECOVERY_FLOOR_M)
+        captures = graphs.host_ops["captures"]
         runner, frames = drive(make, module, name)
         check(runner.recoveries == 1, f"{what}: {runner.recoveries} recoveries")
+        if what == "odometry":
+            # The failure reached the compiled step; recovery dropped the
+            # graphs, and the retried frame captured them anew.
+            captures = graphs.host_ops["captures"] - captures
+            check(captures > 0, f"{what}: no graph captured after the recovery")
+            print(f"recovery {what}: {captures} graphs captured anew after the recovery")
         if what == "keyframe":
             # The retried frame re-seeds a keyframe (it returns no frame);
             # the frames after it solve against that keyframe.
@@ -1235,6 +1275,7 @@ def phase_kitti(tmp: str, dev, card) -> dict:
     """Phase 22: ``eval_kitti.run`` at KITTI scale on the card, plain (with
     --out), --keyframe, --dnn, and --refine --strict-real; launches of
     kernels #1, #4 and the backbone counted, ATE gated."""
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.config import ICETConfig
     from icet_tpu_torch.datasets.kitti import load_calib_tr
     from icet_tpu_torch.examples import eval_kitti, make_kitti_sequence
@@ -1257,13 +1298,16 @@ def phase_kitti(tmp: str, dev, card) -> dict:
         torch.cuda.synchronize()
         fused_moment_sums.launches = bias_encoder_pool.launches = 0
         tridiag_factor.launches = tridiag_apply.launches = 0
+        zero_warmups()
+        replays = graphs.host_ops["replays"]
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         ev0.record()
         s = eval_kitti.run(eval_kitti.build_parser().parse_args(base + extra))
         ev1.record()
         torch.cuda.synchronize()
         launches = dict(fused=fused_moment_sums.launches, encoder=bias_encoder_pool.launches,
-                        factor=tridiag_factor.launches, apply=tridiag_apply.launches)
+                        factor=tridiag_factor.launches, apply=tridiag_apply.launches,
+                        warmups=warmups(), replays=graphs.host_ops["replays"] - replays)
         check(s["frames"] == n_scans - 1, f"eval_kitti {extra}: {s['frames']} frames")
         check(s["divergences"] == 0, f"eval_kitti {extra}: {s['divergences']} divergences")
         return s, launches, ev0.elapsed_time(ev1) / s["frames"]
@@ -1290,9 +1334,15 @@ def phase_kitti(tmp: str, dev, card) -> dict:
             # --refine: 24 frames hold no loop candidate 100 frames apart,
             # so close_loops registers nothing
             check(s.get("loop_candidates", 0) == 0, f"eval_kitti {mode}: loop candidates")
-            want = s["iterations"] + n_scans
-            what = f"{s['iterations']} iterations + {n_scans} prepares"
+            want = s["iterations"] + n_scans + lc["warmups"]
+            what = (f"{s['iterations']} iterations + {n_scans} prepares + {lc['warmups']} "
+                    "warm-ups before capture")
         check(lc["fused"] == want, f"eval_kitti {mode}: fused launches {lc['fused']} != {what}")
+        # plain and --refine step through the compiled pipeline, the
+        # keyframe and DNN modes eagerly
+        compiled = mode in ("plain", "refine")
+        check((lc["replays"] > 0) == compiled,
+              f"eval_kitti {mode}: {lc['replays']} graph replays")
         if mode in KITTI_ATE_REF_CM:
             ref = KITTI_ATE_REF_CM[mode]
             check(s["ate_odometry_cm"] <= ref + ATE_SLACK_M * 100,
@@ -1378,14 +1428,16 @@ def phase_replay(seq: str, dev, card) -> None:
         np.savetxt(poses, velo[:, :3, :].reshape(-1, 12), fmt="%.9e")
         torch.cuda.synchronize()
         fused_moment_sums.launches = 0
+        zero_warmups()
         s = eval_odometry.run(eval_odometry.build_parser().parse_args(
             ["--scans", ndir, "--poses", poses, "--device", dev.type]))
         torch.cuda.synchronize()
         check(s["frames"] == REPLAY_FRAMES - 1 and s["divergences"] == 0,
               f"eval_odometry: {s}")
-        check(fused_moment_sums.launches == s["iterations"] + REPLAY_FRAMES,
+        check(fused_moment_sums.launches == s["iterations"] + REPLAY_FRAMES + warmups(),
               f"eval_odometry: fused launches {fused_moment_sums.launches} != "
-              f"{s['iterations']} iterations + {REPLAY_FRAMES} prepares")
+              f"{s['iterations']} iterations + {REPLAY_FRAMES} prepares + {warmups()} "
+              "warm-ups before capture")
         print(f"eval_odometry through ReplaySource: {s['frames']} frames, ATE {s['ate_cm']} cm, "
               f"RPE {s['rpe_t_cm']} cm, fused launches {fused_moment_sums.launches}, mean "
               f"solve {s['mean_solve_ms']} ms ({card})")
@@ -1401,11 +1453,12 @@ def phase_citydrive_entry(tmp: str, dev, card) -> None:
     def run(extra):
         torch.cuda.synchronize()
         fused_moment_sums.launches = 0
+        zero_warmups()
         t0 = time.perf_counter()
         s = eval_citydrive.run(eval_citydrive.build_parser().parse_args(
             CD_SHORT + ["--device", dev.type] + extra))
         torch.cuda.synchronize()
-        return s, fused_moment_sums.launches, time.perf_counter() - t0
+        return s, fused_moment_sums.launches - warmups(), time.perf_counter() - t0
 
     n = int(CD_SHORT[1])
     stepped, f_step, t_step = run(["--out", os.path.join(tmp, "cd_step")])
@@ -1418,8 +1471,9 @@ def phase_citydrive_entry(tmp: str, dev, card) -> None:
                                  "--out", os.path.join(tmp, "cd_res")])
     for name, s, f in (("stepped", stepped, f_step), ("chained", chained, f_chain)):
         check(s["frames"] == n - 1 and s["divergences"] == 0, f"eval_citydrive {name}: {s}")
-        check(f == s["iterations"] + n, f"eval_citydrive {name}: fused launches {f} != "
-              f"{s['iterations']} iterations + {n} prepares")
+        check(f == s["iterations"] + n, f"eval_citydrive {name}: fused launches {f} "
+              f"(less the warm-ups before capture) != {s['iterations']} iterations + {n} "
+              "prepares")
     check(resumed["frames"] == n - 1, f"eval_citydrive resumed: {resumed}")
     ref = tum_positions(os.path.join(tmp, "cd_step.odo.tum"))
     d_chain = float(np.abs(tum_positions(os.path.join(tmp, "cd_chain.odo.tum")) - ref).max())
@@ -1527,6 +1581,186 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
           f"{card}); trace() in a fresh process: {trace_kb:.0f} KB Chrome "
           f"trace, {recorded} of {TRACE_LAUNCHES} launches of fused_moments_kernel recorded; "
           f"eval_kitti's HTML map {os.path.getsize(html) / 1e6:.1f} MB, layers {layers}")
+
+
+def eager_drive(drive, cfg, odo):
+    """The sequence drive chained through the eager ``odometry_step`` with
+    ``run_odometry_device``'s semantics (one block): ``(world poses,
+    iterations)``."""
+    from icet_tpu_torch.odometry import warm_start_seed
+    from icet_tpu_torch.ops.geometry import compose_pose
+    from icet_tpu_torch.solver import odometry_step, prepare_reference
+
+    dev = drive.device
+    model = prepare_reference(drive[0], cfg)
+    x = torch.zeros(6, device=dev)
+    T = torch.eye(4, device=dev)
+    xprev = xprev2 = x
+    poses, iters = [], []
+    for k in range(1, drive.shape[0]):
+        seed = (warm_start_seed(xprev, xprev2, odo.warm_start_mode) if odo.warm_start
+                else torch.zeros_like(xprev))
+        res, model = odometry_step(model, drive[k], seed, cfg)
+        diverged = torch.any(torch.abs(res.X) > odo.divergence_clamp)
+        X = torch.where(diverged, torch.zeros_like(res.X), res.X)
+        T = compose_pose(T, X)
+        xprev2 = torch.where(diverged, X, xprev)
+        xprev = X
+        poses.append(T)
+        iters.append(res.iterations)
+    return [p.cpu().numpy() for p in poses], iters
+
+
+def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
+    """Phase 26: the compiled entry points.  Capture under
+    ``set_sync_debug_mode("error")``; ``odometry_step_jit`` against the
+    eager ``odometry_step`` on every frame of the drive; the drive through
+    ``run_odometry_device`` and ``OdometryPipeline`` against the eager chain;
+    phase 22's compiled eval_kitti; frame times compiled and eager in turns
+    at both sizes, with host operations, device operations and idle share."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.config import ICETConfig
+    from icet_tpu_torch.datasets.kitti import KittiOdometrySource
+    from icet_tpu_torch.odometry import OdometryPipeline, run_odometry_device
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.solver import (
+        odometry_step,
+        odometry_step_jit,
+        prepare_reference,
+        prepare_reference_jit,
+    )
+
+    drive = torch.from_numpy(scans).to(dev)
+    zero6 = torch.zeros(6, device=dev)
+
+    # -- capture with no host synchronisation -----------------------------
+    graphs.clear()
+    captures = graphs.host_ops["captures"]
+    t0 = time.perf_counter()
+    with graphs.sync_debug("error"):
+        out_c = run_odometry_device(scans, cfg, odo, device=dev)
+    torch.cuda.synchronize()
+    captures = graphs.host_ops["captures"] - captures
+    check(captures >= 5, f"{captures} graphs captured by the first compiled drive")
+    print(f"compiled: {captures} graphs captured under set_sync_debug_mode('error') in the "
+          f"first drive ({time.perf_counter() - t0:.2f} s with the drive itself)")
+
+    # -- step against step -------------------------------------------------
+    m_e = prepare_reference(drive[0], cfg)
+    m_c = prepare_reference_jit(drive[0], cfg)
+    model_equal = all(torch.equal(a, b) for a, b in zip(m_e, m_c))
+    x = zero6
+    dx = rel = 0.0
+    differs = []
+    for k in range(1, drive.shape[0]):
+        r_e, n_e = odometry_step(m_e, drive[k], x, cfg)
+        r_c, n_c = odometry_step_jit(m_e, drive[k], x, cfg)
+        check(r_c.iterations == r_e.iterations,
+              f"frame {k}: {r_c.iterations} compiled iterations, {r_e.iterations} eager")
+        dx = max(dx, float((r_c.X - r_e.X).abs().max()))
+        rel = max(rel, float(((r_c.pred_stds - r_e.pred_stds).abs()
+                              / r_e.pred_stds.abs().clamp(min=1e-30)).max()))
+        fields = [n for n, a, b in zip(n_e._fields, n_c, n_e) if not torch.equal(a, b)]
+        model_equal = model_equal and not fields
+        parts = {"X": (r_c.X, r_e.X), "pred_stds": (r_c.pred_stds, r_e.pred_stds),
+                 "Q": (r_c.Q, r_e.Q), **{f"diagnostics.{n}": (a, b) for n, a, b in zip(
+                     r_e.diagnostics._fields, r_c.diagnostics, r_e.diagnostics)}}
+        bad = [n for n, (a, b) in parts.items() if not torch.equal(a, b)] + [
+            f"prepared.{n}" for n in fields]
+        if bad:
+            differs.append((k, bad))
+        m_e, x = n_e, r_e.X
+    check(dx <= 1e-6, f"compiled X {dx:.3e} m from the eager step's")
+    check(rel <= 1e-6, f"compiled pred_stds {rel:.3e} relative from the eager step's")
+    check(model_equal, f"compiled prepared models differ: {differs[:3]}")
+    print(f"compiled step vs eager step on {drive.shape[0] - 1} frames (same model and seed "
+          f"each frame): iterations equal, max |dX| {dx:.3e} m, max pred_stds rel {rel:.3e}, "
+          f"prepared models equal; bit-identical: {not differs}"
+          + (f" (first differing: frame {differs[0][0]}, {differs[0][1]})" if differs else ""))
+
+    # -- the drives ----------------------------------------------------------
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = 0
+    poses_e, iters_e = eager_drive(drive, cfg, odo)
+    torch.cuda.synchronize()
+    eager_launches = fused_moment_sums.launches
+    fused_moment_sums.launches = 0
+    zero_warmups()
+    out_c = run_odometry_device(scans, cfg, odo, device=dev)
+    torch.cuda.synchronize()
+    seq_launches = fused_moment_sums.launches
+    fused_moment_sums.launches = 0
+    out_p = list(OdometryPipeline(cfg, odo, device=dev).run(scans))
+    torch.cuda.synchronize()
+    pipe_launches = fused_moment_sums.launches
+    check(warmups() == 0, f"{warmups()} warm-up launches: the graphs were not reused")
+    ate_e = pose_ate(poses_e, gt)
+    ate_c, ate_p = trajectory_ate(out_c, gt), trajectory_ate(out_p, gt)
+    iters_c = [f.iterations for f in out_c]
+    check(iters_c == iters_e, f"compiled drive iterations {iters_c}, eager {iters_e}")
+    check(seq_launches == pipe_launches == eager_launches == sum(iters_e) + len(scans),
+          f"fused launches: compiled drive {seq_launches}, pipeline {pipe_launches}, eager "
+          f"{eager_launches}, iterations {sum(iters_e)} + prepares {len(scans)}")
+    for name, ate in (("run_odometry_device", ate_c), ("OdometryPipeline", ate_p)):
+        check(ate <= ATE_MAX_M, f"compiled {name}: ATE {ate * 100:.4f} cm above "
+              f"{ATE_MAX_M * 100} cm")
+        check(abs(ate - ate_e) <= 1e-6, f"compiled {name}: ATE {ate * 100:.6f} cm, eager "
+              f"{ate_e * 100:.6f} cm")
+    print(f"compiled drives: run_odometry_device ATE {ate_c * 100:.6f} cm, OdometryPipeline "
+          f"{ate_p * 100:.6f} cm, eager chain {ate_e * 100:.6f} cm; fused launches "
+          f"{seq_launches} / {pipe_launches} / {eager_launches} = {sum(iters_e)} iterations + "
+          f"{len(scans)} prepares")
+    s, lc, ms = kitti["runs"]["plain"]
+    print(f"compiled eval_kitti plain at 64x2048 (phase 22): ATE {s['ate_odometry_cm']} cm, "
+          f"{lc['replays']} graph replays, {ms:.3f} ms a frame by CUDA events ({card})")
+
+    # -- frame times in turns --------------------------------------------------
+    kscans = np.stack([sc for sc, _ in KittiOdometrySource(kitti["seq"], max_points=131072)])
+    kdrive = torch.from_numpy(kscans.astype(np.float32)).to(dev)
+    kcfg = ICETConfig(n_iters=7, min_range=2.0, convergence_tol=1e-4)
+
+    def chain(frames, c, compiled):
+        prep, step = ((prepare_reference_jit, odometry_step_jit) if compiled
+                      else (prepare_reference, odometry_step))
+        m, xx = prep(frames[0], c), zero6
+        for k in range(1, frames.shape[0]):
+            res, m = step(m, frames[k], xx, c)
+            xx = res.X
+
+    for size, frames, c, rounds in (("64x1024, N = 65,536", drive, cfg, 2),
+                                    ("64x2048, N = 131,072", kdrive, kcfg, 2)):
+        steps = frames.shape[0] - 1
+        ms = {"eager": [], "compiled": []}
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            fn = (lambda f=frames, cc=c, comp=(mode == "compiled"): chain(f, cc, comp))
+            ms[mode].append(median_ms(fn, reps=1, rounds=rounds) / steps)
+        ops0 = dict(graphs.host_ops)
+        chain(frames, c, True)
+        torch.cuda.synchronize()
+        host = {k: (graphs.host_ops[k] - ops0[k]) / steps
+                for k in ("replays", "flag_reads", "copies")}
+        # The profile takes the drive's first PROFILE_FRAMES frames: its
+        # events of a whole eager chain take minutes to read back.
+        prof, short = {}, frames[:PROFILE_FRAMES]
+        for mode in ("compiled", "eager"):
+            ops = device_profile(lambda f=short, cc=c, comp=(mode == "compiled"):
+                                 chain(f, cc, comp), reps=1)
+            wall = median_ms(lambda f=short, cc=c, comp=(mode == "compiled"): chain(f, cc, comp),
+                             reps=1, rounds=rounds)
+            busy = sum(v for v, _ in ops.values())
+            n_ops = sum(k for _, k in ops.values()) / (PROFILE_FRAMES - 1)
+            prof[mode] = (n_ops, busy / (PROFILE_FRAMES - 1), 1.0 - busy / wall)
+        print(f"frame times at {size} ({card}), eager/compiled/compiled/eager: "
+              f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+              f" ms a frame (CUDA events over the {steps}-frame chain, median of {rounds})")
+        print(f"  host operations a frame: compiled {sum(host.values()):.1f} ({host['replays']:.1f} "
+              f"graph replays + {host['flag_reads']:.1f} exit-flag reads + {host['copies']:.1f} "
+              f"device copies), eager {prof['eager'][0]:.1f} launches (its device operations)")
+        for mode in ("compiled", "eager"):
+            n_ops, busy, idle = prof[mode]
+            print(f"  {mode}: {n_ops:.1f} device operations a frame, device busy {busy:.3f} ms "
+                  f"a frame, idle share {idle:.3f} (torch.profiler and CUDA events over the "
+                  f"first {PROFILE_FRAMES} frames)")
 
 
 def main() -> int:
@@ -1702,21 +1936,25 @@ def main() -> int:
     # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     fused_launches = fused_moment_sums.launches
+    seq_warm = warmups()
     iters = [f.iterations for f in out]
     check(len(out) == len(scans) - 1, f"{len(out)} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in out),
           "non-finite X or pred_stds")
     check(not any(f.diverged for f in out), "a frame diverged")
-    check(fused_launches == sum(iters) + len(scans),
-          f"fused launches {fused_launches} != iterations {sum(iters)} + prepares {len(scans)}")
+    check(fused_launches == sum(iters) + len(scans) + seq_warm,
+          f"fused launches {fused_launches} != iterations {sum(iters)} + prepares {len(scans)} "
+          f"+ warm-ups before capture {seq_warm}")
     ate = trajectory_ate(out, gt)
-    print(f"sequence odometry: {len(out)} frames in {path_s:.2f} s, fused launches "
-          f"{fused_launches} = {sum(iters)} iterations + {len(scans)} prepares, "
+    print(f"sequence odometry (compiled): {len(out)} frames in {path_s:.2f} s with the graphs' "
+          f"capture, fused launches {fused_launches} = {sum(iters)} iterations + {len(scans)} "
+          f"prepares + {seq_warm} warm-ups before capture, "
           f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm")
     check(ate <= ATE_MAX_M, f"ATE {ate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
 
@@ -2306,11 +2544,13 @@ def main() -> int:
     lcfg = ICETConfig()
     torch.cuda.synchronize()
     fused_moment_sums.launches = tridiag_factor.launches = tridiag_apply.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     lc = eval_citydrive.run(eval_citydrive.build_parser().parse_args(lc_argv))
     torch.cuda.synchronize()
     lc_s = time.perf_counter() - t0
-    lc_fused = fused_moment_sums.launches
+    # the odometry steps through the compiled pipeline: less its warm-ups
+    lc_fused = fused_moment_sums.launches - warmups()
     lc_tri = (tridiag_factor.launches, tridiag_apply.launches)
     n_lc = LC_DRIVE["n_frames"]
     check(lc["frames"] == n_lc - 1, f"loop-closure drive: {lc['frames']} frames")
@@ -2417,7 +2657,9 @@ def main() -> int:
         phase_leftovers(kitti, scans, cfg, dev, card, fused_ev,
                         (pts, X_step, model.bounds, model.anchors))
         t25 = time.perf_counter() - t0 - t22 - t23 - t24
-    print(f"phases 22-25: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} s")
+        phase_compiled(scans, gt, cfg, odo, dev, card, kitti)
+        t26 = time.perf_counter() - t0 - t22 - t23 - t24 - t25
+    print(f"phases 22-26: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

@@ -7,6 +7,14 @@ block.  Both give the same :class:`OdometryFrame` records.  With
 ``cfg.dnn_filter`` the pipeline runs the DNN-filtered step; the sequence
 runner refuses it, as the JAX package's does.  The pipeline survives a
 failed step (:meth:`OdometryPipeline.step`).
+
+Where ``solver.compiled_route(cfg)`` holds (the fused or plain moment
+route, no DNN filter), both run the compiled step: the pipeline
+:func:`~icet_tpu_torch.solver.odometry_step_jit` a frame, the sequence
+runner :func:`odometry_sequence_jit` a block, whose warm start, divergence
+guard, world pose and model hand-over are captured graphs too.  Other
+configs run the eager :func:`~icet_tpu_torch.solver.odometry_step`.  The
+choice is made from the config, never as a fallback on failure.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig, OdometryConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.filters import model_voxel_samples, odometry_step_dnn, pretrained_dnn
@@ -28,7 +37,14 @@ from icet_tpu_torch.ops.geometry import (
     pose_to_state,
     relative_state,
 )
-from icet_tpu_torch.solver import odometry_step, prepare_reference
+from icet_tpu_torch.solver import (
+    compiled_graphs,
+    compiled_route,
+    odometry_step,
+    odometry_step_jit,
+    prepare_reference,
+    prepare_reference_jit,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -77,7 +93,12 @@ class OdometryPipeline:
     registers against the previous scan's voxel model, then fits its own.
     With ``cfg.dnn_filter`` the bundled bias network (loaded once) filters
     each registration, sampling the previous scan, whose samples are kept
-    from its own frame.  Runs on ``device`` (CUDA unless told otherwise)."""
+    from its own frame.  Runs on ``device`` (CUDA unless told otherwise).
+
+    Without the filter and on a captured moment route
+    (``solver.compiled_route``) each frame is one
+    :func:`~icet_tpu_torch.solver.odometry_step_jit` (captured graphs on
+    CUDA); otherwise the eager step.  The config decides, once."""
 
     def __init__(
         self,
@@ -89,6 +110,7 @@ class OdometryPipeline:
         self.odo_cfg = odo_cfg or OdometryConfig()
         self.device = resolve_device(device)
         self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
+        self._compiled = compiled_route(self.cfg)
         self.reset()
 
     def reset(self) -> None:
@@ -145,22 +167,29 @@ class OdometryPipeline:
             raise RuntimeError(f"device {self.device} does not answer")
         self.recoveries += 1
         dev = self.device
+        # The failed frame may have left a capture or its buffers half-done.
+        graphs.clear(dev)
         self._X_prev = torch.from_numpy(self._X_host).to(dev)
         self._X_prev2 = self._X_prev  # re-lock: no velocity history
         self._T_world = torch.from_numpy(self._T_host).to(dev)
         self._model = self._scan_prev = self._samples_prev = None
         if self._last_scan is not None:
             scan_dev = as_points(self._last_scan, dev)
-            self._model = prepare_reference(scan_dev, self.cfg)
+            self._model = self._prepare(scan_dev)
             if self._dnn is not None:
                 self._scan_prev = scan_dev
                 self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
+
+    def _prepare(self, scan_dev):
+        if self._compiled:
+            return prepare_reference_jit(scan_dev, self.cfg)
+        return prepare_reference(scan_dev, self.cfg)
 
     def _step_device(self, scan) -> OdometryFrame | None:
         t0 = time.perf_counter()
         scan_dev = as_points(scan, self.device)
         if self._model is None:
-            self._model = prepare_reference(scan_dev, self.cfg)
+            self._model = self._prepare(scan_dev)
             if self._dnn is not None:
                 self._scan_prev = scan_dev
                 self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
@@ -178,6 +207,9 @@ class OdometryPipeline:
             )
             self._scan_prev = scan_dev
             n_rejected = int(filt.n_rejected)
+        elif self._compiled:
+            res, next_model = odometry_step_jit(self._model, scan_dev, x0, self.cfg)
+            n_rejected = 0
         else:
             res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
             n_rejected = 0
@@ -228,6 +260,79 @@ def run_odometry(
     return list(OdometryPipeline(cfg, odo_cfg, device).run(scans))
 
 
+def _stage_seed(b, warm_start: bool, mode: str) -> None:
+    """The next solve's seed from the carried ``xprev``/``xprev2``."""
+    if warm_start:
+        b.x0.copy_(warm_start_seed(b.xprev, b.xprev2, mode))
+    else:
+        b.x0.zero_()
+
+
+def _stage_glue(b, clamp: float, warm_start: bool, mode: str) -> None:
+    """After a frame's registration and prepare: the divergence guard, the
+    world pose and the velocity history, the frame's row, the prepared
+    model into the registration's model buffer, and the next seed."""
+    diverged = torch.any(torch.abs(b.X) > clamp)
+    X = torch.where(diverged, torch.zeros_like(b.X), b.X)
+    T = compose_pose(b.T, X)
+    xprev2 = torch.where(diverged, X, b.xprev)
+    b.row["X"].copy_(X)
+    b.row["pred_stds"].copy_(b.result[False]["pred_stds"])
+    b.row["T_world"].copy_(T)
+    b.row["diverged"].copy_(diverged)
+    b.T.copy_(T)
+    b.xprev2.copy_(xprev2)
+    b.xprev.copy_(X)
+    b.model_buf.copy_(b.prepared_buf)
+    _stage_seed(b, warm_start, mode)
+
+
+def odometry_sequence_jit(
+    frames: torch.Tensor,
+    model0,
+    x0: torch.Tensor,
+    T0: torch.Tensor,
+    cfg: ICETConfig,
+    divergence_clamp: float = 0.3,
+    warm_start: bool = True,
+    warm_start_mode: str = "previous",
+):
+    """A block of frames ``(F, N, 3)`` chained on the device (the JAX
+    package's ``odometry_sequence_jit``): each frame registers against the
+    carried model from the seed, then fits its own model; the warm start
+    (from ``x0`` at the block's start, so the velocity history of
+    ``"extrapolate"`` restarts there), the divergence guard and the world
+    pose (from ``T0``) stay on the device.  Each frame replays its step's
+    graphs and one ``glue`` graph, the host reading only the exit flags.
+
+    Returns ``((model, X_last, T_last), (X, pred_stds, diverged, T_world,
+    iterations))``: the carry for the next block, the per-frame outputs
+    stacked on the device, and the iterations each frame executed (a host
+    list; the JAX runner does not return them)."""
+    if frames.ndim != 3 or frames.shape[0] == 0:
+        raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
+    fg = compiled_graphs(frames[0], cfg)
+    b = fg.buffers
+    fg.load(x0=x0, model=model0)
+    graphs.copy_in(b.xprev, b.x0)
+    graphs.copy_in(b.xprev2, b.x0)
+    graphs.copy_in(b.T, T0)
+    fg.run(("seed", warm_start, warm_start_mode),
+           lambda bb: _stage_seed(bb, warm_start, warm_start_mode))
+    glue = ("glue", float(divergence_clamp), warm_start, warm_start_mode)
+    rows, iterations = [], []
+    for k in range(frames.shape[0]):
+        fg.load(scan=frames[k])
+        iterations.append(fg.solve(False))
+        fg.run_prepare()
+        fg.run(glue, lambda bb: _stage_glue(bb, float(divergence_clamp), warm_start,
+                                            warm_start_mode))
+        rows.append(graphs.clone_out(b.row_buf))
+    out = graphs.ROW_LAYOUT.stacked_views(torch.stack(rows))
+    carry = (fg.model_copy(), graphs.clone_out(b.xprev), graphs.clone_out(b.T))
+    return carry, (out["X"], out["pred_stds"], out["diverged"], out["T_world"], iterations)
+
+
 def run_odometry_device(
     scans,
     cfg: ICETConfig | None = None,
@@ -240,6 +345,8 @@ def run_odometry_device(
     pose accumulation) kept on the device; results come back once per
     block.  As in the JAX package's runner, the velocity history of
     ``warm_start_mode="extrapolate"`` restarts at each block boundary.
+    Where ``solver.compiled_route(cfg)`` holds, each block is one
+    :func:`odometry_sequence_jit`; otherwise the eager step chains it.
     ``cfg.dnn_filter`` raises NotImplementedError: use the pipeline."""
     cfg = cfg or ICETConfig()
     odo_cfg = odo_cfg or OdometryConfig()
@@ -251,13 +358,21 @@ def run_odometry_device(
         )
     dev = resolve_device(device)
     scans = np.asarray(scans, np.float32)
-    model = prepare_reference(as_points(scans[0], dev), cfg)
+    compiled = compiled_route(cfg)
+    scan0 = as_points(scans[0], dev)
+    model = prepare_reference_jit(scan0, cfg) if compiled else prepare_reference(scan0, cfg)
     x = torch.zeros(6, device=dev)
     T = torch.eye(4, device=dev)
     clamp = odo_cfg.divergence_clamp
     frames: list[OdometryFrame] = []
     for s in range(1, scans.shape[0], block):
         blk = torch.from_numpy(scans[s : s + block]).to(dev)
+        if compiled:
+            (model, x, T), outs = odometry_sequence_jit(
+                blk, model, x, T, cfg, clamp, odo_cfg.warm_start, odo_cfg.warm_start_mode)
+            Xs, stds, divs, Ts = (o.cpu().numpy() for o in outs[:4])
+            frames += _block_frames(s, Xs, stds, divs, Ts, outs[4], odo_cfg)
+            continue
         xprev, xprev2 = x, x
         outs = []
         for k in range(blk.shape[0]):
@@ -276,17 +391,20 @@ def run_odometry_device(
         Xs, stds, divs, Ts = (
             torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(4)
         )
-        for j in range(len(outs)):
-            frames.append(OdometryFrame(
-                index=s + j,
-                X=Xs[j],
-                pred_stds=stds[j],
-                T_world=Ts[j],
-                pose=pose_to_state(torch.from_numpy(Ts[j])).numpy(),
-                twist=Xs[j] * odo_cfg.sensor_hz,
-                diverged=bool(divs[j]),
-                n_corr=np.zeros(0, np.int32),
-                solve_ms=0.0,
-                iterations=outs[j][4],
-            ))
+        frames += _block_frames(s, Xs, stds, divs, Ts, [o[4] for o in outs], odo_cfg)
     return frames
+
+
+def _block_frames(start, Xs, stds, divs, Ts, iterations, odo_cfg) -> list[OdometryFrame]:
+    return [OdometryFrame(
+        index=start + j,
+        X=Xs[j],
+        pred_stds=stds[j],
+        T_world=Ts[j],
+        pose=pose_to_state(torch.from_numpy(Ts[j])).numpy(),
+        twist=Xs[j] * odo_cfg.sensor_hz,
+        diverged=bool(divs[j]),
+        n_corr=np.zeros(0, np.int32),
+        solve_ms=0.0,
+        iterations=iterations[j],
+    ) for j in range(len(iterations))]

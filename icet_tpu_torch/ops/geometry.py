@@ -16,6 +16,7 @@ order, so the two bin and gate points identically.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -123,12 +124,18 @@ def measurement_jacobian(mu: torch.Tensor, angs: torch.Tensor) -> torch.Tensor:
     return torch.cat([eye, rot_block], dim=-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _homogeneous_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The ``[0, 0, 0, 1]`` bottom row, made once per dtype and device: a
+    host-to-device copy cannot sit inside a CUDA graph.  Read only."""
+    return torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
 def pose_matrix(X: torch.Tensor) -> torch.Tensor:
     """4x4 homogeneous matrix of the transform ``p' = R(-angs) p + t``."""
     rot = euler_R(-X[3:6])
     top = torch.cat([rot, X[:3, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=X.dtype, device=X.device)
-    return torch.cat([top, bottom], dim=0)
+    return torch.cat([top, _homogeneous_row(X.dtype, X.device)], dim=0)
 
 
 def compose_pose(T_world: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -148,8 +155,7 @@ def relative_state(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     rot = ra.T @ rb
     t = ra.T @ (xb[:3] - xa[:3])
     top = torch.cat([rot, t[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=xa.dtype, device=xa.device)
-    return pose_to_state(torch.cat([top, bottom], dim=0))
+    return pose_to_state(torch.cat([top, _homogeneous_row(xa.dtype, xa.device)], dim=0))
 
 
 def euler_from_R(rot: torch.Tensor) -> torch.Tensor:

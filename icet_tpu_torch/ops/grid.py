@@ -8,6 +8,7 @@ per-voxel table.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -47,7 +48,14 @@ def shell_edges(cfg: ICETConfig, device=None) -> torch.Tensor:
 
 
 def fixed_shell_bounds(cfg: ICETConfig, device=None) -> torch.Tensor:
-    """(V+1, 2) bounds for fixed mode: each voxel spans its shell."""
+    """(V+1, 2) bounds for fixed mode: each voxel spans its shell.  Made
+    once per config and device (its edges are a host-to-device copy, which
+    a CUDA graph cannot capture) and shared: read it, do not write it."""
+    return _fixed_shell_bounds(cfg, torch.device(device) if device is not None else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_shell_bounds(cfg: ICETConfig, device) -> torch.Tensor:
     edges = shell_edges(cfg, device)
     inner = torch.repeat_interleave(edges[:-1], cfg.n_angular)
     outer = torch.repeat_interleave(edges[1:], cfg.n_angular)

@@ -9,6 +9,8 @@ could order or sign axes differently on repeated eigenvalues.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -79,14 +81,14 @@ def eigh_small(A: torch.Tensor, sweeps: int = 8):
     return _sorted(A, V)
 
 
-def _eigh_parallel(A, V, n, sweeps):
-    """Round-robin Jacobi for even n: each round's n/2 disjoint rotations
-    form ONE orthogonal matrix G, applied as ``G^T A G``."""
-    rounds = _round_robin_rounds(n)
-    dev, dt = A.device, A.dtype
-    eye = torch.eye(n, dtype=dt, device=dev)
+@functools.lru_cache(maxsize=None)
+def _round_robin_plan(n: int, dtype: torch.dtype, device: torch.device):
+    """Per round of :func:`_round_robin_rounds`: the rotation pairs' p and q,
+    each index's pair, and the sign pattern of G, as tensors on ``device``.
+    Built once per ``(n, dtype, device)``: each is a host-to-device copy,
+    which a CUDA graph cannot capture."""
     plan = []
-    for rnd in rounds:
+    for rnd in _round_robin_rounds(n):
         pair_of = [0] * n
         sign = [[0.0] * n for _ in range(n)]
         for k, (p, q) in enumerate(rnd):
@@ -94,11 +96,20 @@ def _eigh_parallel(A, V, n, sweeps):
             sign[p][q] = 1.0
             sign[q][p] = -1.0
         plan.append((
-            torch.tensor([p for p, _ in rnd], device=dev),
-            torch.tensor([q for _, q in rnd], device=dev),
-            torch.tensor(pair_of, device=dev),
-            torch.tensor(sign, dtype=dt, device=dev),
+            torch.tensor([p for p, _ in rnd], device=device),
+            torch.tensor([q for _, q in rnd], device=device),
+            torch.tensor(pair_of, device=device),
+            torch.tensor(sign, dtype=dtype, device=device),
         ))
+    return tuple(plan)
+
+
+def _eigh_parallel(A, V, n, sweeps):
+    """Round-robin Jacobi for even n: each round's n/2 disjoint rotations
+    form ONE orthogonal matrix G, applied as ``G^T A G``."""
+    dev, dt = A.device, A.dtype
+    eye = torch.eye(n, dtype=dt, device=dev)
+    plan = _round_robin_plan(n, dt, dev)
     for _ in range(sweeps):
         for p, q, pair_of, sign in plan:
             app = A[..., p, p]
@@ -122,9 +133,10 @@ def eigh_small_warm(A: torch.Tensor, V0: torch.Tensor, sweeps: int = 3):
 
 
 def eigh_small_warm_safe(A: torch.Tensor, V0: torch.Tensor, rtol: float = 1e-5):
-    """One warm sweep from ``V0``, and a second one only when the first
-    leaves off-diagonal mass above ``rtol * ||diag||``.  The branch reads
-    one scalar on the host."""
+    """One warm sweep from ``V0``, and a second one where the first leaves
+    off-diagonal mass above ``rtol * ||diag||``.  Both sweeps are computed
+    and ``torch.where`` selects on the device flag (the JAX package's
+    ``lax.cond``): the same values as the branch, and no host read."""
     A0 = torch.swapaxes(V0, -1, -2) @ A @ V0
     w1, V1 = eigh_small(A0, sweeps=1)
     R = torch.swapaxes(V1, -1, -2) @ A0 @ V1
@@ -132,10 +144,9 @@ def eigh_small_warm_safe(A: torch.Tensor, V0: torch.Tensor, rtol: float = 1e-5):
     eye = torch.eye(R.shape[-1], dtype=R.dtype, device=R.device)
     off = torch.linalg.norm(R - dg[..., None] * eye)
     converged = off <= rtol * torch.clamp(torch.linalg.norm(dg), min=1e-30)
-    if bool(converged):
-        return w1, V0 @ V1
     w2, V2 = eigh_small(R, sweeps=1)
-    return w2, V0 @ (V1 @ V2)
+    return (torch.where(converged, w1, w2),
+            torch.where(converged, V0 @ V1, V0 @ (V1 @ V2)))
 
 
 def psd_pinv(A: torch.Tensor, rcond: float = 1e-7, sweeps: int = 8) -> torch.Tensor:

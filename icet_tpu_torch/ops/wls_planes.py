@@ -86,13 +86,22 @@ def _vec3_planes(v):
     return [v[:, j] for j in range(3)]
 
 
+def _unconverged3(A, rtol):
+    """Device flag: any voxel with off-diagonal mass above ``rtol * ||diag||``."""
+    off = A[0][1] ** 2 + A[0][2] ** 2 + A[1][2] ** 2
+    dg = A[0][0] ** 2 + A[1][1] ** 2 + A[2][2] ** 2
+    return torch.any(off > (rtol * rtol) * torch.clamp(dg, min=1e-30))
+
+
 def eigh3_planes(cov, sweeps=4, safeguard=True, rtol=1e-5, max_extra=2):
     """Symmetric 3x3 eigendecomposition of a (V, 3, 3) or (V, 6) batch.
 
     ``sweeps`` cyclic Jacobi sweeps, then (``safeguard``) up to
     ``max_extra`` more while any voxel keeps off-diagonal mass above
-    ``rtol * ||diag||`` (each test reads one flag on the host).  Returns
-    ``(eigvals (V, 3) ascending, eigvecs as columns (V, 3, 3))``.
+    ``rtol * ||diag||``: each extra sweep is computed and committed to
+    every voxel only while that device flag holds, the JAX package's
+    ``while_loop`` rule, with no host read.  Returns ``(eigvals (V, 3)
+    ascending, eigvecs as columns (V, 3, 3))``.
     """
     A = _sym_planes(cov)
     A = [list(row) for row in A]
@@ -101,11 +110,12 @@ def eigh3_planes(cov, sweeps=4, safeguard=True, rtol=1e-5, max_extra=2):
         A, Vm = _sweep3(A, Vm)
     if safeguard:
         for _ in range(max_extra):
-            off = A[0][1] ** 2 + A[0][2] ** 2 + A[1][2] ** 2
-            dg = A[0][0] ** 2 + A[1][1] ** 2 + A[2][2] ** 2
-            if not bool(torch.any(off > (rtol * rtol) * torch.clamp(dg, min=1e-30))):
-                break
-            A, Vm = _sweep3(A, Vm)
+            # Once the flag is False the state no longer changes, so it
+            # stays False: the committed sweeps are the while_loop's.
+            go = _unconverged3(A, rtol)
+            A2, Vm2 = _sweep3(A, Vm)
+            A = [[torch.where(go, a2, a) for a2, a in zip(r2, r)] for r2, r in zip(A2, A)]
+            Vm = [[torch.where(go, v2, v) for v2, v in zip(r2, r)] for r2, r in zip(Vm2, Vm)]
 
     w = [A[0][0], A[1][1], A[2][2]]
     cols = [[Vm[i][k] for i in range(3)] for k in range(3)]  # cols[k] = evec k

@@ -18,6 +18,17 @@ Every function follows the device of its input tensors; the entry points
 that take numpy input (:func:`register_pair`) choose CUDA unless told
 otherwise.
 
+The compiled entry points :func:`prepare_reference_jit`,
+:func:`register_jit` and :func:`odometry_step_jit` (the JAX package's
+jitted ones) run the same solve as capture-safe stages, none of which
+reads the device from the host: on CUDA each stage is a CUDA graph
+captured once per ``(device, N, cfg)`` and replayed
+(``icet_tpu_torch.graphs``), on the CPU the stages run as plain calls.
+The host reads one flag an iteration for the early exit, so they execute
+the eager solve's iterations, and on the CPU they equal
+:func:`prepare_reference`, :func:`register` and :func:`odometry_step` bit
+for bit: those stay the plain version.
+
 Point sharding: :func:`prepare_reference` and :func:`register` take a
 shard ``axis`` (``icet_tpu_torch.parallel``: the in-process mesh's or the
 process group's), in the place of the JAX package's ``axis_name``.  The
@@ -259,7 +270,7 @@ def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
     scan1, dev = _local(scan1, axis)
     if cfg.radial_mode == "fixed":
         clusters = ClusterResult(
-            bounds=fixed_shell_bounds(cfg, dev),
+            bounds=fixed_shell_bounds(cfg, dev).clone(),
             found=torch.cat([
                 torch.ones(cfg.n_voxels, dtype=torch.bool, device=dev),
                 torch.zeros(1, dtype=torch.bool, device=dev),
@@ -386,7 +397,7 @@ def _inverse_where(w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
 
 def _exit_threshold(w6, U2, cfg: ICETConfig) -> torch.Tensor:
     """max(tol, stat_scale * |stds|) with the UNINFLATED stds."""
-    t = torch.tensor(cfg.convergence_tol, dtype=w6.dtype, device=w6.device)
+    t = torch.full((), cfg.convergence_tol, dtype=w6.dtype, device=w6.device)
     if cfg.convergence_stat_scale > 0.0:
         wmax = torch.amax(torch.abs(w6))
         inv = _inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
@@ -409,6 +420,16 @@ def _predicted_covariance(w6, U2, keep, cfg: ICETConfig, htwg=None):
     dropped = (~keep).to(pred_stds.dtype)
     pred_stds = pred_stds + torch.abs(U2) @ dropped
     return pred_stds, Q
+
+
+def exit_schedule(cfg: ICETConfig, it_offset: int = 0) -> tuple[bool, int]:
+    """``(early, min_it)``: whether the solve may exit before ``n_iters``,
+    and the fewest iterations it runs (with moving-object rejection on, at
+    least one iteration past ``rm_start_iter``, as in the JAX package)."""
+    early = cfg.convergence_tol > 0.0 or cfg.convergence_stat_scale > 0.0
+    if cfg.remove_moving:
+        return early, min(max(cfg.rm_start_iter + 1 - it_offset, 1), cfg.n_iters)
+    return early, 1
 
 
 def _stack_diags(rows) -> IterationDiag:
@@ -460,11 +481,7 @@ def register(
     )
     rows = [d]
     n_it = cfg.n_iters
-    early = cfg.convergence_tol > 0.0 or cfg.convergence_stat_scale > 0.0
-    if cfg.remove_moving:
-        min_it = min(max(cfg.rm_start_iter + 1 - it_offset, 1), n_it)
-    else:
-        min_it = 1
+    early, min_it = exit_schedule(cfg, it_offset)
     it = 1
     thresh = _exit_threshold(w6, U2, cfg) if early else None
     while it < n_it:
@@ -556,14 +573,147 @@ def odometry_step(
     return res, prepare_reference(scan, cfg)
 
 
+# ---------------------------------------------------------------------------
+# Capture-safe stages and the compiled entry points
+# ---------------------------------------------------------------------------
+#
+# Each stage reads and writes the static buffers ``b`` of one frame
+# (``icet_tpu_torch.graphs.FrameBuffers``) and nothing else, and never reads
+# the device from the host, so a CUDA graph can capture it.  Python-level
+# branches depend on the config alone.
+
+#: moment routes whose solve the compiled entry points capture
+CAPTURED_ROUTES = ("fused", "plain")
+
+
+def compiled_route(cfg: ICETConfig) -> bool:
+    """Whether ``cfg``'s solve runs through the compiled entry points: the
+    ``"fused"`` and ``"plain"`` moment routes without the DNN filter
+    (decided from the config alone, as :func:`moment_route` is)."""
+    return not cfg.dnn_filter and moment_route(cfg) in CAPTURED_ROUTES
+
+
+def _stage_prepare(b, cfg: ICETConfig) -> None:
+    """:func:`prepare_reference` of ``b.scan`` into ``b.prepared``."""
+    for name, t in zip(VoxelModel._fields, prepare_reference(b.scan, cfg)):
+        b.prepared[name].copy_(t)
+
+
+def _commit(b, cfg: ICETConfig, X, w6, keep, corr, U2, d) -> None:
+    """Store one iteration's state and its diagnostics row ``b.it``, and
+    leave the exit flag ``|dx| >= threshold`` in ``b.go``."""
+    for dst, src in ((b.X, X), (b.w6, w6), (b.keep, keep), (b.corr, corr), (b.U2, U2)):
+        dst.copy_(src)
+    for col, v in zip(b.diag, d):
+        col.index_copy_(0, b.it, v.reshape(1))
+    b.it.add_(1)
+    if exit_schedule(cfg)[0]:
+        torch.ge(d[2], _exit_threshold(w6, U2, cfg), out=b.go)
+
+
+def _stage_first(b, cfg: ICETConfig) -> None:
+    """Iteration 0 from ``b.x0``: the cold 6x6 eigendecomposition."""
+    b.it.zero_()
+    _commit(b, cfg, *_iteration(b.model, b.scan, b.x0, 0, cfg)[:6])
+
+
+def _stage_warm(b, cfg: ICETConfig, it: int) -> None:
+    """One warm iteration from ``b.X`` and ``b.U2``; ``it`` matters only
+    through the moving-object schedule (``it >= rm_start_iter``)."""
+    _commit(b, cfg, *_iteration(b.model, b.scan, b.X, it, cfg, None, b.U2)[:6])
+
+
+def _stage_finish(b, cfg: ICETConfig, want_static_mask: bool) -> None:
+    """The predicted covariance (after the range-sensitivity assembly when
+    ``range_sigma > 0``), the diagnostics with skipped iterations repeating
+    the last executed row, and the static mask, into ``b.result``."""
+    n_it = cfg.n_iters
+    if cfg.range_sigma > 0.0:
+        _, w6, keep, _, U2, _, htwg = _iteration(
+            b.model, b.scan, b.X, n_it - 1, cfg, None, b.U2, want_range_sens=True
+        )
+        pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)
+    else:
+        pred_stds, Q = _predicted_covariance(b.w6, b.U2, b.keep, cfg)
+    out = b.result[want_static_mask]
+    out["X"].copy_(b.X)
+    out["pred_stds"].copy_(pred_stds)
+    out["Q"].copy_(Q)
+    fill = torch.minimum(torch.arange(n_it, device=b.it.device), b.it - 1)
+    for name, col in zip(IterationDiag._fields, b.diag):
+        out[name].copy_(col[fill])
+    out["windowed_overflow"].zero_()
+    if want_static_mask:
+        out["static_mask"].copy_(_static_mask(b.scan, b.X, b.model.bounds, b.corr, cfg))
+
+
+def compiled_graphs(scan, cfg: ICETConfig):
+    """The frame graphs of ``scan``'s device, size and ``cfg``; raises
+    NotImplementedError, before any launch, for what is not captured."""
+    if isinstance(scan, (list, tuple)):
+        raise NotImplementedError(
+            "the compiled entry points take one unsharded scan; use register "
+            "and prepare_reference with a shard axis"
+        )
+    if not compiled_route(cfg):
+        raise NotImplementedError(
+            f"the compiled entry points capture the moment routes {CAPTURED_ROUTES} "
+            f"without the DNN filter; cfg takes route {moment_route(cfg)!r} with "
+            f"dnn_filter={cfg.dnn_filter}: use the eager functions"
+        )
+    # Imported here: icet_tpu_torch.graphs builds on this module.
+    from icet_tpu_torch import graphs
+
+    return graphs.frame_graphs(scan.device, scan.shape[0], cfg)
+
+
+def prepare_reference_jit(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
+    """:func:`prepare_reference` as a captured graph (the JAX package's
+    ``prepare_reference_jit``)."""
+    fg = compiled_graphs(scan1, cfg)
+    fg.load(scan=scan1)
+    fg.run_prepare()
+    return fg.prepared()
+
+
+def register_jit(
+    model: VoxelModel, scan2: torch.Tensor, x0: torch.Tensor, cfg: ICETConfig
+) -> RegistrationResult:
+    """:func:`register` (with the static mask) as captured graphs: one
+    replay for iteration 0, one for each further iteration, one for the
+    finish (the JAX package's ``register_jit``)."""
+    fg = compiled_graphs(scan2, cfg)
+    fg.load(scan=scan2, x0=x0, model=model)
+    return fg.result(True, fg.solve(True))
+
+
+def odometry_step_jit(
+    model: VoxelModel, scan: torch.Tensor, x0: torch.Tensor, cfg: ICETConfig
+) -> tuple[RegistrationResult, VoxelModel]:
+    """:func:`odometry_step` as captured graphs: register ``scan`` against
+    ``model``, then fit the scan's own model (the JAX package's
+    ``odometry_step_jit``)."""
+    fg = compiled_graphs(scan, cfg)
+    fg.load(scan=scan, x0=x0, model=model)
+    iterations = fg.solve(False)
+    fg.run_prepare()
+    return fg.result(False, iterations), fg.prepared()
+
+
 __all__ = [
     "IterationDiag",
     "RegistrationResult",
     "VoxelModel",
+    "compiled_graphs",
+    "compiled_route",
+    "exit_schedule",
     "moment_route",
     "odometry_step",
+    "odometry_step_jit",
     "prepare_reference",
+    "prepare_reference_jit",
     "register",
+    "register_jit",
     "register_pair",
     "register_pair_impl",
 ]

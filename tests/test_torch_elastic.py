@@ -173,7 +173,9 @@ def test_odometry_pipeline_recovers_bit_identically(monkeypatch, dnn):
     cfg = CFG.replace(dnn_filter=True, dnn_start_iter=2) if dnn else CFG
     scans = _drive_scans()
     clean = list(odo_mod.OdometryPipeline(cfg, device="cpu").run(scans))
-    _fail_on(monkeypatch, odo_mod, "odometry_step_dnn" if dnn else "odometry_step", 3)
+    # The plain pipeline steps through the compiled step (its config's route
+    # is captured), the filtered one through the eager DNN step.
+    _fail_on(monkeypatch, odo_mod, "odometry_step_dnn" if dnn else "odometry_step_jit", 3)
     pipe = odo_mod.OdometryPipeline(cfg, device="cpu")
     frames = [f for f in (pipe.step(s) for s in scans) if f is not None]
     assert pipe.recoveries == 1
@@ -192,7 +194,7 @@ def test_pipeline_raises_deterministic_errors_at_once(monkeypatch):
     def bad(*args, **kw):
         raise ValueError("bad shape")
 
-    monkeypatch.setattr(odo_mod, "odometry_step", bad)
+    monkeypatch.setattr(odo_mod, "odometry_step_jit", bad)
     pipe = odo_mod.OdometryPipeline(CFG, device="cpu")
     pipe.step(scans[0])
     with pytest.raises(ValueError):
