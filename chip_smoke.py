@@ -32,7 +32,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (the compiled runner, ``odometry_sequence_jit``), fused-moments
    launches counted with the warm-ups before each graph's capture;
 5. DNN-filtered odometry: the same drive through ``OdometryPipeline`` with
-   the filter on; encoder and fused-moments launches counted, ATE gated;
+   the filter on (the compiled ``odometry_step_dnn_jit``); encoder and
+   fused-moments launches counted with the warm-ups, ATE gated, the eager
+   pipeline's ATE beside it;
 6. pallas moments: the first 8 frames at ``moment_method="pallas"``,
    scatter launches counted;
 7. fixed radial mode: one registration on the card against the CPU path;
@@ -45,16 +47,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    radial modes; then its own path, one windowed pass a frame of the drive
    at the sequence drive's solutions, launches counted;
 9. keyframe odometry: the drive through ``run_keyframe_device`` and
-   ``KeyframeOdometry`` at bench.py's keyframe config; keyframe indices of
-   the two equal, fused-moments launches counted, the block map's fill,
-   ATE gated at the JAX package's CPU figure plus 0.5 cm;
-10. DNN-filtered keyframe odometry: ``KeyframeOdometry`` with the filter;
-    encoder and fused-moments launches counted, ATE gated likewise;
+   ``KeyframeOdometry`` at bench.py's keyframe config (both compiled);
+   keyframe indices of the two equal, fused-moments launches counted with
+   the warm-ups, the block map's fill, ATE gated at the JAX package's CPU
+   figure plus 0.5 cm, the eager host loop's beside it;
+10. DNN-filtered keyframe odometry: ``KeyframeOdometry`` with the filter
+    (compiled); encoder and fused-moments launches counted with the
+    warm-ups, ATE gated likewise, the eager run's beside it;
 11. MapMaker at ``PROFILES["mapping"]``: launches counted, ring fill exact,
     trajectory ATE gated likewise;
 12. ScanMatcher: 6 frames, statuses and aligned clouds;
-13. times: CUDA-event medians of the odometry, keyframe, MapMaker and
-    pallas-moments frames; for each kernel, its plain version and, where one exists, the
+13. times: CUDA-event medians of the eager odometry, DNN, keyframe, DNN
+    keyframe, MapMaker and pallas-moments frames; for each kernel, its plain version and, where one exists, the
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
     time over back-to-back calls; the encoder's LayerNorm-epilogue floor;
@@ -102,11 +106,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     results within the tolerances; a blocking probe returns within its
     1 s timeout;
 21. recovery: ``OdometryPipeline`` (plain, through ``odometry_step_jit``,
-    and DNN), ``KeyframeOdometry`` and ``MapMaker`` on the drive with one
-    step raising a RuntimeError at frame FAIL_AT: one recovery (the plain
-    pipeline's graphs captured anew), the frames against a clean run within a
+    and DNN, through ``odometry_step_dnn_jit``), ``KeyframeOdometry``
+    (through ``keyframe_step_jit``) and ``MapMaker`` on the drive with one
+    step raising a RuntimeError at frame FAIL_AT: one recovery (the
+    compiled pipelines' graphs captured anew), the frames against a clean run within a
     bound from two clean runs (the keyframe runner re-seeds a keyframe
-    there, as the JAX package's does), ATE and ms a recovery; then a
+    there, as the JAX package's does), ATE and ms a recovery (the eager
+    route's beside it); then a
     resume of the odometry and keyframe runners from a mid-drive
     checkpoint;
 22. KITTI evaluation at KITTI scale: the 24-frame city drive at 64x2048
@@ -114,8 +120,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``calib.txt``, through ``eval_kitti.run`` with the native prefetch
     queue: plain (TUM files and the HTML map written), ``--keyframe``,
     ``--dnn`` and ``--refine --strict-real``; launches of #1, #4 and the
-    backbone counted (plain and --refine through the compiled pipeline,
-    graph replays counted), ATE gated at the JAX package's CPU figure
+    backbone counted (every mode through the compiled pipelines, graph
+    replays counted, warm-ups added; --keyframe and --dnn once more on the
+    eager route, their times beside), ATE gated at the JAX package's CPU figure
     (tools/kitti_eval_ate_cpu.py) plus 0.5 cm, the TUM files read back,
     ms a frame by CUDA events and the StageTimer split;
 23. replay and prefetch: the sequence's first 8 scans as .bin and .npy;
@@ -139,7 +146,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     eager chain (ATE gated and within 1e-4 cm of it, kernel #1's launches
     equal, no warm-up); phase 22's compiled eval_kitti; frame times
     compiled and eager in turns at 64x1024 and 64x2048 (CUDA events), host
-    operations a frame, device operations and idle share (torch.profiler).
+    operations a frame, device operations and idle share (torch.profiler);
+27. the compiled DNN and keyframe paths: the graphs of ``OdometryPipeline``
+    (DNN), ``KeyframeOdometry`` (plain and DNN) and ``run_keyframe_device``
+    captured under ``set_sync_debug_mode("error")``, each drive against the
+    eager route (ATE gated and within 1e-4 cm of it, iterations and
+    keyframes equal, kernel #1's and #4's launches equal to the eager
+    drive's plus the warm-ups), ``run_keyframe_device``'s keyframes equal to
+    ``KeyframeOdometry``'s; ``odometry_step_dnn_jit``, ``keyframe_step_jit``
+    and ``keyframe_step_dnn_jit`` (and ``keyframe_spawn_jit``,
+    ``model_voxel_samples_jit``) against the eager functions on every frame
+    (same model, seed and uniforms: iterations equal, X within 1e-6 m,
+    pred_stds within 1e-6 relative, keep masks, ``n_rejected``, spawn flags,
+    keyframe models and samples equal, block maps equal up to 1e-5 m in
+    their points; bit-identical or not, and what differs); phase 22's
+    compiled eval_kitti --dnn and --keyframe; the DNN, keyframe and DNN
+    keyframe frames compiled and eager in turns at 64x1024 and 64x2048
+    (CUDA events), host operations a frame, device operations and idle
+    share (torch.profiler).
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -224,6 +248,9 @@ LC_ATE_REF_M = 0.037278022472340286
 LC_DRIVE = dict(n_frames=250, speed=1.0, rect=(-24, 24, -19, 19), n_beams=64, n_azimuth=1024)
 #: frames of phase 26's profiled chains (prepare, then PROFILE_FRAMES - 1 steps)
 PROFILE_FRAMES = 6
+#: frames of phase 27's timed chains at 64x2048 (the eager DNN frame there
+#: takes ~0.2 s)
+KF_TIMED_FRAMES = 12
 #: the Hopper FP32 pipe's latency between dependent instructions (cycles) and the H100
 #: SXM's boost clock, for the backbone's chain-latency floor
 FMA_LATENCY_CYCLES, BOOST_HZ = 4, 1.98e9
@@ -248,11 +275,20 @@ def zero_warmups() -> None:
         graphs.warmup_launches[k] = 0
 
 
-def warmups() -> int:
-    """Kernel #1's warm-up launches since :func:`zero_warmups`."""
+def warmups(kernel: str = "fused_moment_sums") -> int:
+    """A kernel's warm-up launches since :func:`zero_warmups` (kernel #1's,
+    or ``"bias_encoder_pool"`` for kernel #4's)."""
     from icet_tpu_torch import graphs
 
-    return graphs.warmup_launches["fused_moment_sums"]
+    return graphs.warmup_launches[kernel]
+
+
+def eager(runner):
+    """``runner`` (an ``OdometryPipeline`` or ``KeyframeOdometry``) on the
+    eager functions: its frames are the plain version the compiled route
+    is held to."""
+    runner._compiled = False
+    return runner
 
 
 def device_line() -> str:
@@ -1128,9 +1164,9 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
         "odometry": (lambda: odo_mod.OdometryPipeline(cfg, odo, device=dev), odo_mod,
                      "odometry_step_jit"),
         "dnn_odometry": (lambda: odo_mod.OdometryPipeline(dcfg, odo, device=dev), odo_mod,
-                         "odometry_step_dnn"),
+                         "odometry_step_dnn_jit"),
         "keyframe": (lambda: kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev), kf_mod,
-                     "keyframe_step"),
+                     "keyframe_step_jit"),
         "mapmaker": (lambda: map_mod.MapMaker(mcfg, map_cfg, odo, device=dev), map_mod,
                      "map_step"),
     }
@@ -1169,7 +1205,7 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
         captures = graphs.host_ops["captures"]
         runner, frames = drive(make, module, name)
         check(runner.recoveries == 1, f"{what}: {runner.recoveries} recoveries")
-        if what == "odometry":
+        if what != "mapmaker":
             # The failure reached the compiled step; recovery dropped the
             # graphs, and the retried frame captured them anew.
             captures = graphs.host_ops["captures"] - captures
@@ -1197,10 +1233,16 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
             ate_clean = indexed_ate(c1, composed(c1) if what == "mapmaker" else None)
         recoveries = runner.recoveries
         rec_ms = wall_ms(runner._recover)
+        eager_ms = ""
+        if what != "mapmaker":
+            plain = eager(make())
+            for s in scans[:3]:
+                plain.step(s)
+            eager_ms = f"; eager route {wall_ms(plain._recover):.2f} ms"
         print(f"recovery {what}: recoveries {recoveries}, {len(frames)} frames, "
               f"max |dX| vs clean {dx:.3e} m (two clean runs {spread:.3e} m, bound "
               f"{bound_m:.3e} m), ATE {ate * 100:.4f} cm (clean {ate_clean * 100:.4f} cm), "
-              f"{rec_ms:.2f} ms a recovery ({card})")
+              f"{rec_ms:.2f} ms a recovery{eager_ms} ({card})")
 
     # Resume from a mid-drive checkpoint, on the checkpointed frame itself
     # (its re-seed advances the frame index by one, as in the JAX package).
@@ -1307,7 +1349,8 @@ def phase_kitti(tmp: str, dev, card) -> dict:
         torch.cuda.synchronize()
         launches = dict(fused=fused_moment_sums.launches, encoder=bias_encoder_pool.launches,
                         factor=tridiag_factor.launches, apply=tridiag_apply.launches,
-                        warmups=warmups(), replays=graphs.host_ops["replays"] - replays)
+                        warmups=warmups(), encoder_warmups=warmups("bias_encoder_pool"),
+                        replays=graphs.host_ops["replays"] - replays)
         check(s["frames"] == n_scans - 1, f"eval_kitti {extra}: {s['frames']} frames")
         check(s["divergences"] == 0, f"eval_kitti {extra}: {s['divergences']} divergences")
         return s, launches, ev0.elapsed_time(ev1) / s["frames"]
@@ -1321,15 +1364,18 @@ def phase_kitti(tmp: str, dev, card) -> dict:
         runs[mode] = (s, lc, ms)
         n = s["frames"]
         if mode == "keyframe":
-            want = s["iterations"] + len(s["keyframes"])
-            what = f"{s['iterations']} iterations + {len(s['keyframes'])} keyframe prepares"
+            want = s["iterations"] + len(s["keyframes"]) + lc["warmups"]
+            what = (f"{s['iterations']} iterations + {len(s['keyframes'])} keyframe prepares + "
+                    f"{lc['warmups']} warm-ups before capture")
         elif mode == "dnn":
-            want = s["iterations"] + n * n_post + n_scans
+            want = s["iterations"] + n * n_post + n_scans + lc["warmups"]
             what = (f"{s['iterations']} iterations + {n * n_post} filter passes + {n_scans} "
-                    "prepares")
-            check(lc["encoder"] == n * n_post * dcfg.dnn_refine_steps,
+                    f"prepares + {lc['warmups']} warm-ups before capture")
+            want_enc = n * n_post * dcfg.dnn_refine_steps + lc["encoder_warmups"]
+            check(lc["encoder"] == want_enc,
                   f"eval_kitti --dnn: encoder launches {lc['encoder']} != "
-                  f"{n * n_post * dcfg.dnn_refine_steps} filtered iterations")
+                  f"{n * n_post * dcfg.dnn_refine_steps} filtered iterations + "
+                  f"{lc['encoder_warmups']} warm-ups")
         else:
             # --refine: 24 frames hold no loop candidate 100 frames apart,
             # so close_loops registers nothing
@@ -1338,11 +1384,8 @@ def phase_kitti(tmp: str, dev, card) -> dict:
             what = (f"{s['iterations']} iterations + {n_scans} prepares + {lc['warmups']} "
                     "warm-ups before capture")
         check(lc["fused"] == want, f"eval_kitti {mode}: fused launches {lc['fused']} != {what}")
-        # plain and --refine step through the compiled pipeline, the
-        # keyframe and DNN modes eagerly
-        compiled = mode in ("plain", "refine")
-        check((lc["replays"] > 0) == compiled,
-              f"eval_kitti {mode}: {lc['replays']} graph replays")
+        # every mode steps through the compiled pipelines
+        check(lc["replays"] > 0, f"eval_kitti {mode}: {lc['replays']} graph replays")
         if mode in KITTI_ATE_REF_CM:
             ref = KITTI_ATE_REF_CM[mode]
             check(s["ate_odometry_cm"] <= ref + ATE_SLACK_M * 100,
@@ -1354,6 +1397,22 @@ def phase_kitti(tmp: str, dev, card) -> dict:
               f"{s['rpe_r_deg']} deg, {s['iterations']} iterations, launches {lc} ({what}), "
               f"{ms:.3f} ms a frame by CUDA events ({card})"
               + (f", keyframes {s['keyframes']}" if mode == "keyframe" else ""))
+    # The eager route of the modes this PR put on graphs, beside them.
+    import icet_tpu_torch.keyframe as kf_mod
+    import icet_tpu_torch.odometry as odo_mod
+
+    routes = (odo_mod.compiled_route, kf_mod.compiled_route)
+    odo_mod.compiled_route = kf_mod.compiled_route = lambda c: False
+    try:
+        for mode in ("keyframe", "dnn"):
+            s, lc, ms = run([f"--{mode}"])
+            check(lc["replays"] == 0, f"eval_kitti --{mode}, eager route: {lc['replays']} replays")
+            print(f"eval_kitti {mode} at 64x2048, eager route: ATE {s['ate_odometry_cm']} cm, "
+                  f"{s['iterations']} iterations, launches of #1 {lc['fused']}, of #4 "
+                  f"{lc['encoder']}, {ms:.3f} ms a frame by CUDA events ({card}; compiled: "
+                  f"{runs[mode][2]:.3f})")
+    finally:
+        odo_mod.compiled_route, kf_mod.compiled_route = routes
     s, lc, _ = runs["refine"]
     check((lc["factor"], lc["apply"]) == (10, 10 * 51),
           f"eval_kitti --refine: factor/apply launches {(lc['factor'], lc['apply'])}")
@@ -1763,6 +1822,310 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
                   f"first {PROFILE_FRAMES} frames)")
 
 
+def drive_launches(run) -> tuple:
+    """``(result, kernel #1 launches, kernel #4 launches, their warm-ups)``
+    of one drive ``run()``; the counts are set to 0 just before it."""
+    from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+
+    torch.cuda.synchronize()
+    fused_moment_sums.launches = bias_encoder_pool.launches = 0
+    zero_warmups()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, fused_moment_sums.launches, bias_encoder_pool.launches,
+            (warmups(), warmups("bias_encoder_pool")))
+
+
+def max_rel(a, b) -> float:
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def step_gate(what: str, k: int, r_c, r_e, gates: dict, extra=()) -> None:
+    """Phase 27's per-frame gate of a compiled step against the eager one:
+    iterations equal, X within 1e-6 m, pred_stds within 1e-6 relative, the
+    entries of ``extra`` equal (``(name, compiled, eager)`` for host values,
+    ``(name, compiled, eager, exact)`` for tensors: equal, or within 1e-6
+    where not ``exact``); ``gates`` collects the maxima and what was not
+    bit-identical."""
+    check(r_c.iterations == r_e.iterations,
+          f"{what} frame {k}: {r_c.iterations} compiled iterations, {r_e.iterations} eager")
+    gates["dx"] = max(gates.get("dx", 0.0), float((r_c.X - r_e.X).abs().max()))
+    gates["rel"] = max(gates.get("rel", 0.0), max_rel(r_c.pred_stds, r_e.pred_stds))
+    parts = [("X", r_c.X, r_e.X), ("pred_stds", r_c.pred_stds, r_e.pred_stds),
+             ("Q", r_c.Q, r_e.Q)] + [
+        (f"diagnostics.{n}", a, b) for n, a, b in zip(r_e.diagnostics._fields,
+                                                      r_c.diagnostics, r_e.diagnostics)]
+    bad = [n for n, a, b in parts if not torch.equal(a, b)]
+    for name, a, b, *exact in extra:
+        if isinstance(a, bool) or isinstance(b, bool):
+            check(a == b, f"{what} frame {k}: {name} {a} compiled, {b} eager")
+            continue
+        if not torch.equal(a, b):
+            bad.append(name)
+            diff = float((a.float() - b.float()).abs().max())
+            check(not exact[0] and diff <= 1e-6,
+                  f"{what} frame {k}: {name} differs by {diff:.3e}")
+    check(gates["dx"] <= 1e-6, f"{what} frame {k}: X {gates['dx']:.3e} m from the eager step")
+    check(gates["rel"] <= 1e-6, f"{what} frame {k}: pred_stds {gates['rel']:.3e} relative")
+    if bad:
+        gates.setdefault("differs", []).append((k, bad))
+
+
+def gate_line(what: str, n: int, gates: dict) -> str:
+    differs = gates.get("differs", [])
+    return (f"{what} on {n} frames (same model and seed each frame): iterations equal, max "
+            f"|dX| {gates['dx']:.3e} m, max pred_stds rel {gates['rel']:.3e}; bit-identical: "
+            f"{not differs}" + (f" (first differing: frame {differs[0][0]}, {differs[0][1]}; "
+                                f"{len(differs)} frames differ)" if differs else ""))
+
+
+def keyframe_steps(drive, cfg, kf_cfg, bm_cfg, net, dev) -> tuple[dict, int]:
+    """Phase 27: the keyframe loop chained through the eager step and spawn
+    (``net`` given: the DNN step), the compiled step and spawn called on the
+    same inputs each frame (model, carry, uniforms, keyframe samples), each
+    on its own copy of the block map; maps, spawn flags, keyframe models and
+    samples compared.  Returns the gates and the spawns."""
+    from icet_tpu_torch import keyframe as kfm
+    from icet_tpu_torch.filters import model_voxel_samples, model_voxel_samples_jit
+    from icet_tpu_torch.ops.geometry import compose_states
+
+    K, gates = bm_cfg.points_per_scan, {"map_dp": 0.0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    zero6, zero2 = torch.zeros(6, device=dev), torch.zeros(2, device=dev)
+
+    def spawn(bm_e, bm_c, k, world, first=False):
+        u = torch.rand(K, generator=gen, device=dev)
+        m_e, bm_e = kfm.keyframe_spawn(bm_e, drive[k], world, u, True, cfg, bm_cfg)
+        m_c, bm_c = kfm.keyframe_spawn_jit(bm_c, drive[k], world, u, True, cfg, bm_cfg)
+        bad = [n for n, a, b in zip(m_e._fields, m_c, m_e) if not torch.equal(a, b)]
+        samples = None
+        if net is not None:
+            samples = model_voxel_samples(m_e, drive[k], cfg)
+            s_c = model_voxel_samples_jit(m_e, drive[k], cfg)
+            bad += [n for n, a, b in zip(("samples", "counts"), s_c, samples)
+                    if not torch.equal(a, b)]
+        check(not bad, f"keyframe spawn at frame {k}: compiled {bad} differ")
+        return m_e, samples, bm_e, bm_c
+
+    model, samples, bm_e, bm_c = spawn(kfm.blockmap_init(bm_cfg, dev),
+                                       kfm.blockmap_init(bm_cfg, dev), 0, zero6)
+    x_rel, delta, h0, world_key, key, spawns = zero6, zero6, zero2, zero6, 0, 0
+    for k in range(1, drive.shape[0]):
+        u = torch.rand(K, generator=gen, device=dev)
+        if net is None:
+            args = (model, None, drive[k], x_rel, delta, u, h0, cfg, kf_cfg, bm_cfg)
+            steps = (kfm.keyframe_step_jit, kfm.keyframe_step)
+        else:
+            args = (model, None, drive[k], drive[key], samples, x_rel, delta, u, h0, cfg, kf_cfg,
+                    bm_cfg, net)
+            steps = (kfm.keyframe_step_dnn_jit, kfm.keyframe_step_dnn)
+        r_c, X_c, d_c, div_c, sp_c, h_c, bm_c = steps[0](*args[:1], bm_c, *args[2:])
+        r_e, X_e, d_e, div_e, sp_e, h_e, bm_e = steps[1](*args[:1], bm_e, *args[2:])
+        check((bm_c.n_blocks, bm_c.cursor) == (bm_e.n_blocks, bm_e.cursor),
+              f"keyframe frame {k}: map counters {(bm_c.n_blocks, bm_c.cursor)} compiled, "
+              f"{(bm_e.n_blocks, bm_e.cursor)} eager")
+        check(torch.equal(bm_c.valid, bm_e.valid) and torch.equal(bm_c.poses, bm_e.poses),
+              f"keyframe frame {k}: block map validity or poses differ")
+        dp = float((bm_c.points - bm_e.points).abs().max())
+        gates["map_dp"] = max(gates["map_dp"], dp)
+        check(dp <= 1e-5, f"keyframe frame {k}: block map points differ by {dp:.3e} m")
+        step_gate("keyframe step", k, r_c, r_e, gates,
+                  [("spawn", sp_c, sp_e), ("X_rel", X_c, X_e, False),
+                   ("delta", d_c, d_e, False), ("diverged", div_c, div_e, True),
+                   ("health", h_c, h_e, False), ("map.points", bm_c.points, bm_e.points, False)])
+        h0 = kfm.update_health0(h0, h_e)
+        world = compose_states(world_key, X_e)
+        delta = d_e
+        if sp_e:
+            spawns += 1
+            model, samples, bm_e, bm_c = spawn(bm_e, bm_c, k, world)
+            x_rel, h0, world_key, key = zero6, zero2, world, k
+        else:
+            x_rel = X_e
+    return gates, spawns
+
+
+def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, dev, card,
+                                kitti: dict) -> None:
+    """Phase 27: the compiled DNN and keyframe paths.  Their graphs captured
+    under ``set_sync_debug_mode("error")`` in the drives through
+    ``OdometryPipeline`` (DNN), ``KeyframeOdometry`` (plain and DNN) and
+    ``run_keyframe_device``, each against the eager route (ATE gated,
+    kernels #1's and #4's launches equal to the eager drive's plus the
+    warm-ups); step against step on every frame; phase 22's compiled
+    eval_kitti --dnn and --keyframe; frame times compiled and eager in turns
+    at 64x1024 and 64x2048 with host operations, device operations and idle
+    share."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.config import ICETConfig, KeyframeConfig
+    from icet_tpu_torch.datasets.kitti import KittiOdometrySource
+    from icet_tpu_torch.filters import (
+        model_voxel_samples,
+        model_voxel_samples_jit,
+        odometry_step_dnn,
+        odometry_step_dnn_jit,
+    )
+    from icet_tpu_torch.keyframe import KeyframeOdometry, run_keyframe_device
+    from icet_tpu_torch.odometry import OdometryPipeline
+    from icet_tpu_torch.solver import prepare_reference, prepare_reference_jit
+
+    drive = torch.from_numpy(scans).to(dev)
+    zero6 = torch.zeros(6, device=dev)
+    n_pre = max(min(dcfg.dnn_start_iter, dcfg.n_iters - 1), 1)
+    n_post = dcfg.n_iters - n_pre
+
+    # -- the drives: captured with no host synchronisation, against eager ----
+    graphs.clear()
+    captures = graphs.host_ops["captures"]
+    t0 = time.perf_counter()
+    drives = {
+        "OdometryPipeline (DNN)": lambda: OdometryPipeline(dcfg, odo, device=dev),
+        "KeyframeOdometry": lambda: KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev),
+        "KeyframeOdometry (DNN)": lambda: KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev),
+    }
+    refs = {"OdometryPipeline (DNN)": DNN_ATE_REF_M, "KeyframeOdometry": KF_ATE_REF_M,
+            "KeyframeOdometry (DNN)": DNN_KF_ATE_REF_M}
+    def run(runner):
+        return runner, list(runner.run(scans))
+
+    compiled = {}
+    with graphs.sync_debug("error"):
+        for name, make in drives.items():
+            compiled[name] = drive_launches(lambda m=make: run(m()))
+        dev_run = drive_launches(lambda: run_keyframe_device(scans, cfg, kf_cfg, bm_cfg,
+                                                             device=dev))
+    torch.cuda.synchronize()
+    captures = graphs.host_ops["captures"] - captures
+    check(captures >= 20, f"{captures} graphs captured by the first compiled drives")
+    print(f"compiled DNN and keyframe paths: {captures} graphs captured under "
+          f"set_sync_debug_mode('error') in the first drives ({time.perf_counter() - t0:.2f} s "
+          f"with the four drives themselves)")
+    for name, make in drives.items():
+        (runner, out), fused, enc, (w1, w4) = compiled[name]
+        (eager_runner, eout), efused, eenc, ew = drive_launches(lambda m=make: run(eager(m())))
+        check(ew == (0, 0), f"{name}: the eager drive warmed up {ew}")
+        its, eits = [f.iterations for f in out], [f.iterations for f in eout]
+        check(its == eits, f"{name}: compiled iterations {its}, eager {eits}")
+        check((fused, enc) == (efused + w1, eenc + w4),
+              f"{name}: launches of #1/#4 {fused}/{enc}, eager {efused}/{eenc} + warm-ups "
+              f"{w1}/{w4}")
+        ate, eate = trajectory_ate(out, gt), trajectory_ate(eout, gt)
+        check(ate <= refs[name] + ATE_SLACK_M,
+              f"compiled {name}: ATE {ate * 100:.4f} cm above {(refs[name] + ATE_SLACK_M) * 100:.4f}")
+        check(abs(ate - eate) <= 1e-6,
+              f"compiled {name}: ATE {ate * 100:.6f} cm, eager {eate * 100:.6f} cm")
+        kfs, ekfs = (getattr(r, "keyframe_indices", None) for r in (runner, eager_runner))
+        check(kfs == ekfs, f"{name}: keyframes {kfs} compiled, {ekfs} eager")
+        print(f"compiled {name}: ATE {ate * 100:.6f} cm, eager {eate * 100:.6f} cm (JAX "
+              f"package on the CPU: {refs[name] * 100:.4f} cm); launches of #1 {fused} = eager "
+              f"{efused} + {w1} warm-ups, of #4 {enc} = eager {eenc} + {w4} warm-ups"
+              + (f"; keyframes {kfs}" if kfs is not None else ""))
+    (dframes, dbm), dfused, _, (dw1, _) = dev_run
+    host = compiled["KeyframeOdometry"][0][0]
+    dkfs = [0] + [f.index for f in dframes if f.is_keyframe]
+    check(dkfs == host.keyframe_indices,
+          f"run_keyframe_device keyframes {dkfs}, KeyframeOdometry {host.keyframe_indices}")
+    d_ate = trajectory_ate(dframes, gt)
+    check(d_ate <= KF_ATE_REF_M + ATE_SLACK_M, f"run_keyframe_device ATE {d_ate * 100:.4f} cm")
+    want = sum(f.iterations for f in dframes) + len(dkfs) + dw1
+    check(dfused == want, f"run_keyframe_device: #1 launches {dfused} != {want}")
+    print(f"compiled run_keyframe_device: keyframes {dkfs} = KeyframeOdometry's, ATE "
+          f"{d_ate * 100:.6f} cm, launches of #1 {dfused} = {want - dw1} + {dw1} warm-ups, "
+          f"block map {int(dbm.valid.sum())} points in {dbm.n_blocks} blocks")
+
+    # -- step against step ----------------------------------------------------
+    m = prepare_reference(drive[0], dcfg)
+    smp = model_voxel_samples(m, drive[0], dcfg)
+    x, gates = zero6, {}
+    for k in range(1, drive.shape[0]):
+        r_e, n_e, s_e, f_e = odometry_step_dnn(m, drive[k - 1], smp, drive[k], x, dcfg, net)
+        r_c, n_c, s_c, f_c = odometry_step_dnn_jit(m, drive[k - 1], smp, drive[k], x, dcfg, net,
+                                                   return_filter=True)
+        step_gate("DNN step", k, r_c, r_e, gates,
+                  [("keep", f_c.keep, f_e.keep, True),
+                   ("n_rejected", f_c.n_rejected, f_e.n_rejected, True)]
+                  + [(f"prepared.{n}", a, b, True) for n, a, b in zip(n_e._fields, n_c, n_e)]
+                  + [("samples", s_c[0], s_e[0], True), ("counts", s_c[1], s_e[1], True)])
+        m, smp, x = n_e, s_e, r_e.X
+    print("compiled " + gate_line("odometry_step_dnn_jit vs odometry_step_dnn", drive.shape[0] - 1,
+                                  gates) + "; keep masks, n_rejected, prepared models and "
+          "samples equal")
+    for what, c, n in (("keyframe_step_jit vs keyframe_step", cfg, None),
+                       ("keyframe_step_dnn_jit vs keyframe_step_dnn", dcfg, net)):
+        g, spawns = keyframe_steps(drive, c, kf_cfg, bm_cfg, n, dev)
+        print("compiled " + gate_line(what, drive.shape[0] - 1, g) + f"; spawn flags, "
+              f"{spawns} spawns (keyframe models{' and samples' if n else ''} equal), block "
+              f"maps' validity, poses and counters equal, points within {g['map_dp']:.3e} m")
+
+    for mode in ("dnn", "keyframe"):
+        s_k, lc, ms = kitti["runs"][mode]
+        print(f"compiled eval_kitti --{mode} at 64x2048 (phase 22): ATE {s_k['ate_odometry_cm']} "
+              f"cm, {lc['replays']} graph replays, {ms:.3f} ms a frame by CUDA events ({card})")
+
+    # -- frame times in turns ------------------------------------------------
+    kscans = np.stack([sc for sc, _ in KittiOdometrySource(kitti["seq"], max_points=131072)])
+    kdrive = torch.from_numpy(kscans[:KF_TIMED_FRAMES].astype(np.float32)).to(dev)
+    kcfg = ICETConfig(n_iters=7, min_range=2.0, convergence_tol=1e-4)
+    kkf = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
+
+    def dnn_chain(frames, c, comp):
+        prep, samp, step = ((prepare_reference_jit, model_voxel_samples_jit,
+                             odometry_step_dnn_jit) if comp
+                            else (prepare_reference, model_voxel_samples, odometry_step_dnn))
+        mm = prep(frames[0], c)
+        ss, xx = samp(mm, frames[0], c), zero6
+        for k in range(1, frames.shape[0]):
+            out = step(mm, frames[k - 1], ss, frames[k], xx, c, net)
+            mm, ss, xx = out[1], out[2], out[0].X
+
+    def kf_chain(frames, c, kc, comp):
+        runner = KeyframeOdometry(c, kc, bm_cfg, device=dev)
+        (runner if comp else eager(runner)).run(frames)
+
+    for size, frames, c, kc, rounds in (("64x1024, N = 65,536", drive, cfg, kf_cfg, 1),
+                                        ("64x2048, N = 131,072", kdrive, kcfg, kkf, 1)):
+        steps = frames.shape[0] - 1
+        dc = c.replace(dnn_filter=True)
+        paths = {"DNN": lambda comp, f=frames, dc=dc: dnn_chain(f, dc, comp),
+                 "keyframe": lambda comp, f=frames, c=c, kc=kc: kf_chain(f, c, kc, comp),
+                 "DNN keyframe": lambda comp, f=frames, dc=dc, kc=kc: kf_chain(f, dc, kc, comp)}
+        for path, chain in paths.items():
+            ms = {"eager": [], "compiled": []}
+            for mode in ("eager", "compiled", "compiled", "eager"):
+                ms[mode].append(median_ms(lambda ch=chain, cm=(mode == "compiled"): ch(cm),
+                                          reps=1, rounds=rounds) / steps)
+            ops0 = dict(graphs.host_ops)
+            chain(True)
+            torch.cuda.synchronize()
+            host = {k: (graphs.host_ops[k] - ops0[k]) / steps
+                    for k in ("replays", "flag_reads", "spawn_reads", "copies", "draws",
+                              "map_writes")}
+            prof, short = {}, frames[:PROFILE_FRAMES]
+            for mode in ("compiled", "eager"):
+                fn = (lambda ch=chain, cm=(mode == "compiled"): ch(cm, short))
+                ops = device_profile(fn, reps=1)
+                wall = median_ms(fn, reps=1, rounds=rounds)
+                busy = sum(v for v, _ in ops.values())
+                n_ops = sum(k for _, k in ops.values()) / (PROFILE_FRAMES - 1)
+                prof[mode] = (n_ops, busy / (PROFILE_FRAMES - 1), 1.0 - busy / wall)
+            print(f"{path} frame at {size} ({card}), eager/compiled/compiled/eager: "
+                  f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+                  f" ms a frame (CUDA events over the {steps}-frame chain, median of {rounds})")
+            print(f"  host operations a frame: compiled {sum(host.values()):.1f} "
+                  f"({host['replays']:.1f} graph replays + {host['flag_reads']:.1f} exit-flag "
+                  f"reads + {host['spawn_reads']:.1f} spawn-flag reads + {host['copies']:.1f} "
+                  f"device copies + {host['draws']:.1f} uniform draws + "
+                  f"{host['map_writes']:.1f} block-map writes), eager {prof['eager'][0]:.1f} "
+                  f"launches (its device operations)")
+            for mode in ("compiled", "eager"):
+                n_ops, busy, idle = prof[mode]
+                print(f"  {mode}: {n_ops:.1f} device operations a frame, device busy "
+                      f"{busy:.3f} ms a frame, idle share {idle:.3f} (torch.profiler and CUDA "
+                      f"events over the first {PROFILE_FRAMES} frames)")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1967,33 +2330,44 @@ def main() -> int:
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
     bias_encoder_pool.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     dout = list(OdometryPipeline(dcfg, odo, device="cuda").run(scans))
     torch.cuda.synchronize()
     dnn_s = time.perf_counter() - t0
     dnn_fused, enc_launches = fused_moment_sums.launches, bias_encoder_pool.launches
+    dnn_warm, enc_warm = warmups(), warmups("bias_encoder_pool")
     diters = [f.iterations for f in dout]
     n_frames = len(dout)
     check(n_frames == len(scans) - 1, f"DNN drive: {n_frames} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in dout),
           "DNN drive: non-finite X or pred_stds")
     check(not any(f.diverged for f in dout), "DNN drive: a frame diverged")
-    want_enc = n_frames * n_post * dcfg.dnn_refine_steps
+    want_enc = n_frames * n_post * dcfg.dnn_refine_steps + enc_warm
     check(enc_launches == want_enc,
-          f"encoder launches {enc_launches} != {want_enc} filtered iterations")
-    want_fused = sum(diters) + n_frames * n_post + len(scans)
+          f"encoder launches {enc_launches} != {want_enc - enc_warm} filtered iterations + "
+          f"{enc_warm} warm-ups before capture")
+    want_fused = sum(diters) + n_frames * n_post + len(scans) + dnn_warm
     check(dnn_fused == want_fused,
           f"DNN drive: fused launches {dnn_fused} != iterations {sum(diters)} + filter "
-          f"passes {n_frames * n_post} + prepares {len(scans)}")
+          f"passes {n_frames * n_post} + prepares {len(scans)} + warm-ups {dnn_warm}")
     dnn_ate = trajectory_ate(dout, gt)
-    print(f"DNN-filtered odometry: {n_frames} frames in {dnn_s:.2f} s, n_pre {n_pre}, "
-          f"n_post {n_post}, encoder launches {enc_launches}, fused launches {dnn_fused} = "
+    t0 = time.perf_counter()
+    dout_eager = list(eager(OdometryPipeline(dcfg, odo, device="cuda")).run(scans))
+    torch.cuda.synchronize()
+    dnn_eager_s = time.perf_counter() - t0
+    dnn_eager_ate = trajectory_ate(dout_eager, gt)
+    print(f"DNN-filtered odometry (compiled): {n_frames} frames in {dnn_s:.2f} s with the "
+          f"graphs' capture, n_pre {n_pre}, n_post {n_post}, encoder launches {enc_launches} "
+          f"= {want_enc - enc_warm} + {enc_warm} warm-ups, fused launches {dnn_fused} = "
           f"{sum(diters)} iterations + {n_frames * n_post} filter passes + {len(scans)} "
-          f"prepares, mean iterations/frame {np.mean(diters):.3f}, "
-          f"ATE {dnn_ate * 100:.4f} cm (JAX package on the CPU: {DNN_ATE_REF_M * 100:.4f} cm)")
+          f"prepares + {dnn_warm} warm-ups, mean iterations/frame {np.mean(diters):.3f}, "
+          f"ATE {dnn_ate * 100:.4f} cm (eager: {dnn_eager_ate * 100:.4f} cm in "
+          f"{dnn_eager_s:.2f} s; JAX package on the CPU: {DNN_ATE_REF_M * 100:.4f} cm)")
     print(f"DNN-filtered odometry: n_rejected per frame {[f.n_rejected for f in dout]}")
-    check(dnn_ate <= DNN_ATE_MAX_M,
-          f"DNN drive ATE {dnn_ate * 100:.4f} cm above {DNN_ATE_MAX_M * 100:.4f} cm")
+    for what, a in (("compiled", dnn_ate), ("eager", dnn_eager_ate)):
+        check(a <= DNN_ATE_MAX_M,
+              f"DNN drive ({what}) ATE {a * 100:.4f} cm above {DNN_ATE_MAX_M * 100:.4f} cm")
 
     # -- pallas moments ---------------------------------------------------
     pcfg = cfg.replace(moment_method="pallas")
@@ -2101,20 +2475,21 @@ def main() -> int:
     bm_cfg = BlockMapConfig()
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     kout, bm = run_keyframe_device(scans, cfg, kf_cfg, bm_cfg, device="cuda")
     torch.cuda.synchronize()
     kf_s = time.perf_counter() - t0
-    kf_fused = fused_moment_sums.launches
+    kf_fused, kf_warm = fused_moment_sums.launches, warmups()
     kf_idx = [0] + [f.index for f in kout if f.is_keyframe]
     kiters = sum(f.iterations for f in kout)
     check(len(kout) == len(scans) - 1, f"keyframe drive: {len(kout)} frames")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in kout),
           "keyframe drive: non-finite X or pred_stds")
     check(not any(f.diverged for f in kout), "keyframe drive: a frame diverged")
-    check(kf_fused == kiters + len(kf_idx),
+    check(kf_fused == kiters + len(kf_idx) + kf_warm,
           f"keyframe drive: fused launches {kf_fused} != iterations {kiters} + "
-          f"keyframe prepares {len(kf_idx)}")
+          f"keyframe prepares {len(kf_idx)} + warm-ups {kf_warm}")
     check(bm.n_blocks == len(kf_idx), f"block map holds {bm.n_blocks} blocks, "
           f"{len(kf_idx)} keyframes spawned")
     # Every frame inserts K stratified samples once (spawn frames as their
@@ -2133,13 +2508,17 @@ def main() -> int:
           f"keyframe indices: host loop {kodo.keyframe_indices}, device runner {kf_idx}")
     check(not any(f.diverged for f in khost), "keyframe host loop: a frame diverged")
     kf_ate, kf_host_ate = trajectory_ate(kout, gt), trajectory_ate(khost, gt)
-    print(f"keyframe odometry: {len(kout)} frames in {kf_s:.2f} s, keyframes {kf_idx} "
-          f"(JAX package on the CPU: {KF_INDICES_REF}), fused launches {kf_fused} = {kiters} "
-          f"iterations + {len(kf_idx)} keyframe prepares, block map {fill} points in "
-          f"{bm.n_blocks} blocks (expected {want_fill:.1f}), ATE {kf_ate * 100:.4f} cm, host "
-          f"loop {kf_host_ate * 100:.4f} cm (JAX package on the CPU: "
-          f"{KF_ATE_REF_M * 100:.4f} cm)")
-    for name, a in (("device runner", kf_ate), ("host loop", kf_host_ate)):
+    keager = eager(KeyframeOdometry(cfg, kf_cfg, bm_cfg, device="cuda"))
+    kf_eager_ate = trajectory_ate(keager.run(scans), gt)
+    print(f"keyframe odometry (compiled): {len(kout)} frames in {kf_s:.2f} s with the graphs' "
+          f"capture, keyframes {kf_idx} (JAX package on the CPU: {KF_INDICES_REF}), fused "
+          f"launches {kf_fused} = {kiters} iterations + {len(kf_idx)} keyframe prepares + "
+          f"{kf_warm} warm-ups, block map {fill} points in {bm.n_blocks} blocks (expected "
+          f"{want_fill:.1f}), ATE {kf_ate * 100:.4f} cm, host loop {kf_host_ate * 100:.4f} cm "
+          f"(eager host loop: {kf_eager_ate * 100:.4f} cm, keyframes "
+          f"{keager.keyframe_indices}; JAX package on the CPU: {KF_ATE_REF_M * 100:.4f} cm)")
+    for name, a in (("device runner", kf_ate), ("host loop", kf_host_ate),
+                    ("eager host loop", kf_eager_ate)):
         check(a <= KF_ATE_REF_M + ATE_SLACK_M,
               f"keyframe {name} ATE {a * 100:.4f} cm above "
               f"{(KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
@@ -2148,33 +2527,43 @@ def main() -> int:
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
     bias_encoder_pool.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     dkodo = KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device="cuda")
     dkout = dkodo.run(scans)
     torch.cuda.synchronize()
     dkf_s = time.perf_counter() - t0
     dkf_fused, dkf_enc = fused_moment_sums.launches, bias_encoder_pool.launches
+    dkf_warm, dkf_enc_warm = warmups(), warmups("bias_encoder_pool")
     dk_iters = sum(f.iterations for f in dkout)
     check(len(dkout) == len(scans) - 1, f"DNN keyframe drive: {len(dkout)} frames")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in dkout),
           "DNN keyframe drive: non-finite X or pred_stds")
     check(not any(f.diverged for f in dkout), "DNN keyframe drive: a frame diverged")
     want_enc = len(dkout) * n_post * dcfg.dnn_refine_steps
-    check(dkf_enc == want_enc, f"DNN keyframe drive: encoder launches {dkf_enc} != {want_enc}")
+    check(dkf_enc == want_enc + dkf_enc_warm,
+          f"DNN keyframe drive: encoder launches {dkf_enc} != {want_enc} + {dkf_enc_warm} "
+          "warm-ups")
     n_kf = len(dkodo.keyframe_indices)
     want_fused = dk_iters + len(dkout) * n_post + n_kf
-    check(dkf_fused == want_fused,
+    check(dkf_fused == want_fused + dkf_warm,
           f"DNN keyframe drive: fused launches {dkf_fused} != iterations {dk_iters} + filter "
-          f"passes {len(dkout) * n_post} + keyframe prepares {n_kf}")
+          f"passes {len(dkout) * n_post} + keyframe prepares {n_kf} + warm-ups {dkf_warm}")
     dkf_ate = trajectory_ate(dkout, gt)
-    print(f"DNN-filtered keyframe odometry: {len(dkout)} frames in {dkf_s:.2f} s, keyframes "
-          f"{dkodo.keyframe_indices} (JAX package on the CPU: {DNN_KF_INDICES_REF}), encoder "
-          f"launches {dkf_enc}, fused launches {dkf_fused} = {dk_iters} iterations + "
-          f"{len(dkout) * n_post} filter passes + {n_kf} keyframe prepares, ATE "
-          f"{dkf_ate * 100:.4f} cm (JAX package on the CPU: {DNN_KF_ATE_REF_M * 100:.4f} cm)")
-    check(dkf_ate <= DNN_KF_ATE_REF_M + ATE_SLACK_M,
-          f"DNN keyframe ATE {dkf_ate * 100:.4f} cm above "
-          f"{(DNN_KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+    dkeager = eager(KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device="cuda"))
+    dkf_eager_ate = trajectory_ate(dkeager.run(scans), gt)
+    print(f"DNN-filtered keyframe odometry (compiled): {len(dkout)} frames in {dkf_s:.2f} s "
+          f"with the graphs' capture, keyframes {dkodo.keyframe_indices} (JAX package on the "
+          f"CPU: {DNN_KF_INDICES_REF}), encoder launches {dkf_enc} = {want_enc} + "
+          f"{dkf_enc_warm} warm-ups, fused launches {dkf_fused} = {dk_iters} iterations + "
+          f"{len(dkout) * n_post} filter passes + {n_kf} keyframe prepares + {dkf_warm} "
+          f"warm-ups, ATE {dkf_ate * 100:.4f} cm (eager: {dkf_eager_ate * 100:.4f} cm, "
+          f"keyframes {dkeager.keyframe_indices}; JAX package on the CPU: "
+          f"{DNN_KF_ATE_REF_M * 100:.4f} cm)")
+    for what, a in (("compiled", dkf_ate), ("eager", dkf_eager_ate)):
+        check(a <= DNN_KF_ATE_REF_M + ATE_SLACK_M,
+              f"DNN keyframe ({what}) ATE {a * 100:.4f} cm above "
+              f"{(DNN_KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
 
     # -- MapMaker -----------------------------------------------------------
     mcfg, map_cfg = PROFILES["mapping"], MapConfig()
@@ -2243,18 +2632,22 @@ def main() -> int:
     dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=3) / steps
     # Keyframe and MapMaker frames: the whole drive through a fresh runner
     # (its first frame is the seed spawn or seed insert, no solve).
-    kf_frame_ms = median_ms(lambda: KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev).run(drive),
-                            reps=1, rounds=3) / steps
+    # One round each: phase 27 times these frames again, in turns with the
+    # compiled ones.
+    kf_frame_ms = median_ms(
+        lambda: eager(KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)).run(drive),
+        reps=1, rounds=1) / steps
     dkf_frame_ms = median_ms(
-        lambda: KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev).run(drive),
-        reps=1, rounds=3) / steps
+        lambda: eager(KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev)).run(drive),
+        reps=1, rounds=1) / steps
 
     def map_pass():
         maker = MapMaker(mcfg, map_cfg, odo, device=dev)
         for d in drive:
             maker.step(d)
 
-    map_frame_ms = median_ms(map_pass, reps=1, rounds=3) / steps
+    # One round: the eager MapMaker frame takes 0.3-0.4 s.
+    map_frame_ms = median_ms(map_pass, reps=1, rounds=1) / steps
 
     def pallas_pass():
         m, x = model0, torch.zeros(6, device=dev)
@@ -2317,10 +2710,10 @@ def main() -> int:
     # Bytes: ids and features read once, the table written; one add an element.
     scat_bound, scat_by = bound(n * 4 + n * 64 + v1 * 64, n * 16, PEAK_FP32_PER_S)
 
-    print(f"times ({card}): odometry frame {frame_ms:.4f} ms, DNN-filtered frame "
-          f"{dnn_frame_ms:.4f} ms, keyframe frame {kf_frame_ms:.4f} ms, DNN-filtered "
-          f"keyframe frame {dkf_frame_ms:.4f} ms, MapMaker frame {map_frame_ms:.4f} ms, "
-          f"pallas-moments frame {pallas_frame_ms:.4f} ms")
+    print(f"times ({card}), eager frames (phases 26-27 time the compiled ones): odometry "
+          f"frame {frame_ms:.4f} ms, DNN-filtered frame {dnn_frame_ms:.4f} ms, keyframe frame "
+          f"{kf_frame_ms:.4f} ms, DNN-filtered keyframe frame {dkf_frame_ms:.4f} ms, MapMaker "
+          f"frame {map_frame_ms:.4f} ms, pallas-moments frame {pallas_frame_ms:.4f} ms")
     print(f"times ({card}), device ms a call by the profiler (CUDA events over "
           f"back-to-back calls in brackets):")
     print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
@@ -2659,7 +3052,11 @@ def main() -> int:
         t25 = time.perf_counter() - t0 - t22 - t23 - t24
         phase_compiled(scans, gt, cfg, odo, dev, card, kitti)
         t26 = time.perf_counter() - t0 - t22 - t23 - t24 - t25
-    print(f"phases 22-26: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} s")
+        phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, dev, card,
+                                    kitti)
+        t27 = time.perf_counter() - t0 - t22 - t23 - t24 - t25 - t26
+    print(f"phases 22-27: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} / "
+          f"{t27:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

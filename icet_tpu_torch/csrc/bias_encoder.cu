@@ -375,11 +375,20 @@ extern "C" {
 int icet_bias_encoder(const void* x, int B, int P, const void* image,
                       void* out, int tile, int blocks, void* stream) {
   const int smem = kAlignSlack + kImageBytes + 16 + tile * kPoolStride * (int)sizeof(float);
-  // Above 48 KB of dynamic shared memory needs an opt-in, kept per device:
-  // set it on every call (the current device may differ).
-  cudaError_t err = cudaFuncSetAttribute(
-      bias_encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // Above 48 KB of dynamic shared memory needs an opt-in, which is kept
+  // per device: set it once a device and size (the current device may
+  // differ from one call to the next), so that no attribute call reaches a
+  // stream capture after the first launch.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
+  static int opted_in[64] = {};
+  if (device >= 64 || opted_in[device] < smem) {
+    err = cudaFuncSetAttribute(bias_encoder_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) opted_in[device] = smem;
+  }
   bias_encoder_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), B, P, static_cast<const unsigned char*>(image),
       static_cast<float*>(out), tile);

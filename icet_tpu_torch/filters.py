@@ -18,6 +18,15 @@ Differences from the JAX package, none of which changes a result:
 * the ``register`` calls whose result only carries X (the plain phase
   and all in-loop steps but the last) skip the range-sensitivity pass,
   which cannot change X.
+
+The compiled entry points :func:`model_voxel_samples_jit`,
+:func:`odometry_step_dnn_jit` and :func:`register_pair_with_dnn` run the
+same computation as capture-safe stages (``_stage_samples``,
+``_stage_filter``, the solver's stages of each phase's derived config,
+``_stage_handover``): on CUDA each one a CUDA graph of the frame's set
+(``icet_tpu_torch.graphs``), on the CPU plain calls that equal the eager
+functions bit for bit.  The filter reads scan 1 only through its samples,
+so the previous scan itself is not carried in a buffer.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.models.bias_net import (
@@ -43,7 +53,10 @@ from icet_tpu_torch.solver import (
     RegistrationResult,
     VoxelModel,
     _moment_sums,
+    compiled_graphs,
+    compiled_route,
     prepare_reference,
+    prepare_reference_jit,
     register,
     register_pair,
 )
@@ -85,15 +98,20 @@ def sample_voxel_points(
     S, v1 = n_samples, n_voxels + 1
     vs, order = torch.sort(vidm, stable=True)
     pts_s = points[order]
-    # Rank within the voxel's run: position minus the run's start.
-    counts = torch.bincount(vs, minlength=v1)
+    # Rank within the voxel's run: position minus the run's start.  The
+    # counts come from index_add_ into V+1 rows and every point is written
+    # (the ones past S or outside any voxel to one dump row past the
+    # (V+1) S slots, then sliced off: the JAX package's mode="drop"), so no
+    # size is read back from the device.
+    counts = torch.zeros(v1, dtype=torch.int64, device=points.device).index_add_(
+        0, vs, torch.ones_like(vs))
     rank = torch.arange(n, device=points.device) - (torch.cumsum(counts, 0) - counts)[vs]
     write = (vs < n_voxels) & (rank < S)
-    tgt = vs[write] * S + rank[write]
+    tgt = torch.where(write, vs * S + rank, v1 * S)
     dtype = points.dtype if fill_tail else torch.bfloat16
-    buf = torch.zeros((v1 * S, 3), dtype=dtype, device=points.device)
-    buf[tgt] = pts_s[write].to(dtype)
-    samples = buf.reshape(v1, S, 3)
+    buf = torch.zeros((v1 * S + 1, 3), dtype=dtype, device=points.device)
+    buf[tgt] = pts_s.to(dtype)
+    samples = buf[: v1 * S].reshape(v1, S, 3)
     if not fill_tail:
         return samples, None
     # Member points are range-gated, so a slot was written iff a coordinate
@@ -254,12 +272,21 @@ def register_pair_with_dnn(
 ) -> tuple[RegistrationResult, DnnFilterResult]:
     """Pair-level entry on ``device`` (CUDA unless told otherwise; ``net``
     must be there too): fit scan 1's model, then register scan 2 with the
-    filter."""
+    filter.  Where ``solver.compiled_route(cfg)`` holds this is the
+    compiled path (scan 1's model and samples, then the filtered solve, as
+    captured graphs); otherwise :func:`register_with_dnn`."""
     dev = resolve_device(device)
     s1, s2 = as_points(scan1, dev), as_points(scan2, dev)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
-    model = prepare_reference(s1, cfg)
-    return register_with_dnn(model, s1, s2, x0, cfg, net)
+    if not compiled_route(cfg):
+        model = prepare_reference(s1, cfg)
+        return register_with_dnn(model, s1, s2, x0, cfg, net)
+    model = prepare_reference_jit(s1, cfg)
+    samples1 = model_voxel_samples_jit(model, s1, cfg)
+    fg = compiled_graphs(s2, cfg)
+    fg.load(scan=s2, x0=x0, model=model, samples=samples1)
+    iterations, n_final = solve_dnn(fg, net, True)
+    return fg.result(iterations, True, n_final), _filter_out(fg)
 
 
 def register_scans(
@@ -301,11 +328,137 @@ def odometry_step_dnn(
     return res, new_model, model_voxel_samples(new_model, scan, cfg), filt
 
 
+# ---------------------------------------------------------------------------
+# Capture-safe stages and the compiled entry points
+# ---------------------------------------------------------------------------
+
+
+def _stage_samples(b, cfg: ICETConfig, src: str) -> None:
+    """:func:`model_voxel_samples` of ``b.scan`` against ``b.model``
+    (``src="model"``) or the prepared model (``"prepared"``), into
+    ``b.samples_next``."""
+    model = b.model if src == "model" else VoxelModel(**b.prepared)
+    samples, counts = model_voxel_samples(model, b.scan, cfg)
+    b.samples_next["samples"].copy_(samples)
+    b.samples_next["counts"].copy_(counts)
+
+
+def _stage_filter(b, cfg: ICETConfig, net: BiasNet) -> None:
+    """:func:`dnn_reject_mask` of ``b.scan`` aligned by ``b.X`` against
+    ``b.model``, scan 1 given by its samples ``b.samples1``, into
+    ``b.filt``: the sampling pass, kernel #1's moments pass at X = 0,
+    ``dnn_refine_steps`` launches of kernel #4, the comparison."""
+    filt = dnn_reject_mask(net, b.model, None, transform_points(b.scan, b.X), cfg,
+                           samples1=(b.samples1["samples"], b.samples1["counts"]))
+    for name, t in zip(DnnFilterResult._fields, filt):
+        b.filt[name].copy_(t)
+
+
+def _stage_handover(b) -> None:
+    """The next frame's inputs: the prepared model and the new scan's
+    samples into the model and scan-1 sample buffers."""
+    b.model_buf.copy_(b.prepared_buf)
+    b.samples1_buf.copy_(b.samples_next_buf)
+
+
+def solve_dnn(fg, net: BiasNet, want_static_mask: bool) -> tuple[int, int]:
+    """:func:`register_with_dnn` of the loaded scan against the loaded model
+    and scan-1 samples, from the loaded x0, as the set's graphs: the same
+    phases, each a register call of its derived config keyed inside the
+    set of the base config, the filter stage between them.  The keep mask
+    and ``n_rejected`` of the last filter pass stay in ``b.filt``.  Returns
+    ``(iterations, n_iters of the finished call)``, the iterations of all
+    phases."""
+    cfg = fg.cfg
+    fg.pin(net)
+    versions = tuple(t._version for t in net.encoder_weights())
+
+    def filt():
+        fg.run(("filter", id(net), versions), lambda b: _stage_filter(b, cfg, net))
+
+    if cfg.n_iters < 2:
+        iterations = fg.solve(want_static_mask, cfg.replace(n_iters=1))
+        filt()
+        return iterations, 1
+    n_pre, n_post = graphs.dnn_phases(cfg)
+    pre = fg.solve(False, cfg.replace(n_iters=n_pre, range_sigma=0.0), finish=False)
+    if not cfg.dnn_in_loop:
+        filt()
+        post = fg.solve(want_static_mask, cfg.replace(n_iters=n_post), it_offset=n_pre,
+                        masked=True, start="X")
+        return pre + post, n_post
+    step_cfg = cfg.replace(n_iters=1, convergence_tol=0.0)
+    for k in range(n_post - 1):
+        filt()
+        fg.solve(False, step_cfg.replace(range_sigma=0.0), it_offset=n_pre + k, masked=True,
+                 start="X", finish=False)
+    filt()
+    fg.solve(want_static_mask, step_cfg, it_offset=cfg.n_iters - 1, masked=True, start="X")
+    return pre + n_post, 1
+
+
+def _samples_out(fg) -> tuple[torch.Tensor, torch.Tensor]:
+    b = fg.buffers
+    v = b.samples_layout.views(graphs.clone_out(b.samples_next_buf))
+    return v["samples"], v["counts"]
+
+
+def _filter_out(fg) -> DnnFilterResult:
+    b = fg.buffers
+    return DnnFilterResult(**b.filt_layout.views(graphs.clone_out(b.filt_buf)))
+
+
+def model_voxel_samples_jit(model: VoxelModel, scan: torch.Tensor, cfg: ICETConfig):
+    """:func:`model_voxel_samples` as a captured graph (the JAX package's
+    ``model_voxel_samples_jit``)."""
+    fg = compiled_graphs(scan, cfg)
+    fg.load(scan=scan, model=model)
+    fg.run(("samples", "model"), lambda b: _stage_samples(b, cfg, "model"))
+    return _samples_out(fg)
+
+
+def odometry_step_dnn_jit(
+    model: VoxelModel,
+    prev_scan: torch.Tensor,
+    prev_samples: tuple,
+    scan: torch.Tensor,
+    x0: torch.Tensor,
+    cfg: ICETConfig,
+    net: BiasNet,
+    return_filter: bool = False,
+):
+    """:func:`odometry_step_dnn` as captured graphs (the JAX package's
+    ``odometry_step_dnn_jit``): the filtered registration of ``scan``
+    against ``model`` (scan 1 given by ``prev_samples``; ``prev_scan`` is
+    not read, as in the JAX package), then the scan's own model and
+    samples, then the hand-over of both into the buffers the next frame
+    reads, so that passing them back costs no copy.  Returns ``(res,
+    new_model, new_samples)``, and the last filter pass as a fourth element
+    with ``return_filter``."""
+    del prev_scan
+    fg = compiled_graphs(scan, cfg)
+    fg.load(scan=scan, x0=x0, model=model, samples=prev_samples)
+    iterations, n_final = solve_dnn(fg, net, False)
+    fg.run_prepare()
+    fg.run(("samples", "prepared"), lambda b: _stage_samples(b, cfg, "prepared"))
+    res = fg.result(iterations, False, n_final)
+    new_model, new_samples = fg.prepared(), _samples_out(fg)
+    filt = _filter_out(fg) if return_filter else None
+    fg.run(("handover",), _stage_handover)
+    fg.hold("model", new_model)
+    fg.hold("samples", new_samples)
+    if return_filter:
+        return res, new_model, new_samples, filt
+    return res, new_model, new_samples
+
+
 __all__ = [
     "DnnFilterResult",
     "dnn_reject_mask",
     "model_voxel_samples",
+    "model_voxel_samples_jit",
     "odometry_step_dnn",
+    "odometry_step_dnn_jit",
     "pretrained_dnn",
     "register_pair_with_dnn",
     "register_scans",

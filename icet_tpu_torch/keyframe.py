@@ -30,6 +30,22 @@ Differences from the JAX package, none of which changes a trajectory:
   restores the newest host snapshot, as the JAX package's does;
 * :func:`shard_blockmap` splits the block axis into per-device chunks
   (:class:`BlockShards`) in place of a sharded array.
+
+The compiled entry points :func:`keyframe_step_jit`,
+:func:`keyframe_step_dnn_jit`, :func:`keyframe_spawn_jit` and
+:func:`keyframe_sequence_jit` run the same frame as capture-safe stages
+(``icet_tpu_torch.graphs``: CUDA graphs on the card, plain calls on the
+CPU, which equal the eager functions bit for bit).  Their insert is gated
+on the device (``enabled = ~spawn``, as in the JAX package) and reads the
+active block's slot and cursor from a device mirror of the host's
+``n_blocks`` and ``cursor``, so one graph serves every cursor; the graph
+stages the rows and points, and the host writes them into the map's
+tables with a few device operations, so that no graph depends on which
+map it serves.  A ``torch.Generator`` (or the uniforms themselves) stands
+where the JAX functions take a PRNG key, drawn before the replay in the
+eager order.
+``KeyframeOdometry`` and :func:`run_keyframe_device` take them where
+``solver.compiled_route(cfg)`` holds and the map is not sharded.
 """
 
 from __future__ import annotations
@@ -41,9 +57,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from icet_tpu_torch import graphs
 from icet_tpu_torch.config import BlockMapConfig, ICETConfig, KeyframeConfig
 from icet_tpu_torch.device import as_points, resolve_device
-from icet_tpu_torch.filters import model_voxel_samples, pretrained_dnn, register_with_dnn
+from icet_tpu_torch.filters import (
+    model_voxel_samples,
+    model_voxel_samples_jit,
+    pretrained_dnn,
+    register_with_dnn,
+    solve_dnn,
+)
 from icet_tpu_torch.ops.geometry import (
     compose_states,
     euler_R,
@@ -51,7 +74,16 @@ from icet_tpu_torch.ops.geometry import (
     relative_state,
     transform_points,
 )
-from icet_tpu_torch.solver import VoxelModel, prepare_reference, register
+from icet_tpu_torch.solver import (
+    IterationDiag,
+    RegistrationResult,
+    VoxelModel,
+    _stage_prepare,
+    compiled_graphs,
+    compiled_route,
+    prepare_reference,
+    register,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -277,42 +309,23 @@ def update_health0(health0: torch.Tensor, health: torch.Tensor) -> torch.Tensor:
     return torch.where(health0 == 0.0, health, health0)
 
 
-def keyframe_step(
-    model: VoxelModel,
-    bm: BlockMap,
-    scan: torch.Tensor,
-    x_prev_rel: torch.Tensor,
-    delta_prev: torch.Tensor,
-    u: torch.Tensor,
-    health0: torch.Tensor,
-    cfg: ICETConfig,
-    kf_cfg: KeyframeConfig,
-    bm_cfg: BlockMapConfig,
-    solve_fn=None,
-):
-    """One keyframe-odometry frame: constant-velocity prediction, the solve
-    in the prediction frame, exact covariance propagation to the composed
-    state, the delta guard, the spawn policy and the map insert (skipped on
-    a spawn frame, whose scan seeds the new block instead).  ``health0`` is
-    the latched ``[n_corr, rms]`` of the keyframe's first solve (zeros right
-    after a spawn), ``u`` the insert's uniforms, and ``solve_fn(model,
-    scan0)`` replaces the residual-frame registration (the DNN step).
-
-    Returns ``(res, X_rel, delta, diverged, spawn, health, new_bm)``;
-    ``spawn`` is a host bool (the one read of this step besides the
-    solver's), the others tensors."""
+def _predict(scan, x_prev_rel, delta_prev, cfg: ICETConfig):
+    """The constant-velocity prediction ``x0`` and the scan pre-transformed
+    by it (raw-invalid points zeroed BEFORE the pre-transform, so dropouts
+    cannot resurrect at |t0|)."""
     x0 = compose_states(x_prev_rel, delta_prev)
-    # Raw-invalid points are zeroed BEFORE the pre-transform, so dropouts
-    # cannot resurrect at |t0|.
     scan0 = torch.where(
         (point_norm(scan) >= cfg.min_range)[:, None],
         transform_points(scan, x0),
         torch.zeros((), dtype=scan.dtype, device=scan.device),
     )
-    if solve_fn is None:
-        res = register(model, scan0, torch.zeros_like(x0), cfg, want_static_mask=False)
-    else:
-        res = solve_fn(model, scan0)
+    return x0, scan0
+
+
+def _propagate(res, x0, x_prev_rel, delta_prev, health0, kf_cfg: KeyframeConfig):
+    """After the solve: the solve's health, the exact covariance propagation
+    to the composed state, the delta guard and the spawn policy.  Returns
+    ``(res, X, delta, diverged, spawn, health)``, ``spawn`` a device bool."""
     rms = torch.sqrt(torch.sum(res.pred_stds**2))
     X_total = compose_states(res.X, x0)
     # Exact covariance propagation through the Jacobian of the composition
@@ -340,6 +353,40 @@ def keyframe_step(
         ovf = res.diagnostics.windowed_overflow[-1]
         spawn = spawn | ((rms0 > 0.0) & (rms > kf_cfg.stds_growth * rms0))
         spawn = spawn | (ovf > kf_cfg.ovf_spawn)
+    return res, X, delta, diverged, spawn, health
+
+
+def keyframe_step(
+    model: VoxelModel,
+    bm: BlockMap,
+    scan: torch.Tensor,
+    x_prev_rel: torch.Tensor,
+    delta_prev: torch.Tensor,
+    u: torch.Tensor,
+    health0: torch.Tensor,
+    cfg: ICETConfig,
+    kf_cfg: KeyframeConfig,
+    bm_cfg: BlockMapConfig,
+    solve_fn=None,
+):
+    """One keyframe-odometry frame: constant-velocity prediction, the solve
+    in the prediction frame, exact covariance propagation to the composed
+    state, the delta guard, the spawn policy and the map insert (skipped on
+    a spawn frame, whose scan seeds the new block instead).  ``health0`` is
+    the latched ``[n_corr, rms]`` of the keyframe's first solve (zeros right
+    after a spawn), ``u`` the insert's uniforms, and ``solve_fn(model,
+    scan0)`` replaces the residual-frame registration (the DNN step).
+
+    Returns ``(res, X_rel, delta, diverged, spawn, health, new_bm)``;
+    ``spawn`` is a host bool (the one read of this step besides the
+    solver's), the others tensors."""
+    x0, scan0 = _predict(scan, x_prev_rel, delta_prev, cfg)
+    if solve_fn is None:
+        res = register(model, scan0, torch.zeros_like(x0), cfg, want_static_mask=False)
+    else:
+        res = solve_fn(model, scan0)
+    res, X, delta, diverged, spawn, health = _propagate(res, x0, x_prev_rel, delta_prev,
+                                                        health0, kf_cfg)
     spawn = bool(spawn)
     new_bm = _blockmap_insert(bm, scan, X, u, bm_cfg, cfg.min_range, enabled=not spawn)
     return res, X, delta, diverged, spawn, health, new_bm
@@ -450,6 +497,324 @@ def keyframe_sequence(frames, model, bm, carry, gen, cfg, kf_cfg, bm_cfg):
     return (model, bm, (x_rel, delta, world_key, h0, prev_stds)), stacked
 
 
+# ---------------------------------------------------------------------------
+# Capture-safe stages and the compiled entry points
+# ---------------------------------------------------------------------------
+
+
+def _stage_insert(mb, scan, X_rel, min_range: float, enabled) -> None:
+    """:func:`_blockmap_insert` staged on the device for
+    :func:`_apply_insert`: the active block's slot, cursor and whether one
+    is open come from the mirror ``mb.at``, the uniforms from ``mb.u``;
+    ``enabled`` is a host or device bool.  Every one of the ``min(K, P)``
+    candidate samples gets a row (rows past the capacity wrap onto rows
+    below the cursor, so no two samples share a row), its point, and
+    whether it is written; the cursor moves as the eager insert's does."""
+    B, P, K = mb.shape
+    n = scan.shape[0]
+    kw = min(K, P)
+    slot, cursor, active = mb.at[0], mb.at[1], mb.at[2]
+    local = transform_points(scan, X_rel)
+    ok = torch.sum(scan * scan, dim=-1) > (min_range * min_range)
+    ar = torch.arange(K, dtype=torch.float32, device=scan.device)
+    take = torch.floor((ar + mb.u.to(ar)) * (n / K)).to(torch.int64)
+    take = torch.clamp(take, max=n - 1)[:kw]
+    rows = cursor + torch.arange(kw, device=scan.device)
+    mb.idx.copy_(slot * P + torch.remainder(rows, P))
+    mb.vals.copy_(local[take])
+    mb.write.copy_(ok[take] & (rows < P) & (active > 0) & enabled)
+    moved = torch.clamp(cursor + K, max=P)
+    if isinstance(enabled, bool):
+        cursor.copy_(moved if enabled else cursor)
+    else:
+        cursor.copy_(torch.where(enabled, moved, cursor))
+
+
+def _apply_insert(mb, bm: BlockMap) -> None:
+    """Write a staged insert into the map's tables (outside any graph, so no
+    graph depends on which map it serves): the new point where a sample is
+    written and the old one elsewhere, the eager insert's values bit for
+    bit."""
+    points, valid = bm.points.view(-1, 3), bm.valid.view(-1)
+    points.index_put_((mb.idx,), torch.where(mb.write[:, None], mb.vals, points[mb.idx]))
+    valid.index_put_((mb.idx,), valid[mb.idx] | mb.write)
+    graphs.host_ops["map_writes"] += 6
+
+
+def _stage_predict(b, cfg: ICETConfig) -> None:
+    """The prediction from the carry into ``b.kf["x0"]``, the pre-transformed
+    raw scan into the solve's scan buffer, and a zero start."""
+    x0, scan0 = _predict(b.raw, b.kf["x_rel"], b.kf["delta"], cfg)
+    b.kf["x0"].copy_(x0)
+    b.scan.copy_(scan0)
+    b.x0.zero_()
+
+
+def _stage_post(b, cfg: ICETConfig, kf_cfg: KeyframeConfig, n_final: int) -> None:
+    """:func:`_propagate` of the finished result into ``b.kf_out``, then the
+    insert of the raw scan at the guarded pose staged, ``enabled =
+    ~spawn``."""
+    r = b.result[(n_final, False)]
+    res = RegistrationResult(X=r["X"], pred_stds=r["pred_stds"], Q=r["Q"],
+                             diagnostics=IterationDiag(**{k: r[k] for k in IterationDiag._fields}),
+                             static_mask=r["static_mask"], iterations=0)
+    res, X, delta, diverged, spawn, health = _propagate(
+        res, b.kf["x0"], b.kf["x_rel"], b.kf["delta"], b.kf["h0"], kf_cfg)
+    out = b.kf_out
+    for name, t in (("X_total", res.X), ("Q", res.Q), ("pred_stds", res.pred_stds), ("X", X),
+                    ("delta", delta), ("diverged", diverged), ("spawn", spawn),
+                    ("health", health)):
+        out[name].copy_(t)
+    _stage_insert(b.map, b.raw, X, cfg.min_range, ~spawn)
+
+
+def _stage_spawn(b, cfg: ICETConfig, seed_insert: bool, carry_model: bool) -> None:
+    """:func:`keyframe_spawn` of the raw scan: the prepare, the new block's
+    slot (the mirror's next) and the seeded insert staged (:func:`_spawned`
+    writes them); with ``carry_model`` the new model goes into the model
+    buffer too."""
+    _stage_prepare(b, cfg, "raw")
+    mb = b.map
+    mb.at[0].copy_(torch.remainder(mb.at[0] + mb.at[2], mb.shape[0]))
+    mb.at[1].zero_()
+    mb.at[2].fill_(1)
+    _stage_insert(mb, b.raw, torch.zeros(6, dtype=torch.float32, device=b.raw.device),
+                  cfg.min_range, seed_insert)
+    if carry_model:
+        b.model_buf.copy_(b.prepared_buf)
+
+
+def _stage_glue(b) -> None:
+    """The sequence runner's bookkeeping after a step: the health latch, the
+    world pose, the delta's stds, the frame's row, and the carry (reset on
+    a spawn), all on the device."""
+    c, o = b.kf, b.kf_out
+    spawn = o["spawn"]
+    h0 = update_health0(c["h0"], o["health"])
+    world2 = compose_states(c["world_key"], o["X"])
+    delta_stds = torch.sqrt(o["pred_stds"] ** 2 + c["prev_stds"] ** 2)
+    world_key = torch.where(spawn, world2, c["world_key"])
+    zero6 = torch.zeros_like(world2)
+    row = b.kf_row
+    for name, t in (("delta", o["delta"]), ("delta_stds", delta_stds), ("world6", world2),
+                    ("diverged", o["diverged"]), ("x_rel", o["X"]), ("is_keyframe", spawn),
+                    ("n_corr", o["health"][0].to(torch.int32))):
+        row[name].copy_(t)
+    c["x_rel"].copy_(torch.where(spawn, zero6, o["X"]))
+    c["h0"].copy_(torch.where(spawn, torch.zeros_like(h0), h0))
+    c["world_key"].copy_(world_key)
+    c["prev_stds"].copy_(torch.where(spawn, zero6, o["pred_stds"]))
+    c["delta"].copy_(o["delta"])
+    c["world"].copy_(world2)
+
+
+def _map_state(bm: BlockMap) -> tuple[int, int, int]:
+    """The mirror's host value ``(slot, cursor, active)`` of ``bm``."""
+    B = bm.poses.shape[0]
+    return ((bm.n_blocks - 1) % B if bm.n_blocks else 0, bm.cursor, int(bm.n_blocks > 0))
+
+
+def _keyframe_graphs(scan, cfg: ICETConfig, bm: BlockMap, bm_cfg: BlockMapConfig):
+    """The frame graphs of ``scan``'s device, size and ``cfg`` with the
+    insert staging of ``bm``'s shape, its mirror holding ``bm``'s slot and
+    cursor (copied in only when it holds something else)."""
+    if isinstance(bm.points, BlockShards):
+        raise NotImplementedError(
+            "the compiled keyframe entry points take an unsharded block map; use "
+            "keyframe_step and keyframe_spawn with a sharded one")
+    fg = compiled_graphs(scan, cfg)
+    mb = fg.map_buffers(*bm.valid.shape, bm_cfg.points_per_scan)
+    want = _map_state(bm)
+    if mb.expect != want:
+        graphs.copy_in(mb.at, torch.tensor(want, dtype=torch.int64))
+        mb.expect = want
+    return fg
+
+
+def _load_uniforms(fg, u) -> None:
+    """The insert's uniforms into the map's buffer: drawn from ``u`` when it
+    is a generator (as the eager runners draw them), else copied."""
+    mb = fg.buffers.map
+    if isinstance(u, torch.Generator):
+        u = _uniforms(u, mb.u.shape[0], mb.u.device)
+        graphs.host_ops["draws"] += 1
+    graphs.copy_in(mb.u, u)
+
+
+def _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0) -> None:
+    b = fg.buffers
+    fg.load(model=model, raw=scan)
+    for name, t in (("x_rel", x_prev_rel), ("delta", delta_prev), ("h0", health0)):
+        graphs.copy_in(b.kf[name], t)
+    _load_uniforms(fg, u)
+
+
+def _post(fg, cfg, kf_cfg, bm, n_final) -> bool:
+    """Replay the step's post stage, write its staged insert into ``bm``'s
+    tables and read the spawn flag (the one host read of a frame besides
+    the solver's exit flags)."""
+    fg.run(("kf_post", kf_cfg, fg.buffers.map.shape, n_final),
+           lambda b: _stage_post(b, cfg, kf_cfg, n_final))
+    _apply_insert(fg.buffers.map, bm)
+    graphs.host_ops["spawn_reads"] += 1
+    return bool(fg.buffers.kf_out["spawn"])
+
+
+def _advance(fg, bm: BlockMap, bm_cfg: BlockMapConfig, spawn: bool) -> BlockMap:
+    """The host's map after a step's insert (skipped on a spawn frame)."""
+    if not spawn:
+        bm = bm._replace(cursor=min(bm.cursor + bm_cfg.points_per_scan, bm.valid.shape[1]))
+    fg.buffers.map.expect = _map_state(bm)
+    return bm
+
+
+def _step_result(fg, bm, bm_cfg, iterations, n_final, spawn):
+    out = graphs.KF_OUT_LAYOUT.views(graphs.clone_out(fg.buffers.kf_out_buf))
+    res = fg.result(iterations, False, n_final)
+    res = res._replace(X=out["X_total"], Q=out["Q"], pred_stds=out["pred_stds"])
+    return (res, out["X"], out["delta"], out["diverged"], spawn, out["health"],
+            _advance(fg, bm, bm_cfg, spawn))
+
+
+def keyframe_step_jit(
+    model: VoxelModel,
+    bm: BlockMap,
+    scan: torch.Tensor,
+    x_prev_rel: torch.Tensor,
+    delta_prev: torch.Tensor,
+    u,
+    health0: torch.Tensor,
+    cfg: ICETConfig,
+    kf_cfg: KeyframeConfig,
+    bm_cfg: BlockMapConfig,
+):
+    """:func:`keyframe_step` as captured graphs (the JAX package's
+    ``keyframe_step_jit``; ``u`` a generator or the uniforms): the
+    prediction, the solve, the propagation, the guard, the spawn flag and
+    the gated insert.  The spawn flag is read on the host, once."""
+    fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
+    _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
+    fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
+    iterations = fg.solve(False)
+    spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
+    return _step_result(fg, bm, bm_cfg, iterations, cfg.n_iters, spawn)
+
+
+def keyframe_step_dnn_jit(
+    model: VoxelModel,
+    bm: BlockMap,
+    scan: torch.Tensor,
+    key_scan: torch.Tensor,
+    key_samples: tuple,
+    x_prev_rel: torch.Tensor,
+    delta_prev: torch.Tensor,
+    u,
+    health0: torch.Tensor,
+    cfg: ICETConfig,
+    kf_cfg: KeyframeConfig,
+    bm_cfg: BlockMapConfig,
+    net,
+):
+    """:func:`keyframe_step_dnn` as captured graphs (the JAX package's
+    ``keyframe_step_dnn_jit``): the filtered solve of
+    ``filters.solve_dnn`` with the keyframe as scan 1, given by its
+    samples (``key_scan`` is not read, as in the eager step)."""
+    del key_scan
+    fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
+    _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
+    fg.load(samples=key_samples)
+    fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
+    iterations, n_final = solve_dnn(fg, net, False)
+    spawn = _post(fg, cfg, kf_cfg, bm, n_final)
+    return _step_result(fg, bm, bm_cfg, iterations, n_final, spawn)
+
+
+def _spawn(fg, cfg, bm: BlockMap, bm_cfg: BlockMapConfig, world, seed_insert: bool,
+           carry_model: bool) -> BlockMap:
+    """Replay the spawn graph, then open the new block in ``bm``'s tables at
+    the mirror's slot (its validity cleared, its pose ``world``) and write
+    the staged seed insert; the host's counters follow."""
+    fg.run(("kf_spawn", seed_insert, carry_model, fg.buffers.map.shape),
+           lambda b: _stage_spawn(b, cfg, seed_insert, carry_model))
+    mb = fg.buffers.map
+    slot = mb.at[:1]
+    bm.valid.index_fill_(0, slot, False)
+    bm.poses.index_copy_(0, slot, world.to(bm.poses)[None])
+    graphs.host_ops["map_writes"] += 2
+    _apply_insert(mb, bm)
+    nb = bm.n_blocks + 1
+    bm = bm._replace(n_blocks=nb,
+                     cursor=min(bm_cfg.points_per_scan, bm.valid.shape[1]) if seed_insert else 0)
+    fg.buffers.map.expect = _map_state(bm)
+    return bm
+
+
+def keyframe_spawn_jit(
+    bm: BlockMap,
+    scan: torch.Tensor,
+    world_state: torch.Tensor,
+    u,
+    seed_insert: bool,
+    cfg: ICETConfig,
+    bm_cfg: BlockMapConfig,
+) -> tuple[VoxelModel, BlockMap]:
+    """:func:`keyframe_spawn` as a captured graph (the JAX package's
+    ``keyframe_spawn_jit``; ``u`` a generator or the uniforms)."""
+    seed_insert = bool(seed_insert)
+    fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
+    fg.load(raw=scan)
+    _load_uniforms(fg, u)
+    world = torch.as_tensor(world_state, device=scan.device)
+    bm = _spawn(fg, cfg, bm, bm_cfg, world, seed_insert, False)
+    return fg.prepared(), bm
+
+
+def keyframe_sequence_jit(frames, model0, bm0, carry0, cfg, kf_cfg, bm_cfg,
+                          return_iterations: bool = False):
+    """The ``(F, N, 3)`` frames chained on the device as captured graphs
+    (the JAX package's ``keyframe_sequence_jit``): each frame draws its
+    uniforms, replays the step's graphs and the ``kf_glue`` graph (health
+    latch, world pose, delta stds, carry), and on a spawn frame draws again
+    and replays ``kf_spawn`` (prepare, block, seeded insert, model
+    hand-over); the host reads the spawn flag once a frame.
+
+    ``carry0 = (x_rel, delta, world_key6, gen, health0, prev_stds)``, a
+    ``torch.Generator`` in the JAX key's place; returns ``(model, bm,
+    carry), outs`` with per-frame outs ``(delta, delta_stds, world6,
+    diverged, x_rel, is_keyframe, n_corr)`` stacked on the device, as the
+    JAX package's; with ``return_iterations`` a third element follows, the
+    iterations each frame executed (a host list)."""
+    if frames.ndim != 3 or frames.shape[0] == 0:
+        raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
+    x_rel, delta, world_key, gen, h0, prev_stds = carry0
+    fg = _keyframe_graphs(frames[0], cfg, bm0, bm_cfg)
+    b = fg.buffers
+    fg.load(model=model0)
+    fg.hold("model", None)  # a spawn hands its model over in the buffer
+    for name, t in (("x_rel", x_rel), ("delta", delta), ("world_key", world_key), ("h0", h0),
+                    ("prev_stds", prev_stds)):
+        graphs.copy_in(b.kf[name], t)
+    bm, rows, iterations = bm0, [], []
+    for k in range(frames.shape[0]):
+        _load_uniforms(fg, gen)
+        fg.load(raw=frames[k])
+        fg.run(("kf_predict",), lambda bb: _stage_predict(bb, cfg))
+        iterations.append(fg.solve(False))
+        spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
+        fg.run(("kf_glue",), _stage_glue)
+        bm = _advance(fg, bm, bm_cfg, spawn)
+        if spawn:
+            _load_uniforms(fg, gen)
+            bm = _spawn(fg, cfg, bm, bm_cfg, b.kf["world"], True, True)
+        rows.append(graphs.clone_out(b.kf_row_buf))
+    out = graphs.KF_ROW_LAYOUT.stacked_views(torch.stack(rows))
+    c = graphs.KF_CARRY_LAYOUT.views(graphs.clone_out(b.kf_buf))
+    carry = (c["x_rel"], c["delta"], c["world_key"], gen, c["h0"], c["prev_stds"])
+    outs = tuple(out[name] for name, *_ in graphs.KF_ROW_LAYOUT.fields)
+    result = ((fg.model_copy(), bm, carry), outs)
+    return result + (iterations,) if return_iterations else result
+
+
 def run_keyframe_device(
     scans,
     cfg: ICETConfig | None = None,
@@ -462,7 +827,10 @@ def run_keyframe_device(
     """Run a recorded ``(F, N, 3)`` sequence on ``device`` (CUDA unless told
     otherwise) in ``block``-frame uploads, chained on the device; results
     come back once per block.  Returns the same :class:`KeyframeFrame`
-    records as :class:`KeyframeOdometry` and the final block map.
+    records as :class:`KeyframeOdometry` and the final block map.  Where
+    ``solver.compiled_route(cfg)`` holds, the seed spawn is
+    :func:`keyframe_spawn_jit` and each block one
+    :func:`keyframe_sequence_jit`; otherwise the eager functions chain it.
     ``cfg.dnn_filter`` raises NotImplementedError: use
     :class:`KeyframeOdometry`, whose DNN step carries the keyframe's
     per-voxel samples."""
@@ -480,15 +848,25 @@ def run_keyframe_device(
     scans = np.asarray(scans, np.float32)
     bm = blockmap_init(bm_cfg, dev)
     zero6 = torch.zeros(6, device=dev)
-    model, bm = keyframe_spawn(bm, as_points(scans[0], dev), zero6,
-                               _uniforms(gen, bm_cfg.points_per_scan, dev), True, cfg, bm_cfg)
-    carry = (zero6, zero6, zero6, torch.zeros(2, device=dev), zero6)
+    compiled = compiled_route(cfg)
+    spawn = keyframe_spawn_jit if compiled else keyframe_spawn
+    model, bm = spawn(bm, as_points(scans[0], dev), zero6,
+                      _uniforms(gen, bm_cfg.points_per_scan, dev), True, cfg, bm_cfg)
+    carry = (zero6, zero6, zero6, gen, torch.zeros(2, device=dev), zero6)
     frames: list[KeyframeFrame] = []
     for s in range(1, scans.shape[0], block):
         blk = torch.from_numpy(scans[s : s + block]).to(dev)
-        (model, bm, carry), outs = keyframe_sequence(blk, model, bm, carry, gen,
-                                                     cfg, kf_cfg, bm_cfg)
-        d2, stds, world6, div, x2, n_corr, is_kf, iters = (o.cpu().numpy() for o in outs)
+        if compiled:
+            (model, bm, carry), outs, iters = keyframe_sequence_jit(
+                blk, model, bm, carry, cfg, kf_cfg, bm_cfg, return_iterations=True)
+            d2, stds, world6, div, x2, is_kf, n_corr = (o.cpu().numpy() for o in outs)
+        else:
+            x_rel, delta, world_key, _, h0, prev_stds = carry
+            (model, bm, (x_rel, delta, world_key, h0, prev_stds)), outs = keyframe_sequence(
+                blk, model, bm, (x_rel, delta, world_key, h0, prev_stds), gen,
+                cfg, kf_cfg, bm_cfg)
+            carry = (x_rel, delta, world_key, gen, h0, prev_stds)
+            d2, stds, world6, div, x2, n_corr, is_kf, iters = (o.cpu().numpy() for o in outs)
         for j in range(d2.shape[0]):
             frames.append(KeyframeFrame(
                 index=s + j,
@@ -515,7 +893,14 @@ class KeyframeOdometry:
     step (register + delta guard + map insert); keyframe frames add a
     prepare and a block spawn.  With ``cfg.dnn_filter`` every solve runs
     the perspective-shift rejection (the bundled bias network, loaded
-    once), sampling the keyframe scan, whose samples are taken at spawn."""
+    once), sampling the keyframe scan, whose samples are taken at spawn.
+
+    On a captured moment route (``solver.compiled_route``) and an unsharded
+    map, each frame is one :func:`keyframe_step_jit` (or
+    :func:`keyframe_step_dnn_jit`) and each keyframe one
+    :func:`keyframe_spawn_jit` (and :func:`~icet_tpu_torch.filters.
+    model_voxel_samples_jit`); otherwise the eager functions.  The config
+    and the map's type decide, before any launch."""
 
     def __init__(
         self,
@@ -537,7 +922,13 @@ class KeyframeOdometry:
         #: every ``snapshot_every`` frames); inserts since it are lost.
         self.snapshot_every = snapshot_every
         self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
+        self._compiled = compiled_route(self.cfg)
         self.reset()
+
+    def _captured(self) -> bool:
+        """Whether this frame takes the compiled functions: a captured route
+        and a map that is not sharded."""
+        return self._compiled and not isinstance(self.blockmap.points, BlockShards)
 
     def reset(self) -> None:
         dev = self.device
@@ -566,20 +957,26 @@ class KeyframeOdometry:
         self._T_world_host = np.eye(4)
         self.recoveries = 0
 
-    def _uniforms(self) -> torch.Tensor:
-        return _uniforms(self._gen, self.bm_cfg.points_per_scan, self.device)
+    def _draw(self, captured: bool):
+        """The insert's uniforms (the compiled functions draw them from the
+        generator themselves, in the same order)."""
+        return self._gen if captured else _uniforms(self._gen, self.bm_cfg.points_per_scan,
+                                                   self.device)
 
     def _spawn(self, scan_dev: torch.Tensor, T_world: np.ndarray) -> None:
         state = np_pose_to_state(T_world).astype(np.float32)
-        self._model, self.blockmap = keyframe_spawn(
+        captured = self._captured()
+        spawn = keyframe_spawn_jit if captured else keyframe_spawn
+        self._model, self.blockmap = spawn(
             self.blockmap, scan_dev, torch.from_numpy(state).to(self.device),
-            self._uniforms(), self._resume_seed_insert, self.cfg, self.bm_cfg,
+            self._draw(captured), self._resume_seed_insert, self.cfg, self.bm_cfg,
         )
         self._resume_seed_insert = True
         self._T_key = T_world
         if self._dnn is not None:
             self._key_scan = scan_dev
-            self._key_samples = model_voxel_samples(self._model, scan_dev, self.cfg)
+            samples = model_voxel_samples_jit if captured else model_voxel_samples
+            self._key_samples = samples(self._model, scan_dev, self.cfg)
         self._x_rel = torch.zeros(6, device=self.device)
         # Right after a spawn x_prev_rel is exactly zero, so the previous
         # solve's stds are zero too.
@@ -619,6 +1016,8 @@ class KeyframeOdometry:
         if not probe_devices([self.device]):
             raise RuntimeError(f"device {self.device} does not answer")
         self.recoveries += 1
+        # The failed frame may have left a capture or its buffers half-done.
+        graphs.clear(self.device)
         idx, rec, T_last = self._index, self.recoveries, self._T_world_host
         if self._snapshot is None:
             self.reset()
@@ -641,16 +1040,17 @@ class KeyframeOdometry:
 
         health0 = (self._health0 if self._health0 is not None
                    else torch.zeros(2, device=self.device))  # fresh keyframe: tests off
+        captured = self._captured()
         if self._dnn is not None:
-            step = keyframe_step_dnn(
+            step = (keyframe_step_dnn_jit if captured else keyframe_step_dnn)(
                 self._model, self.blockmap, scan_dev, self._key_scan, self._key_samples,
-                self._x_rel, self._delta, self._uniforms(), health0,
+                self._x_rel, self._delta, self._draw(captured), health0,
                 self.cfg, self.kf_cfg, self.bm_cfg, self._dnn,
             )
         else:
-            step = keyframe_step(
+            step = (keyframe_step_jit if captured else keyframe_step)(
                 self._model, self.blockmap, scan_dev, self._x_rel, self._delta,
-                self._uniforms(), health0, self.cfg, self.kf_cfg, self.bm_cfg,
+                self._draw(captured), health0, self.cfg, self.kf_cfg, self.bm_cfg,
             )
         res, x_rel, delta, diverged, spawn, health, self.blockmap = step
         self._health0 = update_health0(health0, health)
@@ -708,9 +1108,13 @@ __all__ = [
     "blockmap_refresh_poses",
     "blockmap_world_points",
     "keyframe_sequence",
+    "keyframe_sequence_jit",
     "keyframe_spawn",
+    "keyframe_spawn_jit",
     "keyframe_step",
     "keyframe_step_dnn",
+    "keyframe_step_dnn_jit",
+    "keyframe_step_jit",
     "np_pose_matrix",
     "np_pose_to_state",
     "run_keyframe_device",

@@ -9,12 +9,13 @@ runner refuses it, as the JAX package's does.  The pipeline survives a
 failed step (:meth:`OdometryPipeline.step`).
 
 Where ``solver.compiled_route(cfg)`` holds (the fused or plain moment
-route, no DNN filter), both run the compiled step: the pipeline
-:func:`~icet_tpu_torch.solver.odometry_step_jit` a frame, the sequence
+route), both run the compiled step: the pipeline
+:func:`~icet_tpu_torch.solver.odometry_step_jit` a frame (with the filter
+:func:`~icet_tpu_torch.filters.odometry_step_dnn_jit`), the sequence
 runner :func:`odometry_sequence_jit` a block, whose warm start, divergence
 guard, world pose and model hand-over are captured graphs too.  Other
-configs run the eager :func:`~icet_tpu_torch.solver.odometry_step`.  The
-choice is made from the config, never as a fallback on failure.
+configs run the eager steps.  The choice is made from the config, never
+as a fallback on failure.
 """
 
 from __future__ import annotations
@@ -30,7 +31,13 @@ import torch
 from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig, OdometryConfig
 from icet_tpu_torch.device import as_points, resolve_device
-from icet_tpu_torch.filters import model_voxel_samples, odometry_step_dnn, pretrained_dnn
+from icet_tpu_torch.filters import (
+    model_voxel_samples,
+    model_voxel_samples_jit,
+    odometry_step_dnn,
+    odometry_step_dnn_jit,
+    pretrained_dnn,
+)
 from icet_tpu_torch.ops.geometry import (
     compose_pose,
     compose_states,
@@ -95,10 +102,10 @@ class OdometryPipeline:
     each registration, sampling the previous scan, whose samples are kept
     from its own frame.  Runs on ``device`` (CUDA unless told otherwise).
 
-    Without the filter and on a captured moment route
-    (``solver.compiled_route``) each frame is one
-    :func:`~icet_tpu_torch.solver.odometry_step_jit` (captured graphs on
-    CUDA); otherwise the eager step.  The config decides, once."""
+    On a captured moment route (``solver.compiled_route``) each frame is
+    one :func:`~icet_tpu_torch.solver.odometry_step_jit`, with the filter
+    one :func:`~icet_tpu_torch.filters.odometry_step_dnn_jit` (captured
+    graphs on CUDA); otherwise the eager step.  The config decides, once."""
 
     def __init__(
         self,
@@ -174,25 +181,25 @@ class OdometryPipeline:
         self._T_world = torch.from_numpy(self._T_host).to(dev)
         self._model = self._scan_prev = self._samples_prev = None
         if self._last_scan is not None:
-            scan_dev = as_points(self._last_scan, dev)
-            self._model = self._prepare(scan_dev)
-            if self._dnn is not None:
-                self._scan_prev = scan_dev
-                self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
+            self._refit(as_points(self._last_scan, dev))
 
-    def _prepare(self, scan_dev):
+    def _refit(self, scan_dev) -> None:
+        """The reference model of ``scan_dev`` (and, with the filter, its
+        samples) for the next frame."""
         if self._compiled:
-            return prepare_reference_jit(scan_dev, self.cfg)
-        return prepare_reference(scan_dev, self.cfg)
+            self._model = prepare_reference_jit(scan_dev, self.cfg)
+        else:
+            self._model = prepare_reference(scan_dev, self.cfg)
+        if self._dnn is not None:
+            self._scan_prev = scan_dev
+            samples = model_voxel_samples_jit if self._compiled else model_voxel_samples
+            self._samples_prev = samples(self._model, scan_dev, self.cfg)
 
     def _step_device(self, scan) -> OdometryFrame | None:
         t0 = time.perf_counter()
         scan_dev = as_points(scan, self.device)
         if self._model is None:
-            self._model = self._prepare(scan_dev)
-            if self._dnn is not None:
-                self._scan_prev = scan_dev
-                self._samples_prev = model_voxel_samples(self._model, scan_dev, self.cfg)
+            self._refit(scan_dev)
             self._index += 1
             return None
 
@@ -200,19 +207,20 @@ class OdometryPipeline:
             x0 = warm_start_seed(self._X_prev, self._X_prev2, self.odo_cfg.warm_start_mode)
         else:
             x0 = torch.zeros(6, device=self.device)
+        filt = None
         if self._dnn is not None:
-            res, next_model, self._samples_prev, filt = odometry_step_dnn(
-                self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
-                self.cfg, self._dnn,
-            )
+            args = (self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
+                    self.cfg, self._dnn)
+            if self._compiled:
+                out = odometry_step_dnn_jit(*args, return_filter=True)
+            else:
+                out = odometry_step_dnn(*args)
+            res, next_model, self._samples_prev, filt = out
             self._scan_prev = scan_dev
-            n_rejected = int(filt.n_rejected)
         elif self._compiled:
             res, next_model = odometry_step_jit(self._model, scan_dev, x0, self.cfg)
-            n_rejected = 0
         else:
             res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
-            n_rejected = 0
         X = res.X
         diverged = bool(torch.any(torch.abs(X) > self.odo_cfg.divergence_clamp))
         if diverged:
@@ -222,19 +230,24 @@ class OdometryPipeline:
         self._X_prev = X
         self._model = next_model
 
-        X_np = X.cpu().numpy()
+        # One read-back of the frame's values (the filter's n_rejected too).
+        parts = [X, res.pred_stds, self._T_world.reshape(-1), pose_to_state(self._T_world)]
+        if filt is not None:
+            parts.append(filt.n_rejected.reshape(1).to(X.dtype))
+        host = torch.cat(parts).cpu().numpy()
+        X_np = host[0:6]
         frame = OdometryFrame(
             index=self._index,
             X=X_np,
-            pred_stds=res.pred_stds.cpu().numpy(),
-            T_world=self._T_world.cpu().numpy(),
-            pose=pose_to_state(self._T_world).cpu().numpy(),
+            pred_stds=host[6:12],
+            T_world=host[12:28].reshape(4, 4),
+            pose=host[28:34],
             twist=X_np * self.odo_cfg.sensor_hz,
             diverged=diverged,
             n_corr=res.diagnostics.n_corr.cpu().numpy(),
             solve_ms=(time.perf_counter() - t0) * 1000.0,
             iterations=res.iterations,
-            n_rejected=n_rejected,
+            n_rejected=int(host[34]) if filt is not None else 0,
         )
         self._index += 1
         return frame
@@ -277,7 +290,7 @@ def _stage_glue(b, clamp: float, warm_start: bool, mode: str) -> None:
     T = compose_pose(b.T, X)
     xprev2 = torch.where(diverged, X, b.xprev)
     b.row["X"].copy_(X)
-    b.row["pred_stds"].copy_(b.result[False]["pred_stds"])
+    b.row["pred_stds"].copy_(b.result[(b.n_iters, False)]["pred_stds"])
     b.row["T_world"].copy_(T)
     b.row["diverged"].copy_(diverged)
     b.T.copy_(T)
@@ -296,6 +309,7 @@ def odometry_sequence_jit(
     divergence_clamp: float = 0.3,
     warm_start: bool = True,
     warm_start_mode: str = "previous",
+    return_iterations: bool = False,
 ):
     """A block of frames ``(F, N, 3)`` chained on the device (the JAX
     package's ``odometry_sequence_jit``): each frame registers against the
@@ -305,15 +319,17 @@ def odometry_sequence_jit(
     pose (from ``T0``) stay on the device.  Each frame replays its step's
     graphs and one ``glue`` graph, the host reading only the exit flags.
 
-    Returns ``((model, X_last, T_last), (X, pred_stds, diverged, T_world,
-    iterations))``: the carry for the next block, the per-frame outputs
-    stacked on the device, and the iterations each frame executed (a host
+    Returns ``((model, X_last, T_last), (X, pred_stds, diverged, T_world))``
+    as the JAX package's does: the carry for the next block and the
+    per-frame outputs stacked on the device.  With ``return_iterations``
+    a third element follows, the iterations each frame executed (a host
     list; the JAX runner does not return them)."""
     if frames.ndim != 3 or frames.shape[0] == 0:
         raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
     fg = compiled_graphs(frames[0], cfg)
     b = fg.buffers
     fg.load(x0=x0, model=model0)
+    fg.hold("model", None)  # the glue overwrites the model buffer
     graphs.copy_in(b.xprev, b.x0)
     graphs.copy_in(b.xprev2, b.x0)
     graphs.copy_in(b.T, T0)
@@ -330,7 +346,8 @@ def odometry_sequence_jit(
         rows.append(graphs.clone_out(b.row_buf))
     out = graphs.ROW_LAYOUT.stacked_views(torch.stack(rows))
     carry = (fg.model_copy(), graphs.clone_out(b.xprev), graphs.clone_out(b.T))
-    return carry, (out["X"], out["pred_stds"], out["diverged"], out["T_world"], iterations)
+    outs = (out["X"], out["pred_stds"], out["diverged"], out["T_world"])
+    return (carry, outs, iterations) if return_iterations else (carry, outs)
 
 
 def run_odometry_device(
@@ -368,10 +385,11 @@ def run_odometry_device(
     for s in range(1, scans.shape[0], block):
         blk = torch.from_numpy(scans[s : s + block]).to(dev)
         if compiled:
-            (model, x, T), outs = odometry_sequence_jit(
-                blk, model, x, T, cfg, clamp, odo_cfg.warm_start, odo_cfg.warm_start_mode)
-            Xs, stds, divs, Ts = (o.cpu().numpy() for o in outs[:4])
-            frames += _block_frames(s, Xs, stds, divs, Ts, outs[4], odo_cfg)
+            (model, x, T), outs, iterations = odometry_sequence_jit(
+                blk, model, x, T, cfg, clamp, odo_cfg.warm_start, odo_cfg.warm_start_mode,
+                return_iterations=True)
+            Xs, stds, divs, Ts = (o.cpu().numpy() for o in outs)
+            frames += _block_frames(s, Xs, stds, divs, Ts, iterations, odo_cfg)
             continue
         xprev, xprev2 = x, x
         outs = []

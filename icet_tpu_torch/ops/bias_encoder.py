@@ -155,6 +155,14 @@ def _cached_image(weights) -> torch.Tensor:
     return img
 
 
+def cached_image(weights) -> torch.Tensor:
+    """The weight image the kernel reads for ``weights`` (built once per set
+    of weight tensors and kept in a cache of ``IMAGE_CACHE`` sets).  A
+    CUDA graph replays the image's address, so whoever captures a launch
+    keeps a reference to it (``graphs.FrameGraphs.pin``)."""
+    return _cached_image(weights)
+
+
 def encoder_blocks(b: int, sm_count: int) -> int:
     """Blocks of one launch: one an SM, at most one a voxel."""
     return max(1, min(b, sm_count))

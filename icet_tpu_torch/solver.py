@@ -588,14 +588,15 @@ CAPTURED_ROUTES = ("fused", "plain")
 
 def compiled_route(cfg: ICETConfig) -> bool:
     """Whether ``cfg``'s solve runs through the compiled entry points: the
-    ``"fused"`` and ``"plain"`` moment routes without the DNN filter
-    (decided from the config alone, as :func:`moment_route` is)."""
-    return not cfg.dnn_filter and moment_route(cfg) in CAPTURED_ROUTES
+    ``"fused"`` and ``"plain"`` moment routes, with or without the DNN
+    filter (decided from the config alone, as :func:`moment_route` is)."""
+    return moment_route(cfg) in CAPTURED_ROUTES
 
 
-def _stage_prepare(b, cfg: ICETConfig) -> None:
-    """:func:`prepare_reference` of ``b.scan`` into ``b.prepared``."""
-    for name, t in zip(VoxelModel._fields, prepare_reference(b.scan, cfg)):
+def _stage_prepare(b, cfg: ICETConfig, src: str = "scan") -> None:
+    """:func:`prepare_reference` of the scan buffer ``src`` into
+    ``b.prepared``."""
+    for name, t in zip(VoxelModel._fields, prepare_reference(getattr(b, src), cfg)):
         b.prepared[name].copy_(t)
 
 
@@ -611,31 +612,43 @@ def _commit(b, cfg: ICETConfig, X, w6, keep, corr, U2, d) -> None:
         torch.ge(d[2], _exit_threshold(w6, U2, cfg), out=b.go)
 
 
-def _stage_first(b, cfg: ICETConfig) -> None:
-    """Iteration 0 from ``b.x0``: the cold 6x6 eigendecomposition."""
+def _corr_mask(b, masked: bool):
+    """The DNN filter's keep mask (``b.filt``) where the phase is filtered."""
+    return b.filt["keep"] if masked else None
+
+
+def _stage_first(b, cfg: ICETConfig, it: int = 0, masked: bool = False,
+                 start: str = "x0") -> None:
+    """Iteration ``it`` (a phase's first) from ``b.x0`` or, with ``start="X"``,
+    from the previous phase's ``b.X``: the cold 6x6 eigendecomposition."""
     b.it.zero_()
-    _commit(b, cfg, *_iteration(b.model, b.scan, b.x0, 0, cfg)[:6])
+    x = b.x0 if start == "x0" else b.X
+    _commit(b, cfg, *_iteration(b.model, b.scan, x, it, cfg, _corr_mask(b, masked))[:6])
 
 
-def _stage_warm(b, cfg: ICETConfig, it: int) -> None:
-    """One warm iteration from ``b.X`` and ``b.U2``; ``it`` matters only
-    through the moving-object schedule (``it >= rm_start_iter``)."""
-    _commit(b, cfg, *_iteration(b.model, b.scan, b.X, it, cfg, None, b.U2)[:6])
+def _stage_warm(b, cfg: ICETConfig, it: int, masked: bool = False) -> None:
+    """One warm iteration from ``b.X`` and ``b.U2``; ``it`` (global) matters
+    only through the moving-object schedule (``it >= rm_start_iter``)."""
+    _commit(b, cfg, *_iteration(b.model, b.scan, b.X, it, cfg, _corr_mask(b, masked),
+                                b.U2)[:6])
 
 
-def _stage_finish(b, cfg: ICETConfig, want_static_mask: bool) -> None:
+def _stage_finish(b, cfg: ICETConfig, want_static_mask: bool, it_offset: int = 0,
+                  masked: bool = False) -> None:
     """The predicted covariance (after the range-sensitivity assembly when
     ``range_sigma > 0``), the diagnostics with skipped iterations repeating
-    the last executed row, and the static mask, into ``b.result``."""
+    the last executed row, and the static mask, into the result buffer of
+    ``(cfg.n_iters, want_static_mask)``."""
     n_it = cfg.n_iters
     if cfg.range_sigma > 0.0:
         _, w6, keep, _, U2, _, htwg = _iteration(
-            b.model, b.scan, b.X, n_it - 1, cfg, None, b.U2, want_range_sens=True
+            b.model, b.scan, b.X, it_offset + n_it - 1, cfg, _corr_mask(b, masked), b.U2,
+            want_range_sens=True,
         )
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)
     else:
         pred_stds, Q = _predicted_covariance(b.w6, b.U2, b.keep, cfg)
-    out = b.result[want_static_mask]
+    out = b.result[(n_it, want_static_mask)]
     out["X"].copy_(b.X)
     out["pred_stds"].copy_(pred_stds)
     out["Q"].copy_(Q)
@@ -657,9 +670,8 @@ def compiled_graphs(scan, cfg: ICETConfig):
         )
     if not compiled_route(cfg):
         raise NotImplementedError(
-            f"the compiled entry points capture the moment routes {CAPTURED_ROUTES} "
-            f"without the DNN filter; cfg takes route {moment_route(cfg)!r} with "
-            f"dnn_filter={cfg.dnn_filter}: use the eager functions"
+            f"the compiled entry points capture the moment routes {CAPTURED_ROUTES}; "
+            f"cfg takes route {moment_route(cfg)!r}: use the eager functions"
         )
     # Imported here: icet_tpu_torch.graphs builds on this module.
     from icet_tpu_torch import graphs
@@ -684,7 +696,7 @@ def register_jit(
     finish (the JAX package's ``register_jit``)."""
     fg = compiled_graphs(scan2, cfg)
     fg.load(scan=scan2, x0=x0, model=model)
-    return fg.result(True, fg.solve(True))
+    return fg.result(fg.solve(True), True)
 
 
 def odometry_step_jit(
@@ -697,7 +709,7 @@ def odometry_step_jit(
     fg.load(scan=scan, x0=x0, model=model)
     iterations = fg.solve(False)
     fg.run_prepare()
-    return fg.result(False, iterations), fg.prepared()
+    return fg.result(iterations, False), fg.prepared()
 
 
 __all__ = [

@@ -253,8 +253,8 @@ def test_sequence_jit_bitwise_against_steps(scans):
     frames = _t(scans[1:])
     model0 = ts.prepare_reference(_t(scans[0]), TCFG)
     x0, T0 = torch.zeros(6), torch.eye(4)
-    (model, X_last, T_last), (X, stds, div, Tw, iters) = todo.odometry_sequence_jit(
-        frames, model0, x0, T0, TCFG, 0.3, True, "previous")
+    (model, X_last, T_last), (X, stds, div, Tw), iters = todo.odometry_sequence_jit(
+        frames, model0, x0, T0, TCFG, 0.3, True, "previous", return_iterations=True)
     m, x, T = model0, x0, T0
     for k in range(frames.shape[0]):
         res, m = ts.odometry_step(m, frames[k], x, TCFG)
@@ -316,8 +316,9 @@ def test_sequence_jit_matches_jax(scans, clamp):
     jm, model = _jax_model(scans[0])
     (jmodel, jx, jT), (jX, jstds, jdiv, jTw) = jodo.odometry_sequence_jit(
         jnp.asarray(scans[1:]), jm, jnp.zeros(6), jnp.eye(4), CFG, clamp, True, "previous")
-    (tmodel, tx, tT), (X, stds, div, Tw, iters) = todo.odometry_sequence_jit(
-        _t(scans[1:]), model, torch.zeros(6), torch.eye(4), TCFG, clamp, True, "previous")
+    (tmodel, tx, tT), (X, stds, div, Tw), iters = todo.odometry_sequence_jit(
+        _t(scans[1:]), model, torch.zeros(6), torch.eye(4), TCFG, clamp, True, "previous",
+        return_iterations=True)
     np.testing.assert_allclose(X.numpy(), np.asarray(jX), rtol=0, atol=1e-4)
     np.testing.assert_allclose(Tw.numpy(), np.asarray(jTw), rtol=0, atol=1e-4)
     np.testing.assert_allclose(stds.numpy(), np.asarray(jstds), rtol=1e-3)
@@ -326,6 +327,25 @@ def test_sequence_jit_matches_jax(scans, clamp):
     np.testing.assert_allclose(tT.numpy(), np.asarray(jT), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(tmodel.count.numpy(), np.asarray(jmodel.count))
     assert all(1 <= i <= CFG.n_iters for i in iters)
+
+
+def test_sequence_jit_unpacks_as_jax(scans):
+    """C8: both packages' ``odometry_sequence_jit`` results unpack the same
+    way, ``(model, X_last, T_last), (X, pred_stds, diverged, T_world)``."""
+    jm, model = _jax_model(scans[0])
+    results = (
+        jodo.odometry_sequence_jit(jnp.asarray(scans[1:3]), jm, jnp.zeros(6), jnp.eye(4), CFG),
+        todo.odometry_sequence_jit(_t(scans[1:3]), model, torch.zeros(6), torch.eye(4), TCFG),
+    )
+    for result in results:
+        assert len(result) == 2
+        (m, x_last, T_last), (X, stds, div, Tw) = result
+        assert tuple(X.shape) == (2, 6) and tuple(Tw.shape) == (2, 4, 4)
+        assert tuple(div.shape) == (2,) and tuple(x_last.shape) == (6,)
+    (_, jx, jT), (jX, _, _, _) = results[0]
+    (_, tx, tT), (tX, _, _, _) = results[1]
+    np.testing.assert_allclose(tX.numpy(), np.asarray(jX), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tT.numpy(), np.asarray(jT), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("clamp", [0.3, 0.1])
@@ -349,9 +369,12 @@ def test_run_odometry_device_compiled_matches_jax(scans, clamp):
 
 
 @pytest.mark.parametrize("change", [{"moment_method": "pallas"}, {"moment_method": "onehot"},
-                                    {"dnn_filter": True}], ids=["scatter", "onehot", "dnn"])
+                                    {"dnn_filter": True, "moment_method": "pallas"}],
+                         ids=["scatter", "onehot", "dnn"])
 @pytest.mark.parametrize("entry", ["prepare", "register", "step", "sequence"])
 def test_uncaptured_configs_raise(scans, change, entry):
+    """The scatter and onehot routes, and the DNN filter on an uncaptured
+    route (the filter itself is captured on the fused and plain routes)."""
     cfg = TCFG.replace(**change)
     assert not ts.compiled_route(cfg)
     s = _t(scans[1])
@@ -426,6 +449,7 @@ def test_layout_views_round_trip():
 
 def test_graphs_module_leaves_jax_out():
     code = ("import sys, icet_tpu_torch.graphs, icet_tpu_torch.odometry, icet_tpu_torch.solver\n"
+            "import icet_tpu_torch.filters, icet_tpu_torch.keyframe, icet_tpu_torch.ops.bias_encoder\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'icet_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -173,9 +173,9 @@ def test_odometry_pipeline_recovers_bit_identically(monkeypatch, dnn):
     cfg = CFG.replace(dnn_filter=True, dnn_start_iter=2) if dnn else CFG
     scans = _drive_scans()
     clean = list(odo_mod.OdometryPipeline(cfg, device="cpu").run(scans))
-    # The plain pipeline steps through the compiled step (its config's route
-    # is captured), the filtered one through the eager DNN step.
-    _fail_on(monkeypatch, odo_mod, "odometry_step_dnn" if dnn else "odometry_step_jit", 3)
+    # Both pipelines step through the compiled steps (the config's route is
+    # captured, with or without the filter).
+    _fail_on(monkeypatch, odo_mod, "odometry_step_dnn_jit" if dnn else "odometry_step_jit", 3)
     pipe = odo_mod.OdometryPipeline(cfg, device="cpu")
     frames = [f for f in (pipe.step(s) for s in scans) if f is not None]
     assert pipe.recoveries == 1
@@ -211,7 +211,7 @@ def test_keyframe_recovers_from_device_failure(monkeypatch):
                                       n_azimuth=256), np.float32) for k in range(8)]
     kf_cfg = KeyframeConfig(spawn_distance=1.0, delta_clamp=2.0)
     clean = kf_mod.KeyframeOdometry(CFG, kf_cfg, snapshot_every=2, device="cpu").run(scans)
-    _fail_on(monkeypatch, kf_mod, "keyframe_step", 4)
+    _fail_on(monkeypatch, kf_mod, "keyframe_step_jit", 4)
     pipe = kf_mod.KeyframeOdometry(CFG, kf_cfg, snapshot_every=2, device="cpu")
     frames = [f for f in (pipe.step(s) for s in scans) if f is not None]
     assert pipe.recoveries == 1

@@ -4,7 +4,8 @@
 Runs the 24-frame 64x1024 city drive (the drive chip_smoke.py drives) at the
 sequence-odometry config through ``odometry_step`` (with ``--dnn``, the
 DNN-filtered ``odometry_step_dnn``; with ``--keyframe``, ``KeyframeOdometry``
-at bench.py's keyframe config, filtered too with both), once to warm up and
+at bench.py's keyframe config on its eager route, filtered too with both),
+once to warm up and
 once under
 ``torch.profiler``, and prints one JSON object: wall ms per frame (CUDA
 events), CUDA kernels launched per frame, device busy ms per frame (union
@@ -109,8 +110,9 @@ def main() -> int:
     kf_cfg = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
 
     def keyframe_pass():
-        frames = KeyframeOdometry(cfg, kf_cfg, BlockMapConfig(), device=dev).run(drive)
-        return sum(f.iterations for f in frames)
+        runner = KeyframeOdometry(cfg, kf_cfg, BlockMapConfig(), device=dev)
+        runner._compiled = False  # the eager route; chip_smoke.py phase 27 profiles the graphs
+        return sum(f.iterations for f in runner.run(drive))
 
     def odometry_pass():
         if args.keyframe:
