@@ -54,11 +54,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. DNN-filtered keyframe odometry: ``KeyframeOdometry`` with the filter
     (compiled); encoder and fused-moments launches counted with the
     warm-ups, ATE gated likewise, the eager run's beside it;
-11. MapMaker at ``PROFILES["mapping"]``: launches counted, ring fill exact,
-    trajectory ATE gated likewise;
+11. MapMaker at ``PROFILES["mapping"]`` on the compiled route
+    (``map_step_jit``; its graphs captured under
+    ``set_sync_debug_mode("error")``) against the eager route frame by
+    frame (X within 1e-6 m, flags, fill and counters equal; bit-identical
+    or not, and the rings): launches counted with the warm-ups, ring fill
+    exact, trajectory ATE gated likewise;
 12. ScanMatcher: 6 frames, statuses and aligned clouds;
-13. times: CUDA-event medians of the eager odometry, DNN, keyframe, DNN
-    keyframe, MapMaker and pallas-moments frames; for each kernel, its plain version and, where one exists, the
+13. times: CUDA-event times (one round after a warm-up) of the eager
+    odometry, DNN, keyframe, DNN keyframe and pallas-moments frames; for each kernel, its plain version and, where one exists, the
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
     time over back-to-back calls; the encoder's LayerNorm-epilogue floor;
@@ -79,15 +83,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
     at k = 1, at two consecutive k across a stage edge and at k = K - 1,
     inputs one float into their buffers), one launch a call, one device
     operation a call; then
-    ``optimize_poses_sparse`` on that graph, launches counted, the mean
-    position error at most half the initial one; the kernels' times at K =
-    10,000 and 1,000 beside the chain floor, and their registers;
+    ``optimize_poses_sparse`` on that graph, compiled (its graphs captured
+    under ``set_sync_debug_mode("error")``) and eager in turns, launches
+    counted through the replays (10 + 260, the warm-ups beside them), the
+    states against the eager loop's, the mean position error at most half
+    the initial one; the kernels' times at K = 10,000 and 1,000 beside the
+    chain floor, and their registers;
 17. the loop-closure drive through ``icet_tpu_torch.examples.eval_citydrive.run``
     (tests/test_citydrive.py's block at 64x1024, 250 frames): odometry, loop
     candidates, ``close_loops``, ``optimize_poses_sparse(..., 10, 50,
-    robust_delta=3.5)``; launches counted, at least 30 loops, the refined
-    ATE below the odometry ATE and within ATE_SLACK_M of the JAX package's
-    CPU figure;
+    robust_delta=3.5)``, all compiled; launches counted, at least 30 loops,
+    the refined ATE below the odometry ATE and within ATE_SLACK_M of the
+    JAX package's CPU figure; the loop factors of the first 16 candidates
+    against the eager route's;
 18. the in-process mesh (``parallel.sharding``) on repeats of the card at
     (dp, sp) in SHARD_SHAPES, 4 pairs of the drive: each pair against the
     unsharded ``register_pair`` at the JAX package's sharding tolerances,
@@ -107,9 +115,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     1 s timeout;
 21. recovery: ``OdometryPipeline`` (plain, through ``odometry_step_jit``,
     and DNN, through ``odometry_step_dnn_jit``), ``KeyframeOdometry``
-    (through ``keyframe_step_jit``) and ``MapMaker`` on the drive with one
+    (through ``keyframe_step_jit``) and ``MapMaker`` (through
+    ``map_step_jit``) on the drive with one
     step raising a RuntimeError at frame FAIL_AT: one recovery (the
-    compiled pipelines' graphs captured anew), the frames against a clean run within a
+    compiled pipelines' graphs captured anew; the MapMaker's kept, its
+    ring restored in place), the frames against a clean run within a
     bound from two clean runs (the keyframe runner re-seeds a keyframe
     there, as the JAX package's does), ATE and ms a recovery (the eager
     route's beside it); then a
@@ -163,7 +173,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     compiled eval_kitti --dnn and --keyframe; the DNN, keyframe and DNN
     keyframe frames compiled and eager in turns at 64x1024 and 64x2048
     (CUDA events), host operations a frame, device operations and idle
-    share (torch.profiler).
+    share (torch.profiler); then the HD-mapping back end compiled and eager
+    in turns: the MapMaker frame, a loop pair (phase 17's first 16
+    candidates) and phase 17's K = 250 solve; the dense solve of that graph
+    captured under a global ``preferred_linalg_library("magma")``.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -172,6 +185,7 @@ nothing of JAX or of ``icet_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -246,11 +260,14 @@ LC_LOOPS_REF = 94
 LC_ATE_REF_M = 0.037278022472340286
 #: the loop-closure drive (tests/test_citydrive.py's block at full width)
 LC_DRIVE = dict(n_frames=250, speed=1.0, rect=(-24, 24, -19, 19), n_beams=64, n_azimuth=1024)
-#: frames of phase 26's profiled chains (prepare, then PROFILE_FRAMES - 1 steps)
-PROFILE_FRAMES = 6
+#: frames of phase 26-27's profiled chains (prepare, then PROFILE_FRAMES - 1
+#: steps)
+PROFILE_FRAMES = 4
 #: frames of phase 27's timed chains at 64x2048 (the eager DNN frame there
-#: takes ~0.2 s)
-KF_TIMED_FRAMES = 12
+#: takes ~0.2 s), and at 64x1024 (the DNN, keyframe and MapMaker frames;
+#: the eager MapMaker frame takes ~0.35 s)
+KF_TIMED_FRAMES = 8
+TIMED_FRAMES = 12
 #: the Hopper FP32 pipe's latency between dependent instructions (cycles) and the H100
 #: SXM's boost clock, for the backbone's chain-latency floor
 FMA_LATENCY_CYCLES, BOOST_HZ = 4, 1.98e9
@@ -284,11 +301,42 @@ def warmups(kernel: str = "fused_moment_sums") -> int:
 
 
 def eager(runner):
-    """``runner`` (an ``OdometryPipeline`` or ``KeyframeOdometry``) on the
-    eager functions: its frames are the plain version the compiled route
-    is held to."""
+    """``runner`` (an ``OdometryPipeline``, ``KeyframeOdometry`` or
+    ``MapMaker``) on the eager functions: its frames are the plain version
+    the compiled route is held to."""
     runner._compiled = False
     return runner
+
+
+@contextlib.contextmanager
+def spy(module, name):
+    """``with spy(module, name) as calls``: ``module.name`` records each
+    call's ``(args, kwargs)`` in ``calls.args`` and its result in
+    ``calls.results``; restored on exit."""
+    real = getattr(module, name)
+    calls = types.SimpleNamespace(args=[], results=[])
+
+    def wrapped(*args, **kw):
+        calls.args.append((args, kw))
+        calls.results.append(real(*args, **kw))
+        return calls.results[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """``module.name`` is ``value`` inside, restored on exit."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def device_line() -> str:
@@ -1168,7 +1216,7 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
         "keyframe": (lambda: kf_mod.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev), kf_mod,
                      "keyframe_step_jit"),
         "mapmaker": (lambda: map_mod.MapMaker(mcfg, map_cfg, odo, device=dev), map_mod,
-                     "map_step"),
+                     "map_step_jit"),
     }
 
     def drive(make, module=None, name=None):
@@ -1195,6 +1243,9 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
     def max_dx(a, b) -> float:
         return float(max(np.abs(np.asarray(f.X) - np.asarray(g.X)).max() for f, g in zip(a, b)))
 
+    def maker_ring(maker) -> tuple:
+        return tuple(getattr(maker.state, k).data_ptr() for k in ("points", "valid", "trail"))
+
     clean_runs = {}
     for what, (make, module, name) in runners.items():
         c1 = earlier[what] if what in earlier else drive(make)[1]
@@ -1203,14 +1254,28 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
         spread = max_dx(c1, c2)
         bound_m = max(RECOVERY_SPREAD * spread, RECOVERY_FLOOR_M)
         captures = graphs.host_ops["captures"]
-        runner, frames = drive(make, module, name)
+        ring_before, make_run = [], make
+        if what == "mapmaker":
+            def make_run(make=make):
+                runner = make()
+                ring_before.append(maker_ring(runner))
+                return runner
+        runner, frames = drive(make_run, module, name)
         check(runner.recoveries == 1, f"{what}: {runner.recoveries} recoveries")
+        captures = graphs.host_ops["captures"] - captures
         if what != "mapmaker":
             # The failure reached the compiled step; recovery dropped the
             # graphs, and the retried frame captured them anew.
-            captures = graphs.host_ops["captures"] - captures
             check(captures > 0, f"{what}: no graph captured after the recovery")
             print(f"recovery {what}: {captures} graphs captured anew after the recovery")
+        else:
+            # The failure reached the compiled step; recovery restored the
+            # snapshot into the runner's own ring, so the retried frame
+            # replays the graphs captured before it.
+            check(maker_ring(runner) == ring_before[0],
+                  "mapmaker: recovery replaced the ring's tensors")
+            print(f"recovery mapmaker: the ring kept its tensors; {captures} graphs captured "
+                  f"in the whole drive (its ring's two map graphs at most)")
         if what == "keyframe":
             # The retried frame re-seeds a keyframe (it returns no frame);
             # the frames after it solve against that keyframe.
@@ -1233,12 +1298,10 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
             ate_clean = indexed_ate(c1, composed(c1) if what == "mapmaker" else None)
         recoveries = runner.recoveries
         rec_ms = wall_ms(runner._recover)
-        eager_ms = ""
-        if what != "mapmaker":
-            plain = eager(make())
-            for s in scans[:3]:
-                plain.step(s)
-            eager_ms = f"; eager route {wall_ms(plain._recover):.2f} ms"
+        plain = eager(make())
+        for s in scans[:3]:
+            plain.step(s)
+        eager_ms = f"; eager route {wall_ms(plain._recover):.2f} ms"
         print(f"recovery {what}: recoveries {recoveries}, {len(frames)} frames, "
               f"max |dX| vs clean {dx:.3e} m (two clean runs {spread:.3e} m, bound "
               f"{bound_m:.3e} m), ATE {ate * 100:.4f} cm (clean {ate_clean * 100:.4f} cm), "
@@ -1350,6 +1413,8 @@ def phase_kitti(tmp: str, dev, card) -> dict:
         launches = dict(fused=fused_moment_sums.launches, encoder=bias_encoder_pool.launches,
                         factor=tridiag_factor.launches, apply=tridiag_apply.launches,
                         warmups=warmups(), encoder_warmups=warmups("bias_encoder_pool"),
+                        factor_warmups=warmups("tridiag_factor"),
+                        apply_warmups=warmups("tridiag_apply"),
                         replays=graphs.host_ops["replays"] - replays)
         check(s["frames"] == n_scans - 1, f"eval_kitti {extra}: {s['frames']} frames")
         check(s["divergences"] == 0, f"eval_kitti {extra}: {s['divergences']} divergences")
@@ -1414,12 +1479,16 @@ def phase_kitti(tmp: str, dev, card) -> dict:
     finally:
         odo_mod.compiled_route, kf_mod.compiled_route = routes
     s, lc, _ = runs["refine"]
-    check((lc["factor"], lc["apply"]) == (10, 10 * 51),
-          f"eval_kitti --refine: factor/apply launches {(lc['factor'], lc['apply'])}")
+    # The compiled solve: its graphs' replays, and the warm-ups before its
+    # captures beside them.
+    tri = (lc["factor"] - lc["factor_warmups"], lc["apply"] - lc["apply_warmups"])
+    check(tri == (10, 10 * 51), f"eval_kitti --refine: factor/apply launches "
+          f"{(lc['factor'], lc['apply'])} less warm-ups {(lc['factor_warmups'], lc['apply_warmups'])}")
     check(np.isfinite(s["ate_refined_cm"]), "eval_kitti --refine: refined ATE not finite")
     print(f"eval_kitti --refine --strict-real: {s['loop_factors']} loop factors, refined ATE "
           f"{s['ate_refined_cm']} cm (odometry {s['ate_odometry_cm']} cm), factor/apply "
-          f"launches {(lc['factor'], lc['apply'])}")
+          f"launches {(lc['factor'], lc['apply'])} = {tri} + warm-ups "
+          f"{(lc['factor_warmups'], lc['apply_warmups'])}")
     # The TUM files read back: the odometry trajectory scores the same ATE.
     est, gt_pos = tum_positions(out_prefix + ".odo.tum"), tum_positions(out_prefix + ".gt.tum")
     check(est.shape == gt_pos.shape == (n_scans, 3), f"TUM files hold {est.shape} poses")
@@ -1786,8 +1855,8 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
             res, m = step(m, frames[k], xx, c)
             xx = res.X
 
-    for size, frames, c, rounds in (("64x1024, N = 65,536", drive, cfg, 2),
-                                    ("64x2048, N = 131,072", kdrive, kcfg, 2)):
+    for size, frames, c, rounds in (("64x1024, N = 65,536", drive, cfg, 1),
+                                    ("64x2048, N = 131,072", kdrive, kcfg, 1)):
         steps = frames.shape[0] - 1
         ms = {"eager": [], "compiled": []}
         for mode in ("eager", "compiled", "compiled", "eager"):
@@ -2084,7 +2153,8 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
         runner = KeyframeOdometry(c, kc, bm_cfg, device=dev)
         (runner if comp else eager(runner)).run(frames)
 
-    for size, frames, c, kc, rounds in (("64x1024, N = 65,536", drive, cfg, kf_cfg, 1),
+    for size, frames, c, kc, rounds in (("64x1024, N = 65,536", drive[:TIMED_FRAMES], cfg,
+                                         kf_cfg, 1),
                                         ("64x2048, N = 131,072", kdrive, kcfg, kkf, 1)):
         steps = frames.shape[0] - 1
         dc = c.replace(dnn_filter=True)
@@ -2126,6 +2196,108 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
                       f"events over the first {PROFILE_FRAMES} frames)")
 
 
+def map_frames_ms(drive, mcfg, map_cfg, odo, compiled: bool) -> tuple[float, dict]:
+    """ms a ``MapMaker`` frame by CUDA events over frames 2 onward of
+    ``drive`` (the seed frame and the first step, where a new ring's map
+    graphs are captured, go untimed), and the compiled route's host
+    operations a frame."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.mapping import MapMaker
+
+    maker = MapMaker(mcfg, map_cfg, odo, device=drive.device)
+    if not compiled:
+        eager(maker)
+    maker.step(drive[0])
+    maker.step(drive[1])
+    torch.cuda.synchronize()
+    ops0 = dict(graphs.host_ops)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for d in drive[2:]:
+        maker.step(d)
+    end.record()
+    torch.cuda.synchronize()
+    n = drive.shape[0] - 2
+    return start.elapsed_time(end) / n, {k: (graphs.host_ops[k] - ops0[k]) / n for k in ops0}
+
+
+def phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev, card) -> None:
+    """Phase 27, the HD-mapping back end: the MapMaker frame, a loop pair of
+    phase 17's drive (its first 16 candidates, one chunk) and phase 17's
+    K = 250 solve, compiled and eager in turns (CUDA events); the dense
+    solve of that graph captured under a global MAGMA preference."""
+    import icet_tpu_torch.pose_graph as pose_graph
+    from icet_tpu_torch import graphs
+
+    drive = torch.from_numpy(scans[:TIMED_FRAMES]).to(dev)
+    ms = {"eager": [], "compiled": []}
+    host = {}
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        t, host[mode] = map_frames_ms(drive, mcfg, map_cfg, odo, mode == "compiled")
+        ms[mode].append(t)
+    h = host["compiled"]
+    print(f"MapMaker frame at 64x1024 ({card}), eager/compiled/compiled/eager: "
+          f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+          f" ms a frame (CUDA events over frames 2-{drive.shape[0] - 1}); host operations a "
+          f"frame, compiled: {h['replays']:.1f} graph replays, {h['flag_reads']:.1f} exit-flag "
+          f"reads, {h['copies']:.1f} device copies, {h['captures']:.1f} captures")
+
+    ((scans_lc, cands, cfg), kw), = lc_loops.args
+    pairs = cands[:16]
+
+    def loops(compiled):
+        with patched(pose_graph, "compiled_route", lambda c: compiled):
+            return pose_graph.close_loops(scans_lc, pairs, cfg, batch=16, **kw)
+
+    ms = {"eager": [], "compiled": []}
+    out = {}
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        # One call a turn: phase 17 captured the compiled pairs' graphs.
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out[mode] = loops(mode == "compiled")
+        end.record()
+        torch.cuda.synchronize()
+        ms[mode].append(start.elapsed_time(end) / len(pairs))
+    print(f"loop pair of the loop-closure drive ({card}), eager/compiled/compiled/eager: "
+          f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+          f" ms a pair (CUDA events over close_loops of {len(pairs)} candidates, batch 16, one "
+          f"read back; {len(out['compiled'])} loops kept both ways)")
+
+    (args, kw), = lc_solves.args
+    ms = {"eager": [], "compiled": []}
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        solve = (pose_graph.optimize_poses_sparse if mode == "compiled"
+                 else pose_graph.optimize_poses_sparse_eager)
+        ms[mode].append(median_ms(lambda f=solve: out.__setitem__(f, f(*args, **kw)), reps=1,
+                                  rounds=2))
+    dx = float((out[pose_graph.optimize_poses_sparse]
+                - out[pose_graph.optimize_poses_sparse_eager]).abs().max())
+    print(f"pose-graph solve of the loop-closure drive (K = {args[0].shape[0]}, "
+          f"{args[1].idx_i.shape[0]} factors, {args[2]} x {args[3]}, {kw}; {card}), "
+          f"eager/compiled/compiled/eager: "
+          f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+          f" ms a solve (CUDA events, median of 2); compiled against eager: max |d state| "
+          f"{dx:.3e}, bit-identical: {dx == 0.0}")
+    check(dx <= 2e-3, f"K = 250 solve: compiled states {dx:.3e} from the eager loop's")
+
+    # The dense solve captured under a global MAGMA preference (its
+    # factorisations pinned to cuSOLVER inside the stage), against the
+    # eager loop; first use of this graph set, so its graph is captured here.
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("magma")
+    try:
+        with graphs.sync_debug("error"):
+            dense = pose_graph.optimize_poses(args[0], args[1], 10, device=dev)
+        dense_e = pose_graph.optimize_poses_eager(args[0], args[1], 10, device=dev)
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    dx = float((dense - dense_e).abs().max())
+    check(dx <= 2e-3, f"K = 250 dense solve: compiled states {dx:.3e} from the eager loop's")
+    print(f"dense pose-graph solve of the same graph (10 steps), captured under a global "
+          f"preferred_linalg_library('magma'): compiled against eager max |d state| {dx:.3e}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2162,6 +2334,7 @@ def main() -> int:
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
+    from icet_tpu_torch import graphs
 
     dev = resolve_device("cuda")
     card = device_line()
@@ -2566,15 +2739,25 @@ def main() -> int:
               f"{(DNN_KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
 
     # -- MapMaker -----------------------------------------------------------
+    # The compiled route (map_step_jit), its graphs captured here with no
+    # host synchronisation, against the eager route frame by frame.
     mcfg, map_cfg = PROFILES["mapping"], MapConfig()
     torch.cuda.synchronize()
     fused_moment_sums.launches = 0
+    zero_warmups()
     t0 = time.perf_counter()
     maker = MapMaker(mcfg, map_cfg, odo, device="cuda")
-    mout = [f for f in (maker.step(s) for s in scans) if f is not None]
+    with graphs.sync_debug("error"):
+        mout = [f for f in (maker.step(s) for s in scans) if f is not None]
     torch.cuda.synchronize()
     map_s = time.perf_counter() - t0
-    map_fused = fused_moment_sums.launches
+    map_fused, map_warm = fused_moment_sums.launches, warmups()
+    fused_moment_sums.launches = 0
+    t0 = time.perf_counter()
+    maker_e = eager(MapMaker(mcfg, map_cfg, odo, device="cuda"))
+    mout_e = [f for f in (maker_e.step(s) for s in scans) if f is not None]
+    torch.cuda.synchronize()
+    map_eager_s, map_eager_fused = time.perf_counter() - t0, fused_moment_sums.launches
     check(len(mout) == len(scans) - 1, f"MapMaker: {len(mout)} frames")
     check(not any(f.diverged for f in mout), "MapMaker: a frame diverged")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in mout),
@@ -2582,20 +2765,38 @@ def main() -> int:
     # The mapping profile runs every solve to n_iters (no early exit), and
     # every scan is prepared once.
     want_fused = len(mout) * mcfg.n_iters + len(scans)
-    check(map_fused == want_fused, f"MapMaker: fused launches {map_fused} != {want_fused}")
+    check(map_fused == want_fused + map_warm and map_eager_fused == want_fused,
+          f"MapMaker: fused launches compiled {map_fused} != {want_fused} + {map_warm} "
+          f"warm-ups, eager {map_eager_fused}")
     n_ok = (torch.sum(drive * drive, dim=-1) > mcfg.min_range**2).sum(dim=1)
     want_fill = min(map_cfg.capacity, int(torch.clamp(n_ok, max=map_cfg.points_per_scan).sum()))
     check(mout[-1].n_map_points == want_fill,
           f"MapMaker: ring holds {mout[-1].n_map_points} points, expected {want_fill}")
-    poses, T = [], np.eye(4)
+    map_dx = max(float(np.abs(f.X - g.X).max()) for f, g in zip(mout, mout_e))
+    map_diff = [f.index for f, g in zip(mout, mout_e)
+                if not (np.array_equal(f.X, g.X) and np.array_equal(f.pred_stds, g.pred_stds)
+                        and (f.diverged, f.n_map_points) == (g.diverged, g.n_map_points))]
+    ring_equal = all(torch.equal(getattr(maker.state, k), getattr(maker_e.state, k))
+                     for k in ("points", "valid", "trail"))
+    check((maker.state.write_ptr, maker.state.trail_len)
+          == (maker_e.state.write_ptr, maker_e.state.trail_len)
+          and [(f.diverged, f.n_map_points) for f in mout]
+          == [(f.diverged, f.n_map_points) for f in mout_e],
+          "MapMaker: compiled flags, fill or counters differ from the eager route's")
+    check(map_dx <= 1e-6, f"MapMaker: compiled X {map_dx:.3e} m from the eager route's")
+    poses = [np.eye(4)]
     for f in mout:
-        T = T @ np_pose_matrix(f.X)
-        poses.append(T)
-    map_ate = pose_ate(poses, gt)
-    print(f"MapMaker: {len(mout)} frames in {map_s:.2f} s, fused launches {map_fused} = "
-          f"{len(mout)} x {mcfg.n_iters} iterations + {len(scans)} prepares, ring fill "
-          f"{mout[-1].n_map_points} (expected {want_fill}), ATE {map_ate * 100:.4f} cm (JAX "
-          f"package on the CPU: {MAP_ATE_REF_M * 100:.4f} cm)")
+        poses.append(poses[-1] @ np_pose_matrix(f.X))
+    map_ate = pose_ate(poses[1:], gt)
+    print(f"MapMaker (compiled, graphs captured under set_sync_debug_mode('error')): "
+          f"{len(mout)} frames in {map_s:.2f} s with the captures (eager route "
+          f"{map_eager_s:.2f} s), fused launches {map_fused} = {len(mout)} x {mcfg.n_iters} "
+          f"iterations + {len(scans)} prepares + {map_warm} warm-ups (eager "
+          f"{map_eager_fused}), ring fill {mout[-1].n_map_points} (expected {want_fill}), ATE "
+          f"{map_ate * 100:.4f} cm (JAX package on the CPU: {MAP_ATE_REF_M * 100:.4f} cm); "
+          f"against the eager route frame by frame: max |dX| {map_dx:.3e} m, bit-identical "
+          f"frames: {not map_diff}" + (f" (first differing: {map_diff[:3]})" if map_diff else "")
+          + f", rings equal: {ring_equal}")
     check(map_ate <= MAP_ATE_REF_M + ATE_SLACK_M,
           f"MapMaker ATE {map_ate * 100:.4f} cm above "
           f"{(MAP_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
@@ -2628,12 +2829,12 @@ def main() -> int:
             x = res.X
 
     steps = drive.shape[0] - 1
-    frame_ms = median_ms(odometry_pass, reps=1, rounds=3) / steps
-    dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=3) / steps
-    # Keyframe and MapMaker frames: the whole drive through a fresh runner
-    # (its first frame is the seed spawn or seed insert, no solve).
-    # One round each: phase 27 times these frames again, in turns with the
-    # compiled ones.
+    frame_ms = median_ms(odometry_pass, reps=1, rounds=1) / steps
+    dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=1) / steps
+    # Keyframe frames: the whole drive through a fresh runner (its first
+    # frame is the seed spawn, no solve).  One round each: phase 27 times
+    # these frames again, in turns with the compiled ones, and the MapMaker
+    # frame only there.
     kf_frame_ms = median_ms(
         lambda: eager(KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)).run(drive),
         reps=1, rounds=1) / steps
@@ -2641,21 +2842,13 @@ def main() -> int:
         lambda: eager(KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev)).run(drive),
         reps=1, rounds=1) / steps
 
-    def map_pass():
-        maker = MapMaker(mcfg, map_cfg, odo, device=dev)
-        for d in drive:
-            maker.step(d)
-
-    # One round: the eager MapMaker frame takes 0.3-0.4 s.
-    map_frame_ms = median_ms(map_pass, reps=1, rounds=1) / steps
-
     def pallas_pass():
         m, x = model0, torch.zeros(6, device=dev)
         for k in range(1, PALLAS_FRAMES):
             res, m = odometry_step(m, drive[k], x, pcfg)
             x = res.X
 
-    pallas_frame_ms = median_ms(pallas_pass, reps=1, rounds=3) / (PALLAS_FRAMES - 1)
+    pallas_frame_ms = median_ms(pallas_pass, reps=1, rounds=1) / (PALLAS_FRAMES - 1)
 
     fused_ms, fused_ev = kernel_times(
         lambda: fused_moment_sums(pts, X_step, model.bounds, model.anchors, cfg), reps=100)
@@ -2712,8 +2905,8 @@ def main() -> int:
 
     print(f"times ({card}), eager frames (phases 26-27 time the compiled ones): odometry "
           f"frame {frame_ms:.4f} ms, DNN-filtered frame {dnn_frame_ms:.4f} ms, keyframe frame "
-          f"{kf_frame_ms:.4f} ms, DNN-filtered keyframe frame {dkf_frame_ms:.4f} ms, MapMaker "
-          f"frame {map_frame_ms:.4f} ms, pallas-moments frame {pallas_frame_ms:.4f} ms")
+          f"{kf_frame_ms:.4f} ms, DNN-filtered keyframe frame {dkf_frame_ms:.4f} ms, "
+          f"pallas-moments frame {pallas_frame_ms:.4f} ms (the MapMaker frame: phase 27)")
     print(f"times ({card}), device ms a call by the profiler (CUDA events over "
           f"back-to-back calls in brackets):")
     print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
@@ -2842,7 +3035,11 @@ def main() -> int:
         tridiag_factor,
         tridiag_factor_reference,
     )
-    from icet_tpu_torch.pose_graph import _sparse_normals, optimize_poses_sparse
+    from icet_tpu_torch.pose_graph import (
+        _sparse_normals,
+        optimize_poses_sparse,
+        optimize_poses_sparse_eager,
+    )
 
     t0 = time.perf_counter()
     ring0, ring, ring_true = ring_graph(RING_POSES)
@@ -2907,25 +3104,52 @@ def main() -> int:
                      records_required=False)
     for line in report:
         print(f"backbone vs plain, {line}")
+    # The compiled solve (its three graphs captured here with no host
+    # synchronisation; the backbone's launches counted through the replays,
+    # the warm-ups before the captures beside them), against the eager loop.
     torch.cuda.synchronize()
     tridiag_factor.launches = tridiag_apply.launches = 0
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    ev0.record()
-    ring_opt = optimize_poses_sparse(ring0, ring, 10, 25, device="cuda")
-    ev1.record()
+    zero_warmups()
+    t0 = time.perf_counter()
+    with graphs.sync_debug("error"):
+        ring_opt_t = optimize_poses_sparse(ring0, ring, 10, 25, device="cuda")
     torch.cuda.synchronize()
-    ring_solve_ms = ev0.elapsed_time(ev1)
+    ring_first_s = time.perf_counter() - t0
     ring_launches = (tridiag_factor.launches, tridiag_apply.launches)
-    check(ring_launches == (10, 10 * 26),
-          f"10k solve: factor/apply launches {ring_launches}, expected (10, 260)")
-    ring_opt = ring_opt.cpu().numpy()
+    ring_warm = (warmups("tridiag_factor"), warmups("tridiag_apply"))
+    check((ring_launches[0] - ring_warm[0], ring_launches[1] - ring_warm[1]) == (10, 10 * 26),
+          f"10k solve: factor/apply launches {ring_launches} less warm-ups {ring_warm}, "
+          f"expected (10, 260)")
+    tridiag_factor.launches = tridiag_apply.launches = 0
+    ring_eager_t = optimize_poses_sparse_eager(ring0, ring, 10, 25, device="cuda")
+    torch.cuda.synchronize()
+    ring_eager_launches = (tridiag_factor.launches, tridiag_apply.launches)
+    check(ring_eager_launches == (10, 260), f"10k solve, eager: launches {ring_eager_launches}")
+    ring_dx = float((ring_opt_t - ring_eager_t).abs().max())
+    check(ring_dx <= 2e-3, f"10k solve: compiled states {ring_dx:.3e} from the eager loop's")
+    # The normals' index_add_ sums with float atomics on the card, in no
+    # fixed order: the eager loop against itself.
+    ring_spread = float((optimize_poses_sparse_eager(ring0, ring, 10, 25, device="cuda")
+                         - ring_eager_t).abs().max())
+    ring_turns = {"eager": [], "compiled": []}
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        solve = optimize_poses_sparse if mode == "compiled" else optimize_poses_sparse_eager
+        ring_turns[mode].append(median_ms(lambda f=solve: f(ring0, ring, 10, 25, device="cuda"),
+                                          reps=1, rounds=1))
+    ring_solve_ms = float(np.mean(ring_turns["compiled"]))
+    ring_opt = ring_opt_t.cpu().numpy()
     err0 = np.linalg.norm(ring0[:, :3] - ring_true[:, :3], axis=1).mean()
     err1 = np.linalg.norm(ring_opt[:, :3] - ring_true[:, :3], axis=1).mean()
     check(bool(np.isfinite(ring_opt).all()) and err1 < 0.5 * err0,
           f"10k solve: mean position error {err1:.4f} m from {err0:.4f} m")
+    turns = (ring_turns["eager"][0], *ring_turns["compiled"], ring_turns["eager"][1])
     print(f"10k-pose solve (graph built in {ring_s:.1f} s): optimize_poses_sparse(states0, "
-          f"graph, 10, 25) {ring_solve_ms:.2f} ms (CUDA events, {card}), factor/apply launches "
-          f"{ring_launches}, mean position error {err0:.4f} -> {err1:.4f} m")
+          f"graph, 10, 25) eager/compiled/compiled/eager {' / '.join(f'{t:.2f}' for t in turns)}"
+          f" ms (CUDA events, {card}); compiled factor/apply launches {ring_launches} = "
+          f"(10, 260) + warm-ups {ring_warm} (eager {ring_eager_launches}); the first "
+          f"compiled call with its captures {ring_first_s:.2f} s; compiled against eager: max "
+          f"|d state| {ring_dx:.3e}, bit-identical: {ring_dx == 0.0} (eager against eager: "
+          f"{ring_spread:.3e}); mean position error {err0:.4f} -> {err1:.4f} m")
 
     # -- 17. the loop-closure drive at full width, through eval_citydrive ------
     from icet_tpu_torch.examples import eval_citydrive
@@ -2934,17 +3158,25 @@ def main() -> int:
                "--beams", str(LC_DRIVE["n_beams"]), "--azimuth", str(LC_DRIVE["n_azimuth"]),
                "--scene", "block", "--rect", *map(str, LC_DRIVE["rect"]),
                "--radius", "6", "--min-gap", "80", "--device", "cuda"]
+    import icet_tpu_torch.pose_graph as pose_graph
+
     lcfg = ICETConfig()
     torch.cuda.synchronize()
     fused_moment_sums.launches = tridiag_factor.launches = tridiag_apply.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
-    lc = eval_citydrive.run(eval_citydrive.build_parser().parse_args(lc_argv))
+    # The drive's calls of the back end, kept for the comparisons below and
+    # phase 27's times.
+    with spy(pose_graph, "close_loops") as lc_loops, \
+            spy(pose_graph, "optimize_poses_sparse") as lc_solves:
+        lc = eval_citydrive.run(eval_citydrive.build_parser().parse_args(lc_argv))
     torch.cuda.synchronize()
     lc_s = time.perf_counter() - t0
-    # the odometry steps through the compiled pipeline: less its warm-ups
+    # odometry, loop verification and the solve through the compiled paths:
+    # less their warm-ups
     lc_fused = fused_moment_sums.launches - warmups()
-    lc_tri = (tridiag_factor.launches, tridiag_apply.launches)
+    lc_tri = (tridiag_factor.launches - warmups("tridiag_factor"),
+              tridiag_apply.launches - warmups("tridiag_apply"))
     n_lc = LC_DRIVE["n_frames"]
     check(lc["frames"] == n_lc - 1, f"loop-closure drive: {lc['frames']} frames")
     check(lc["divergences"] == 0, "loop-closure drive: a frame diverged")
@@ -2975,6 +3207,24 @@ def main() -> int:
     check(lc["ate_refined_cm"] <= (LC_ATE_REF_M + ATE_SLACK_M) * 100,
           f"refined ATE {lc['ate_refined_cm']} cm above "
           f"{(LC_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
+    # The compiled loop verification against the eager route on the first
+    # 16 candidates (one chunk), factor by factor.
+    ((lc_args, lc_kw),), (lc_factors,) = lc_loops.args, lc_loops.results
+    cands16 = lc_args[1][:16]
+    with patched(pose_graph, "compiled_route", lambda c: False):
+        eager16 = pose_graph.close_loops(lc_args[0], cands16, *lc_args[2:], **lc_kw)
+    comp16 = [f for f in lc_factors if (f[0], f[1]) in set(cands16)]
+    check([f[:2] for f in comp16] == [f[:2] for f in eager16],
+          f"loop factors of the first 16 candidates: compiled {[f[:2] for f in comp16]}, "
+          f"eager {[f[:2] for f in eager16]}")
+    lc_dx = max([float(np.abs(a[2] - b[2]).max()) for a, b in zip(comp16, eager16)] or [0.0])
+    lc_di = max([float(np.abs(a[3] - b[3]).max() / np.abs(b[3]).max())
+                 for a, b in zip(comp16, eager16)] or [0.0])
+    check(lc_dx <= 1e-4 and lc_di <= 1e-3, f"loop factors: compiled X {lc_dx:.3e} from eager, "
+          f"information {lc_di:.3e} relative")
+    print(f"loop factors of the first 16 candidates, compiled against eager: "
+          f"{len(comp16)} kept by both, max |dX| {lc_dx:.3e}, information {lc_di:.3e} relative "
+          f"to its largest entry; bit-identical: {lc_dx == 0.0 and lc_di == 0.0}")
 
     # Times of the backbone kernels at K = 10,000: one factor and one apply,
     # by CUDA events over back-to-back calls.  torch.profiler records only
@@ -3054,6 +3304,7 @@ def main() -> int:
         t26 = time.perf_counter() - t0 - t22 - t23 - t24 - t25
         phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, dev, card,
                                     kitti)
+        phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev, card)
         t27 = time.perf_counter() - t0 - t22 - t23 - t24 - t25 - t26
     print(f"phases 22-27: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} / "
           f"{t27:.1f} s")

@@ -3,7 +3,10 @@
 ``odometry.odometry_sequence_jit``; ``filters.model_voxel_samples_jit``,
 ``odometry_step_dnn_jit``, ``register_pair_with_dnn``; and
 ``keyframe.keyframe_step_jit``, ``keyframe_step_dnn_jit``,
-``keyframe_spawn_jit``, ``keyframe_sequence_jit``).
+``keyframe_spawn_jit``, ``keyframe_sequence_jit``; ``solver.register_pair_jit``
+and ``pose_graph.close_loops``; ``mapping.map_update_jit``,
+``map_step_jit``; ``pose_graph.optimize_poses`` and
+``optimize_poses_sparse``).
 
 The JAX package compiles each of them once per static shape and config.
 Here a frame runs as a few CUDA graphs, captured once per ``(device, N,
@@ -24,10 +27,24 @@ cfg)`` (:func:`frame_graphs`) and replayed afterwards:
 * for the keyframe path (``keyframe``): ``kf_predict``, ``kf_post`` (the
   covariance propagation, the delta guard, the spawn flag and the map
   insert staged under the device flag ``~spawn``), ``kf_spawn`` and, in
-  the sequence runner, ``kf_glue``.
+  the sequence runner, ``kf_glue``;
+* for the ring map (``mapping``): ``map_update`` and ``map_step`` (the
+  divergence guard, the re-expression of the ring and the trail, the
+  downsample and the insert at the device mirror of the ring's cursor),
+  keyed by the ring's addresses and the trail's roll-when-full branch.
+
+The pose graph's solves have sets of their own (:func:`pose_graphs`, one
+a ``(device, K, F, cg_iters, precond, robust)``, :class:`PoseGraphs`):
+``assemble`` (the block-sparse normals, the backbone's factor and the CG
+start), ``cg`` (one CG iteration, replayed ``cg_iters`` times) and
+``update``; the dense solve's one Gauss-Newton step.  A solve is a few
+small graphs replayed many times, never one unrolled graph: it runs once
+a drive, and capturing its hundreds of CG iterations would cost the host
+about what running them eagerly does.
 
 The stages themselves are plain functions of the buffers (``solver``'s
-``_stage_*``, ``odometry``'s ``_stage_seed``/``_stage_glue``).
+``_stage_*``, ``odometry``'s ``_stage_seed``/``_stage_glue``,
+``mapping``'s ``_stage_map``, ``pose_graph``'s ``_stage_*``).
 
 Early exit: each iteration's graph leaves the flag ``|dx| >= threshold``
 on the device, and the host reads it once an iteration past ``min_it``,
@@ -55,7 +72,8 @@ image evicted from that cache stays alive while a graph reads it.
 
 Warm-up: before its capture each graph's stage runs once on a scratch set
 of buffers, on the capture stream, which builds and loads the kernels and
-makes the kernels' shared-memory opt-ins and the cuBLAS handles.
+makes the kernels' shared-memory opt-ins and the cuBLAS and cuSOLVER
+handles.
 Those launches are real; the wrappers count them and
 :data:`warmup_launches` records them.  The capture launches nothing: each
 graph records how many launches of each counted wrapper it holds, and each
@@ -75,6 +93,7 @@ import torch
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, cached_image
 from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+from icet_tpu_torch.ops.tridiag import tridiag_apply, tridiag_factor
 from icet_tpu_torch.solver import (
     IterationDiag,
     RegistrationResult,
@@ -87,12 +106,12 @@ from icet_tpu_torch.solver import (
 )
 
 #: the kernel wrappers whose launches a graph records and its replays count
-COUNTED = (fused_moment_sums, bias_encoder_pool)
+COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply)
 #: launches of each counted wrapper made by warm-ups before a capture
 warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: host operations of the compiled path: graph replays, exit-flag reads,
 #: keyframe spawn-flag reads, device copies of inputs in and of packed
-#: results out, draws of the insert's uniforms, the device operations that
+#: results out, draws of the inserts' uniforms, the device operations that
 #: write a staged insert or a spawn into a block map; and graphs captured
 host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "copies": 0, "draws": 0,
             "map_writes": 0, "captures": 0}
@@ -152,6 +171,14 @@ class Layout:
         """Views of ``(F, nbytes)`` stacked buffers, each ``(F, *shape)``."""
         return {name: rows[:, off:off + n].view(dtype).reshape((rows.shape[0],) + shape)
                 for name, shape, dtype, off, n in self.fields}
+
+    def buffer(self, view: torch.Tensor) -> torch.Tensor:
+        """The byte buffer (a new tensor on its storage) that ``view``, a
+        field of a buffer in this layout, lies in."""
+        storage = view.untyped_storage()
+        if storage.nbytes() != self.nbytes:
+            raise ValueError("the tensor is not a field of a buffer in this layout")
+        return torch.empty(0, dtype=torch.uint8, device=view.device).set_(storage)
 
     def source(self, tensors: dict) -> torch.Tensor | None:
         """The byte buffer ``tensors`` are views of in this layout (a new
@@ -262,6 +289,40 @@ class MapBuffers:
         self.expect = None
 
 
+#: one ring-map frame's outputs, read on the host in one copy: the guarded
+#: X, pred_stds, the divergence flag and the ring's fill
+MAP_OUT_LAYOUT = Layout([("X", (6,), _F32), ("pred_stds", (6,), _F32),
+                         ("diverged", (), torch.bool), ("n_valid", (), torch.int64)])
+
+
+class RingBuffers:
+    """The ring map stage's staging for a ``(capacity, trail capacity, K)``
+    ring and an N-point scan: the uniforms, the X of a standalone update,
+    the device mirror ``at = [write_ptr, trail_len]`` of the host's
+    counters (``expect``: the host value it holds, None when unknown), the
+    frame's packed outputs, and ``ring``: the ``(points, valid, trail)``
+    the stage writes in place (a runner's own ring, attached before each
+    replay; a twin's own zeros for the warm-ups)."""
+
+    def __init__(self, cap: int, tcap: int, k: int, n: int, device, twin: bool = False):
+        self.shape = (cap, tcap, k)
+        self.u = torch.zeros(n, dtype=torch.float32, device=device)
+        self.X = torch.zeros(6, dtype=torch.float32, device=device)
+        self.at = torch.zeros(2, dtype=torch.int64, device=device)
+        self.out_buf = MAP_OUT_LAYOUT.empty(device)
+        self.out = MAP_OUT_LAYOUT.views(self.out_buf)
+        self.expect = None
+        self.ring = None
+        if twin:
+            self.ring = (torch.zeros((cap, 3), dtype=torch.float32, device=device),
+                         torch.zeros(cap, dtype=torch.bool, device=device),
+                         torch.zeros((tcap, 3), dtype=torch.float32, device=device))
+
+    def key(self) -> tuple:
+        """The attached ring's addresses (a graph that writes it is keyed by them)."""
+        return tuple(t.data_ptr() for t in self.ring)
+
+
 class FrameBuffers:
     """The static buffers of one frame: inputs, the Gauss-Newton state, the
     diagnostics columns, the packed results and the sequence runner's
@@ -312,6 +373,8 @@ class FrameBuffers:
         self.kf_row_buf, self.kf_row = packed(KF_ROW_LAYOUT)
         #: the keyframe insert's staging (:meth:`FrameGraphs.map_buffers`)
         self.map: MapBuffers | None = None
+        #: the ring map stage's staging (:meth:`FrameGraphs.ring_buffers`)
+        self.ring: RingBuffers | None = None
 
 
 def _versions(obj) -> tuple:
@@ -320,24 +383,22 @@ def _versions(obj) -> tuple:
     return tuple(t._version for t in obj)
 
 
-class FrameGraphs:
-    """The graphs of one ``(device, N, cfg)`` and their buffers."""
+class GraphSet:
+    """Graphs captured over one set of static buffers (``self.buffers``),
+    with one private memory pool and one capture stream on CUDA; a
+    subclass makes the scratch buffers its warm-ups run on."""
 
-    def __init__(self, device: torch.device, n: int, cfg: ICETConfig):
-        self.device, self.n, self.cfg = device, n, cfg
-        self.buffers = FrameBuffers(device, n, cfg)
+    def __init__(self, device: torch.device):
+        self.device = device
         self._graphs: dict = {}
         self._scratch = None
-        #: carried inputs the buffers hold: name -> (object, its versions)
-        self._held: dict = {}
-        #: (net, weight image) of every image a graph of this set reads
-        self.pinned: list = []
-        self._maps: dict = {}
         if device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(device)
 
-    # -- stages ---------------------------------------------------------
+    def scratch(self):
+        """The buffers of the warm-ups (made at first use)."""
+        raise NotImplementedError
 
     def run(self, key, stage) -> None:
         """Run ``stage(buffers)``: on CUDA replay its graph (``key`` names
@@ -355,15 +416,12 @@ class FrameGraphs:
             wrapper.launches += k
 
     def _capture(self, stage):
-        if self._scratch is None:
-            self._scratch = FrameBuffers(self.device, self.n, self.cfg)
-        if self.buffers.map is not None:
-            self._scratch.map = self._maps[self.buffers.map.shape][1]
+        scratch = self.scratch()
         with torch.cuda.device(self.device):
             before = tuple(w.launches for w in COUNTED)
             self._stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
-                stage(self._scratch)
+                stage(scratch)
             torch.cuda.current_stream().wait_stream(self._stream)
             warm = tuple(w.launches for w in COUNTED)
             for w, a, b in zip(COUNTED, before, warm):
@@ -384,6 +442,32 @@ class FrameGraphs:
         host_ops["captures"] += 1
         return graph, counts
 
+
+class FrameGraphs(GraphSet):
+    """The graphs of one ``(device, N, cfg)`` and their buffers."""
+
+    def __init__(self, device: torch.device, n: int, cfg: ICETConfig):
+        super().__init__(device)
+        self.n, self.cfg = n, cfg
+        self.buffers = FrameBuffers(device, n, cfg)
+        #: carried inputs the buffers hold: name -> (object, its versions)
+        self._held: dict = {}
+        #: (net, weight image) of every image a graph of this set reads
+        self.pinned: list = []
+        self._maps: dict = {}
+        self._rings: dict = {}
+
+    def scratch(self) -> FrameBuffers:
+        if self._scratch is None:
+            self._scratch = FrameBuffers(self.device, self.n, self.cfg)
+        if self.buffers.map is not None:
+            self._scratch.map = self._maps[self.buffers.map.shape][1]
+        if self.buffers.ring is not None:
+            self._scratch.ring = self._rings[self.buffers.ring.shape][1]
+        return self._scratch
+
+    # -- stages ---------------------------------------------------------
+
     def pin(self, net) -> None:
         """Keep ``net`` and the encoder's weight image of it alive with this
         set: a graph replays the image's address, and the image cache of
@@ -401,6 +485,19 @@ class FrameGraphs:
             self._maps[key] = (MapBuffers(b, p, k, self.device), MapBuffers(b, p, k, self.device))
         self.buffers.map = self._maps[key][0]
         return self.buffers.map
+
+    def ring_buffers(self, ring, k: int) -> RingBuffers:
+        """The ring map stage's staging for ``ring = (points, valid, trail)``
+        and ``k`` points a scan (made at first use per shape, with a twin
+        that carries its own ring for the warm-ups), ``ring`` attached, now
+        the one the stages see."""
+        key = (ring[0].shape[0], ring[2].shape[0], k)
+        if key not in self._rings:
+            self._rings[key] = tuple(RingBuffers(*key, self.n, self.device, twin)
+                                     for twin in (False, True))
+        rb = self.buffers.ring = self._rings[key][0]
+        rb.ring = tuple(ring)
+        return rb
 
     # -- inputs and results ---------------------------------------------
 
@@ -530,14 +627,63 @@ def frame_graphs(device, n: int, cfg: ICETConfig) -> FrameGraphs:
     return fg
 
 
+class PoseBuffers:
+    """The static buffers of one pose-graph solve of K poses and F factors:
+    the states, the factors ``(idx_i, idx_j, meas, info)``, ``damping`` and
+    ``prior_weight``; for the block-sparse solve (``precond`` "tridiag" or
+    "jacobi"; "dense" is the dense solve) also the damped diagonal blocks,
+    the factors' off-diagonal blocks, the preconditioner's factor (the
+    backbone's ``(S_inv, U)`` or the block Cholesky factors) and the CG
+    state ``x, r, p, rz``."""
+
+    def __init__(self, device: torch.device, k: int, f: int, precond: str):
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.states = z(k, 6)
+        self.factors = (z(f, dtype=torch.int64), z(f, dtype=torch.int64), z(f, 6), z(f, 6, 6))
+        self.damping, self.prior_weight = z(), z()
+        if precond != "dense":
+            self.diag_d, self.off_ij, self.off_ji = z(k, 6, 6), z(f, 6, 6), z(f, 6, 6)
+            self.factor = ((z(k, 6, 6), z(k - 1, 6, 6)) if precond == "tridiag"
+                           else (z(k, 6, 6),))
+            self.x, self.r, self.p, self.rz = z(k, 6), z(k, 6), z(k, 6), z()
+
+
+class PoseGraphs(GraphSet):
+    """The graphs of one pose-graph solve's ``(device, K, F, cg_iters,
+    precond, robust)`` and their buffers."""
+
+    def __init__(self, device: torch.device, k: int, f: int, precond: str):
+        super().__init__(device)
+        self.shape = (k, f, precond)
+        self.buffers = PoseBuffers(device, k, f, precond)
+
+    def scratch(self) -> PoseBuffers:
+        if self._scratch is None:
+            self._scratch = PoseBuffers(self.device, *self.shape)
+        return self._scratch
+
+
+def pose_graphs(device, k: int, f: int, cg_iters: int, precond: str,
+                robust: float) -> PoseGraphs:
+    """The graph set of a pose-graph solve, made at first use."""
+    key = (_canonical(device), k, f, cg_iters, precond, robust)
+    pg = _CACHE.get(key)
+    if pg is None:
+        pg = _CACHE[key] = PoseGraphs(key[0], k, f, precond)
+    return pg
+
+
 def clear(device=None) -> None:
-    """Drop the cached graph sets (of ``device`` only, if given); the next
-    call captures anew."""
+    """Drop the cached graph sets, frame and pose-graph sets alike (of
+    ``device`` only, if given); the next call captures anew."""
     dev = None if device is None else _canonical(device)
     for key in [k for k in _CACHE if dev is None or k[0] == dev]:
         del _CACHE[key]
 
 
-__all__ = ["COUNTED", "FrameBuffers", "FrameGraphs", "Layout", "MapBuffers", "clear",
-           "clone_out", "copy_in", "dnn_phases", "frame_graphs", "host_ops", "result_iters",
+__all__ = ["COUNTED", "MAP_OUT_LAYOUT", "FrameBuffers", "FrameGraphs", "GraphSet", "Layout",
+           "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "clear", "clone_out",
+           "copy_in", "dnn_phases", "frame_graphs", "host_ops", "pose_graphs", "result_iters",
            "sync_debug", "warmup_launches"]

@@ -14,7 +14,18 @@ evaluated as one batch (``torch.func.vmap`` of ``jacfwd``), in float32.
   "tridiag" preconditioner solves the odometry backbone exactly with the
   CUDA kernels of ``ops/tridiag.py`` on the card; "jacobi" is one batched
   6x6 Cholesky.  Fixed iteration counts, no read back to the host inside.
-* :func:`close_loops` verifies loop candidates by registration.
+* :func:`close_loops` verifies loop candidates by registration, in chunks
+  of ``batch`` pairs.
+
+Both solves are the JAX package's jitted programs as captured stages
+(``icet_tpu_torch.graphs``): on CUDA the dense Gauss-Newton step, or the
+sparse solve's assembly, one CG iteration and the update, are CUDA graphs
+captured once per ``(device, K, F, cg_iters, precond, robust)`` and
+replayed; on the CPU the stages run as plain calls on the same buffers.
+They equal :func:`optimize_poses_eager` and
+:func:`optimize_poses_sparse_eager`, the plain loops, bit for bit.
+:func:`close_loops` registers each pair through
+``solver.register_pair_jit`` where ``solver.compiled_route(cfg)`` holds.
 
 * :func:`optimize_poses_sharded` and :func:`optimize_poses_sparse_sharded`
   shard the factors over a mesh's first axis (``icet_tpu_torch.parallel``).
@@ -25,18 +36,26 @@ run on their mesh's devices.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.device import as_points, resolve_device
-from icet_tpu_torch.ops.geometry import pose_matrix, pose_to_state
+from icet_tpu_torch.ops.geometry import _homogeneous_row, pose_matrix, pose_to_state
 from icet_tpu_torch.ops.linalg import psd_pinv
 from icet_tpu_torch.ops.tridiag import cholesky, tridiag_apply, tridiag_factor
-from icet_tpu_torch.solver import prepare_reference, register
+from icet_tpu_torch.solver import (  # noqa: F401 (prepare_reference, register: re-exported)
+    compiled_route,
+    prepare_reference,
+    register,
+    register_pair_impl,
+    register_pair_jit,
+)
 
 
 class PoseGraph(NamedTuple):
@@ -64,8 +83,7 @@ def _inv_pose(T: torch.Tensor) -> torch.Tensor:
     R = T[:3, :3]
     t = T[:3, 3]
     top = torch.cat([R.T, -(R.T @ t)[:, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=T.dtype, device=T.device)
-    return torch.cat([top, bottom], dim=0)
+    return torch.cat([top, _homogeneous_row(T.dtype, T.device)], dim=0)
 
 
 def _wrap(a: torch.Tensor) -> torch.Tensor:
@@ -125,6 +143,73 @@ def _on_device(states0, graph: PoseGraph, device):
     return states, graph.to(dev)
 
 
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """cuSOLVER for the Cholesky factorisations and solves inside, on CUDA
+    (restored after): MAGMA's read the device on the host, which a CUDA
+    graph cannot capture.  The default backend picks cuSOLVER for these
+    calls; a caller's global ``preferred_linalg_library("magma")`` would
+    otherwise make the dense solve's capture raise."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _dense_step(states, graph: PoseGraph, damping, prior_weight) -> torch.Tensor:
+    """One dense Gauss-Newton step: the normals, the damping, the Cholesky
+    solve.  ``damping`` and ``prior_weight`` are floats or 0-dim tensors."""
+    K = states.shape[0]
+    H, b = _build_normals(states, graph, prior_weight)
+    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
+    H = H + damping * torch.trace(H) / (6 * K) * eye
+    dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
+    return states + dx.reshape(K, 6)
+
+
+def optimize_poses_eager(
+    states0,
+    graph: PoseGraph,
+    n_iters: int = 10,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """:func:`optimize_poses` as a plain loop of :func:`_dense_step` calls
+    (the plain version the compiled solve is held to)."""
+    states, graph = _on_device(states0, graph, device)
+    for _ in range(n_iters):
+        states = _dense_step(states, graph, damping, prior_weight)
+    return states
+
+
+def _pose_set(states, graph: PoseGraph, cg_iters: int, precond: str, robust_delta: float,
+              damping: float, prior_weight: float) -> graphs.PoseGraphs:
+    """The graph set of this solve's shapes and options, with the states,
+    the factors, ``damping`` and ``prior_weight`` copied into its buffers."""
+    pg = graphs.pose_graphs(states.device, states.shape[0], graph.idx_i.shape[0], cg_iters,
+                            precond, float(robust_delta))
+    b = pg.buffers
+    graphs.copy_in(b.states, states)
+    for dst, t in zip(b.factors, graph):
+        graphs.copy_in(dst, t)
+    graphs.copy_in(b.damping, damping)
+    graphs.copy_in(b.prior_weight, prior_weight)
+    return pg
+
+
+def _stage_dense(b) -> None:
+    """One dense Gauss-Newton step of the states buffer, in place."""
+    with _cusolver(b.states.device):
+        b.states.copy_(_dense_step(b.states, PoseGraph(*b.factors), b.damping,
+                                   b.prior_weight))
+
+
 def optimize_poses(
     states0,
     graph: PoseGraph,
@@ -136,16 +221,16 @@ def optimize_poses(
     """Dense Gauss-Newton refinement of ``(K, 6)`` pose states (numpy or a
     tensor) from relative factors, on ``device`` (CUDA unless told
     otherwise).  Returns the refined ``(K, 6)`` states; pose 0 is
-    gauge-fixed by a prior of ``prior_weight``."""
+    gauge-fixed by a prior of ``prior_weight``.
+
+    The JAX package's jitted program as one captured graph a Gauss-Newton
+    step, replayed ``n_iters`` times (on the CPU, plain calls on the same
+    buffers); equal to :func:`optimize_poses_eager` bit for bit."""
     states, graph = _on_device(states0, graph, device)
-    K = states.shape[0]
-    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
+    pg = _pose_set(states, graph, 0, "dense", 0.0, damping, prior_weight)
     for _ in range(n_iters):
-        H, b = _build_normals(states, graph, prior_weight)
-        H = H + damping * torch.trace(H) / (6 * K) * eye
-        dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
-        states = states + dx.reshape(K, 6)
-    return states
+        pg.run(("step",), _stage_dense)
+    return graphs.clone_out(pg.buffers.states)
 
 
 def _sparse_local(states, graph, robust_delta):
@@ -216,17 +301,35 @@ def _offdiag(v, graph, off_ij, off_ji):
     return off
 
 
-def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
-                    precond_kind="tridiag", robust_delta=0.0, axis=None):
-    """One Gauss-Newton step without densifying H: the system is applied
-    factor by factor (block-sparse matvec) and solved by ``cg_iters``
-    preconditioned CG iterations.  Returns the updated states.  Under a
-    factor ``axis`` (``graph`` the local shards), each matvec sums the
-    shards' off-diagonal products in one ``(K, 6)`` collective; the CG
-    state and the backbone factor are replicated."""
+#: the sparse solve's preconditioners
+PRECONDITIONERS = ("tridiag", "jacobi")
+
+
+def _sparse_system(states, graph, prior_weight, damping, precond_kind, robust_delta=0.0,
+                   axis=None):
+    """The block-sparse normals at ``states`` and the preconditioner's
+    factor: ``(b, diag_d, off_ij, off_ji, factor)``, ``factor`` the
+    backbone's ``(S_inv, U)`` ("tridiag": the odometry backbone solved
+    exactly leaves CG only the loop couplings, tens of iterations instead
+    of hundreds) or the diagonal blocks' Cholesky factors ``(L,)``
+    ("jacobi")."""
     b, diag_d, off_ij, off_ji, E = _sparse_normals(states, graph, prior_weight, damping,
                                                    robust_delta, axis)
+    if precond_kind == "tridiag":
+        factor = tridiag_factor(diag_d, E)
+    elif precond_kind == "jacobi":
+        # Row-major, as the buffer a captured solve keeps it in: the
+        # triangular solves round by the factor's memory layout.
+        factor = (cholesky(diag_d).contiguous(),)
+    else:
+        raise ValueError(f"unknown preconditioner {precond_kind!r}")
+    return b, diag_d, off_ij, off_ji, factor
 
+
+def _make_matvec(graph, diag_d, off_ij, off_ji, axis=None):
+    """``v -> H v`` applied factor by factor.  Under a factor ``axis``
+    (``graph`` the local shards) the shards' off-diagonal products are
+    summed in one ``(K, 6)`` collective."""
     if axis is None:
         def matvec(v):
             return torch.einsum("kab,kb->ka", diag_d, v) + _offdiag(v, graph, off_ij, off_ji)
@@ -235,41 +338,109 @@ def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
             off = axis.psum([_offdiag(v.to(g.meas.device), g, oij, oji)
                              for g, oij, oji in zip(graph, off_ij, off_ji)])
             return torch.einsum("kab,kb->ka", diag_d, v) + off
+    return matvec
 
+
+def _make_precond(precond_kind, factor):
+    """``r -> M^-1 r`` of the preconditioner's factor."""
     if precond_kind == "tridiag":
-        # The odometry backbone solved exactly: CG is left only the loop
-        # couplings (tens of iterations instead of hundreds).
-        S_inv, U = tridiag_factor(diag_d, E)
+        S_inv, U = factor
 
         def precond(r):
             return tridiag_apply(S_inv, U, r.contiguous())
 
-    elif precond_kind == "jacobi":
-        chol = cholesky(diag_d)
+    else:
+        (chol,) = factor
 
         def precond(r):
             y = torch.linalg.solve_triangular(chol, r[..., None], upper=False)
             return torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)[..., 0]
 
-    else:
-        raise ValueError(f"unknown preconditioner {precond_kind!r}")
+    return precond
 
-    x = torch.zeros_like(b)
+
+def _cg_start(b, precond):
+    """The CG state ``(x, r, p, rz)`` from x = 0 for ``H x = -b``."""
     r = -b
     z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
+    return torch.zeros_like(b), r, z, torch.sum(r * z)
+
+
+def _cg_step(x, r, p, rz, matvec, precond):
+    """One preconditioned CG iteration: the next ``(x, r, p, rz)``."""
+    Hp = matvec(p)
+    alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-30)
+    x = x + alpha * p
+    r = r - alpha * Hp
+    z = precond(r)
+    rz_new = torch.sum(r * z)
+    beta = rz_new / torch.clamp(rz, min=1e-30)
+    return x, r, z + beta * p, rz_new
+
+
+def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+                    precond_kind="tridiag", robust_delta=0.0, axis=None):
+    """One Gauss-Newton step without densifying H: the system is applied
+    factor by factor (block-sparse matvec) and solved by ``cg_iters``
+    preconditioned CG iterations.  Returns the updated states.  Under a
+    factor ``axis`` (``graph`` the local shards), each matvec sums the
+    shards' off-diagonal products in one ``(K, 6)`` collective; the CG
+    state and the backbone factor are replicated."""
+    b, diag_d, off_ij, off_ji, factor = _sparse_system(states, graph, prior_weight, damping,
+                                                       precond_kind, robust_delta, axis)
+    matvec = _make_matvec(graph, diag_d, off_ij, off_ji, axis)
+    precond = _make_precond(precond_kind, factor)
+    x, r, p, rz = _cg_start(b, precond)
     for _ in range(cg_iters):
-        Hp = matvec(p)
-        alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * Hp
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
-        p = z + beta * p
-        rz = rz_new
+        x, r, p, rz = _cg_step(x, r, p, rz, matvec, precond)
     return states + x
+
+
+def optimize_poses_sparse_eager(
+    states0,
+    graph: PoseGraph,
+    n_iters: int = 10,
+    cg_iters: int = 100,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    precond: str = "tridiag",
+    robust_delta: float = 0.0,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """:func:`optimize_poses_sparse` as a plain loop of Gauss-Newton steps
+    (the plain version the compiled solve is held to)."""
+    states, graph = _on_device(states0, graph, device)
+    for _ in range(n_iters):
+        states = _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+                                 precond, robust_delta)
+    return states
+
+
+def _copy_all(dsts, srcs) -> None:
+    for dst, t in zip(dsts, srcs):
+        dst.copy_(t)
+
+
+def _stage_assemble(b, precond_kind: str, robust_delta: float) -> None:
+    """The normals at the states buffer, the preconditioner's factor and
+    the CG start, into the buffers."""
+    with _cusolver(b.states.device):
+        rhs, diag_d, off_ij, off_ji, factor = _sparse_system(
+            b.states, PoseGraph(*b.factors), b.prior_weight, b.damping, precond_kind,
+            robust_delta)
+    _copy_all((b.diag_d, b.off_ij, b.off_ji, *b.factor), (diag_d, off_ij, off_ji, *factor))
+    _copy_all((b.x, b.r, b.p, b.rz), _cg_start(rhs, _make_precond(precond_kind, factor)))
+
+
+def _stage_cg(b, precond_kind: str) -> None:
+    """One CG iteration of the buffers' state."""
+    matvec = _make_matvec(PoseGraph(*b.factors), b.diag_d, b.off_ij, b.off_ji)
+    _copy_all((b.x, b.r, b.p, b.rz),
+              _cg_step(b.x, b.r, b.p, b.rz, matvec, _make_precond(precond_kind, b.factor)))
+
+
+def _stage_update(b) -> None:
+    b.states.copy_(b.states + b.x)
 
 
 def optimize_poses_sparse(
@@ -291,12 +462,30 @@ def optimize_poses_sparse(
     application (one factor launch a step and one apply launch a CG
     iteration on the card); "jacobi" is block-diagonal.  ``robust_delta >
     0`` reweights each factor by the Cauchy weight ``1 / (1 + chi2 /
-    robust_delta**2)`` every step."""
+    robust_delta**2)`` every step.
+
+    The JAX package's jitted program as three captured graphs, replayed
+    ``n_iters x (1 + cg_iters + 1)`` times: the assembly (normals, the
+    backbone's factor, the CG start), one CG iteration and the update (on
+    the CPU, plain calls on the same buffers); equal to
+    :func:`optimize_poses_sparse_eager` bit for bit."""
+    if precond not in PRECONDITIONERS:
+        raise ValueError(f"unknown preconditioner {precond!r}")
     states, graph = _on_device(states0, graph, device)
+    pg = _pose_set(states, graph, cg_iters, precond, robust_delta, damping, prior_weight)
+
+    def assemble(b):
+        _stage_assemble(b, precond, robust_delta)
+
+    def cg(b):
+        _stage_cg(b, precond)
+
     for _ in range(n_iters):
-        states = _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
-                                 precond, robust_delta)
-    return states
+        pg.run(("assemble",), assemble)
+        for _ in range(cg_iters):
+            pg.run(("cg",), cg)
+        pg.run(("update",), _stage_update)
+    return graphs.clone_out(pg.buffers.states)
 
 
 def _pad_factors(graph: PoseGraph, n_shards: int) -> PoseGraph:
@@ -518,6 +707,7 @@ def close_loops(
     candidates: list,
     cfg: ICETConfig,
     x0_fn=None,
+    batch: int = 16,
     device: str | torch.device | None = None,
 ) -> list:
     """Verify loop candidates ``(i, j)`` by registering scan j to scan i on
@@ -526,23 +716,35 @@ def close_loops(
     (numpy) of the pairs whose last ``|dx|`` is finite and at most
     :data:`LOOP_DX_GATE`, with ``info = psd_pinv(Q)``.
 
-    One registration a pair (the JAX package batches them in chunks of 16
-    with ``vmap``); the results are read back to the host once, after the
-    last pair."""
+    The pairs run in chunks of ``batch``, and each chunk's results are read
+    back to the host once.  Where ``solver.compiled_route(cfg)`` holds each
+    pair is ``solver.register_pair_jit`` without the static mask (captured
+    graphs on CUDA, one set for every pair of one scan size and config),
+    otherwise the eager ``register_pair_impl``.  The JAX package runs each
+    chunk as one vmapped program; the port registers its pairs back to
+    back.  The solve is unfiltered whatever ``cfg.dnn_filter`` says, as in
+    the JAX package."""
     dev = resolve_device(device)
     if not candidates:
         return []
-    X, Q, dx = [], [], []
-    for i, j in candidates:
-        x0 = np.zeros(6, np.float32) if x0_fn is None else np.asarray(x0_fn(i, j), np.float32)
-        model = prepare_reference(as_points(scans[i], dev), cfg)
-        res = register(model, as_points(scans[j], dev), torch.from_numpy(x0).to(dev), cfg,
-                       want_static_mask=False)
-        X.append(res.X)
-        Q.append(res.Q)
-        dx.append(res.diagnostics.dx_norm[-1])
-    X = torch.stack(X).cpu().numpy()
-    info = psd_pinv(torch.stack(Q)).cpu().numpy()
-    dx = torch.stack(dx).cpu().numpy()
-    return [(i, j, X[b], info[b]) for b, (i, j) in enumerate(candidates)
-            if np.isfinite(dx[b]) and dx[b] <= LOOP_DX_GATE]
+    pair = register_pair_jit if compiled_route(cfg) else register_pair_impl
+    factors = []
+    for k0 in range(0, len(candidates), batch):
+        chunk = candidates[k0:k0 + batch]
+        X, Q, dx = [], [], []
+        for i, j in chunk:
+            x0 = (np.zeros(6, np.float32) if x0_fn is None
+                  else np.asarray(x0_fn(i, j), np.float32))
+            res = pair(as_points(scans[i], dev), as_points(scans[j], dev),
+                       torch.from_numpy(x0).to(dev), cfg, want_static_mask=False)
+            X.append(res.X)
+            Q.append(res.Q)
+            dx.append(res.diagnostics.dx_norm[-1])
+        B = len(chunk)
+        host = torch.cat([torch.stack(X), psd_pinv(torch.stack(Q)).reshape(B, 36),
+                          torch.stack(dx)[:, None]], 1).cpu().numpy()
+        for b, (i, j) in enumerate(chunk):
+            d = host[b, 42]
+            if np.isfinite(d) and d <= LOOP_DX_GATE:
+                factors.append((i, j, host[b, :6], host[b, 6:42].reshape(6, 6)))
+    return factors

@@ -19,15 +19,15 @@ that take numpy input (:func:`register_pair`) choose CUDA unless told
 otherwise.
 
 The compiled entry points :func:`prepare_reference_jit`,
-:func:`register_jit` and :func:`odometry_step_jit` (the JAX package's
-jitted ones) run the same solve as capture-safe stages, none of which
+:func:`register_jit`, :func:`register_pair_jit` and
+:func:`odometry_step_jit` (the JAX package's jitted ones) run the same solve as capture-safe stages, none of which
 reads the device from the host: on CUDA each stage is a CUDA graph
 captured once per ``(device, N, cfg)`` and replayed
 (``icet_tpu_torch.graphs``), on the CPU the stages run as plain calls.
 The host reads one flag an iteration for the early exit, so they execute
 the eager solve's iterations, and on the CPU they equal
-:func:`prepare_reference`, :func:`register` and :func:`odometry_step` bit
-for bit: those stay the plain version.
+:func:`prepare_reference`, :func:`register`, :func:`register_pair_impl`
+and :func:`odometry_step` bit for bit: those stay the plain version.
 
 Point sharding: :func:`prepare_reference` and :func:`register` take a
 shard ``axis`` (``icet_tpu_torch.parallel``: the in-process mesh's or the
@@ -556,12 +556,15 @@ def register_pair(
     device: str | torch.device | None = None,
 ) -> RegistrationResult:
     """End-to-end registration of a scan pair (numpy or tensors) on
-    ``device`` (CUDA unless told otherwise)."""
+    ``device`` (CUDA unless told otherwise): :func:`register_pair_jit`
+    where :func:`compiled_route` holds (the JAX package's jitted
+    ``register_pair``), else :func:`register_pair_impl`."""
     dev = resolve_device(device)
     s1 = as_points(scan1, dev)
     s2 = as_points(scan2, dev)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
-    return register_pair_impl(s1, s2, x0, cfg)
+    pair = register_pair_jit if compiled_route(cfg) else register_pair_impl
+    return pair(s1, s2, x0, cfg)
 
 
 def odometry_step(
@@ -699,6 +702,24 @@ def register_jit(
     return fg.result(fg.solve(True), True)
 
 
+def register_pair_jit(
+    scan1: torch.Tensor,
+    scan2: torch.Tensor,
+    x0: torch.Tensor,
+    cfg: ICETConfig,
+    want_static_mask: bool = True,
+) -> RegistrationResult:
+    """:func:`register_pair_impl` as captured graphs: scan 1's prepare, the
+    prepared model handed over into the solve's model buffer by one device
+    copy, then the solve (with the static mask unless told otherwise)."""
+    fg1 = compiled_graphs(scan1, cfg)
+    fg1.load(scan=scan1)
+    fg1.run_prepare()
+    fg = compiled_graphs(scan2, cfg)
+    fg.load(scan=scan2, x0=x0, model=VoxelModel(**fg1.buffers.prepared))
+    return fg.result(fg.solve(want_static_mask), want_static_mask)
+
+
 def odometry_step_jit(
     model: VoxelModel, scan: torch.Tensor, x0: torch.Tensor, cfg: ICETConfig
 ) -> tuple[RegistrationResult, VoxelModel]:
@@ -728,4 +749,5 @@ __all__ = [
     "register_jit",
     "register_pair",
     "register_pair_impl",
+    "register_pair_jit",
 ]

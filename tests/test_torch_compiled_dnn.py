@@ -364,4 +364,5 @@ def test_graph_set_pins_the_weight_image(scans, net):
 
 def test_counted_wrappers_include_the_encoder():
     assert bias_encoder.bias_encoder_pool in graphs.COUNTED
-    assert set(graphs.warmup_launches) == {"fused_moment_sums", "bias_encoder_pool"}
+    assert set(graphs.warmup_launches) == {"fused_moment_sums", "bias_encoder_pool",
+                                           "tridiag_factor", "tridiag_apply"}

@@ -234,7 +234,7 @@ def test_mapmaker_recovers_bit_identically(monkeypatch):
     clean = map_mod.MapMaker(CFG, mcfg, snapshot_every=1, device="cpu")
     for s in scans:
         clean.step(s)
-    _fail_on(monkeypatch, map_mod, "map_step", 3)
+    _fail_on(monkeypatch, map_mod, "map_step_jit", 3)  # the compiled step (fused route)
     maker = map_mod.MapMaker(CFG, mcfg, snapshot_every=1, device="cpu")
     for s in scans:
         maker.step(s)
