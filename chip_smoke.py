@@ -35,8 +35,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the filter on (the compiled ``odometry_step_dnn_jit``); encoder and
    fused-moments launches counted with the warm-ups, ATE gated, the eager
    pipeline's ATE beside it;
-6. pallas moments: the first 8 frames at ``moment_method="pallas"``,
-   scatter launches counted;
+6. the other moment routes, each drive compiled (its graphs captured
+   under ``set_sync_debug_mode("error")``) and eager in turns: the first 8
+   frames at ``moment_method="pallas"`` (kernel #3 inside the graphs; its
+   launches iterations + prepares, plus the warm-ups where it captures),
+   4 frames at ``"onehot"``; compiled X within 1e-5 of eager or the eager
+   route's own run-to-run spread, the compiled ATE within 0.1 cm of the
+   eager one; ms a frame, host operations, device operations and idle
+   share, the memory its graph sets reserve; one fixed-radial-mode pair on
+   the scatter route (#3's global-atomics table) and 4 DNN-filtered frames
+   on it (#3 and #4 in one set of graphs), compiled against eager;
 7. fixed radial mode: one registration on the card against the CPU path;
 8. windowed moments (kernel #2) against its plain version at block 512,
    window 256: beam-major at X = 0 (and, with no overflow, against kernel
@@ -70,8 +78,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     7,200): one registration through the plain route, the fused kernel not
     launched, X equal to the CPU path's;
 15. BiasNet training at ``train_bias_net_mixed``'s published size (batch
-    256, S = 100, 6 raycast pairs), cut to TRAIN_STEPS steps: every loss
-    finite, the last ten below the first ten, ms a step; the JAX test's
+    256, S = 100, 6 raycast pairs), cut to TRAIN_STEPS steps: the captured
+    ``train_step`` against ``train_step_eager`` (three steps from one seed:
+    the first loss within 1e-6 relative, 95% of the parameters within
+    1e-4, none more than 2 lr steps off; the mixed run on each, its last
+    ten losses within 5%; ms a step in turns, device operations and idle
+    share a step); every loss finite, the last ten below the first ten,
+    ms a step; the JAX test's
     40-step patch case (last loss below 0.7x the first); the trained net
     saved, loaded by ``load_pretrained`` and served through the encoder
     kernel within phase 3b's gates, its forward equal to the training
@@ -97,22 +110,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     JAX package's CPU figure; the loop factors of the first 16 candidates
     against the eager route's;
 18. the in-process mesh (``parallel.sharding``) on repeats of the card at
-    (dp, sp) in SHARD_SHAPES, 4 pairs of the drive: each pair against the
-    unsharded ``register_pair`` at the JAX package's sharding tolerances,
-    fused launches sp x (prepares + iterations); the distributed
+    (dp, sp) in SHARD_SHAPES, 4 pairs of the drive, the compiled step
+    (captured under ``set_sync_debug_mode("error")``) and the eager one:
+    each pair against the unsharded ``register_pair`` at the JAX package's
+    sharding tolerances, fused launches sp x (prepares + iterations), plus
+    the warm-ups on the compiled step; ms a pair in turns, host operations
+    a pair; a (1, 4) pair's device operations and idle share; the distributed
     clustering on 4 shards bit-identical to the replicated one at capacity
     2.0 and 0.02, beam-major and shuffled; ms a pair per shape; the
     keyframe drive with its block map over two repeats of the card
     (``shard_blockmap``) against the unsharded map;
 19. ``run_distributed_registration`` as spawned processes (this script
     with ``--worker``), each joined with a timeout: two over gloo at
-    (1, 2) and at (2, 1), one over NCCL at (1, 1); results against the
+    (1, 2) and at (2, 1) (the eager step, no replay), one over NCCL at
+    (1, 1) (the compiled step, its NCCL collective inside the graphs);
+    results against the
     unsharded solve and phase 18's at the same shape, equal iterations on
     the ranks of a row, launches counted; ms, collectives and bytes a pair;
-20. the elastic runner on four repeats of the card, prefer_dp 2: one step
-    raises and one probe entry fails, the runner rebuilds to (1, 3),
-    results within the tolerances; a blocking probe returns within its
-    1 s timeout;
+20. the elastic runner on four repeats of the card, prefer_dp 2, on the
+    compiled step: one step raises and one probe entry fails, the runner
+    rebuilds to (1, 3), results within the tolerances; a refresh to two
+    repeats drops the old mesh's graph sets and captures new ones; a
+    blocking probe returns within its 1 s timeout;
 21. recovery: ``OdometryPipeline`` (plain, through ``odometry_step_jit``,
     and DNN, through ``odometry_step_dnn_jit``), ``KeyframeOdometry``
     (through ``keyframe_step_jit``) and ``MapMaker`` (through
@@ -226,6 +245,11 @@ DNN_ATE_MAX_M = DNN_ATE_REF_M + 0.005
 CODE_RTOL, CODE_SHARE, OUT_ATOL = 2.0**-7, 0.995, 2e-2
 #: frames of the pallas-moments drive, and its ATE bound
 PALLAS_FRAMES = 8
+#: phase 6: frames of the one-hot drive; compiled X against eager within
+#: this (m and rad) or the eager route's own run-to-run spread, if larger
+#: (#3 adds with float atomics); the compiled drive's ATE at most the
+#: eager one's plus this (m)
+ONEHOT_FRAMES, ROUTE_X_ATOL, ROUTE_ATE_SLACK_M = 4, 1e-5, 0.001
 #: the JAX package's figures on the keyframe, DNN-keyframe and MapMaker
 #: drives on the CPU (tools/keyframe_drive_ate_cpu.py, ATE in m); the card's
 #: runs may be 0.5 cm worse at most
@@ -859,7 +883,10 @@ def wall_ms(fn, rounds: int = 3) -> float:
 
 
 def phase_sharded(s1, s2, x0s, cfg, dev, card):
-    """Phase 18: the in-process mesh on repeats of the one card."""
+    """Phase 18: the in-process mesh on repeats of the one card, the
+    compiled step (its graphs captured under ``set_sync_debug_mode
+    ("error")``) and the eager one in turns."""
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.ops.clustering import (
         distributed_radial_cluster_bounds,
         radial_cluster_bounds,
@@ -870,6 +897,7 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
     from icet_tpu_torch.parallel.sharding import (
         DeviceAxis,
         make_sharded_register,
+        make_sharded_register_eager,
         registration_mesh,
         shard_scan_batch,
     )
@@ -882,27 +910,65 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
     results = {}
     for dp, sp in SHARD_SHAPES:
         mesh = registration_mesh(dp, sp, [dev] * (dp * sp))
-        step = make_sharded_register(cfg, mesh)
+        steps = {"compiled": make_sharded_register(cfg, mesh),
+                 "eager": make_sharded_register_eager(cfg, mesh)}
         batch = shard_scan_batch(s1, s2, x0s, mesh)
-        torch.cuda.synchronize()
-        fused_moment_sums.launches = 0
-        res = step(*batch)
-        torch.cuda.synchronize()
-        launches = fused_moment_sums.launches
-        iters = res.iterations.tolist()
-        want = sp * sum(1 + it for it in iters)
-        check(launches == want, f"sharded ({dp}, {sp}): fused launches {launches} != sp x "
-              f"(prepares + iterations) = {want}")
-        host = {k: getattr(res, k).cpu().numpy() for k in ("X", "pred_stds", "static_mask")}
-        dX = max(shard_gate(f"sharded ({dp}, {sp}) pair {b}", host["X"][b], host["pred_stds"][b],
-                            host["static_mask"][b], ref[b]) for b in range(B))
-        ms = wall_ms(lambda: step(*batch), rounds=5) / B
-        results[(dp, sp)] = dict(host, iterations=iters, ms=ms)
-        print(f"sharded register ({dp}, {sp}) on {dp * sp} x {dev}: {ms:.2f} ms a pair ({card}), "
-              f"iterations {iters}, fused launches {launches} = {sp} x {sum(1 + it for it in iters)}, "
-              f"max |dX| vs unsharded {dX:.3e}")
-    print(f"unsharded register_pair: {ref_ms:.2f} ms a pair ({card}), iterations "
+        out = {}
+        for mode in ("compiled", "eager"):
+            torch.cuda.synchronize()
+            fused_moment_sums.launches = 0
+            zero_warmups()
+            with graphs.sync_debug("error" if mode == "compiled" else None):
+                res = steps[mode](*batch)
+            torch.cuda.synchronize()
+            launches, warm = fused_moment_sums.launches, warmups()
+            iters = res.iterations.tolist()
+            want = sp * sum(1 + it for it in iters) + warm
+            check(launches == want, f"sharded ({dp}, {sp}, {mode}): fused launches {launches} "
+                  f"!= sp x (prepares + iterations) + {warm} warm-ups = {want}")
+            host = {k: getattr(res, k).cpu().numpy() for k in ("X", "pred_stds", "static_mask")}
+            dX = max(shard_gate(f"sharded ({dp}, {sp}, {mode}) pair {b}", host["X"][b],
+                                host["pred_stds"][b], host["static_mask"][b], ref[b])
+                     for b in range(B))
+            out[mode] = dict(host, iterations=iters, launches=launches, warm=warm, dX=dX)
+        c, e = out["compiled"], out["eager"]
+        dce = float(np.abs(c["X"] - e["X"]).max())
+        check(c["iterations"] == e["iterations"],
+              f"sharded ({dp}, {sp}): iterations {c['iterations']} compiled, {e['iterations']} "
+              "eager")
+        ops0 = dict(graphs.host_ops)
+        ms = {m: [] for m in steps}
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            ms[mode].append(wall_ms(lambda f=steps[mode]: f(*batch), rounds=2) / B)
+        n_calls = 2 * 3
+        host_ops = {k: (graphs.host_ops[k] - ops0[k]) / (n_calls * B)
+                    for k in ("replays", "flag_reads", "overflow_reads", "copies")}
+        results[(dp, sp)] = dict(c, ms=ms)
+        print(f"sharded register ({dp}, {sp}) on {dp * sp} x {dev} ({card}): ms a pair "
+              f"eager/compiled/compiled/eager {ms['eager'][0]:.2f} / {ms['compiled'][0]:.2f} / "
+              f"{ms['compiled'][1]:.2f} / {ms['eager'][1]:.2f}; iterations {c['iterations']}, "
+              f"fused launches compiled {c['launches']} = {sp} x "
+              f"{sum(1 + it for it in c['iterations'])} + {c['warm']} warm-ups, eager "
+              f"{e['launches']}; max |dX| vs unsharded {c['dX']:.3e} / {e['dX']:.3e}, compiled "
+              f"vs eager {dce:.3e}; host operations a pair, compiled: "
+              f"{host_ops['replays']:.1f} replays, {host_ops['flag_reads']:.1f} exit-flag and "
+              f"{host_ops['overflow_reads']:.1f} overflow reads, {host_ops['copies']:.1f} copies")
+    print(f"unsharded register_pair (compiled): {ref_ms:.2f} ms a pair ({card}), iterations "
           f"{[r.iterations for r in ref]}")
+    phase_sharded_split(s1, s2, x0s, cfg, dev, card)
+    # A pair's device operations and idle share at (1, 4), compiled and eager.
+    mesh = registration_mesh(1, 4, [dev] * 4)
+    one = shard_scan_batch(s1[:1], s2[:1], x0s[:1], mesh)
+    for mode, step in (("compiled", make_sharded_register(cfg, mesh)),
+                       ("eager", make_sharded_register_eager(cfg, mesh))):
+        with graphs.sync_debug("error"):
+            step(*one)
+        ops = device_profile(lambda f=step: f(*one), reps=2)
+        wall = wall_ms(lambda f=step: f(*one), rounds=3)
+        busy = sum(v for v, _ in ops.values())
+        print(f"sharded pair (1, 4), {mode}: {sum(k for _, k in ops.values()):.1f} device "
+              f"operations, busy {busy:.3f} ms, wall {wall:.3f} ms, idle share "
+              f"{1.0 - busy / wall:.3f} (torch.profiler, host clock; {card})")
 
     # The distributed clustering on the card: the first scan on 2 and 4
     # shards.  Its points crowd the middle beam rows, whose voxel ids one or
@@ -935,6 +1001,67 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
     check(any(p.endswith("sharded") for p in paths), "the sharded clustering path was not taken")
     print(f"distributed clustering bit-identical to the replicated one ({'; '.join(paths)})")
     return ref, results
+
+
+def phase_sharded_split(s1, s2, x0s, cfg, dev, card) -> None:
+    """Phase 18's row of distinct devices, the card and the CPU: the split
+    layout of ``graphs.ShardedGraphs`` (each shard step a graph on its
+    shard's device, a plain call on the CPU shard; each replicated step a
+    graph on the card; the axis's joins between the replays), its captures
+    under ``set_sync_debug_mode("error")``, held bit for bit against the
+    eager step on the same mesh, kernel #1 counted through the card
+    shard's replays."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.parallel.sharding import (
+        make_sharded_register,
+        make_sharded_register_eager,
+        registration_mesh,
+        shard_scan_batch,
+    )
+
+    mesh = registration_mesh(1, 2, [dev, torch.device("cpu")])
+    batch = shard_scan_batch(s1[:2], s2[:2], x0s[:2], mesh)
+    compiled = make_sharded_register(cfg, mesh)
+    out = {}
+    for mode, step in (("compiled", compiled), ("eager", make_sharded_register_eager(cfg, mesh)),
+                       ("compiled again", compiled)):
+        torch.cuda.synchronize()
+        fused_moment_sums.launches = 0
+        zero_warmups()
+        ops0 = dict(graphs.host_ops)
+        t0 = time.perf_counter()
+        with graphs.sync_debug("error" if mode != "eager" else None):
+            res = step(*batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        out[mode] = (res, fused_moment_sums.launches, warmups(),
+                     {k: graphs.host_ops[k] - ops0[k] for k in ("captures", "replays")}, ms)
+    check(all(sg.split for sg in compiled.sets.values()), "split row: the set is not split")
+    e, le, we, _, ms_e = out["eager"]
+    iters = e.iterations.tolist()
+    check(le == sum(1 + it for it in iters) and we == 0,
+          f"split row (eager): fused launches {le} != one card shard x (prepares + iterations "
+          f"{iters})")
+    for mode in ("compiled", "compiled again"):
+        c, lc, wc, ops, _ = out[mode]
+        check(lc == le + wc, f"split row ({mode}): fused launches {lc} != eager {le} + "
+              f"{wc} warm-ups")
+        check(ops["replays"] > 0 and (ops["captures"] > 0) == (mode == "compiled"),
+              f"split row ({mode}): {ops['captures']} captures, {ops['replays']} replays")
+        for k in ("X", "pred_stds", "Q", "static_mask", "iterations"):
+            check(torch.equal(getattr(c, k).cpu(), getattr(e, k).cpu()),
+                  f"split row ({mode}): {k} is not bit-identical to the eager step")
+        for k, a, b in zip(e.diagnostics._fields, c.diagnostics, e.diagnostics):
+            check(torch.equal(a.cpu(), b.cpu()),
+                  f"split row ({mode}): diagnostics.{k} is not bit-identical to the eager step")
+    c, lc, wc, ops, ms_c = out["compiled again"]
+    print(f"sharded register, a split row of {dev} and cpu ({card}): compiled bit-identical to "
+          f"eager (X, pred_stds, Q, static_mask, diagnostics, iterations {iters}); fused "
+          f"launches through the card shard's replays {out['compiled'][1]} = {le} + "
+          f"{out['compiled'][2]} warm-ups, then {lc} with {ops['replays']} replays, eager {le}; "
+          f"{out['compiled'][3]['captures']} captures; ms a pair (host clock, a CPU shard "
+          f"included) eager {ms_e:.1f}, compiled {ms_c:.1f}")
 
 
 def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
@@ -997,6 +1124,7 @@ def worker(spec: dict) -> int:
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.config import ICETConfig
     from icet_tpu_torch.ops.fused_moments import fused_moment_sums
     from icet_tpu_torch.parallel.distributed import (
@@ -1014,15 +1142,20 @@ def worker(spec: dict) -> int:
     b_local = data["s1"].shape[0] // mesh.shape["dp"]
     rows = slice(mesh.row * b_local, (mesh.row + 1) * b_local)
     args = (data["s1"][rows], data["s2"][rows], data["x0"][rows], cfg, mesh)
-    run_distributed_registration(*args)  # first pass: group and kernel set-up
+    # First pass: group and kernel set-up, and on NCCL the graphs' captures
+    # (each collective warmed up once before its capture).
+    with graphs.sync_debug("error"):
+        run_distributed_registration(*args)
     torch.cuda.synchronize()
     dist.barrier()
     axis = mesh.axis("sp")
     c0, b0 = axis.collectives, axis.bytes
     fused_moment_sums.launches = 0
+    replays = graphs.host_ops["replays"]
     res, local = run_distributed_registration(*args)
     torch.cuda.synchronize()
     launches, collectives, nbytes = fused_moment_sums.launches, axis.collectives, axis.bytes
+    replays = graphs.host_ops["replays"] - replays
     times = []
     for _ in range(3):
         dist.barrier()
@@ -1033,7 +1166,8 @@ def worker(spec: dict) -> int:
     np.savez(spec["out"], X=res.X.cpu().numpy(), pred_stds=res.pred_stds.cpu().numpy(),
              static_mask=res.static_mask.cpu().numpy(), iterations=res.iterations.numpy(),
              start=local.start, row=mesh.row, col=mesh.col, ms=float(np.median(times)),
-             launches=launches, collectives=collectives - c0, bytes=nbytes - b0)
+             launches=launches, collectives=collectives - c0, bytes=nbytes - b0,
+             compiled=mesh.compiled, replays=replays)
     dist.destroy_process_group()
     return 0
 
@@ -1099,6 +1233,11 @@ def phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card):
                     dX = float(np.abs(g["X"][k] - same["X"][b]).max())
                     check(dX <= SHARD_X_ATOL, f"{name} pair {b}: X differs by {dX:.3e} from "
                           f"phase 18's {shape}")
+            for g in ranks:
+                # NCCL runs the compiled step (graph replays); gloo the eager one.
+                compiled = backend == "nccl"
+                check(bool(g["compiled"]) == compiled and (int(g["replays"]) > 0) == compiled,
+                      f"{name}: compiled {bool(g['compiled'])}, {int(g['replays'])} replays")
             rows = {}
             for g in ranks:
                 rows.setdefault(int(g["row"]), []).append(g["iterations"].tolist())
@@ -1106,7 +1245,9 @@ def phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card):
                 check(all(i == its[0] for i in its), f"{name}: row {row} iterations differ {its}")
             per = [(float(g["ms"]), int(g["collectives"]) / g["X"].shape[0],
                     int(g["bytes"]) / g["X"].shape[0]) for g in ranks]
-            print(f"processes {name} (mesh {shape}, {world} process(es) on one card): ms a pair "
+            print(f"processes {name} (mesh {shape}, {world} process(es) on one card, "
+                  f"{'compiled' if backend == 'nccl' else 'eager'} step, replays a rank "
+                  f"{[int(g['replays']) for g in ranks]}): ms a pair "
                   f"{[round(p[0], 2) for p in per]} ({card}), collectives a pair "
                   f"{[p[1] for p in per]}, bytes a pair {[int(p[2]) for p in per]}, iterations "
                   f"{sorted(rows.items())}, launches a rank {[int(g['launches']) for g in ranks]}, "
@@ -1118,6 +1259,7 @@ def phase_elastic(s1, s2, x0s, cfg, dev, ref, card):
     import threading
 
     import icet_tpu_torch.parallel.elastic as elastic
+    from icet_tpu_torch import graphs
 
     runner = elastic.ElasticRegistrationRunner(cfg, prefer_dp=2, devices=[dev] * 4)
     check(runner.shape == (2, 2), f"elastic runner shape {runner.shape}")
@@ -1144,16 +1286,28 @@ def phase_elastic(s1, s2, x0s, cfg, dev, ref, card):
         devs, timeout_s, _op=one_entry_fails)
     try:
         t0 = time.perf_counter()
-        res = runner.run(s1, s2, x0s)
+        with graphs.sync_debug("error"):
+            res = runner.run(s1, s2, x0s)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
         elastic.probe_devices = real_probe
     check(runner.rebuilds == 1 and runner.shape == (1, 3),
           f"elastic: {runner.rebuilds} rebuilds, shape {runner.shape}")
+    check(runner._step is runner.sharded and len(runner.sharded.sets) == 1,
+          "elastic: the rebuilt mesh does not run the compiled step")
     # The runner padded the points to a multiple of sp = 3 with zeros.
     dX = max(shard_gate(f"elastic pair {b}", res.X[b], res.pred_stds[b],
                         res.static_mask[b][: s1.shape[1]], ref[b]) for b in range(s1.shape[0]))
+    # A refresh to two devices drops the (1, 3) mesh's graph sets.
+    old = runner.sharded
+    runner.refresh([dev] * 2)
+    with graphs.sync_debug("error"):
+        res2 = runner.run(s1, s2, x0s)
+    check(old.sets == {} and runner.shape == (2, 1) and len(runner.sharded.sets) == 1,
+          f"elastic refresh: old sets {len(old.sets)}, shape {runner.shape}")
+    dX = max(dX, *(shard_gate(f"elastic (2, 1) pair {b}", res2.X[b], res2.pred_stds[b],
+                              res2.static_mask[b], ref[b]) for b in range(s1.shape[0])))
     release = threading.Event()
 
     def blocking(d):
@@ -1168,8 +1322,9 @@ def phase_elastic(s1, s2, x0s, cfg, dev, ref, card):
     t0 = time.perf_counter()
     check(len(elastic.probe_devices([dev] * 4)) == 4, "the real probe lost a device")
     probe_ms = (time.perf_counter() - t0) * 1e3
-    print(f"elastic: (2, 2) -> (1, 3) after one failed step and one failed probe entry, "
-          f"{runner.rebuilds} rebuild, {s1.shape[0]} pairs in {run_s:.2f} s with the rebuild "
+    print(f"elastic (compiled step): (2, 2) -> (1, 3) after one failed step and one failed "
+          f"probe entry, then a refresh to (2, 1), {runner.rebuilds} rebuilds, {s1.shape[0]} "
+          f"pairs in {run_s:.2f} s with the rebuild "
           f"({card}), max |dX| vs unsharded {dX:.3e}; blocking probe returned {healthy} in "
           f"{blocked_s:.2f} s (timeout 1 s); a 4-device probe {probe_ms:.2f} ms")
 
@@ -1623,6 +1778,7 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
     kernel #1 against phase 13; trace(); phase 22's HTML map."""
     import tempfile
 
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.ops.fused_moments import fused_moment_sums
     from icet_tpu_torch.solver import moment_route, register_pair
     from icet_tpu_torch.utils.profiling import device_time_ms
@@ -1634,7 +1790,9 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
     before = fused_moment_sums.launches
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ev0.record()
-    card_res = register_pair(scans[0], scans[1], x0, ocfg, device=dev)
+    # The compiled pair (its finish graph with the static mask is new here).
+    with graphs.sync_debug("error"):
+        card_res = register_pair(scans[0], scans[1], x0, ocfg, device=dev)
     ev1.record()
     torch.cuda.synchronize()
     onehot_fused = fused_moment_sums.launches - before
@@ -1737,6 +1895,336 @@ def eager_drive(drive, cfg, odo):
         poses.append(T)
         iters.append(res.iterations)
     return [p.cpu().numpy() for p in poses], iters
+
+
+def route_drive(scans, c, odo, compiled: bool):
+    """``run_odometry_device`` on the compiled route or, with
+    ``compiled_route`` forced False, on the eager one."""
+    import icet_tpu_torch.odometry as odometry
+    from icet_tpu_torch import graphs
+
+    with patched(odometry, "compiled_route", lambda cc: compiled):
+        if not compiled:
+            return odometry.run_odometry_device(scans, c, odo, device="cuda")
+        with graphs.sync_debug("error"):
+            return odometry.run_odometry_device(scans, c, odo, device="cuda")
+
+
+def route_turns(name, scans, gt, c, odo, kernel=None):
+    """Phase 6's turns of one route: a compiled drive that captures, then
+    eager/compiled/compiled/eager; X of the compiled drives against the
+    eager ones within ROUTE_X_ATOL or the eager drives' own spread, ATE
+    within ROUTE_ATE_SLACK_M; ``kernel``'s launches (a counted wrapper)
+    equal to iterations + prepares (+ warm-ups, compiled).  Returns the
+    turns' ``(frames, launches, warm-ups, ms a frame, host operations a
+    frame)`` by route and the first compiled drive's launches."""
+    from icet_tpu_torch import graphs
+
+    runs = {"compiled": [], "eager": []}
+    first_launches = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = (graph_pool_bytes(), torch.cuda.memory_reserved())
+    for mode in ("compiled", "eager", "compiled", "compiled", "eager"):
+        compiled = mode == "compiled"
+        torch.cuda.synchronize()
+        if kernel is not None:
+            kernel.launches = 0
+        zero_warmups()
+        ops0 = dict(graphs.host_ops)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        frames = route_drive(scans, c, odo, compiled)
+        end.record()
+        torch.cuda.synchronize()
+        n = len(frames)
+        host = {k: (graphs.host_ops[k] - ops0[k]) / n for k in ("replays", "flag_reads", "copies")}
+        launches = kernel.launches if kernel is not None else 0
+        warm = warmups(kernel.__name__) if kernel is not None else 0
+        iters = [f.iterations for f in frames]
+        check(not any(f.diverged for f in frames), f"{name} drive ({mode}): a frame diverged")
+        if kernel is not None:
+            check(launches == sum(iters) + len(scans) + warm,
+                  f"{name} drive ({mode}): {kernel.__name__} launches {launches} != iterations "
+                  f"{sum(iters)} + prepares {len(scans)} + warm-ups {warm}")
+            check(compiled or warm == 0, f"{name} drive (eager): {warm} warm-up launches")
+        if first_launches is None:
+            first_launches = launches
+            pools = graph_pool_bytes()
+            mem = (f"{(pools - mem0[0]) / 2**20:.1f} MiB" if pools is not None
+                   else "not measured", torch.cuda.memory_reserved() - mem0[1])
+        runs[mode].append((frames, launches, warm, start.elapsed_time(end) / n, host))
+    X = {m: [np.stack([f.X for f in r[0]]) for r in runs[m]] for m in runs}
+    spread = float(np.abs(X["eager"][0] - X["eager"][1]).max())
+    d_c = max(float(np.abs(xc - xe).max()) for xc in X["compiled"] for xe in X["eager"])
+    ate = {m: [trajectory_ate(r[0], gt) for r in runs[m]] for m in runs}
+    check(d_c <= max(ROUTE_X_ATOL, spread),
+          f"{name} drive: compiled X {d_c:.3e} from the eager drives (eager spread {spread:.3e})")
+    check(max(ate["compiled"]) <= min(ate["eager"]) + ROUTE_ATE_SLACK_M,
+          f"{name} drive: compiled ATE {max(ate['compiled']) * 100:.4f} cm above the eager "
+          f"{min(ate['eager']) * 100:.4f} cm + {ROUTE_ATE_SLACK_M * 100} cm")
+    return runs, first_launches, d_c, spread, ate, mem
+
+
+def graph_pool_bytes():
+    """Bytes of the current device's memory segments in CUDA-graph private
+    pools (``torch.cuda.memory_snapshot``'s ``segment_pool_id``), or None
+    where this PyTorch does not report the pool of a segment."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    dev = torch.cuda.current_device()
+    return sum(g["total_size"] for g in segs
+               if g["device"] == dev and tuple(g["segment_pool_id"]) != (0, 0))
+
+
+def route_profile(scans, c, odo, compiled: bool) -> tuple:
+    """(device operations a frame, busy ms a frame, idle share) of the
+    route's drive on PROFILE_FRAMES frames (torch.profiler and CUDA events)."""
+    short = scans[:PROFILE_FRAMES]
+    ops = device_profile(lambda: route_drive(short, c, odo, compiled), reps=1)
+    wall = median_ms(lambda: route_drive(short, c, odo, compiled), reps=1, rounds=1)
+    busy = sum(v for v, _ in ops.values())
+    steps = PROFILE_FRAMES - 1
+    return sum(k for _, k in ops.values()) / steps, busy / steps, 1.0 - busy / wall
+
+
+def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
+    """Phase 6: the scatter route (kernel #3) and the one-hot route, the
+    drive compiled and eager in turns; the scatter route in fixed radial
+    mode (#3's global-atomics table) and with the DNN filter (#3 and #4 in
+    one set of graphs).  Returns the first compiled scatter drive's #3
+    launches (through the replays and the warm-ups)."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.odometry import OdometryPipeline
+    from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool
+    from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
+    from icet_tpu_torch.solver import moment_route, register_pair_impl, register_pair_jit
+
+    pcfg, ocfg = cfg.replace(moment_method="pallas"), cfg.replace(moment_method="onehot")
+    check(moment_route(pcfg) == "scatter" and moment_route(ocfg) == "onehot", "routes")
+    lines = []
+    for name, c, n_frames, kernel in (("pallas", pcfg, PALLAS_FRAMES, moment_scatter_sums),
+                                      ("one-hot", ocfg, ONEHOT_FRAMES, None)):
+        drive = scans[:n_frames]
+        runs, first, d_c, spread, ate, pool = route_turns(name, drive, gt, c, odo, kernel)
+        ms = {m: [r[3] for r in runs[m]] for m in runs}
+        h = runs["compiled"][1][4]
+        prof = {m: route_profile(drive, c, odo, m == "compiled") for m in ("compiled", "eager")}
+        iters = [[f.iterations for f in r[0]] for r in runs["compiled"]]
+        lines.append(
+            f"{name} route, {n_frames}-frame drive ({card}): compiled against eager max |dX| "
+            f"{d_c:.3e} (eager run-to-run {spread:.3e}); ATE compiled "
+            f"{' / '.join(f'{a * 100:.4f}' for a in ate['compiled'])} cm, eager "
+            f"{' / '.join(f'{a * 100:.4f}' for a in ate['eager'])} cm; iterations {iters[0]}"
+            + (f"; #3 launches {first} = {sum(iters[0])} iterations + {n_frames} prepares + "
+               f"{runs['compiled'][0][2]} warm-ups, replays {runs['compiled'][1][1]} and eager "
+               f"{runs['eager'][0][1]} without" if kernel is not None else "")
+            + f"; the capturing drive's graph pools {pool[0]}, all it reserved "
+              f"{pool[1] / 2**20:.1f} MiB (buffers, scratch twins, warm-ups, pools)")
+        lines.append(
+            f"  ms a frame, eager/compiled/compiled/eager (after a capturing drive "
+            f"{ms['compiled'][0]:.3f}): {ms['eager'][0]:.3f} / {ms['compiled'][1]:.3f} / "
+            f"{ms['compiled'][2]:.3f} / {ms['eager'][1]:.3f} (CUDA events over the drive); host "
+            f"operations a frame, compiled: {h['replays']:.1f} replays, {h['flag_reads']:.1f} "
+            f"flag reads, {h['copies']:.1f} copies")
+        for m in ("compiled", "eager"):
+            n_ops, busy, idle = prof[m]
+            lines.append(f"  {m}: {n_ops:.1f} device operations a frame, busy {busy:.3f} ms a "
+                         f"frame, idle share {idle:.3f} (first {PROFILE_FRAMES} frames)")
+        if kernel is not None:
+            scat_launches = first
+            pout = runs["compiled"][0][0]
+            pate = ate["compiled"][0]
+            check(pate <= ATE_MAX_M,
+                  f"pallas drive ATE {pate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
+
+    # #3's global-atomics table: fixed radial mode (V + 1 = 90,001 rows).
+    fcfg = cfg.replace(radial_mode="fixed", moment_method="pallas")
+    s1, s2 = (torch.from_numpy(scans[k]).to(dev) for k in (0, 1))
+    x0 = torch.tensor([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], device=dev)
+    torch.cuda.synchronize()
+    moment_scatter_sums.launches = 0
+    zero_warmups()
+    with graphs.sync_debug("error"):
+        fc = register_pair_jit(s1, s2, x0, fcfg)
+    fe = register_pair_impl(s1, s2, x0, fcfg)
+    fe2 = register_pair_impl(s1, s2, x0, fcfg)
+    torch.cuda.synchronize()
+    f_launch, f_warm = moment_scatter_sums.launches, warmups("moment_scatter_sums")
+    want = (1 + fc.iterations) + (1 + fe.iterations) + (1 + fe2.iterations) + f_warm
+    check(f_launch == want, f"fixed-mode scatter: #3 launches {f_launch} != {want} (prepares, "
+          f"iterations, {f_warm} warm-ups)")
+    f_spread = float((fe.X - fe2.X).abs().max())
+    f_d = float((fc.X - fe.X).abs().max())
+    check(f_d <= max(ROUTE_X_ATOL, f_spread),
+          f"fixed-mode scatter: compiled X {f_d:.3e} from eager (spread {f_spread:.3e})")
+    lines.append(f"fixed radial mode on the scatter route (V + 1 = {fcfg.n_voxels + 1} rows, "
+                 f"#3's global atomics): compiled against eager max |dX| {f_d:.3e} (eager "
+                 f"run-to-run {f_spread:.3e}), iterations {fc.iterations} / {fe.iterations}, "
+                 f"#3 launches {f_launch} with {f_warm} warm-ups")
+
+    # The DNN filter on the scatter route: #3 and #4 in one set of graphs.
+    dpcfg = dcfg.replace(moment_method="pallas")
+    n_post = dpcfg.n_iters - max(min(dpcfg.dnn_start_iter, dpcfg.n_iters - 1), 1)
+    drive = scans[:ONEHOT_FRAMES]
+    out = {}
+    for mode in ("compiled", "eager"):
+        torch.cuda.synchronize()
+        moment_scatter_sums.launches = bias_encoder_pool.launches = 0
+        zero_warmups()
+        pipe = OdometryPipeline(dpcfg, odo, device=dev)
+        if mode == "eager":
+            eager(pipe)
+            frames = list(pipe.run(drive))
+        else:
+            with graphs.sync_debug("error"):
+                frames = list(pipe.run(drive))
+        torch.cuda.synchronize()
+        n = len(frames)
+        its = sum(f.iterations for f in frames)
+        w3, w4 = warmups("moment_scatter_sums"), warmups("bias_encoder_pool")
+        check(bias_encoder_pool.launches == n * n_post * dpcfg.dnn_refine_steps + w4,
+              f"DNN scatter drive ({mode}): #4 launches {bias_encoder_pool.launches}")
+        # #3: a pass an iteration, a filter pass a filtered iteration, a
+        # prepare a frame (the seed frame's too).
+        want3 = its + n * n_post + len(drive) + w3
+        check(moment_scatter_sums.launches == want3,
+              f"DNN scatter drive ({mode}): #3 launches {moment_scatter_sums.launches} != "
+              f"{want3} ({w3} warm-ups)")
+        out[mode] = (frames, moment_scatter_sums.launches, bias_encoder_pool.launches, w3, w4)
+    d_dnn = max(float(np.abs(a.X - b.X).max()) for a, b in zip(out["compiled"][0],
+                                                                 out["eager"][0]))
+    check(d_dnn <= 1e-4, f"DNN scatter drive: compiled X {d_dnn:.3e} from eager")
+    lines.append(f"DNN filter on the scatter route, {len(drive)} frames: compiled #3 / #4 "
+                 f"launches {out['compiled'][1]} / {out['compiled'][2]} (warm-ups "
+                 f"{out['compiled'][3]} / {out['compiled'][4]}), eager {out['eager'][1]} / "
+                 f"{out['eager'][2]}; compiled against eager max |dX| {d_dnn:.3e}")
+    for line in lines:
+        print(line)
+    print(f"pallas moments: {len(pout)} frames compiled, ATE {pate * 100:.3f} cm")
+    return scat_launches
+
+
+def phase_train_compiled(pairs, dev, card) -> str:
+    """Phase 15's compiled step: three steps of ``train_step`` (captured
+    under ``set_sync_debug_mode("error")``) against ``train_step_eager``
+    from one seed at batch 256, S = 100 (the first loss within 1e-6
+    relative; after three steps at least 95% of the parameters within 1e-4
+    and none off by more than 2 lr steps); ``train_bias_net_mixed`` at
+    TRAIN_STEPS compiled and eager (losses fall, the last ten's means
+    within 5%); ms a step in turns, device operations and idle share a
+    step.  Then a fourth step at half the learning rate replays the same
+    graph (the Adam constants are a buffer) under the same gates, and the
+    training graph's private pool is measured and released with its
+    optimizer.  Returns the summary line's end."""
+    import gc
+
+    import icet_tpu_torch.models.train_data as train_data
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.models import bias_net as bn
+
+    lr, steps = 1e-3, 3
+    gen = torch.Generator(device=dev).manual_seed(11)
+    batches = [bn.make_patch_batch(gen, 256, 100) for _ in range(steps + 1)]
+    states = {m: bn.create_train_state(torch.Generator(device=dev).manual_seed(0), lr, 100, dev)
+              for m in ("compiled", "eager")}
+    losses = {"compiled": [], "eager": []}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool0 = graph_pool_bytes()
+    captures = graphs.host_ops["captures"]
+    for k, (x, y) in enumerate(batches):
+        if k == steps:
+            for st in states.values():
+                st.opt.param_groups[0]["lr"] = lr / 2
+        with graphs.sync_debug("error"):
+            states["compiled"], loss = bn.train_step(states["compiled"], x, y)
+        losses["compiled"].append(float(loss))
+        states["eager"], loss = bn.train_step_eager(states["eager"], x, y)
+        losses["eager"].append(float(loss))
+        if k == steps - 1:
+            rel = abs(losses["compiled"][0] - losses["eager"][0]) / abs(losses["eager"][0])
+            check(rel <= 1e-6, f"training: first loss {losses['compiled'][0]} compiled, "
+                  f"{losses['eager'][0]} eager ({rel:.3e} relative)")
+            with torch.no_grad():
+                diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(
+                    states["compiled"].model.parameters(), states["eager"].model.parameters())])
+            share = float((diffs <= 1e-4).double().mean())
+            check(share >= 0.95 and float(diffs.max()) <= 2 * lr * steps,
+                  f"training: after {steps} steps {share:.4f} of the parameters within 1e-4 of "
+                  f"eager, max |diff| {float(diffs.max()):.3e}")
+            pool1 = graph_pool_bytes()
+    check(graphs.host_ops["captures"] - captures == 1,
+          f"training: {graphs.host_ops['captures'] - captures} graphs captured for one state "
+          "and two learning rates")
+    with torch.no_grad():
+        diffs4 = torch.cat([(a - b).abs().flatten() for a, b in zip(
+            states["compiled"].model.parameters(), states["eager"].model.parameters())])
+    share4 = float((diffs4 <= 1e-4).double().mean())
+    check(share4 >= 0.95 and float(diffs4.max()) <= 2 * lr * (steps + 1),
+          f"training: after a step at lr / 2, {share4:.4f} of the parameters within 1e-4 of "
+          f"eager, max |diff| {float(diffs4.max()):.3e}")
+    del states, st
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool2 = graph_pool_bytes()
+    if pool0 is None:
+        pool = "the graph pool not measured (no segment_pool_id in this PyTorch)"
+    else:
+        check(pool2 <= pool0, f"training: the graph pool {(pool2 - pool0) / 2**20:.1f} MiB not "
+              "released with its optimizer")
+        pool = (f"the training graph's pool {(pool1 - pool0) / 2**20:.1f} MiB at batch 256, "
+                f"S = 100, released with its optimizer ({(pool2 - pool0) / 2**20:.1f} MiB left)")
+
+    def mixed(step):
+        with patched(train_data, "make_raycast_voxel_pairs", lambda **kw: pairs), \
+                patched(train_data, "train_step", step), graphs.sync_debug("error"):
+            return train_data.train_bias_net_mixed(steps=TRAIN_STEPS, batch=256,
+                                                   sample_pts=100, lr=lr, seed=0, n_pairs=6,
+                                                   device=dev)[1]
+
+    curves = {"compiled": mixed(bn.train_step), "eager": mixed(bn.train_step_eager)}
+    last = {}
+    for m, ls in curves.items():
+        check(all(np.isfinite(ls)), f"training ({m}): a loss is not finite")
+        first10, last[m] = float(np.mean(ls[:10])), float(np.mean(ls[-10:]))
+        check(last[m] < first10, f"training ({m}): last ten {last[m]:.4f} not below first ten "
+              f"{first10:.4f}")
+    check(abs(last["compiled"] - last["eager"]) <= 0.05 * last["eager"],
+          f"training: last ten {last['compiled']:.4f} compiled, {last['eager']:.4f} eager")
+
+    # ms a step in turns on one batch; a step's device operations and idle.
+    x, y = batches[0]
+    ms = {"compiled": [], "eager": []}
+    st = {m: bn.create_train_state(torch.Generator(device=dev).manual_seed(0), lr, 100, dev)
+          for m in ("compiled", "eager")}
+    fns = {"compiled": bn.train_step, "eager": bn.train_step_eager}
+
+    def one(m):
+        with graphs.sync_debug("error"):
+            st[m] = fns[m](st[m], x, y)[0]
+
+    for m in ("eager", "compiled", "compiled", "eager"):
+        ms[m].append(median_ms(lambda m=m: one(m), reps=TIMED_STEPS, rounds=1))
+    prof = {}
+    for m in ("compiled", "eager"):
+        ops = device_profile(lambda m=m: one(m), reps=5)
+        busy = sum(v for v, _ in ops.values())
+        prof[m] = (sum(k for _, k in ops.values()), busy, 1.0 - busy / np.mean(ms[m]))
+    return (f"compiled against eager: first loss {rel:.3e} relative, after {steps} steps "
+            f"{share:.4f} of the parameters within 1e-4 (max |diff| {float(diffs.max()):.3e}), "
+            f"after a fourth at lr / 2 on the same graph {share4:.4f} (max |diff| "
+            f"{float(diffs4.max()):.3e}); {pool}; "
+            f"{TRAIN_STEPS}-step mixed run last ten {last['compiled']:.4f} compiled, "
+            f"{last['eager']:.4f} eager; ms a step eager/compiled/compiled/eager "
+            f"{ms['eager'][0]:.4f} / {ms['compiled'][0]:.4f} / {ms['compiled'][1]:.4f} / "
+            f"{ms['eager'][1]:.4f} (CUDA events over {TIMED_STEPS} steps, {card}); device "
+            f"operations a step {prof['compiled'][0]:.1f} / {prof['eager'][0]:.1f}, busy "
+            f"{prof['compiled'][1]:.4f} / {prof['eager'][1]:.4f} ms, idle share "
+            f"{prof['compiled'][2]:.3f} / {prof['eager'][2]:.3f} (compiled / eager, "
+            f"torch.profiler over 5 steps)")
 
 
 def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
@@ -2542,22 +3030,9 @@ def main() -> int:
         check(a <= DNN_ATE_MAX_M,
               f"DNN drive ({what}) ATE {a * 100:.4f} cm above {DNN_ATE_MAX_M * 100:.4f} cm")
 
-    # -- pallas moments ---------------------------------------------------
+    # -- pallas moments and the one-hot route, compiled and eager ----------
     pcfg = cfg.replace(moment_method="pallas")
-    torch.cuda.synchronize()
-    moment_scatter_sums.launches = 0
-    pout = run_odometry_device(scans[:PALLAS_FRAMES], pcfg, odo, device="cuda")
-    torch.cuda.synchronize()
-    scat_launches = moment_scatter_sums.launches
-    piters = [f.iterations for f in pout]
-    check(not any(f.diverged for f in pout), "pallas drive: a frame diverged")
-    check(scat_launches == sum(piters) + PALLAS_FRAMES,
-          f"scatter launches {scat_launches} != iterations {sum(piters)} + "
-          f"prepares {PALLAS_FRAMES}")
-    pate = trajectory_ate(pout, gt)
-    print(f"pallas moments: {len(pout)} frames, scatter launches {scat_launches} = "
-          f"{sum(piters)} iterations + {PALLAS_FRAMES} prepares, ATE {pate * 100:.3f} cm")
-    check(pate <= ATE_MAX_M, f"pallas drive ATE {pate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
+    scat_launches = phase_routes(scans, gt, cfg, dcfg, odo, dev, card)
 
     # -- fixed radial mode ------------------------------------------------
     # Seeded 10 cm off the drive's 1 m step, as a warm start would be.
@@ -2950,6 +3425,7 @@ def main() -> int:
     # -- 15. BiasNet training at full width ------------------------------------
     import tempfile
 
+    import icet_tpu_torch.models.train_data as train_data
     from icet_tpu_torch.models.bias_net import (
         apply_bias_net,
         load_pretrained,
@@ -2961,12 +3437,19 @@ def main() -> int:
     from icet_tpu_torch.models.train_data import raycast_batch_iter, train_bias_net_mixed
     from icet_tpu_torch.utils.checkpoint import save_checkpoint
 
+    t0 = time.perf_counter()
+    pairs = train_data.make_raycast_voxel_pairs(n_pairs=6, samples_per_voxel=100, seed=0,
+                                                device=dev)
+    pairs_s = time.perf_counter() - t0
+    train_cmp = phase_train_compiled(pairs, dev, card)
     torch.cuda.synchronize()
     bias_encoder_pool.launches = 0
     t0 = time.perf_counter()
-    tstate, tlosses, (ps1, ps2) = train_bias_net_mixed(
-        steps=TRAIN_STEPS, batch=256, sample_pts=100, lr=1e-3, seed=0, n_pairs=6,
-        device="cuda")
+    with patched(train_data, "make_raycast_voxel_pairs", lambda **kw: pairs), \
+            graphs.sync_debug("error"):
+        tstate, tlosses, (ps1, ps2) = train_bias_net_mixed(
+            steps=TRAIN_STEPS, batch=256, sample_pts=100, lr=1e-3, seed=0, n_pairs=6,
+            device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     check(bias_encoder_pool.launches == 0,
@@ -2976,13 +3459,14 @@ def main() -> int:
     check(last10 < first10, f"training: last ten {last10:.4f} not below first ten {first10:.4f}")
     pgen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    _, plosses = train_bias_net(pgen, steps=40, batch=128, sample_pts=32, device="cuda")
+    with graphs.sync_debug("error"):
+        _, plosses = train_bias_net(pgen, steps=40, batch=128, sample_pts=32, device="cuda")
     patch_s = time.perf_counter() - t0
     check(plosses[-1] < 0.7 * plosses[0],
           f"40-step patch case: last loss {plosses[-1]:.4f} not below 0.7 x {plosses[0]:.4f}")
-    print(f"BiasNet training ({len(ps1)} raycast voxel pairs): {TRAIN_STEPS} steps in "
-          f"{train_s:.2f} s with the pairs' build, loss first ten {first10:.4f} -> last ten "
-          f"{last10:.4f} (JAX package on the CPU: {MIXED_LOSS_REF[0]:.4f} -> "
+    print(f"BiasNet training ({len(ps1)} raycast voxel pairs, built in {pairs_s:.2f} s): "
+          f"{TRAIN_STEPS} compiled steps in {train_s:.2f} s, loss first ten {first10:.4f} -> "
+          f"last ten {last10:.4f} (JAX package on the CPU: {MIXED_LOSS_REF[0]:.4f} -> "
           f"{MIXED_LOSS_REF[1]:.4f}); "
           f"40-step patch case in {patch_s:.2f} s, loss {plosses[0]:.4f} -> {plosses[-1]:.4f} "
           f"(JAX package on the CPU: {PATCH_LOSS_REF[0]:.4f} -> {PATCH_LOSS_REF[1]:.4f})")
@@ -3025,8 +3509,8 @@ def main() -> int:
     train_step_ms = float(np.median(step_ms[5:]))
     print(f"BiasNet training: trained net vs training forward max |diff| {fwd_err:.3e}; bundled "
           f"s100 net MAE {mae:.4f} m through the encoder kernel ({mae_launches} launch); "
-          f"train_step {train_step_ms:.4f} ms (median of steps 6-{TIMED_STEPS}, CUDA events, "
-          f"batch 256, S = 100; {card})")
+          f"train_step {train_step_ms:.4f} ms (compiled; median of steps 6-{TIMED_STEPS}, CUDA "
+          f"events, batch 256, S = 100; {card}); {train_cmp}")
 
     # -- 16. the backbone kernels, then the 10,000-pose solve -----------------
     from icet_tpu_torch.ops.tridiag import (

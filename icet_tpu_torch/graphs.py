@@ -6,7 +6,8 @@
 ``keyframe_spawn_jit``, ``keyframe_sequence_jit``; ``solver.register_pair_jit``
 and ``pose_graph.close_loops``; ``mapping.map_update_jit``,
 ``map_step_jit``; ``pose_graph.optimize_poses`` and
-``optimize_poses_sparse``).
+``optimize_poses_sparse``; ``parallel.sharding.make_sharded_register`` and
+the process mesh's step; ``models.bias_net.train_step``).
 
 The JAX package compiles each of them once per static shape and config.
 Here a frame runs as a few CUDA graphs, captured once per ``(device, N,
@@ -41,6 +42,14 @@ start), ``cg`` (one CG iteration, replayed ``cg_iters`` times) and
 small graphs replayed many times, never one unrolled graph: it runs once
 a drive, and capturing its hundreds of CG iterations would cost the host
 about what running them eagerly does.
+
+A mesh row of the sharded step has a set of its own
+(:class:`ShardedGraphs`: the bucket count of the distributed clustering,
+the prepare in two branches chosen by one host read of the summed
+overflow, the iterations and the finish, each a list of steps split at
+the axis's collectives).  A training step is one graph of its own set
+(:class:`TrainGraphs`), held with its optimizer (dropped with it), one a
+device and batch shape.
 
 The stages themselves are plain functions of the buffers (``solver``'s
 ``_stage_*``, ``odometry``'s ``_stage_seed``/``_stage_glue``,
@@ -86,13 +95,17 @@ On CPU tensors the stages run as plain calls on the same buffers.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
+import weakref
 
 import torch
 
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, cached_image
+from icet_tpu_torch.ops.clustering import cluster_plan
 from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
 from icet_tpu_torch.ops.tridiag import tridiag_apply, tridiag_factor
 from icet_tpu_torch.solver import (
     IterationDiag,
@@ -106,15 +119,17 @@ from icet_tpu_torch.solver import (
 )
 
 #: the kernel wrappers whose launches a graph records and its replays count
-COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply)
+COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
+           moment_scatter_sums)
 #: launches of each counted wrapper made by warm-ups before a capture
 warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: host operations of the compiled path: graph replays, exit-flag reads,
-#: keyframe spawn-flag reads, device copies of inputs in and of packed
-#: results out, draws of the inserts' uniforms, the device operations that
-#: write a staged insert or a spawn into a block map; and graphs captured
-host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "copies": 0, "draws": 0,
-            "map_writes": 0, "captures": 0}
+#: keyframe spawn-flag reads, the sharded prepare's clustering-overflow
+#: reads, device copies of inputs in and of packed results out, draws of
+#: the inserts' uniforms, the device operations that write a staged insert
+#: or a spawn into a block map; and graphs captured
+host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "overflow_reads": 0,
+            "copies": 0, "draws": 0, "map_writes": 0, "captures": 0}
 
 _sync_debug_mode = None
 
@@ -388,6 +403,9 @@ class GraphSet:
     with one private memory pool and one capture stream on CUDA; a
     subclass makes the scratch buffers its warm-ups run on."""
 
+    #: ``torch.cuda.graph``'s ``capture_error_mode``
+    capture_mode = "global"
+
     def __init__(self, device: torch.device):
         self.device = device
         self._graphs: dict = {}
@@ -399,6 +417,12 @@ class GraphSet:
     def scratch(self):
         """The buffers of the warm-ups (made at first use)."""
         raise NotImplementedError
+
+    def counters(self) -> list:
+        """``(object, attribute)`` of every count a stage adds to on the host:
+        each counted wrapper's launches (a subclass adds its own).  A graph
+        records what its capture added, and each replay adds it again."""
+        return [(w, "launches") for w in COUNTED]
 
     def run(self, key, stage) -> None:
         """Run ``stage(buffers)``: on CUDA replay its graph (``key`` names
@@ -412,33 +436,38 @@ class GraphSet:
         graph, counts = entry
         graph.replay()
         host_ops["replays"] += 1
-        for wrapper, k in zip(COUNTED, counts):
-            wrapper.launches += k
+        for (obj, attr), k in zip(self.counters(), counts):
+            setattr(obj, attr, getattr(obj, attr) + k)
 
     def _capture(self, stage):
         scratch = self.scratch()
+        counters = self.counters()
+
+        def read():
+            return tuple(getattr(obj, attr) for obj, attr in counters)
+
         with torch.cuda.device(self.device):
-            before = tuple(w.launches for w in COUNTED)
+            before = read()
             self._stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
                 stage(scratch)
             torch.cuda.current_stream().wait_stream(self._stream)
-            warm = tuple(w.launches for w in COUNTED)
+            warm = read()
             for w, a, b in zip(COUNTED, before, warm):
                 warmup_launches[w.__name__] += b - a
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                      capture_error_mode=self.capture_mode):
                     with _debug_mode():
                         stage(self.buffers)
             except BaseException:
-                for key in [k for k, fg in _CACHE.items() if fg is self]:
-                    del _CACHE[key]
+                _forget(self)
                 raise
             finally:
-                counts = tuple(w.launches - k for w, k in zip(COUNTED, warm))
-                for w, k in zip(COUNTED, warm):
-                    w.launches = k
+                counts = tuple(v - k for v, k in zip(read(), warm))
+                for (obj, attr), k in zip(counters, warm):
+                    setattr(obj, attr, k)
         host_ops["captures"] += 1
         return graph, counts
 
@@ -579,13 +608,8 @@ class FrameGraphs(GraphSet):
     def result(self, iterations: int, want_static_mask: bool,
                n_iters: int | None = None) -> RegistrationResult:
         """The finished result of ``(n_iters, want_static_mask)`` (one copy)."""
-        b = self.buffers
-        key = (n_iters or self.cfg.n_iters, want_static_mask)
-        v = b.result_layout[key].views(clone_out(b.result_buf[key]))
-        diag = IterationDiag(**{k: v[k] for k in IterationDiag._fields})
-        return RegistrationResult(X=v["X"], pred_stds=v["pred_stds"], Q=v["Q"],
-                                  diagnostics=diag, static_mask=v["static_mask"],
-                                  iterations=iterations)
+        return packed_result(self.buffers, (n_iters or self.cfg.n_iters, want_static_mask),
+                             iterations)
 
     def prepared(self) -> VoxelModel:
         b = self.buffers
@@ -594,6 +618,15 @@ class FrameGraphs(GraphSet):
     def model_copy(self) -> VoxelModel:
         b = self.buffers
         return VoxelModel(**b.model_layout.views(clone_out(b.model_buf)))
+
+
+def packed_result(b: FrameBuffers, key: tuple, iterations: int) -> RegistrationResult:
+    """The result buffer ``key = (n_iters, static mask)`` of ``b`` as a
+    :class:`RegistrationResult` of views of one copy."""
+    v = b.result_layout[key].views(clone_out(b.result_buf[key]))
+    diag = IterationDiag(**{k: v[k] for k in IterationDiag._fields})
+    return RegistrationResult(X=v["X"], pred_stds=v["pred_stds"], Q=v["Q"], diagnostics=diag,
+                              static_mask=v["static_mask"], iterations=iterations)
 
 
 def copy_in(dst: torch.Tensor, src) -> None:
@@ -675,15 +708,241 @@ def pose_graphs(device, k: int, f: int, cg_iters: int, precond: str,
     return pg
 
 
+class ShardBuffers:
+    """One point shard's static buffers on its device, for the compiled
+    sharded step: both scans' shard, the replicated state it reads (X,
+    bounds, anchors, correspondences), its moment sums, static-mask slice
+    and the distributed clustering's buckets, the points it sends to the
+    gather, the buckets it received and its table of owned voxels."""
+
+    def __init__(self, device: torch.device, local: int, n: int, cfg: ICETConfig,
+                 shards: int):
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        v1 = cfg.n_voxels + 1
+        vps, cap = cluster_plan(n, cfg.n_voxels, shards)
+        #: the shard's position in the local list (its axis index is the axis's)
+        self.local = local
+        self.scan1, self.scan2 = z(n, 3), z(n, 3)
+        self.X, self.bounds, self.anchors = z(6), z(v1, 2), z(v1, 3)
+        self.corr = z(v1, dtype=torch.bool)
+        self.sums = z(v1, 16)
+        self.mask = z(n, dtype=torch.bool)
+        self.sends, self.recv = (z(shards, cap, 2, dtype=torch.int32) for _ in range(2))
+        self.overflow = z(dtype=torch.int64)
+        self.points = z(n, 2, dtype=torch.int32)
+        self.table = z(vps, 3)
+
+
+class RowBuffers(FrameBuffers):
+    """A sharded pair's replicated buffers on the axis device: a frame's
+    (the model, the Gauss-Newton state, the diagnostics, the results over
+    all ``sp`` shards' points) and the summed moments, the clustering's
+    overflow flag, gathered points and tables, and the clusters found."""
+
+    def __init__(self, device: torch.device, n: int, cfg: ICETConfig, shards: int):
+        super().__init__(device, n * shards, cfg)
+        v1 = cfg.n_voxels + 1
+        vps, _ = cluster_plan(n, cfg.n_voxels, shards)
+        self.sums = torch.zeros((v1, 16), dtype=torch.float32, device=device)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
+        self.points = torch.zeros((n * shards, 2), dtype=torch.int32, device=device)
+        self.tables = torch.zeros((vps * shards, 3), dtype=torch.float32, device=device)
+        self.found = torch.zeros(v1, dtype=torch.bool, device=device)
+
+
+class ShardedBuffers:
+    """The static buffers of one mesh row: a :class:`ShardBuffers` a local
+    shard (``shards``) and the replicated :class:`RowBuffers` (``rep``) on
+    the first local shard's device, the axis's."""
+
+    def __init__(self, devices, n: int, cfg: ICETConfig, shards: int):
+        self.shards = [ShardBuffers(d, i, n, cfg, shards) for i, d in enumerate(devices)]
+        self.rep = RowBuffers(devices[0], n, cfg, shards)
+
+
+def _run_steps(b: ShardedBuffers, steps) -> None:
+    for kind, fn in steps:
+        if kind == "shard":
+            for sh in b.shards:
+                fn(sh)
+        elif kind == "rep":
+            fn(b.rep)
+        else:
+            fn(b)
+
+
+class _PartGraphs(GraphSet):
+    """The graphs of one part of a split row: one shard's, on its device,
+    or the replicated part's, on the axis device."""
+
+    def __init__(self, device: torch.device, buffers, scratch):
+        super().__init__(device)
+        self.buffers = buffers
+        self._make_scratch = scratch
+
+    def scratch(self):
+        return self._make_scratch()
+
+
+class ShardedGraphs(GraphSet):
+    """The graphs of one mesh row's compiled sharded step: the row's local
+    shard ``devices`` (one a local shard), the replicated math on the
+    first of them (the axis's device), ``n`` points a shard, ``shards``
+    shards on the axis.
+
+    A stage is a list of steps ``(kind, fn)``: ``"shard"`` runs
+    ``fn(shard buffers)`` on every local shard, ``"rep"`` runs ``fn(rep
+    buffers)``, ``"join"`` runs ``fn(all buffers)`` (the axis's collectives
+    and the copies between shards and ``rep``).  Where every device is one
+    device (repeats of one card; a process's one shard) the whole stage is
+    one graph: the shards' moments passes and the axis's collectives are
+    device operations on one stream.  Where the row holds distinct devices
+    (``split``) no capture spans two devices: each shard step is a graph a
+    shard on its own device (a plain call on a CPU shard), each replicated
+    step a graph on the axis's device, and the joins run between the
+    replays.
+
+    ``axis`` is bound by the caller before each pair; the collectives a
+    graph captured are added to the bound axis's counts at each replay.
+    Captures run in ``thread_local`` mode: a process group's watchdog
+    thread queries its events while a capture is open."""
+
+    capture_mode = "thread_local"
+
+    def __init__(self, devices, n: int, cfg: ICETConfig, shards: int):
+        self.devices = tuple(_canonical(d) for d in devices)
+        super().__init__(self.devices[0])
+        self.n, self.cfg, self.shards = n, cfg, shards
+        self.split = len(set(self.devices)) > 1
+        self.buffers = ShardedBuffers(self.devices, n, cfg, shards)
+        self.axis = None
+        if self.split:
+            self._parts = [_PartGraphs(d, sh, lambda i=i: self.scratch().shards[i])
+                           for i, (d, sh) in enumerate(zip(self.devices, self.buffers.shards))]
+            self._rep = _PartGraphs(self.device, self.buffers.rep, lambda: self.scratch().rep)
+
+    def scratch(self) -> ShardedBuffers:
+        if self._scratch is None:
+            self._scratch = ShardedBuffers(self.devices, self.n, self.cfg, self.shards)
+        return self._scratch
+
+    def counters(self) -> list:
+        return super().counters() + [(self.axis, "collectives"), (self.axis, "bytes")]
+
+    def stage(self, key, steps) -> None:
+        """Run one stage (see the class); ``key`` names its graphs."""
+        if not self.split:
+            self.run(key, lambda b: _run_steps(b, steps))
+            return
+        for k, (kind, fn) in enumerate(steps):
+            if kind == "shard":
+                for part in self._parts:
+                    part.run((key, k), fn)
+            elif kind == "rep":
+                self._rep.run((key, k), fn)
+            else:
+                fn(self.buffers)
+
+
+class TrainBuffers:
+    """One training step's static buffers: the module and the optimizer's
+    parameters and ``(step, exp_avg, exp_avg_sq)`` slots (the caller's own
+    tensors, or a scratch twin's), the batch, the Adam constants (``(-lr,
+    b1, b2, eps, 1 - b1, 1 - b2)``) and the loss."""
+
+    def __init__(self, model, params, slots, x_shape, y_shape, device):
+        self.model, self.params, self.slots = model, params, slots
+        self.x = torch.zeros(x_shape, dtype=torch.float32, device=device)
+        self.y = torch.zeros(y_shape, dtype=torch.float32, device=device)
+        self.hyper = torch.zeros(6, dtype=torch.float32, device=device)
+        self.loss = torch.zeros((), dtype=torch.float32, device=device)
+
+
+class TrainGraphs(GraphSet):
+    """The training step's graph for one module, optimizer state and batch
+    shape.  Its warm-up runs on a scratch twin: a copy of the module and
+    zeroed slots, so the caller's parameters and optimizer state move only
+    when the graph replays.  The Adam constants are a buffer, so the graph
+    serves any learning rate."""
+
+    def __init__(self, device: torch.device, model, params, slots, x_shape, y_shape):
+        super().__init__(device)
+        self.buffers = TrainBuffers(model, params, slots, x_shape, y_shape, device)
+        #: the constants the buffer holds
+        self._hyper = None
+
+    def over(self, model, params, slots) -> bool:
+        """Whether the set's buffers are ``model`` and these very tensors."""
+        b = self.buffers
+        return (b.model is model and len(b.params) == len(params)
+                and all(a is t for a, t in zip(b.params, params))
+                and all(a is t for sa, st in zip(b.slots, slots) for a, t in zip(sa, st)))
+
+    def scratch(self) -> TrainBuffers:
+        if self._scratch is None:
+            b = self.buffers
+            model = copy.deepcopy(b.model)
+            names = {id(p): n for n, p in b.model.named_parameters()}
+            twin = dict(model.named_parameters())
+            params = [twin[names[id(p)]] for p in b.params]
+            slots = [tuple(torch.zeros_like(t) for t in slot) for slot in b.slots]
+            self._scratch = TrainBuffers(model, params, slots, b.x.shape, b.y.shape,
+                                         self.device)
+        self._scratch.hyper.copy_(self.buffers.hyper)
+        return self._scratch
+
+    def load(self, inputs, targets, hyper: tuple) -> None:
+        """Copy the batch in, and the Adam constants where they changed."""
+        copy_in(self.buffers.x, inputs)
+        copy_in(self.buffers.y, targets)
+        if hyper != self._hyper:
+            copy_in(self.buffers.hyper, torch.tensor(hyper, dtype=torch.float32))
+            self._hyper = hyper
+
+
+#: the training sets of each optimizer (``{optimizer: {(device, x shape, y
+#: shape): TrainGraphs}}``), dropped with the optimizer
+_TRAIN: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def train_graphs(opt, model, params, slots, x_shape, y_shape) -> TrainGraphs:
+    """The training set of the optimizer ``opt`` for ``model``, its
+    ``params`` and ``slots`` and a batch of ``x_shape``/``y_shape`` (made at
+    first use).  It lives as long as ``opt``: one a device and batch shape,
+    replaced when the module or the tensors it was captured over are no
+    longer these (a ``load_state_dict``, a new module)."""
+    sets = _TRAIN.setdefault(opt, {})
+    key = (_canonical(params[0].device), tuple(x_shape), tuple(y_shape))
+    tg = sets.get(key)
+    if tg is None or not tg.over(model, params, slots):
+        tg = sets[key] = TrainGraphs(key[0], model, params, slots, x_shape, y_shape)
+    return tg
+
+
+def _forget(gs: GraphSet) -> None:
+    """Drop ``gs`` from the caches."""
+    for key in [k for k, v in _CACHE.items() if v is gs]:
+        del _CACHE[key]
+    for sets in list(_TRAIN.values()):
+        for key in [k for k, v in sets.items() if v is gs]:
+            del sets[key]
+
+
 def clear(device=None) -> None:
-    """Drop the cached graph sets, frame and pose-graph sets alike (of
-    ``device`` only, if given); the next call captures anew."""
+    """Drop the cached graph sets, frame, pose-graph and training sets alike
+    (of ``device`` only, if given); the next call captures anew."""
     dev = None if device is None else _canonical(device)
     for key in [k for k in _CACHE if dev is None or k[0] == dev]:
         del _CACHE[key]
+    for sets in list(_TRAIN.values()):
+        for key in [k for k in sets if dev is None or k[0] == dev]:
+            del sets[key]
 
 
 __all__ = ["COUNTED", "MAP_OUT_LAYOUT", "FrameBuffers", "FrameGraphs", "GraphSet", "Layout",
-           "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "clear", "clone_out",
-           "copy_in", "dnn_phases", "frame_graphs", "host_ops", "pose_graphs", "result_iters",
-           "sync_debug", "warmup_launches"]
+           "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "RowBuffers", "ShardBuffers",
+           "ShardedBuffers", "ShardedGraphs", "TrainBuffers", "TrainGraphs", "clear", "clone_out",
+           "copy_in", "dnn_phases", "frame_graphs", "host_ops", "packed_result", "pose_graphs",
+           "result_iters", "sync_debug", "train_graphs", "warmup_launches"]

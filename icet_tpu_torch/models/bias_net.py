@@ -17,10 +17,15 @@ Training (:class:`TrainableBiasNet`, :func:`train_step`,
 :func:`train_bias_net`) follows the JAX package's flax forward
 (``BiasNet.__call__``), as the JAX package trains through ``model.apply``
 and never through its Pallas kernel: float32 parameters, bf16 Dense and
-LayerNorm, autograd for the backward, ``torch.optim.Adam`` with optax's
-constants.  :func:`to_serving` turns a trained net into the inference
-module.  Random draws come from an explicit ``torch.Generator``; they are
-not the JAX package's ``jax.random`` draws.
+LayerNorm, autograd for the backward, and ``optax.adam``'s update applied
+as plain tensor ops to the slots of a ``torch.optim.Adam`` (its
+``exp_avg``, ``exp_avg_sq`` and ``step``), so the optimizer's state keeps
+its format.  :func:`train_step` (the JAX package's jitted ``train_step``)
+is one CUDA graph a step on the card, captured per optimizer and batch
+shape (``graphs.TrainGraphs``); :func:`train_step_eager` runs the
+same step op by op.  :func:`to_serving` turns a trained net into the
+inference module.  Random draws come from an explicit ``torch.Generator``;
+they are not the JAX package's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -208,7 +213,9 @@ def _init_params(net: TrainableBiasNet, generator: torch.Generator) -> None:
 class TrainState:
     """A training run's state.  ``model`` and ``opt`` are updated in place
     by :func:`train_step` (the JAX package returns new pytrees instead);
-    ``step`` counts the steps taken."""
+    ``step`` counts the steps taken.  ``opt`` is a ``torch.optim.Adam``
+    (no weight decay, amsgrad or maximize): the steps read its
+    hyperparameters and keep their moments in its state."""
 
     model: TrainableBiasNet
     opt: torch.optim.Optimizer
@@ -239,14 +246,90 @@ def mae_loss(model: nn.Module, inputs: torch.Tensor, targets: torch.Tensor) -> t
     return torch.mean(torch.abs(model(inputs) - targets))
 
 
+def _adam_slots(opt: torch.optim.Optimizer):
+    """``(params, slots, constants)`` of an Adam optimizer: its parameters
+    in group order, each one's ``(step, exp_avg, exp_avg_sq)`` (made at
+    first use, ``step`` a float32 tensor on the parameter's device), and
+    the one group's ``optax.adam`` constants ``(-lr, b1, b2, eps, 1 - b1,
+    1 - b2)``, computed in double as optax's Python scalars are."""
+    if len(opt.param_groups) != 1:
+        raise ValueError("train_step takes an optimizer with one parameter group")
+    group = opt.param_groups[0]
+    if (group.get("weight_decay", 0.0) or group.get("amsgrad", False)
+            or group.get("maximize", False)):
+        raise ValueError("train_step applies optax.adam: no weight decay, amsgrad or maximize")
+    params, slots = group["params"], []
+    for p in params:
+        st = opt.state[p]
+        if not st:
+            st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        elif st["step"].device != p.device or st["step"].dtype != torch.float32:
+            st["step"] = st["step"].to(device=p.device, dtype=torch.float32)
+        slots.append((st["step"], st["exp_avg"], st["exp_avg_sq"]))
+    b1, b2 = (float(b) for b in group["betas"])
+    return params, slots, (-float(group["lr"]), b1, b2, float(group["eps"]), 1.0 - b1, 1.0 - b2)
+
+
+def _adam_step(model, params, slots, inputs, targets, hyper: torch.Tensor) -> torch.Tensor:
+    """The loss and gradients of one batch, then ``optax.adam``'s update in
+    its order of operations, in place: ``mu = (1 - b1) g + b1 mu``, ``nu =
+    (1 - b2) g^2 + b2 nu``, the bias corrections at the incremented count
+    (float32 on the device, as optax computes them), ``p + (-lr) mu_hat /
+    (sqrt(nu_hat) + eps)``.  ``hyper`` holds :func:`_adam_slots`' constants
+    as a float32 tensor on the device, so one captured step serves any
+    learning rate.  Returns the loss (0-d, detached).  Nothing is read back
+    to the host, so a CUDA graph can hold it."""
+    neg_lr, b1, b2, eps, c1, c2 = hyper.unbind()
+    loss = mae_loss(model, inputs, targets)
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g, (step, m, v) in zip(params, grads, slots):
+            m.copy_(c1 * g + b1 * m)
+            v.copy_(c2 * (g * g) + b2 * v)
+            step.add_(1.0)
+            m_hat = m / (1.0 - torch.pow(b1, step))
+            v_hat = v / (1.0 - torch.pow(b2, step))
+            p.add_((m_hat / (torch.sqrt(v_hat) + eps)) * neg_lr)
+    return loss.detach()
+
+
 def train_step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
-    """One Adam step on the batch; returns ``(state, loss)``, the loss a 0-d
-    tensor on the model's device (no read back to the host)."""
-    state.opt.zero_grad(set_to_none=True)
-    loss = mae_loss(state.model, inputs, targets)
-    loss.backward()
-    state.opt.step()
-    return dataclasses.replace(state, step=state.step + 1), loss.detach()
+    """One Adam step on the batch (the JAX package's jitted ``train_step``);
+    returns ``(state, loss)``, the loss a 0-d tensor on the model's device
+    (no read back to the host).
+
+    On the card the forward, the autograd backward and the update are one
+    CUDA graph, captured at first use per batch shape and held with the
+    optimizer (``graphs.train_graphs``; its warm-up runs on a scratch twin,
+    so the caller's state moves only in the replay); the batch is copied
+    into the graph's buffers, the Adam constants only when they change, and
+    the loss cloned out.  On the CPU the same stage runs as a plain call:
+    equal to :func:`train_step_eager` bit for bit."""
+    from icet_tpu_torch import graphs
+
+    params, slots, hyper = _adam_slots(state.opt)
+    tg = graphs.train_graphs(state.opt, state.model, params, slots, inputs.shape,
+                             targets.shape)
+    tg.load(inputs, targets, hyper)
+    tg.run(("step",), _train_stage)
+    return dataclasses.replace(state, step=state.step + 1), graphs.clone_out(tg.buffers.loss)
+
+
+def _train_stage(b) -> None:
+    """The captured stage: one :func:`_adam_step` on the buffers of a
+    ``graphs.TrainBuffers``, the loss into its static ``loss``."""
+    b.loss.copy_(_adam_step(b.model, b.params, b.slots, b.x, b.y, b.hyper))
+
+
+def train_step_eager(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor):
+    """:func:`train_step` op by op on the caller's tensors: the plain
+    version the captured step is held to."""
+    params, slots, hyper = _adam_slots(state.opt)
+    hyper = torch.tensor(hyper, dtype=torch.float32, device=params[0].device)
+    loss = _adam_step(state.model, params, slots, inputs, targets, hyper)
+    return dataclasses.replace(state, step=state.step + 1), loss
 
 
 def make_patch_batch(

@@ -8,14 +8,15 @@ block.  Both give the same :class:`OdometryFrame` records.  With
 runner refuses it, as the JAX package's does.  The pipeline survives a
 failed step (:meth:`OdometryPipeline.step`).
 
-Where ``solver.compiled_route(cfg)`` holds (the fused or plain moment
-route), both run the compiled step: the pipeline
+Where ``solver.compiled_route(cfg)`` holds (every moment route: fused,
+plain, scatter and one-hot), both run the compiled step: the pipeline
 :func:`~icet_tpu_torch.solver.odometry_step_jit` a frame (with the filter
 :func:`~icet_tpu_torch.filters.odometry_step_dnn_jit`), the sequence
 runner :func:`odometry_sequence_jit` a block, whose warm start, divergence
-guard, world pose and model hand-over are captured graphs too.  Other
-configs run the eager steps.  The choice is made from the config, never
-as a fallback on failure.
+guard, world pose and model hand-over are captured graphs too.  The eager
+steps stay as the plain version the compiled ones are held to (reached
+where ``compiled_route`` is forced False).  The choice is made from the
+config, never as a fallback on failure.
 """
 
 from __future__ import annotations

@@ -12,6 +12,14 @@ iteration; the solver's shard math is the one it runs in-process
 (:mod:`icet_tpu_torch.parallel.sharding`), given :class:`GroupAxis` as its
 ``axis``.
 
+The step is compiled (the in-process mesh's ``sharding.sharded_pair``
+stages over a ``graphs.ShardedGraphs`` set on this process's device, the
+NCCL collectives inside the graphs, each warmed up once before its
+capture) on an NCCL group, and on no other backend.  A gloo group stages
+CUDA tensors through the host (:class:`GroupAxis`), which no graph can
+hold: there, as on any backend but NCCL, the step takes the eager
+functions, decided from the group's backend before any launch.
+
 Several ranks on one card: NCCL refuses two ranks on the same GPU, so such
 a run takes ``backend="gloo"`` on CUDA tensors (every collective is
 staged through the host).  The moments kernel is a cooperative launch with
@@ -30,9 +38,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.device import resolve_device
-from icet_tpu_torch.parallel.sharding import stack_results
+from icet_tpu_torch.parallel.sharding import sharded_pair, stack_results
 from icet_tpu_torch.solver import register_pair_impl
 
 
@@ -134,7 +143,10 @@ class ProcessMesh:
     """The global ``(dp, sp)`` mesh of processes: rank ``row * sp + col``.
 
     Every process builds the same groups in the same order (the row groups,
-    then the column groups), as ``dist.new_group`` requires."""
+    then the column groups), as ``dist.new_group`` requires.  ``compiled``:
+    whether the registration step runs as captured graphs (on NCCL only);
+    the graph sets of this process's row are kept here, one a ``(points a
+    shard, cfg)``."""
 
     axis_names = ("dp", "sp")
 
@@ -144,6 +156,8 @@ class ProcessMesh:
         self.rank = dist.get_rank()
         self.row, self.col = divmod(self.rank, sp)
         backend = dist.get_backend()
+        self.compiled = backend == "nccl"
+        self._sets: dict = {}
         rows = [[r * sp + c for c in range(sp)] for r in range(dp)]
         cols = [[r * sp + c for r in range(dp)] for c in range(sp)]
         for ranks in rows + cols:
@@ -162,6 +176,15 @@ class ProcessMesh:
         if name == "dp":
             return self._dp
         raise ValueError(f"no mesh axis {name!r}")
+
+    def row_graphs(self, n: int, cfg: ICETConfig):
+        """The graph set of this process's shard of ``n`` points (made at
+        first use)."""
+        sg = self._sets.get((n, cfg))
+        if sg is None:
+            sg = self._sets[(n, cfg)] = graphs.ShardedGraphs((self.device,), n, cfg,
+                                                             self.shape["sp"])
+        return sg
 
 
 def global_registration_mesh(sp: int | None = None, device=None) -> ProcessMesh:
@@ -216,13 +239,20 @@ def run_distributed_registration(
     device; ``static_mask`` covers this rank's point slice), and
     ``local_slice`` says which rows of the global batch they are.  Every
     rank of a row takes the same number of iterations: the exit decision
-    reads the all-reduced values only."""
+    reads the all-reduced values only.  On NCCL each pair runs the compiled
+    step (``mesh.compiled``); on gloo (or any other backend) the eager
+    ``register_pair_impl``."""
     if mesh is None:
         mesh = global_registration_mesh()
     s1, s2, x0 = global_scan_batch(scans1_local, scans2_local, x0s_local, mesh)
     axis = mesh.axis("sp")
-    res = stack_results([register_pair_impl([s1[b]], [s2[b]], x0[b], cfg, axis=axis)
-                         for b in range(s1.shape[0])], mesh.device)
+    if mesh.compiled:
+        sg = mesh.row_graphs(s1.shape[1], cfg)
+        pairs = [sharded_pair(sg, axis, [s1[b]], [s2[b]], x0[b]) for b in range(s1.shape[0])]
+    else:
+        pairs = [register_pair_impl([s1[b]], [s2[b]], x0[b], cfg, axis=axis)
+                 for b in range(s1.shape[0])]
+    res = stack_results(pairs, mesh.device)
     b_local = s1.shape[0]
     return res, slice(mesh.row * b_local, (mesh.row + 1) * b_local)
 

@@ -82,7 +82,8 @@ def best_mesh_shape(n_devices: int, prefer_dp: int) -> tuple[int, int]:
 class ElasticRegistrationRunner:
     """Sharded batched registration that survives device loss.
 
-    Usage::
+    Each mesh runs the compiled step (``sharding.make_sharded_register``);
+    a rebuild or :meth:`refresh` drops the old mesh's graph sets.  Usage::
 
         runner = ElasticRegistrationRunner(cfg, prefer_dp=2)
         res = runner.run(scans1, scans2, x0s)   # (B, N, 3) host arrays
@@ -109,14 +110,22 @@ class ElasticRegistrationRunner:
         self.max_retries = max_retries
         self.rebuilds = 0
         self._devices = list(devices) if devices else _local_devices()
+        #: the compiled step of ``mesh`` (``sharding.ShardedRegister``)
+        self.sharded = None
         self._build()
 
     def _build(self) -> None:
+        """The mesh of the healthy devices and its compiled step; the old
+        mesh's graph sets are dropped, and the new step captures its own at
+        first use."""
         if not self._devices:
             raise RuntimeError("no healthy devices remain")
+        if self.sharded is not None:
+            self.sharded.clear()
         dp, sp = best_mesh_shape(len(self._devices), self.prefer_dp)
         self.mesh = registration_mesh(dp=dp, sp=sp, devices=self._devices[: dp * sp])
-        self._step = make_sharded_register(self.cfg, self.mesh)
+        self.sharded = make_sharded_register(self.cfg, self.mesh)
+        self._step = self.sharded
 
     def refresh(self, devices=None) -> None:
         """Re-probe ``devices`` (default: every local CUDA device) and

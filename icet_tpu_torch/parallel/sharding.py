@@ -17,6 +17,17 @@ several, as the JAX package's tests use 8 virtual CPU devices.  The shard
 axis object, :class:`DeviceAxis`, is what the solver takes as ``axis``;
 the multi-process mesh (:mod:`icet_tpu_torch.parallel.distributed`)
 supplies its own, so the shard math is written once, in the solver.
+
+:func:`make_sharded_register` (the JAX package's ``jax.jit(shard_map(...))``)
+runs each pair as captured stages (:func:`sharded_pair` over a
+``graphs.ShardedGraphs`` set a mesh row): the clustering's bucket count,
+the prepare (one of two captured branches, chosen by one host read of the
+summed overflow, the JAX package's ``lax.cond``), the Gauss-Newton
+iterations (one host read of the exit flag each, as the unsharded
+compiled solve) and the finish.  The stages are the solver's shard math,
+split at the axis's collectives; on the CPU they run as plain calls, and
+equal :func:`make_sharded_register_eager` (``register_pair_impl`` with the
+axis, pair by pair) bit for bit.
 """
 
 from __future__ import annotations
@@ -26,9 +37,31 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from icet_tpu_torch import graphs, solver
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.device import resolve_device
-from icet_tpu_torch.solver import IterationDiag, RegistrationResult, register_pair_impl
+from icet_tpu_torch.ops.clustering import (
+    ClusterResult,
+    cluster_buckets,
+    cluster_plan,
+    cluster_points,
+    cluster_table,
+    clusters_of_points,
+    clusters_of_tables,
+)
+from icet_tpu_torch.ops.geometry import cart_to_spherical
+from icet_tpu_torch.ops.grid import voxel_anchors, voxel_ids
+from icet_tpu_torch.solver import (
+    IterationDiag,
+    RegistrationResult,
+    exit_schedule,
+    finish_result,
+    fixed_clusters,
+    iteration_from_sums,
+    model_from_sums,
+    register_pair_impl,
+    static_mask_of,
+)
 
 
 class DeviceAxis:
@@ -169,8 +202,234 @@ def stack_results(results: list, device) -> RegistrationResult:
     )
 
 
-def make_sharded_register(cfg: ICETConfig, mesh: Mesh):
-    """A batched, point-sharded registration step over ``mesh``.
+# ---------------------------------------------------------------------------
+# The compiled sharded step
+# ---------------------------------------------------------------------------
+#
+# Each stage is a list of steps over a row's buffers (graphs.ShardedBuffers):
+# "shard" steps read and write one shard's buffers on its device, "rep"
+# steps the replicated buffers on the axis device, and "join" steps move
+# data between them through the axis (``sg.axis``, bound for each pair).
+# Python-level branches depend on the config alone.
+
+
+def _moments_steps(sg, cfg: ICETConfig, scan: str) -> list:
+    """Every shard's moments pass of scan ``scan`` at its ``X``, then the
+    sum over the axis into ``rep.sums``."""
+
+    def sums(sh):
+        sh.sums.copy_(solver._moment_sums(getattr(sh, scan), sh.X, sh.bounds, sh.anchors, cfg))
+
+    def total(b):
+        b.rep.sums.copy_(sg.axis.psum([sh.sums for sh in b.shards]))
+
+    return [("shard", sums), ("join", total)]
+
+
+def _x_to_shards(src: str):
+    def join(b):
+        for sh in b.shards:
+            sh.X.copy_(getattr(b.rep, src))
+    return ("join", join)
+
+
+def _count_steps(sg, cfg: ICETConfig) -> list:
+    """The distributed clustering's buckets on every shard and their summed
+    overflow, left as a flag in ``rep.overflow``."""
+    vps, cap = cluster_plan(sg.n, cfg.n_voxels, sg.shards)
+
+    def bucket(sh):
+        rtp = cart_to_spherical(sh.scan1)
+        r = rtp[..., 0]
+        vid, ok = voxel_ids(rtp, cfg), r >= cfg.min_range
+        sends, overflow = cluster_buckets(vid, r, ok, cfg.n_voxels, sg.shards, vps, cap)
+        sh.sends.copy_(sends)
+        sh.overflow.copy_(overflow)
+        sh.points.copy_(cluster_points(vid, r, ok, cfg.n_voxels))
+
+    def total(b):
+        torch.gt(sg.axis.psum([sh.overflow for sh in b.shards]), 0, out=b.rep.overflow)
+
+    return [("shard", bucket), ("join", total)]
+
+
+def _prepare_steps(sg, cfg: ICETConfig, branch: str) -> list:
+    """Scan 1's model into ``rep.model``: the clusters by ``branch``
+    (``"gather"``: the whole cloud gathered; ``"sharded"``: the buckets
+    exchanged and each shard's voxels clustered where they live;
+    ``"fixed"``: fixed radial mode's shells), the anchors, the moments at X
+    = 0 and the replicated finalize."""
+    vps, _ = cluster_plan(sg.n, cfg.n_voxels, sg.shards)
+    args = (cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer)
+
+    def keep(rep, cl):
+        rep.model.bounds.copy_(cl.bounds)
+        rep.found.copy_(cl.found)
+        rep.model.anchors.copy_(voxel_anchors(cl.bounds, cfg))
+
+    if branch == "gather":
+        def gather(b):
+            b.rep.points.copy_(sg.axis.all_gather([sh.points for sh in b.shards]))
+        steps = [("join", gather),
+                 ("rep", lambda rep: keep(rep, clusters_of_points(rep.points, cfg.n_voxels,
+                                                                  *args)))]
+    elif branch == "sharded":
+        def exchange(b):
+            for sh, recv in zip(b.shards, sg.axis.all_to_all([sh.sends for sh in b.shards])):
+                sh.recv.copy_(recv)
+
+        def table(sh):
+            sh.table.copy_(cluster_table(sh.recv, sg.axis.index[sh.local], vps, *args))
+
+        def tables(b):
+            b.rep.tables.copy_(sg.axis.all_gather([sh.table for sh in b.shards]))
+
+        steps = [("join", exchange), ("shard", table), ("join", tables),
+                 ("rep", lambda rep: keep(rep, clusters_of_tables(rep.tables, cfg.n_voxels)))]
+    else:
+        steps = [("rep", lambda rep: keep(rep, fixed_clusters(cfg, rep.X.device)))]
+
+    def to_shards(b):
+        for sh in b.shards:
+            sh.bounds.copy_(b.rep.model.bounds)
+            sh.anchors.copy_(b.rep.model.anchors)
+            sh.X.zero_()
+
+    def finalize(rep):
+        m = rep.model
+        model = model_from_sums(rep.sums, ClusterResult(m.bounds, rep.found), m.anchors, cfg)
+        for dst, src in zip(m, model):
+            dst.copy_(src)
+
+    return steps + [("join", to_shards), *_moments_steps(sg, cfg, "scan1"), ("rep", finalize)]
+
+
+def _iteration_steps(sg, cfg: ICETConfig, it: int, first: bool) -> list:
+    """Gauss-Newton iteration ``it`` of scan 2: from ``rep.x0`` with the cold
+    6x6 eigendecomposition (``first``), else from ``rep.X`` and ``rep.U2``."""
+    src = "x0" if first else "X"
+
+    def math(rep):
+        if first:
+            rep.it.zero_()
+        out = iteration_from_sums(rep.model, rep.sums, getattr(rep, src), it, cfg, None,
+                                  None if first else rep.U2)
+        solver._commit(rep, cfg, *out[:6])
+
+    return [_x_to_shards(src), *_moments_steps(sg, cfg, "scan2"), ("rep", math)]
+
+
+def _finish_steps(sg, cfg: ICETConfig) -> list:
+    """The finish (``solver._stage_finish`` over the shards): the range
+    sensitivity's moments pass where ``range_sigma > 0``, the predicted
+    covariance and diagnostics, and each shard's slice of the static mask
+    gathered in shard order."""
+    n_it = cfg.n_iters
+    steps = []
+    if cfg.range_sigma > 0.0:
+        steps += [_x_to_shards("X"), *_moments_steps(sg, cfg, "scan2")]
+
+    def math(rep):
+        sens = None
+        if cfg.range_sigma > 0.0:
+            sens = iteration_from_sums(rep.model, rep.sums, rep.X, n_it - 1, cfg, None, rep.U2,
+                                       want_range_sens=True)
+        finish_result(rep, cfg, True, sens)
+
+    def to_shards(b):
+        for sh in b.shards:
+            sh.X.copy_(b.rep.X)
+            sh.corr.copy_(b.rep.corr)
+
+    def mask(sh):
+        sh.mask.copy_(static_mask_of(sh.scan2, sh.X, sh.bounds, sh.corr, cfg))
+
+    def gather(b):
+        dev = b.rep.X.device
+        b.rep.result[(n_it, True)]["static_mask"].copy_(
+            torch.cat([sh.mask.to(dev) for sh in b.shards]))
+
+    return steps + [("rep", math), ("join", to_shards), ("shard", mask), ("join", gather)]
+
+
+def sharded_pair(sg, axis, scans1: list, scans2: list, x0: torch.Tensor) -> RegistrationResult:
+    """``register_pair_impl(scans1, scans2, x0, cfg, axis)`` (the local
+    shards of one pair) through the row's graph set ``sg``: the inputs
+    copied into its buffers, the staged prepare and solve, the result (with
+    its static mask) one copy of its packed buffer on the axis device."""
+    cfg = sg.cfg
+    sg.axis = axis
+    b = sg.buffers
+    for sh, s1, s2 in zip(b.shards, scans1, scans2):
+        graphs.copy_in(sh.scan1, s1)
+        graphs.copy_in(sh.scan2, s2)
+    graphs.copy_in(b.rep.x0, x0)
+    branch = "fixed"
+    if cfg.radial_mode != "fixed":
+        sg.stage(("count",), _count_steps(sg, cfg))
+        graphs.host_ops["overflow_reads"] += 1
+        branch = "gather" if bool(b.rep.overflow) else "sharded"
+    sg.stage(("prepare", branch), _prepare_steps(sg, cfg, branch))
+
+    early, min_it = exit_schedule(cfg)
+
+    def rm(it):
+        return cfg.remove_moving and it >= cfg.rm_start_iter
+
+    sg.stage(("first", rm(0)), _iteration_steps(sg, cfg, 0, True))
+    it = 1
+    while it < cfg.n_iters:
+        if early and it >= min_it:
+            graphs.host_ops["flag_reads"] += 1
+            if not bool(b.rep.go):
+                break
+        sg.stage(("warm", rm(it)), _iteration_steps(sg, cfg, it, False))
+        it += 1
+    sg.stage(("finish", rm(cfg.n_iters - 1)), _finish_steps(sg, cfg))
+    return graphs.packed_result(b.rep, (cfg.n_iters, True), it)
+
+
+class ShardedRegister:
+    """The compiled sharded step :func:`make_sharded_register` returns:
+    ``step(scans1, scans2, x0s)``.  It holds a graph set a mesh row
+    (``sets``, keyed by the row's devices and its points a shard), made at
+    first use; :meth:`clear` drops them."""
+
+    def __init__(self, cfg: ICETConfig, mesh: Mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.sets: dict = {}
+
+    def row_graphs(self, row: int, n: int):
+        devices = tuple(self.mesh.devices[row])
+        key = (devices, n)
+        sg = self.sets.get(key)
+        if sg is None:
+            sg = self.sets[key] = graphs.ShardedGraphs(devices, n, self.cfg, len(devices))
+        return sg
+
+    def clear(self) -> None:
+        self.sets.clear()
+
+    def __call__(self, scans1, scans2, x0s) -> RegistrationResult:
+        batch = _batch(scans1, scans2, x0s, self.mesh)
+        results = []
+        for r in range(self.mesh.devices.shape[0]):
+            axis = self.mesh.axis("sp", r)
+            sg = self.row_graphs(r, batch.scans1[r][0].shape[1])
+            for b in range(batch.x0s[r].shape[0]):
+                results.append(sharded_pair(sg, axis, [s[b] for s in batch.scans1[r]],
+                                            [s[b] for s in batch.scans2[r]], batch.x0s[r][b]))
+        return stack_results(results, self.mesh.devices[0, 0])
+
+
+def _batch(scans1, scans2, x0s, mesh: Mesh) -> ShardedBatch:
+    if isinstance(x0s, list):
+        return ShardedBatch(scans1, scans2, x0s)
+    return shard_scan_batch(scans1, scans2, x0s, mesh)
+
+
+def make_sharded_register(cfg: ICETConfig, mesh: Mesh) -> ShardedRegister:
+    """A batched, point-sharded registration step over ``mesh``, compiled.
 
     Returns ``step(scans1, scans2, x0s) -> RegistrationResult``: ``(B, N,
     3)`` scans and ``(B, 6)`` initial states (numpy or tensors), or the
@@ -178,13 +437,19 @@ def make_sharded_register(cfg: ICETConfig, mesh: Mesh):
     B must divide by ``dp`` and N by ``sp``.  Outputs
     have a leading B axis on the mesh's first device; ``static_mask`` is
     ``(B, N)``.  Rows run one after another; within a row, each pair's
-    prepare and iterations launch the moments pass once on every shard."""
+    stages replay back to back (:func:`sharded_pair`), each prepare and
+    iteration launching the moments pass once on every shard.  Equal to
+    :func:`make_sharded_register_eager`'s step bit for bit on the CPU."""
+    return ShardedRegister(cfg, mesh)
+
+
+def make_sharded_register_eager(cfg: ICETConfig, mesh: Mesh):
+    """:func:`make_sharded_register`'s step on the eager functions
+    (``register_pair_impl`` with the row's axis, pair by pair): the plain
+    version the compiled step is held to."""
 
     def step(scans1, scans2, x0s) -> RegistrationResult:
-        if isinstance(x0s, list):
-            batch = ShardedBatch(scans1, scans2, x0s)
-        else:
-            batch = shard_scan_batch(scans1, scans2, x0s, mesh)
+        batch = _batch(scans1, scans2, x0s, mesh)
         results = []
         for r in range(mesh.devices.shape[0]):
             axis = mesh.axis("sp", r)
@@ -201,8 +466,11 @@ __all__ = [
     "DeviceAxis",
     "Mesh",
     "ShardedBatch",
+    "ShardedRegister",
     "make_sharded_register",
+    "make_sharded_register_eager",
     "registration_mesh",
     "shard_scan_batch",
+    "sharded_pair",
     "stack_results",
 ]

@@ -38,7 +38,10 @@ device; each shard's moments pass runs there, and ``axis.psum`` adds the
 runs.  The radial clustering routes points to the shard owning their
 voxel range (:func:`~icet_tpu_torch.ops.clustering.
 distributed_radial_cluster_bounds`).  Every exit decision reads the
-reduced values only, so every shard runs the same iterations.
+reduced values only, so every shard runs the same iterations.  The
+compiled sharded step (``parallel.sharding.make_sharded_register``) runs
+the same math split at its sums: :func:`model_from_sums`,
+:func:`iteration_from_sums`, :func:`finish_result`, :func:`static_mask_of`.
 """
 
 from __future__ import annotations
@@ -261,39 +264,20 @@ def _local(pts, axis):
     return [p.contiguous() for p in pts], axis.device
 
 
-def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
-    """Fit the dense voxel model to scan 1 ``(N, 3)`` on its device.
+def fixed_clusters(cfg: ICETConfig, dev) -> ClusterResult:
+    """Fixed radial mode's shells: every voxel found, the sentinel not."""
+    return ClusterResult(
+        bounds=fixed_shell_bounds(cfg, dev).clone(),
+        found=torch.cat([
+            torch.ones(cfg.n_voxels, dtype=torch.bool, device=dev),
+            torch.zeros(1, dtype=torch.bool, device=dev),
+        ]),
+    )
 
-    Under ``axis``, ``scan1`` is the list of local point shards: the
-    clustering runs distributed and the moments are summed over the axis;
-    the model lies on ``axis.device``."""
-    scan1, dev = _local(scan1, axis)
-    if cfg.radial_mode == "fixed":
-        clusters = ClusterResult(
-            bounds=fixed_shell_bounds(cfg, dev).clone(),
-            found=torch.cat([
-                torch.ones(cfg.n_voxels, dtype=torch.bool, device=dev),
-                torch.zeros(1, dtype=torch.bool, device=dev),
-            ]),
-        )
-    elif axis is not None:
-        rtps = [cart_to_spherical(p) for p in scan1]
-        clusters = distributed_radial_cluster_bounds(
-            [voxel_ids(rtp, cfg) for rtp in rtps], [rtp[..., 0] for rtp in rtps],
-            [rtp[..., 0] >= cfg.min_range for rtp in rtps], cfg.n_voxels,
-            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer, axis,
-        )
-    else:
-        rtp = cart_to_spherical(scan1)
-        r = rtp[..., 0]
-        clusters = radial_cluster_bounds(
-            voxel_ids(rtp, cfg), r, r >= cfg.min_range, cfg.n_voxels,
-            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer,
-        )
-    anchors = voxel_anchors(clusters.bounds, cfg)
-    dtype = (scan1 if axis is None else scan1[0]).dtype
-    sums = _sums(scan1, torch.zeros(6, dtype=dtype, device=dev),
-                 clusters.bounds, anchors, cfg, axis)
+
+def model_from_sums(sums, clusters: ClusterResult, anchors, cfg: ICETConfig) -> VoxelModel:
+    """The voxel model from scan 1's ``(V+1, 16)`` moment sums at X = 0, its
+    clusters and anchors: finalize, validity, eigensystems and axis masks."""
     count, mean, cov6 = finalize_moments_planes(sums, anchors)
 
     valid = (
@@ -312,6 +296,36 @@ def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
         bounds=clusters.bounds, anchors=anchors, count=count, mean=mean,
         cov=cov6_to_matrix(cov6), basis=basis, lmask=lmask, valid=valid,
     )
+
+
+def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
+    """Fit the dense voxel model to scan 1 ``(N, 3)`` on its device.
+
+    Under ``axis``, ``scan1`` is the list of local point shards: the
+    clustering runs distributed and the moments are summed over the axis;
+    the model lies on ``axis.device``."""
+    scan1, dev = _local(scan1, axis)
+    if cfg.radial_mode == "fixed":
+        clusters = fixed_clusters(cfg, dev)
+    elif axis is not None:
+        rtps = [cart_to_spherical(p) for p in scan1]
+        clusters = distributed_radial_cluster_bounds(
+            [voxel_ids(rtp, cfg) for rtp in rtps], [rtp[..., 0] for rtp in rtps],
+            [rtp[..., 0] >= cfg.min_range for rtp in rtps], cfg.n_voxels,
+            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer, axis,
+        )
+    else:
+        rtp = cart_to_spherical(scan1)
+        r = rtp[..., 0]
+        clusters = radial_cluster_bounds(
+            voxel_ids(rtp, cfg), r, r >= cfg.min_range, cfg.n_voxels,
+            cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer,
+        )
+    anchors = voxel_anchors(clusters.bounds, cfg)
+    dtype = (scan1 if axis is None else scan1[0]).dtype
+    sums = _sums(scan1, torch.zeros(6, dtype=dtype, device=dev),
+                 clusters.bounds, anchors, cfg, axis)
+    return model_from_sums(sums, clusters, anchors, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +353,23 @@ def _iteration(
     axis=None,
 ):
     sums = _sums(scan2, X.contiguous(), model.bounds, model.anchors, cfg, axis)
+    return iteration_from_sums(model, sums, X, it, cfg, corr_mask, U2_warm, want_range_sens)
+
+
+def iteration_from_sums(
+    model: VoxelModel,
+    sums: torch.Tensor,
+    X: torch.Tensor,
+    it: int,
+    cfg: ICETConfig,
+    corr_mask: torch.Tensor | None = None,
+    U2_warm: torch.Tensor | None = None,
+    want_range_sens: bool = False,
+):
+    """One Gauss-Newton iteration from scan 2's ``(V+1, 16)`` moment sums
+    at X: correspondences, the moving-object test, the normal equations,
+    the 6x6 eigensystem and the pruned update (the replicated math of a
+    sharded iteration)."""
     count2, mean2, cov2 = finalize_moments_planes(sums, model.anchors)
 
     corr = model.valid & (count2 >= cfg.min_pts)
@@ -509,11 +540,11 @@ def register(
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg)
 
     if want_static_mask and axis is None:
-        static_mask = _static_mask(scan2, X, model.bounds, corr, cfg)
+        static_mask = static_mask_of(scan2, X, model.bounds, corr, cfg)
     elif want_static_mask:
         static_mask = torch.cat([
-            _static_mask(p, X.to(p.device), model.bounds.to(p.device),
-                         corr.to(p.device), cfg).to(dev)
+            static_mask_of(p, X.to(p.device), model.bounds.to(p.device),
+                           corr.to(p.device), cfg).to(dev)
             for p in scan2
         ])
     else:
@@ -525,7 +556,7 @@ def register(
     )
 
 
-def _static_mask(scan2, X, bounds, corr, cfg: ICETConfig) -> torch.Tensor:
+def static_mask_of(scan2, X, bounds, corr, cfg: ICETConfig) -> torch.Tensor:
     """Scan-2 points inside used voxels at X."""
     raw_ok = point_norm(scan2) >= cfg.min_range
     rtp2 = cart_to_spherical(transform_points(scan2, X))
@@ -585,15 +616,17 @@ def odometry_step(
 # the device from the host, so a CUDA graph can capture it.  Python-level
 # branches depend on the config alone.
 
-#: moment routes whose solve the compiled entry points capture
-CAPTURED_ROUTES = ("fused", "plain")
-
-
 def compiled_route(cfg: ICETConfig) -> bool:
-    """Whether ``cfg``'s solve runs through the compiled entry points: the
-    ``"fused"`` and ``"plain"`` moment routes, with or without the DNN
-    filter (decided from the config alone, as :func:`moment_route` is)."""
-    return moment_route(cfg) in CAPTURED_ROUTES
+    """Whether the runners take the compiled entry points for ``cfg``:
+    every moment route does (``moment_route`` raises ValueError on an
+    unknown one).  The runners read it once, when they are built.  It is
+    kept as a test hook: tests force it False to reach the runners' eager
+    branches, which stay as the references the compiled steps are held to
+    until the sharded pose-graph solves land (ROADMAP A19.9).  The sharded
+    block map's keyframe step takes the eager branch by its own check
+    (``keyframe.KeyframeOdometry``), not through this function."""
+    moment_route(cfg)
+    return True
 
 
 def _stage_prepare(b, cfg: ICETConfig, src: str = "scan") -> None:
@@ -642,12 +675,25 @@ def _stage_finish(b, cfg: ICETConfig, want_static_mask: bool, it_offset: int = 0
     ``range_sigma > 0``), the diagnostics with skipped iterations repeating
     the last executed row, and the static mask, into the result buffer of
     ``(cfg.n_iters, want_static_mask)``."""
-    n_it = cfg.n_iters
+    sens = None
     if cfg.range_sigma > 0.0:
-        _, w6, keep, _, U2, _, htwg = _iteration(
-            b.model, b.scan, b.X, it_offset + n_it - 1, cfg, _corr_mask(b, masked), b.U2,
-            want_range_sens=True,
-        )
+        sens = _iteration(b.model, b.scan, b.X, it_offset + cfg.n_iters - 1, cfg,
+                          _corr_mask(b, masked), b.U2, want_range_sens=True)
+    finish_result(b, cfg, want_static_mask, sens)
+    if want_static_mask:
+        b.result[(cfg.n_iters, True)]["static_mask"].copy_(
+            static_mask_of(b.scan, b.X, b.model.bounds, b.corr, cfg))
+
+
+def finish_result(b, cfg: ICETConfig, want_static_mask: bool, sens=None) -> None:
+    """The finish without the static mask: the predicted covariance from
+    the last iteration's eigensystem or, with ``range_sigma > 0``, from
+    ``sens`` (the range-sensitivity iteration's outputs), and the
+    diagnostics, into the result buffer of ``(cfg.n_iters,
+    want_static_mask)``."""
+    n_it = cfg.n_iters
+    if sens is not None:
+        _, w6, keep, _, U2, _, htwg = sens
         pred_stds, Q = _predicted_covariance(w6, U2, keep, cfg, htwg)
     else:
         pred_stds, Q = _predicted_covariance(b.w6, b.U2, b.keep, cfg)
@@ -659,23 +705,18 @@ def _stage_finish(b, cfg: ICETConfig, want_static_mask: bool, it_offset: int = 0
     for name, col in zip(IterationDiag._fields, b.diag):
         out[name].copy_(col[fill])
     out["windowed_overflow"].zero_()
-    if want_static_mask:
-        out["static_mask"].copy_(_static_mask(b.scan, b.X, b.model.bounds, b.corr, cfg))
 
 
 def compiled_graphs(scan, cfg: ICETConfig):
-    """The frame graphs of ``scan``'s device, size and ``cfg``; raises
-    NotImplementedError, before any launch, for what is not captured."""
+    """The frame graphs of ``scan``'s device, size and ``cfg``; raises,
+    before any launch, NotImplementedError for a list of shards and
+    ValueError for an unknown moment method."""
     if isinstance(scan, (list, tuple)):
         raise NotImplementedError(
             "the compiled entry points take one unsharded scan; use register "
             "and prepare_reference with a shard axis"
         )
-    if not compiled_route(cfg):
-        raise NotImplementedError(
-            f"the compiled entry points capture the moment routes {CAPTURED_ROUTES}; "
-            f"cfg takes route {moment_route(cfg)!r}: use the eager functions"
-        )
+    moment_route(cfg)
     # Imported here: icet_tpu_torch.graphs builds on this module.
     from icet_tpu_torch import graphs
 

@@ -14,7 +14,9 @@ buffers of ``icet_tpu_torch.graphs``.
    1e-3 relative) on the JAX package's own model carried across by
    ``convert.py``, and the sequence runner within
    tests/test_torch_odometry.py's (X and poses within 1e-4).
-4. What is not captured raises NotImplementedError before any launch.
+4. The scatter and one-hot routes are captured too and equal the eager
+   functions bit for bit; a sharded scan (a list of shards) still raises
+   NotImplementedError before any launch.
 
 The grid (49 azimuth bins against 512-column sweeps) keeps every point
 off the bin edges, as in tests/test_torch_odometry.py.
@@ -364,8 +366,22 @@ def test_run_odometry_device_compiled_matches_jax(scans, clamp):
 
 
 # ---------------------------------------------------------------------------
-# 4. What is not captured
+# 4. The other moment routes, and what is not captured
 # ---------------------------------------------------------------------------
+
+
+def _eager_sequence(frames, model, x0, T0, cfg, clamp=0.3):
+    """``odometry_sequence_jit``'s outputs from the chain of eager steps
+    (warm start "previous", the divergence guard, the world pose)."""
+    m, x, T = model, x0, T0
+    X, stds, div, Tw = [], [], [], []
+    for k in range(frames.shape[0]):
+        res, m = ts.odometry_step(m, frames[k], x, cfg)
+        d = torch.any(torch.abs(res.X) > clamp)
+        x = torch.where(d, torch.zeros_like(res.X), res.X)
+        T = todo.compose_pose(T, x)
+        X.append(x), stds.append(res.pred_stds), div.append(d), Tw.append(T)
+    return (m, x, T), tuple(torch.stack(v) for v in (X, stds, div, Tw))
 
 
 @pytest.mark.parametrize("change", [{"moment_method": "pallas"}, {"moment_method": "onehot"},
@@ -373,21 +389,33 @@ def test_run_odometry_device_compiled_matches_jax(scans, clamp):
                          ids=["scatter", "onehot", "dnn"])
 @pytest.mark.parametrize("entry", ["prepare", "register", "step", "sequence"])
 def test_uncaptured_configs_raise(scans, change, entry):
-    """The scatter and onehot routes, and the DNN filter on an uncaptured
-    route (the filter itself is captured on the fused and plain routes)."""
+    """Once refused with NotImplementedError, the scatter and one-hot routes
+    (and the DNN config on the scatter route, whose plain solve these entry
+    points run) are captured now: each compiled entry point equals the
+    eager function bit for bit."""
     cfg = TCFG.replace(**change)
-    assert not ts.compiled_route(cfg)
+    assert ts.compiled_route(cfg)
     s = _t(scans[1])
-    model = ts.prepare_reference(_t(scans[0]), TCFG)
-    calls = {
-        "prepare": lambda: ts.prepare_reference_jit(s, cfg),
-        "register": lambda: ts.register_jit(model, s, torch.zeros(6), cfg),
-        "step": lambda: ts.odometry_step_jit(model, s, torch.zeros(6), cfg),
-        "sequence": lambda: todo.odometry_sequence_jit(s[None], model, torch.zeros(6),
-                                                       torch.eye(4), cfg),
-    }
-    with pytest.raises(NotImplementedError):
-        calls[entry]()
+    model = ts.prepare_reference(_t(scans[0]), cfg)
+    x0 = torch.tensor([0.1, 0.0, 0.0, 0.0, 0.0, 0.005])
+    if entry == "prepare":
+        _models_equal(ts.prepare_reference_jit(s, cfg), ts.prepare_reference(s, cfg))
+    elif entry == "register":
+        _results_equal(ts.register_jit(model, s, x0, cfg), ts.register(model, s, x0, cfg))
+    elif entry == "step":
+        (r_c, m_c), (r_e, m_e) = (ts.odometry_step_jit(model, s, x0, cfg),
+                                  ts.odometry_step(model, s, x0, cfg))
+        _results_equal(r_c, r_e)
+        _models_equal(m_c, m_e)
+    else:
+        frames = _t(scans[1:3])
+        (m_c, x_c, T_c), outs_c = todo.odometry_sequence_jit(frames, model, x0, torch.eye(4), cfg)
+        (m_e, x_e, T_e), outs_e = _eager_sequence(frames, model, x0, torch.eye(4), cfg)
+        _models_equal(m_c, m_e)
+        for name, a, b in zip(("X", "pred_stds", "diverged", "T_world"), outs_c, outs_e):
+            _assert_equal(a, b, name)
+        _assert_equal(x_c, x_e, "X_last")
+        _assert_equal(T_c, T_e, "T_last")
 
 
 def test_sharded_scan_raises(scans):
@@ -398,8 +426,10 @@ def test_sharded_scan_raises(scans):
 
 
 def test_pipeline_routes_by_config(scans, monkeypatch):
-    """The pipeline takes the compiled step on a captured route and the
-    eager one elsewhere: a choice from the config, not a fallback."""
+    """The pipeline takes the compiled step wherever ``compiled_route``
+    holds (every moment route now) and the eager one where it is forced
+    False: a choice made from the config when the pipeline is built, not a
+    fallback."""
     calls = []
 
     def spy(name):
@@ -413,9 +443,11 @@ def test_pipeline_routes_by_config(scans, monkeypatch):
 
     spy("odometry_step")
     spy("odometry_step_jit")
-    for cfg, want in ((TCFG, "odometry_step_jit"),
-                      (TCFG.replace(moment_method="onehot"), "odometry_step")):
+    for cfg, route, want in ((TCFG, True, "odometry_step_jit"),
+                             (TCFG.replace(moment_method="onehot"), True, "odometry_step_jit"),
+                             (TCFG.replace(moment_method="onehot"), False, "odometry_step")):
         calls.clear()
+        monkeypatch.setattr(todo, "compiled_route", lambda c, r=route: r)
         list(todo.OdometryPipeline(cfg, device="cpu").run(scans[:3]))
         assert calls == [want, want]
 

@@ -15,8 +15,8 @@ plain calls on the static buffers of ``icet_tpu_torch.graphs``.
 3. ``MapMaker`` on the compiled route equals the eager route frame by
    frame (X, pred_stds, flags, the fill, the ring, the trail), and so does
    one that fails once and recovers; recovery keeps the ring's tensors.
-4. Routes that are not captured take the eager functions; an explicit
-   ``map_step_jit`` on them raises NotImplementedError before any launch.
+4. The scatter and one-hot routes take the compiled step too, equal to
+   the eager one bit for bit.
 
 The solving cases use a 25x8 grid against 256-column sweeps (coprime: no
 column on a bin edge, ROADMAP C1).
@@ -266,22 +266,29 @@ def test_mapmaker_compiled_recovers(drive, monkeypatch):
 
 @pytest.mark.parametrize("method", ["pallas", "onehot"])
 def test_uncaptured_routes_take_the_eager_step(drive, monkeypatch, method):
+    """The scatter and one-hot routes, once left to the eager step, are
+    captured now: ``map_step_jit`` on them equals ``map_step`` bit for bit,
+    and ``MapMaker`` takes the compiled step and equals its eager route."""
     cfg = TCFG.replace(moment_method=method)
     mcfg = MapConfig(**MCFG)
     model = prepare_reference(_t(drive[0]), cfg)
     state = tmap.init_map(mcfg, device="cpu")
-    u = torch.rand(drive[1].shape[0])
-
-    def launched(*args, **kw):
-        raise AssertionError("a compiled stage ran")
-
-    monkeypatch.setattr(tmap, "_map_run", launched)
-    with pytest.raises(NotImplementedError):
-        tmap.map_step_jit(model, state, _t(drive[1]), u, 0.9, cfg, mcfg)
+    u = torch.rand(drive[1].shape[0], generator=torch.Generator().manual_seed(5))
+    c = tmap.map_step_jit(model, _clone(state), _t(drive[1]), u, 0.9, cfg, mcfg)
+    e = tmap.map_step(model, _clone(state), _t(drive[1]), u, 0.9, cfg, mcfg)
+    assert torch.equal(c[0].X, e[0].X) and torch.equal(c[0].pred_stds, e[0].pred_stds)
+    assert c[0].iterations == e[0].iterations and bool(c[2]) == bool(e[2])
+    _assert_states_identical(c[3], e[3])
+    calls = []
+    real = tmap.map_step_jit
+    monkeypatch.setattr(tmap, "map_step_jit", lambda *a, **kw: calls.append(1) or real(*a, **kw))
     maker = tmap.MapMaker(cfg, mcfg, OdometryConfig(divergence_clamp=0.9), device="cpu")
-    assert not maker._compiled
+    assert maker._compiled
     frames = _run(maker, drive[:3])
-    assert len(frames) == 2 and not any(f.diverged for f in frames)
+    assert len(calls) == 2 and len(frames) == 2 and not any(f.diverged for f in frames)
+    eager = _eager(tmap.MapMaker(cfg, mcfg, OdometryConfig(divergence_clamp=0.9), device="cpu"))
+    _assert_frames_identical(frames, _run(eager, drive[:3]))
+    _assert_states_identical(maker.state, eager.state)
 
 
 def test_map_update_jit_uses_the_mapping_profiles_set():

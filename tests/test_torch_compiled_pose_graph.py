@@ -14,9 +14,8 @@ calls on the static buffers of ``icet_tpu_torch.graphs``.
    last chunk shorter than ``batch``, a pair the gate rejects), takes the
    JAX package's positional call, and verifies unfiltered under a
    ``dnn_filter=True`` config.
-4. The ``"scatter"`` and ``"onehot"`` routes take the eager functions; an
-   explicit ``register_pair_jit`` on them raises NotImplementedError
-   before any launch.
+4. The ``"scatter"`` and ``"onehot"`` routes take the staged pair too,
+   equal to the eager functions bit for bit.
 
 The registration cases use a 25x8 grid against 256-column sweeps
 (coprime: no column on a bin edge, ROADMAP C1).
@@ -290,20 +289,25 @@ def test_close_loops_dnn_config_verifies_unfiltered(drive, monkeypatch):
 
 @pytest.mark.parametrize("method", ["pallas", "onehot"], ids=["scatter", "onehot"])
 def test_uncaptured_routes_take_the_eager_pair(drive, monkeypatch, method):
+    """The scatter and one-hot routes, once left to the eager pair, are
+    captured now: ``register_pair_jit``, ``register_pair`` and
+    ``close_loops`` take the staged graphs and equal the eager functions
+    bit for bit."""
     scans, poses = drive
     cfg = TCFG.replace(moment_method=method)
-    assert not ts.compiled_route(cfg)
+    assert ts.compiled_route(cfg)
     s1, s2 = torch.from_numpy(scans[0]), torch.from_numpy(scans[2])
-    with pytest.raises(NotImplementedError):
-        ts.register_pair_jit(s1, s2, torch.zeros(6), cfg)
-
-    def launched(*args, **kw):
-        raise AssertionError("a compiled stage ran")
-
-    monkeypatch.setattr(graphs.FrameGraphs, "run", launched)
     x0 = torch.tensor([0.5, 0, 0, 0, 0, 0.03])
+    _results_equal(ts.register_pair_jit(s1, s2, x0, cfg), ts.register_pair_impl(s1, s2, x0, cfg))
+    runs = []
+    real = graphs.FrameGraphs.run
+    monkeypatch.setattr(graphs.FrameGraphs, "run",
+                        lambda self, *a: runs.append(1) or real(self, *a))
     _results_equal(ts.register_pair(scans[0], scans[2], x0, cfg, device="cpu"),
                    ts.register_pair_impl(s1, s2, x0, cfg))
+    assert runs
     x0_fn = _x0_fn(poses)
+    runs.clear()
     _factors_equal(tp.close_loops(scans, CANDIDATES[:3], cfg, x0_fn, device="cpu"),
                    _pair_by_pair(scans, CANDIDATES[:3], cfg, x0_fn))
+    assert runs
