@@ -117,9 +117,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the warm-ups on the compiled step; ms a pair in turns, host operations
     a pair; a (1, 4) pair's device operations and idle share; the distributed
     clustering on 4 shards bit-identical to the replicated one at capacity
-    2.0 and 0.02, beam-major and shuffled; ms a pair per shape; the
-    keyframe drive with its block map over two repeats of the card
-    (``shard_blockmap``) against the unsharded map;
+    2.0 and 0.02, beam-major and shuffled; ms a pair per shape; no
+    exit-flag or overflow read on a captured row; the keyframe drive with
+    its block map over two repeats of the card (``shard_blockmap``) on the
+    compiled step against the eager step over the same map and against
+    the unsharded map;
 19. ``run_distributed_registration`` as spawned processes (this script
     with ``--worker``), each joined with a timeout: two over gloo at
     (1, 2) and at (2, 1) (the eager step, no replay), one over NCCL at
@@ -195,7 +197,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     share (torch.profiler); then the HD-mapping back end compiled and eager
     in turns: the MapMaker frame, a loop pair (phase 17's first 16
     candidates) and phase 17's K = 250 solve; the dense solve of that graph
-    captured under a global ``preferred_linalg_library("magma")``.
+    captured under a global ``preferred_linalg_library("magma")``;
+28. the IF nodes: the captured solve's and the DNN-filtered solve's graphs
+    (node types of the graph and of its guarded bodies, no host or event
+    node in a body), capture and instantiate seconds, the pools' MiB; the
+    sharded pose-graph solves on two factor shards (repeats of the card):
+    dense and sparse at phase 17's K = 250, sparse on phase 16's 10,000-pose
+    ring, compiled (under ``set_sync_debug_mode("error")``) against the
+    eager loops (within their own spread or 2e-3, the backbone's launches
+    equal) and timed in turns; what the IF nodes cost: a warm iteration
+    as a graph of its own against the same iteration in an IF body (taken
+    and skipped), and a fixed-run-length solve as one unrolled graph
+    against its stages replayed one by one.
+
+``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
+runs none of these phases: it times that tree's compiled paths against
+this one's, each tree in a process of its own (``--time-tree``), in the
+turns parent, this, this, parent.
+
+Every compiled phase gates its host exit-flag reads at 0: the solves'
+early exits run on the card, in IF conditional nodes (phases 6, 18, 19,
+26, 27); launch counts read ``graphs.settle()`` first, which adds the
+launches of the guarded bodies run since.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -304,6 +327,16 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def settle() -> None:
+    """Add to the wrappers' counts the launches of the compiled path's
+    guarded bodies (its IF nodes) run since the last read: one host read
+    of the device tallies (``graphs.settle``).  Called before every read
+    or reset of a count."""
+    from icet_tpu_torch import graphs
+
+    graphs.settle()
 
 
 def zero_warmups() -> None:
@@ -567,8 +600,10 @@ def check_one_launch(what: str, fn, wrapper, kernel: str, report, reps: int = 10
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    settle()
     before = wrapper.launches
     prof = device_profile(strict, reps)
+    settle()
     launched = wrapper.launches - before
     ops = sum(k for _, k in prof.values())
     others = sorted(name for name in prof if kernel not in name)
@@ -916,11 +951,13 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
         out = {}
         for mode in ("compiled", "eager"):
             torch.cuda.synchronize()
+            settle()
             fused_moment_sums.launches = 0
             zero_warmups()
             with graphs.sync_debug("error" if mode == "compiled" else None):
                 res = steps[mode](*batch)
             torch.cuda.synchronize()
+            settle()
             launches, warm = fused_moment_sums.launches, warmups()
             iters = res.iterations.tolist()
             want = sp * sum(1 + it for it in iters) + warm
@@ -943,6 +980,9 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
         n_calls = 2 * 3
         host_ops = {k: (graphs.host_ops[k] - ops0[k]) / (n_calls * B)
                     for k in ("replays", "flag_reads", "overflow_reads", "copies")}
+        check(host_ops["flag_reads"] == 0 and host_ops["overflow_reads"] == 0,
+              f"sharded ({dp}, {sp}): {host_ops['flag_reads']} exit-flag and "
+              f"{host_ops['overflow_reads']} overflow reads a pair on a captured row")
         results[(dp, sp)] = dict(c, ms=ms)
         print(f"sharded register ({dp}, {sp}) on {dp * sp} x {dev} ({card}): ms a pair "
               f"eager/compiled/compiled/eager {ms['eager'][0]:.2f} / {ms['compiled'][0]:.2f} / "
@@ -954,7 +994,7 @@ def phase_sharded(s1, s2, x0s, cfg, dev, card):
               f"{host_ops['replays']:.1f} replays, {host_ops['flag_reads']:.1f} exit-flag and "
               f"{host_ops['overflow_reads']:.1f} overflow reads, {host_ops['copies']:.1f} copies")
     print(f"unsharded register_pair (compiled): {ref_ms:.2f} ms a pair ({card}), iterations "
-          f"{[r.iterations for r in ref]}")
+          f"{[int(r.iterations) for r in ref]}")
     phase_sharded_split(s1, s2, x0s, cfg, dev, card)
     # A pair's device operations and idle share at (1, 4), compiled and eager.
     mesh = registration_mesh(1, 4, [dev] * 4)
@@ -1027,6 +1067,7 @@ def phase_sharded_split(s1, s2, x0s, cfg, dev, card) -> None:
     for mode, step in (("compiled", compiled), ("eager", make_sharded_register_eager(cfg, mesh)),
                        ("compiled again", compiled)):
         torch.cuda.synchronize()
+        settle()
         fused_moment_sums.launches = 0
         zero_warmups()
         ops0 = dict(graphs.host_ops)
@@ -1035,6 +1076,7 @@ def phase_sharded_split(s1, s2, x0s, cfg, dev, card) -> None:
             res = step(*batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / 2
+        settle()
         out[mode] = (res, fused_moment_sums.launches, warmups(),
                      {k: graphs.host_ops[k] - ops0[k] for k in ("captures", "replays")}, ms)
     check(all(sg.split for sg in compiled.sets.values()), "split row: the set is not split")
@@ -1066,14 +1108,39 @@ def phase_sharded_split(s1, s2, x0s, cfg, dev, card) -> None:
 
 def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
     """Phase 18's block map: the keyframe drive with the map's block axis
-    over two repeats of the card, against the unsharded map."""
+    over two repeats of the card, on the compiled step (its graphs captured
+    under ``set_sync_debug_mode("error")``, no exit-flag read) against the
+    eager step over the same sharded map (bit-identical) and against the
+    unsharded map."""
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.keyframe import KeyframeOdometry, shard_blockmap, whole_table
     from icet_tpu_torch.parallel.sharding import registration_mesh
 
     plain = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
-    sharded = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
-    sharded.blockmap = shard_blockmap(sharded.blockmap, registration_mesh(2, 1, [dev] * 2))
-    a, b = plain.run(scans), sharded.run(scans)
+    runs = {}
+    for mode in ("compiled", "eager"):
+        odo = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+        if mode == "eager":
+            eager(odo)
+        odo.blockmap = shard_blockmap(odo.blockmap, registration_mesh(2, 1, [dev] * 2))
+        reads = graphs.host_ops["flag_reads"]
+        with graphs.sync_debug("error" if mode == "compiled" else None):
+            frames = odo.run(scans)
+        runs[mode] = (odo, frames, graphs.host_ops["flag_reads"] - reads)
+    sharded, b, reads = runs["compiled"]
+    eodo, eb, _ = runs["eager"]
+    check(reads == 0, f"sharded block map (compiled): {reads} exit-flag reads")
+    check(eodo.keyframe_indices == sharded.keyframe_indices
+          and [f.iterations for f in b] == [f.iterations for f in eb],
+          "sharded block map: the compiled drive's keyframes or iterations differ from the "
+          "eager drive's")
+    dT_e = max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(b, eb))
+    dP_e = max(float((whole_table(getattr(sharded.blockmap, k)).float()
+                      - whole_table(getattr(eodo.blockmap, k)).float()).abs().max())
+               for k in ("points", "valid", "poses"))
+    check(dT_e <= 1e-6 and dP_e <= 1e-5, f"sharded block map: the compiled drive is {dT_e:.3e} "
+          f"(poses), {dP_e:.3e} (map) from the eager drive")
+    a = plain.run(scans)
     check(plain.keyframe_indices == sharded.keyframe_indices,
           f"sharded block map: keyframes {sharded.keyframe_indices} vs {plain.keyframe_indices}")
     dT = max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(a, b))
@@ -1084,9 +1151,11 @@ def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
           f"unsharded {pts[0].shape[0]}")
     dP = float((pts[0] - pts[1].to(pts[0].device)).abs().max())
     check(dP <= 1e-3, f"sharded block map: points differ by {dP:.3e}")
-    print(f"sharded block map over 2 x {dev}: {len(b)} keyframe frames, keyframes "
-          f"{sharded.keyframe_indices}, {pts[1].shape[0]} points; max |dT| {dT:.3e}, max |dp| "
-          f"{dP:.3e} vs the unsharded map")
+    print(f"sharded block map over 2 x {dev}, compiled step: {len(b)} keyframe frames, "
+          f"keyframes {sharded.keyframe_indices}, {pts[1].shape[0]} points, 0 exit-flag reads; "
+          f"against the eager step over the same map: iterations equal, max |dT| {dT_e:.3e}, "
+          f"map {dP_e:.3e} (bit-identical: {dT_e == 0.0 and dP_e == 0.0}); max |dT| {dT:.3e}, "
+          f"max |dp| {dP:.3e} vs the unsharded map")
 
 
 def trace_worker(spec: dict) -> int:
@@ -1149,13 +1218,16 @@ def worker(spec: dict) -> int:
     torch.cuda.synchronize()
     dist.barrier()
     axis = mesh.axis("sp")
+    settle()
     c0, b0 = axis.collectives, axis.bytes
     fused_moment_sums.launches = 0
-    replays = graphs.host_ops["replays"]
+    ops0 = dict(graphs.host_ops)
     res, local = run_distributed_registration(*args)
     torch.cuda.synchronize()
+    reads = sum(graphs.host_ops[k] - ops0[k] for k in ("flag_reads", "overflow_reads"))
+    settle()
     launches, collectives, nbytes = fused_moment_sums.launches, axis.collectives, axis.bytes
-    replays = graphs.host_ops["replays"] - replays
+    replays = graphs.host_ops["replays"] - ops0["replays"]
     times = []
     for _ in range(3):
         dist.barrier()
@@ -1164,10 +1236,10 @@ def worker(spec: dict) -> int:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / b_local)
     np.savez(spec["out"], X=res.X.cpu().numpy(), pred_stds=res.pred_stds.cpu().numpy(),
-             static_mask=res.static_mask.cpu().numpy(), iterations=res.iterations.numpy(),
+             static_mask=res.static_mask.cpu().numpy(), iterations=res.iterations.cpu().numpy(),
              start=local.start, row=mesh.row, col=mesh.col, ms=float(np.median(times)),
              launches=launches, collectives=collectives - c0, bytes=nbytes - b0,
-             compiled=mesh.compiled, replays=replays)
+             compiled=mesh.compiled, replays=replays, reads=reads)
     dist.destroy_process_group()
     return 0
 
@@ -1238,6 +1310,8 @@ def phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card):
                 compiled = backend == "nccl"
                 check(bool(g["compiled"]) == compiled and (int(g["replays"]) > 0) == compiled,
                       f"{name}: compiled {bool(g['compiled'])}, {int(g['replays'])} replays")
+                # The compiled step's exit and clustering branch are IF nodes.
+                check(int(g["reads"]) == 0, f"{name}: {int(g['reads'])} flag reads a call")
             rows = {}
             for g in ranks:
                 rows.setdefault(int(g["row"]), []).append(g["iterations"].tolist())
@@ -1251,6 +1325,7 @@ def phase_processes(s1, s2, x0s, cfg, dev, ref, sharded, card):
                   f"{[round(p[0], 2) for p in per]} ({card}), collectives a pair "
                   f"{[p[1] for p in per]}, bytes a pair {[int(p[2]) for p in per]}, iterations "
                   f"{sorted(rows.items())}, launches a rank {[int(g['launches']) for g in ranks]}, "
+                  f"host flag reads a rank {[int(g['reads']) for g in ranks]}, "
                   f"{wall:.1f} s with start-up")
 
 
@@ -1556,6 +1631,7 @@ def phase_kitti(tmp: str, dev, card) -> dict:
 
     def run(extra):
         torch.cuda.synchronize()
+        settle()
         fused_moment_sums.launches = bias_encoder_pool.launches = 0
         tridiag_factor.launches = tridiag_apply.launches = 0
         zero_warmups()
@@ -1565,6 +1641,7 @@ def phase_kitti(tmp: str, dev, card) -> dict:
         s = eval_kitti.run(eval_kitti.build_parser().parse_args(base + extra))
         ev1.record()
         torch.cuda.synchronize()
+        settle()
         launches = dict(fused=fused_moment_sums.launches, encoder=bias_encoder_pool.launches,
                         factor=tridiag_factor.launches, apply=tridiag_apply.launches,
                         warmups=warmups(), encoder_warmups=warmups("bias_encoder_pool"),
@@ -1710,6 +1787,7 @@ def phase_replay(seq: str, dev, card) -> None:
         velo = load_poses(os.path.join(seq, "poses.txt"))[:REPLAY_FRAMES] @ T_tr
         np.savetxt(poses, velo[:, :3, :].reshape(-1, 12), fmt="%.9e")
         torch.cuda.synchronize()
+        settle()
         fused_moment_sums.launches = 0
         zero_warmups()
         s = eval_odometry.run(eval_odometry.build_parser().parse_args(
@@ -1717,6 +1795,7 @@ def phase_replay(seq: str, dev, card) -> None:
         torch.cuda.synchronize()
         check(s["frames"] == REPLAY_FRAMES - 1 and s["divergences"] == 0,
               f"eval_odometry: {s}")
+        settle()
         check(fused_moment_sums.launches == s["iterations"] + REPLAY_FRAMES + warmups(),
               f"eval_odometry: fused launches {fused_moment_sums.launches} != "
               f"{s['iterations']} iterations + {REPLAY_FRAMES} prepares + {warmups()} "
@@ -1735,12 +1814,14 @@ def phase_citydrive_entry(tmp: str, dev, card) -> None:
 
     def run(extra):
         torch.cuda.synchronize()
+        settle()
         fused_moment_sums.launches = 0
         zero_warmups()
         t0 = time.perf_counter()
         s = eval_citydrive.run(eval_citydrive.build_parser().parse_args(
             CD_SHORT + ["--device", dev.type] + extra))
         torch.cuda.synchronize()
+        settle()
         return s, fused_moment_sums.launches - warmups(), time.perf_counter() - t0
 
     n = int(CD_SHORT[1])
@@ -1787,6 +1868,7 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
     check(moment_route(ocfg) == "onehot", f"onehot route: {moment_route(ocfg)}")
     x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
     torch.cuda.synchronize()
+    settle()
     before = fused_moment_sums.launches
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ev0.record()
@@ -1795,6 +1877,7 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
         card_res = register_pair(scans[0], scans[1], x0, ocfg, device=dev)
     ev1.record()
     torch.cuda.synchronize()
+    settle()
     onehot_fused = fused_moment_sums.launches - before
     onehot_ms = ev0.elapsed_time(ev1)
     cpu_res = register_pair(scans[0], scans[1], x0, ocfg, device="cpu")
@@ -1805,7 +1888,7 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
     check(bool(np.isfinite(oX).all()) and d_cpu <= ONEHOT_X_ATOL and d_fused <= ONEHOT_X_ATOL,
           f"onehot X {oX}: {d_cpu:.3e} from the CPU path, {d_fused:.3e} from the fused route")
     print(f"onehot registration (N = {scans.shape[1]}, V = {cfg.n_voxels}, block "
-          f"{cfg.moment_block}): {card_res.iterations} iterations in {onehot_ms:.2f} ms "
+          f"{cfg.moment_block}): {int(card_res.iterations)} iterations in {onehot_ms:.2f} ms "
           f"(CUDA events, {card}), max |X - CPU| {d_cpu:.3e}, max |X - fused| {d_fused:.3e}")
 
     # device_time_ms against phase 13's measurement (median_ms: CUDA events
@@ -1929,6 +2012,7 @@ def route_turns(name, scans, gt, c, odo, kernel=None):
         compiled = mode == "compiled"
         torch.cuda.synchronize()
         if kernel is not None:
+            settle()
             kernel.launches = 0
         zero_warmups()
         ops0 = dict(graphs.host_ops)
@@ -1939,6 +2023,9 @@ def route_turns(name, scans, gt, c, odo, kernel=None):
         torch.cuda.synchronize()
         n = len(frames)
         host = {k: (graphs.host_ops[k] - ops0[k]) / n for k in ("replays", "flag_reads", "copies")}
+        check(host["flag_reads"] == 0, f"{name} drive ({mode}): {host['flag_reads']} exit-flag "
+              "reads a frame")
+        settle()
         launches = kernel.launches if kernel is not None else 0
         warm = warmups(kernel.__name__) if kernel is not None else 0
         iters = [f.iterations for f in frames]
@@ -2044,6 +2131,7 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
     s1, s2 = (torch.from_numpy(scans[k]).to(dev) for k in (0, 1))
     x0 = torch.tensor([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], device=dev)
     torch.cuda.synchronize()
+    settle()
     moment_scatter_sums.launches = 0
     zero_warmups()
     with graphs.sync_debug("error"):
@@ -2051,8 +2139,9 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
     fe = register_pair_impl(s1, s2, x0, fcfg)
     fe2 = register_pair_impl(s1, s2, x0, fcfg)
     torch.cuda.synchronize()
+    settle()
     f_launch, f_warm = moment_scatter_sums.launches, warmups("moment_scatter_sums")
-    want = (1 + fc.iterations) + (1 + fe.iterations) + (1 + fe2.iterations) + f_warm
+    want = (1 + int(fc.iterations)) + (1 + fe.iterations) + (1 + fe2.iterations) + f_warm
     check(f_launch == want, f"fixed-mode scatter: #3 launches {f_launch} != {want} (prepares, "
           f"iterations, {f_warm} warm-ups)")
     f_spread = float((fe.X - fe2.X).abs().max())
@@ -2061,7 +2150,7 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
           f"fixed-mode scatter: compiled X {f_d:.3e} from eager (spread {f_spread:.3e})")
     lines.append(f"fixed radial mode on the scatter route (V + 1 = {fcfg.n_voxels + 1} rows, "
                  f"#3's global atomics): compiled against eager max |dX| {f_d:.3e} (eager "
-                 f"run-to-run {f_spread:.3e}), iterations {fc.iterations} / {fe.iterations}, "
+                 f"run-to-run {f_spread:.3e}), iterations {int(fc.iterations)} / {fe.iterations}, "
                  f"#3 launches {f_launch} with {f_warm} warm-ups")
 
     # The DNN filter on the scatter route: #3 and #4 in one set of graphs.
@@ -2071,6 +2160,7 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
     out = {}
     for mode in ("compiled", "eager"):
         torch.cuda.synchronize()
+        settle()
         moment_scatter_sums.launches = bias_encoder_pool.launches = 0
         zero_warmups()
         pipe = OdometryPipeline(dpcfg, odo, device=dev)
@@ -2084,14 +2174,17 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
         n = len(frames)
         its = sum(f.iterations for f in frames)
         w3, w4 = warmups("moment_scatter_sums"), warmups("bias_encoder_pool")
+        settle()
         check(bias_encoder_pool.launches == n * n_post * dpcfg.dnn_refine_steps + w4,
               f"DNN scatter drive ({mode}): #4 launches {bias_encoder_pool.launches}")
         # #3: a pass an iteration, a filter pass a filtered iteration, a
         # prepare a frame (the seed frame's too).
         want3 = its + n * n_post + len(drive) + w3
+        settle()
         check(moment_scatter_sums.launches == want3,
               f"DNN scatter drive ({mode}): #3 launches {moment_scatter_sums.launches} != "
               f"{want3} ({w3} warm-ups)")
+        settle()
         out[mode] = (frames, moment_scatter_sums.launches, bias_encoder_pool.launches, w3, w4)
     d_dnn = max(float(np.abs(a.X - b.X).max()) for a, b in zip(out["compiled"][0],
                                                                  out["eager"][0]))
@@ -2251,12 +2344,13 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
 
     # -- capture with no host synchronisation -----------------------------
     graphs.clear()
-    captures = graphs.host_ops["captures"]
+    # Graphs, each guarded body one of its own (a solve is one capture).
+    captures = graphs.capture_stats["graphs"]
     t0 = time.perf_counter()
     with graphs.sync_debug("error"):
         out_c = run_odometry_device(scans, cfg, odo, device=dev)
     torch.cuda.synchronize()
-    captures = graphs.host_ops["captures"] - captures
+    captures = graphs.capture_stats["graphs"] - captures
     check(captures >= 5, f"{captures} graphs captured by the first compiled drive")
     print(f"compiled: {captures} graphs captured under set_sync_debug_mode('error') in the "
           f"first drive ({time.perf_counter() - t0:.2f} s with the drive itself)")
@@ -2296,18 +2390,24 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
 
     # -- the drives ----------------------------------------------------------
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     poses_e, iters_e = eager_drive(drive, cfg, odo)
     torch.cuda.synchronize()
+    settle()
     eager_launches = fused_moment_sums.launches
+    settle()
     fused_moment_sums.launches = 0
     zero_warmups()
     out_c = run_odometry_device(scans, cfg, odo, device=dev)
     torch.cuda.synchronize()
+    settle()
     seq_launches = fused_moment_sums.launches
+    settle()
     fused_moment_sums.launches = 0
     out_p = list(OdometryPipeline(cfg, odo, device=dev).run(scans))
     torch.cuda.synchronize()
+    settle()
     pipe_launches = fused_moment_sums.launches
     check(warmups() == 0, f"{warmups()} warm-up launches: the graphs were not reused")
     ate_e = pose_ate(poses_e, gt)
@@ -2355,6 +2455,8 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
         torch.cuda.synchronize()
         host = {k: (graphs.host_ops[k] - ops0[k]) / steps
                 for k in ("replays", "flag_reads", "copies")}
+        check(host["flag_reads"] == 0, f"compiled chain at {size}: {host['flag_reads']} "
+              "exit-flag reads a frame")
         # The profile takes the drive's first PROFILE_FRAMES frames: its
         # events of a whole eager chain take minutes to read back.
         prof, short = {}, frames[:PROFILE_FRAMES]
@@ -2386,10 +2488,12 @@ def drive_launches(run) -> tuple:
     from icet_tpu_torch.ops.fused_moments import fused_moment_sums
 
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = bias_encoder_pool.launches = 0
     zero_warmups()
     out = run()
     torch.cuda.synchronize()
+    settle()
     return (out, fused_moment_sums.launches, bias_encoder_pool.launches,
             (warmups(), warmups("bias_encoder_pool")))
 
@@ -2535,7 +2639,8 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
 
     # -- the drives: captured with no host synchronisation, against eager ----
     graphs.clear()
-    captures = graphs.host_ops["captures"]
+    # Graphs, each guarded body one of its own (a solve is one capture).
+    captures = graphs.capture_stats["graphs"]
     t0 = time.perf_counter()
     drives = {
         "OdometryPipeline (DNN)": lambda: OdometryPipeline(dcfg, odo, device=dev),
@@ -2554,7 +2659,7 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
         dev_run = drive_launches(lambda: run_keyframe_device(scans, cfg, kf_cfg, bm_cfg,
                                                              device=dev))
     torch.cuda.synchronize()
-    captures = graphs.host_ops["captures"] - captures
+    captures = graphs.capture_stats["graphs"] - captures
     check(captures >= 20, f"{captures} graphs captured by the first compiled drives")
     print(f"compiled DNN and keyframe paths: {captures} graphs captured under "
           f"set_sync_debug_mode('error') in the first drives ({time.perf_counter() - t0:.2f} s "
@@ -2660,6 +2765,8 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
             host = {k: (graphs.host_ops[k] - ops0[k]) / steps
                     for k in ("replays", "flag_reads", "spawn_reads", "copies", "draws",
                               "map_writes")}
+            check(host["flag_reads"] == 0, f"compiled {path} chain at {size}: "
+                  f"{host['flag_reads']} exit-flag reads a frame")
             prof, short = {}, frames[:PROFILE_FRAMES]
             for mode in ("compiled", "eager"):
                 fn = (lambda ch=chain, cm=(mode == "compiled"): ch(cm, short))
@@ -2724,6 +2831,7 @@ def phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev,
         t, host[mode] = map_frames_ms(drive, mcfg, map_cfg, odo, mode == "compiled")
         ms[mode].append(t)
     h = host["compiled"]
+    check(h["flag_reads"] == 0, f"compiled MapMaker: {h['flag_reads']} exit-flag reads a frame")
     print(f"MapMaker frame at 64x1024 ({card}), eager/compiled/compiled/eager: "
           f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
           f" ms a frame (CUDA events over frames 2-{drive.shape[0] - 1}); host operations a "
@@ -2784,6 +2892,335 @@ def phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev,
     check(dx <= 2e-3, f"K = 250 dense solve: compiled states {dx:.3e} from the eager loop's")
     print(f"dense pose-graph solve of the same graph (10 steps), captured under a global "
           f"preferred_linalg_library('magma'): compiled against eager max |d state| {dx:.3e}")
+
+
+def conditional_report(dev, n: int, cfg, dcfg, card) -> None:
+    """Phase 28a: the IF nodes of the compiled solve (the sequence drive's
+    config) and of the DNN-filtered solve, as captured: the main graph's
+    node types, its guarded bodies' (each cloned into one IF node), what
+    the captures cost and the memory the private pools hold."""
+    from icet_tpu_torch import graphs
+
+    for what, c, kind in (("solve", cfg, "solve"), ("DNN-filtered solve", dcfg, "dnn")):
+        fg = graphs.frame_graphs(dev, n, c)
+        entries = [(k, e) for k, e in fg._graphs.items() if k[0] == kind]
+        check(bool(entries), f"no captured {what} graph at {n} points")
+        key, e = entries[0]
+        main = graphs.node_types(e.graph)
+        bodies = [graphs.node_types(b) for b in e.bodies]
+        check(main.get("conditional", 0) == len(e.bodies) > 0,
+              f"{what}: {main.get('conditional', 0)} IF nodes for {len(e.bodies)} bodies")
+        refused = {"host", "event_record", "wait_event", "mem_alloc", "mem_free"}
+        check(not any(refused & set(b) for b in bodies), f"{what}: a body holds {bodies}")
+        total = {}
+        for b in bodies:
+            for name, k in b.items():
+                total[name] = total.get(name, 0) + k
+        print(f"IF nodes of the compiled {what} ({n} points, n_iters {c.n_iters}; {card}): "
+              f"main graph {main}; {len(bodies)} guarded bodies, together {total}; the set's "
+              f"graphs {graphs.graph_nodes(fg)}")
+    pool = graph_pool_bytes()
+    s = graphs.capture_stats
+    print(f"captures so far: {s['graphs']} graphs (guarded bodies included), "
+          f"{s['capture_s']:.2f} s warming up and capturing, {s['instantiate_s']:.2f} s "
+          f"instantiating; graph pools "
+          f"{'not reported' if pool is None else f'{pool / 2**20:.1f} MiB'} ({card})")
+
+
+def sharded_solve_case(what, solve, solve_eager, args, launches_want, dev, card) -> None:
+    """One sharded pose-graph solve, compiled (its stages captured under
+    ``set_sync_debug_mode("error")``) and eager in turns: the states within
+    the eager loop's own run-to-run spread or 2e-3 (its float atomics), the
+    backbone kernels' launches through the replays equal the eager loop's."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.ops.tridiag import tridiag_apply, tridiag_factor
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        settle()
+        tridiag_factor.launches = tridiag_apply.launches = 0
+        zero_warmups()
+        out = fn()
+        torch.cuda.synchronize()
+        settle()
+        return out, (tridiag_factor.launches - warmups("tridiag_factor"),
+                     tridiag_apply.launches - warmups("tridiag_apply"))
+
+    t0 = time.perf_counter()
+    with graphs.sync_debug("error"):
+        got, l_c = counted(lambda: solve(*args))
+    first_s = time.perf_counter() - t0
+    want, l_e = counted(lambda: solve_eager(*args))
+    spread = float((solve_eager(*args) - want).abs().max())
+    dx = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and dx <= max(2e-3, spread),
+          f"{what}: compiled states {dx:.3e} from the eager loop's (spread {spread:.3e})")
+    check(l_c == l_e == launches_want, f"{what}: factor/apply launches compiled {l_c}, eager "
+          f"{l_e}, want {launches_want}")
+    ms = {"eager": [], "compiled": []}
+    for mode in ("eager", "compiled", "compiled", "eager"):
+        fn = solve if mode == "compiled" else solve_eager
+        ms[mode].append(median_ms(lambda f=fn: f(*args), reps=1, rounds=2))
+    print(f"{what} ({card}): eager/compiled/compiled/eager "
+          f"{' / '.join(f'{t:.2f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
+          f" ms a solve (CUDA events, median of 2); the first compiled call with its captures "
+          f"{first_s:.2f} s; compiled against eager max |d state| {dx:.3e} (eager against "
+          f"eager {spread:.3e}, bit-identical: {dx == 0.0}); factor/apply launches {l_c}")
+
+
+def phase_sharded_solves(lc_solves, dev, card) -> None:
+    """Phase 28b: ``optimize_poses_sharded`` and
+    ``optimize_poses_sparse_sharded`` with the factors over two repeats of
+    the card (a (2, 1) mesh: the factor axis is the mesh's first), on
+    phase 17's K = 250 graph and on the 10,000-pose ring of phase 16."""
+    import icet_tpu_torch.pose_graph as pose_graph
+    from icet_tpu_torch.parallel.sharding import registration_mesh
+
+    mesh = registration_mesh(2, 1, [dev] * 2)
+    (args, kw), = lc_solves.args
+    states0, graph = args[0], args[1]
+    n_it, cg = args[2], args[3]
+    robust = kw.get("robust_delta", 0.0)
+    K = states0.shape[0]
+    sharded_solve_case(
+        f"sharded dense solve, K = {K}, {graph.idx_i.shape[0]} factors over 2 shards, 10 steps",
+        pose_graph.optimize_poses_sharded, pose_graph.optimize_poses_sharded_eager,
+        (states0, graph, mesh, 10), (0, 0), dev, card)
+    sharded_solve_case(
+        f"sharded sparse solve, K = {K}, {graph.idx_i.shape[0]} factors over 2 shards, "
+        f"{n_it} x {cg}, robust_delta {robust}",
+        lambda *a: pose_graph.optimize_poses_sparse_sharded(*a, robust_delta=robust),
+        lambda *a: pose_graph.optimize_poses_sparse_sharded_eager(*a, robust_delta=robust),
+        (states0, graph, mesh, n_it, cg), (n_it, n_it * (1 + cg)), dev, card)
+    ring0, ring, _ = ring_graph(RING_POSES)
+    sharded_solve_case(
+        f"sharded sparse solve, the {RING_POSES}-pose ring over 2 shards, 10 x 25",
+        pose_graph.optimize_poses_sparse_sharded, pose_graph.optimize_poses_sparse_sharded_eager,
+        (ring0, ring, mesh, 10, 25), (10, 10 * 26), dev, card)
+
+
+def phase_if_cost(scans, cfg, dev, card) -> None:
+    """Phase 28c: what the device-side control flow costs on the card, by
+    CUDA events over back-to-back replays: one warm iteration as a graph
+    of its own against the same iteration inside an IF node's body (flag
+    true, and false), and a fixed-run-length solve (7 iterations; the
+    mapping profile's 12) as one unrolled graph (the production solve)
+    against its stages replayed one by one (the earlier design), in turns."""
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch.config import PROFILES
+    from icet_tpu_torch.solver import (_stage_finish, _stage_first, _stage_warm,
+                                       compiled_graphs, prepare_reference)
+
+    s0, s1 = (torch.from_numpy(scans[k]).to(dev) for k in (0, 1))
+    fixed = cfg.replace(convergence_tol=0.0, convergence_stat_scale=0.0)
+    for name, c in (("fixed run length", fixed), ("mapping profile", PROFILES["mapping"])):
+        fg = compiled_graphs(s1, c)
+        b = fg.buffers
+        fg.load(scan=s1, x0=torch.zeros(6, device=dev), model=prepare_reference(s0, c))
+        stages = ([lambda bb: _stage_first(bb, c)]
+                  + [lambda bb, g=k: _stage_warm(bb, c, g) for k in range(1, c.n_iters)]
+                  + [lambda bb: _stage_finish(bb, c, False)])
+
+        def warm_one(bb):
+            bb.it.zero_()
+            _stage_warm(bb, c, 1)
+
+        fg._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(fg._stream):
+            for st in stages + [warm_one]:
+                st(b)
+        torch.cuda.synchronize()
+
+        def capture(fns, flag=None, body=False):
+            # A body is captured as the compiled path captures one: kept as
+            # a graph, never instantiated, and cloned into its IF node.
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            inner = capture(fns, body=True) if flag is not None else None
+            with torch.cuda.graph(g, pool=fg._pool, stream=fg._stream):
+                if flag is None:
+                    for fn in fns:
+                        fn(b)
+                else:
+                    graphs._add_if(flag, inner)
+            if not body:
+                g.instantiate()
+            g.body = inner
+            return g
+
+        staged = [capture([st]) for st in stages]
+        flag = torch.ones((), dtype=torch.bool, device=dev)
+        top, guarded = capture([warm_one]), capture([warm_one], flag)
+        fg.solve(False)
+        runs = {"stages replayed": lambda: [g.replay() for g in staged],
+                "one solve graph": lambda: fg.solve(False)}
+        ms = {k: [] for k in runs}
+        for k in ("stages replayed", "one solve graph", "one solve graph", "stages replayed"):
+            ms[k].append(median_ms(runs[k], reps=10, rounds=3))
+        it_ms = [median_ms(top.replay, reps=20, rounds=3),
+                 median_ms(guarded.replay, reps=20, rounds=3)]
+        flag.fill_(False)
+        it_ms.append(median_ms(guarded.replay, reps=20, rounds=3))
+        check(all(t > 0 for t in it_ms), f"{name}: IF node timing failed")
+        print(f"IF cost, {name} at 64x1024 ({card}): a warm iteration as its own graph "
+              f"{it_ms[0]:.4f} ms, inside an IF body {it_ms[1]:.4f} ms, the IF skipped "
+              f"{it_ms[2]:.4f} ms; a {c.n_iters}-iteration solve, stages replayed / one "
+              f"unrolled graph / one unrolled graph / stages replayed: "
+              f"{ms['stages replayed'][0]:.3f} / {ms['one solve graph'][0]:.3f} / "
+              f"{ms['one solve graph'][1]:.3f} / {ms['stages replayed'][1]:.3f} ms (CUDA events)")
+
+
+#: ``--parent DIR``: the compiled paths timed in a tree's own process
+#: (``--time-tree``), the parent's and this tree's in turns
+TREE_TIMEOUT_S = 400
+
+
+def time_tree(spec: dict) -> int:
+    """A spawned process of phase 28c: the compiled entry points of the tree
+    at ``spec["root"]`` (this one or an earlier one; only the entry points
+    both keep are called) timed on the drives in ``spec["data"]``, ms a
+    frame, a pair or a solve by CUDA events after one warm call; the times
+    written to ``spec["out"]`` as JSON."""
+    sys.path.insert(0, spec["root"])
+    import icet_tpu_torch
+
+    check(os.path.dirname(os.path.abspath(icet_tpu_torch.__file__))
+          == os.path.join(os.path.abspath(spec["root"]), "icet_tpu_torch"),
+          f"the tree at {spec['root']} was not imported")
+    from icet_tpu_torch import _build
+    from icet_tpu_torch import pose_graph
+    from icet_tpu_torch.config import (PROFILES, BlockMapConfig, ICETConfig, KeyframeConfig,
+                                       MapConfig, OdometryConfig)
+    from icet_tpu_torch.keyframe import KeyframeOdometry
+    from icet_tpu_torch.mapping import MapMaker
+    from icet_tpu_torch.odometry import OdometryPipeline, odometry_sequence_jit
+    from icet_tpu_torch.parallel.sharding import (make_sharded_register, registration_mesh,
+                                                  shard_scan_batch)
+    from icet_tpu_torch.solver import prepare_reference_jit, register_pair_jit
+
+    _build.build()
+    dev = torch.device("cuda")
+    data = np.load(spec["data"])
+    cfg = ICETConfig(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0)
+    odo = OdometryConfig(divergence_clamp=2.5)
+    kf_cfg = KeyframeConfig(**spec["kf"])
+    bm_cfg = BlockMapConfig(**spec["bm"])
+    drive = torch.from_numpy(data["scans"]).to(dev)
+    wide = torch.from_numpy(data["wide"]).to(dev)
+    out = {}
+
+    def timed(name, fn, per, rounds=5):
+        fn()
+        torch.cuda.synchronize()
+        out[name] = median_ms(fn, reps=1, rounds=rounds) / per
+
+    def sequence(frames, c=cfg):
+        model = prepare_reference_jit(frames[0], c)
+
+        def run():
+            odometry_sequence_jit(frames[1:], model, torch.zeros(6, device=dev),
+                                  torch.eye(4, device=dev), c, 2.5, True, "previous")
+        return run
+
+    short = drive[:TIMED_FRAMES]
+
+    def runner(name, r):
+        # Frames 0-1 capture (a new ring's map graphs among them); 2 on timed.
+        r.step(short[0])
+        r.step(short[1])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in short[2:]:
+            r.step(s)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / (len(short) - 2)
+
+    # The card's clocks ramp up over the first second of work: burn in.
+    burn, t0 = sequence(drive), time.perf_counter()
+    while time.perf_counter() - t0 < 2.0:
+        burn()
+    torch.cuda.synchronize()
+    timed("sequence frame 64x1024", sequence(drive), drive.shape[0] - 1)
+    timed("sequence frame 64x2048", sequence(wide), wide.shape[0] - 1)
+    timed("scatter-route frame 64x1024", sequence(short, cfg.replace(moment_method="pallas")),
+          len(short) - 1)
+    runner("DNN frame 64x1024", OdometryPipeline(cfg.replace(dnn_filter=True), odo, device=dev))
+    runner("keyframe frame 64x1024", KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev))
+    runner("MapMaker frame 64x1024", MapMaker(PROFILES["mapping"], MapConfig(), odo, device=dev))
+    lcfg = ICETConfig()
+    n_pairs = min(8, drive.shape[0] - 3)
+    timed("loop pair 64x1024", lambda: [register_pair_jit(
+        drive[k], drive[k + 3], torch.zeros(6, device=dev), lcfg, want_static_mask=False)
+        for k in range(n_pairs)], n_pairs)
+    s1, s2 = data["scans"][:2], data["scans"][1:3]
+    x0s = np.zeros((2, 6), np.float32)
+    for dp, sp in ((1, 2), (1, 4)):
+        mesh = registration_mesh(dp, sp, [dev] * (dp * sp))
+        step, batch = make_sharded_register(cfg, mesh), shard_scan_batch(s1, s2, x0s, mesh)
+        timed(f"sharded pair ({dp}, {sp})", lambda st=step, bt=batch: st(*bt), 2)
+    ring0, ring, _ = ring_graph(RING_POSES)
+    mesh = registration_mesh(2, 1, [dev] * 2)
+    timed("sharded sparse solve, 10k ring, 10 x 25",
+          lambda: pose_graph.optimize_poses_sparse_sharded(ring0, ring, mesh, 10, 25), 1, 2)
+    # The ring's first 250 poses and their odometry factors (a chain).
+    chain = pose_graph.PoseGraph(*(t[:249] for t in ring))
+    timed("sharded dense solve, K = 250, 10 steps",
+          lambda: pose_graph.optimize_poses_sharded(ring0[:250], chain, mesh, 10), 1, 2)
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def parent_times(parent: str) -> int:
+    """``--parent DIR`` (an earlier tree unpacked there), in place of the
+    phases: the compiled paths of the parent tree and of this one, each
+    timed in a process of its own (``--time-tree``), in the turns parent,
+    this, this, parent, on the sequence drive (and 8 frames of it at
+    64x2048)."""
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from icet_tpu_torch.config import BlockMapConfig, KeyframeConfig
+    from icet_tpu_torch.datasets.replay import CityDriveSource
+
+    card = device_line()
+    scans, wide = (np.stack([s for s, _ in CityDriveSource(n_frames=f, speed=1.0, n_beams=64,
+                                                            n_azimuth=az)]).astype(np.float32)
+                   for f, az in ((24, 1024), (8, 2048)))
+    kf_cfg = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
+    bm_cfg = BlockMapConfig()
+    times = {"parent": [], "this": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "drives.npz")
+        np.savez(data, scans=scans, wide=wide)
+        for k, (name, root) in enumerate((("parent", parent), ("this", ROOT), ("this", ROOT),
+                                          ("parent", parent))):
+            spec = {"root": os.path.abspath(root), "data": data,
+                    "out": os.path.join(tmp, f"times{k}.json"),
+                    "kf": dataclasses_dict(kf_cfg), "bm": dataclasses_dict(bm_cfg)}
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree",
+                                   json.dumps(spec)], capture_output=True, text=True,
+                                  timeout=TREE_TIMEOUT_S, cwd=tmp)
+            check(proc.returncode == 0, f"--time-tree {name} failed:\n{proc.stdout[-3000:]}"
+                  f"\n{proc.stderr[-3000:]}")
+            with open(spec["out"]) as f:
+                times[name].append(json.load(f))
+    for path in times["this"][0]:
+        p, t = [r[path] for r in times["parent"]], [r[path] for r in times["this"]]
+        print(f"{path} ({card}), compiled route of the parent / this / this / parent: "
+              f"{p[0]:.3f} / {t[0]:.3f} / {t[1]:.3f} / {p[1]:.3f} ms (CUDA events, median of "
+              f"the rounds, each tree in its own process)")
+    return 0
+
+
+def dataclasses_dict(obj) -> dict:
+    import dataclasses
+
+    return dataclasses.asdict(obj)
 
 
 def main() -> int:
@@ -2959,12 +3396,14 @@ def main() -> int:
 
     # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
+    settle()
     fused_launches = fused_moment_sums.launches
     seq_warm = warmups()
     iters = [f.iterations for f in out]
@@ -2989,6 +3428,7 @@ def main() -> int:
     n_pre = max(min(dcfg.dnn_start_iter, dcfg.n_iters - 1), 1)
     n_post = dcfg.n_iters - n_pre
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     bias_encoder_pool.launches = 0
     zero_warmups()
@@ -2996,6 +3436,7 @@ def main() -> int:
     dout = list(OdometryPipeline(dcfg, odo, device="cuda").run(scans))
     torch.cuda.synchronize()
     dnn_s = time.perf_counter() - t0
+    settle()
     dnn_fused, enc_launches = fused_moment_sums.launches, bias_encoder_pool.launches
     dnn_warm, enc_warm = warmups(), warmups("bias_encoder_pool")
     diters = [f.iterations for f in dout]
@@ -3105,12 +3546,14 @@ def main() -> int:
     drive = torch.from_numpy(scans).to(dev)
     models = [prepare_reference(drive[k], cfg) for k in range(drive.shape[0] - 1)]
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums_windowed.launches = 0
     win_path = [fused_moment_sums_windowed(drive[k + 1], torch.from_numpy(out[k].X).to(dev),
                                            models[k].bounds, models[k].anchors, cfg,
                                            WIN_BLOCK, WIN_WINDOW)
                 for k in range(len(models))]
     torch.cuda.synchronize()
+    settle()
     win_launches = fused_moment_sums_windowed.launches
     check(win_launches == len(out), f"windowed launches {win_launches} != {len(out)} frames")
     check(all(bool(torch.isfinite(s).all()) for s, _ in win_path), "non-finite windowed sums")
@@ -3122,12 +3565,14 @@ def main() -> int:
     kf_cfg = KeyframeConfig(spawn_distance=3.0, spawn_angle=0.3, delta_clamp=2.5)
     bm_cfg = BlockMapConfig()
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
     kout, bm = run_keyframe_device(scans, cfg, kf_cfg, bm_cfg, device="cuda")
     torch.cuda.synchronize()
     kf_s = time.perf_counter() - t0
+    settle()
     kf_fused, kf_warm = fused_moment_sums.launches, warmups()
     kf_idx = [0] + [f.index for f in kout if f.is_keyframe]
     kiters = sum(f.iterations for f in kout)
@@ -3173,6 +3618,7 @@ def main() -> int:
 
     # -- DNN-filtered keyframe odometry -----------------------------------
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     bias_encoder_pool.launches = 0
     zero_warmups()
@@ -3181,6 +3627,7 @@ def main() -> int:
     dkout = dkodo.run(scans)
     torch.cuda.synchronize()
     dkf_s = time.perf_counter() - t0
+    settle()
     dkf_fused, dkf_enc = fused_moment_sums.launches, bias_encoder_pool.launches
     dkf_warm, dkf_enc_warm = warmups(), warmups("bias_encoder_pool")
     dk_iters = sum(f.iterations for f in dkout)
@@ -3218,6 +3665,7 @@ def main() -> int:
     # host synchronisation, against the eager route frame by frame.
     mcfg, map_cfg = PROFILES["mapping"], MapConfig()
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
@@ -3226,12 +3674,15 @@ def main() -> int:
         mout = [f for f in (maker.step(s) for s in scans) if f is not None]
     torch.cuda.synchronize()
     map_s = time.perf_counter() - t0
+    settle()
     map_fused, map_warm = fused_moment_sums.launches, warmups()
+    settle()
     fused_moment_sums.launches = 0
     t0 = time.perf_counter()
     maker_e = eager(MapMaker(mcfg, map_cfg, odo, device="cuda"))
     mout_e = [f for f in (maker_e.step(s) for s in scans) if f is not None]
     torch.cuda.synchronize()
+    settle()
     map_eager_s, map_eager_fused = time.perf_counter() - t0, fused_moment_sums.launches
     check(len(mout) == len(scans) - 1, f"MapMaker: {len(mout)} frames")
     check(not any(f.diverged for f in mout), "MapMaker: a frame diverged")
@@ -3409,9 +3860,11 @@ def main() -> int:
           f"V={cfg.n_voxels}")
     x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
     torch.cuda.synchronize()
+    settle()
     fused_before = fused_moment_sums.launches
     bres = register_pair(scans[0], scans[1], x0, big, device="cuda")
     torch.cuda.synchronize()
+    settle()
     big_fused = fused_moment_sums.launches - fused_before
     bcpu = register_pair(scans[0], scans[1], x0, big, device="cpu")
     bX, bcX = bres.X.cpu().numpy(), bcpu.X.numpy()
@@ -3419,7 +3872,7 @@ def main() -> int:
     check(bool(np.isfinite(bX).all()) and abs(bX[0] - 1.0) < 0.1, f"V={big.n_voxels}: X {bX}")
     check(float(np.abs(bX - bcX).max()) <= 1e-3, f"V={big.n_voxels}: card X {bX} vs CPU {bcX}")
     print(f"C6, 150x48 grid (V = {big.n_voxels}): route {moment_route(big)}, fused launches "
-          f"{big_fused}, {bres.iterations} iterations, card X {np.round(bX, 5).tolist()}, "
+          f"{big_fused}, {int(bres.iterations)} iterations, card X {np.round(bX, 5).tolist()}, "
           f"max |card - CPU| {float(np.abs(bX - bcX).max()):.3e}")
 
     # -- 15. BiasNet training at full width ------------------------------------
@@ -3443,6 +3896,7 @@ def main() -> int:
     pairs_s = time.perf_counter() - t0
     train_cmp = phase_train_compiled(pairs, dev, card)
     torch.cuda.synchronize()
+    settle()
     bias_encoder_pool.launches = 0
     t0 = time.perf_counter()
     with patched(train_data, "make_raycast_voxel_pairs", lambda **kw: pairs), \
@@ -3452,6 +3906,7 @@ def main() -> int:
             device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    settle()
     check(bias_encoder_pool.launches == 0,
           "training launched the encoder kernel (it trains through flax's forward)")
     check(all(np.isfinite(tlosses)), "training: a loss is not finite")
@@ -3488,8 +3943,10 @@ def main() -> int:
     # The bundled s100 net through the serving path (kernel #4).
     xm, ym = make_patch_batch(torch.Generator(device=dev).manual_seed(7), 64, 100)
     torch.cuda.synchronize()
+    settle()
     bias_encoder_pool.launches = 0
     mae = float(torch.mean(torch.abs(apply_bias_net(net, xm) - ym)))
+    settle()
     mae_launches = bias_encoder_pool.launches
     check(mae_launches == 1, f"bundled net: {mae_launches} encoder launches")
     check(mae < 0.12, f"bundled net: MAE {mae:.4f} m not below 0.12")
@@ -3560,9 +4017,11 @@ def main() -> int:
     for K, forced, offset in backbone_cases():
         Dn, En, rn = backbone_chain(K, seed=K, fallback_at=forced)
         D, E, r = (on_device(x, dev, offset) for x in (Dn, En, rn))
+        settle()
         before = (tridiag_factor.launches, tridiag_apply.launches)
         S, U = tridiag_factor(D, E)
         y = tridiag_apply(S, U, r)
+        settle()
         counted = (tridiag_factor.launches - before[0], tridiag_apply.launches - before[1])
         Sr, Ur = tridiag_factor_reference(D, E)
         yr = tridiag_apply_reference(Sr, Ur, r)
@@ -3592,6 +4051,7 @@ def main() -> int:
     # synchronisation; the backbone's launches counted through the replays,
     # the warm-ups before the captures beside them), against the eager loop.
     torch.cuda.synchronize()
+    settle()
     tridiag_factor.launches = tridiag_apply.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
@@ -3599,14 +4059,17 @@ def main() -> int:
         ring_opt_t = optimize_poses_sparse(ring0, ring, 10, 25, device="cuda")
     torch.cuda.synchronize()
     ring_first_s = time.perf_counter() - t0
+    settle()
     ring_launches = (tridiag_factor.launches, tridiag_apply.launches)
     ring_warm = (warmups("tridiag_factor"), warmups("tridiag_apply"))
     check((ring_launches[0] - ring_warm[0], ring_launches[1] - ring_warm[1]) == (10, 10 * 26),
           f"10k solve: factor/apply launches {ring_launches} less warm-ups {ring_warm}, "
           f"expected (10, 260)")
+    settle()
     tridiag_factor.launches = tridiag_apply.launches = 0
     ring_eager_t = optimize_poses_sparse_eager(ring0, ring, 10, 25, device="cuda")
     torch.cuda.synchronize()
+    settle()
     ring_eager_launches = (tridiag_factor.launches, tridiag_apply.launches)
     check(ring_eager_launches == (10, 260), f"10k solve, eager: launches {ring_eager_launches}")
     ring_dx = float((ring_opt_t - ring_eager_t).abs().max())
@@ -3646,6 +4109,7 @@ def main() -> int:
 
     lcfg = ICETConfig()
     torch.cuda.synchronize()
+    settle()
     fused_moment_sums.launches = tridiag_factor.launches = tridiag_apply.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
@@ -3658,7 +4122,9 @@ def main() -> int:
     lc_s = time.perf_counter() - t0
     # odometry, loop verification and the solve through the compiled paths:
     # less their warm-ups
+    settle()
     lc_fused = fused_moment_sums.launches - warmups()
+    settle()
     lc_tri = (tridiag_factor.launches - warmups("tridiag_factor"),
               tridiag_apply.launches - warmups("tridiag_apply"))
     n_lc = LC_DRIVE["n_frames"]
@@ -3792,6 +4258,13 @@ def main() -> int:
         t27 = time.perf_counter() - t0 - t22 - t23 - t24 - t25 - t26
     print(f"phases 22-27: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} / "
           f"{t27:.1f} s")
+
+    # -- 28: the IF nodes, the sharded solves --------------------------------
+    t0 = time.perf_counter()
+    conditional_report(dev, scans.shape[1], cfg, dcfg, card)
+    phase_sharded_solves(lc_solves, dev, card)
+    phase_if_cost(scans, cfg, dev, card)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -3872,6 +4345,10 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--worker":
         sys.exit(worker(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+        sys.exit(time_tree(json.loads(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        sys.exit(parent_times(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -285,8 +285,8 @@ def register_pair_with_dnn(
     samples1 = model_voxel_samples_jit(model, s1, cfg)
     fg = compiled_graphs(s2, cfg)
     fg.load(scan=s2, x0=x0, model=model, samples=samples1)
-    iterations, n_final = solve_dnn(fg, net, True)
-    return fg.result(iterations, True, n_final), _filter_out(fg)
+    n_final = solve_dnn(fg, net, True)
+    return fg.result(True, n_final), _filter_out(fg)
 
 
 def register_scans(
@@ -361,40 +361,44 @@ def _stage_handover(b) -> None:
     b.samples1_buf.copy_(b.samples_next_buf)
 
 
-def solve_dnn(fg, net: BiasNet, want_static_mask: bool) -> tuple[int, int]:
+def solve_dnn(fg, net: BiasNet, want_static_mask: bool) -> int:
     """:func:`register_with_dnn` of the loaded scan against the loaded model
-    and scan-1 samples, from the loaded x0, as the set's graphs: the same
-    phases, each a register call of its derived config keyed inside the
-    set of the base config, the filter stage between them.  The keep mask
-    and ``n_rejected`` of the last filter pass stay in ``b.filt``.  Returns
-    ``(iterations, n_iters of the finished call)``, the iterations of all
-    phases."""
+    and scan-1 samples, from the loaded x0, as one graph of the set: the
+    same phases, each the schedule of a register call of its derived
+    config (its early exit guarded on the device, its iterations with their
+    global indices), the filter stage between them.  The keep mask and
+    ``n_rejected`` of the last filter pass stay in ``b.filt``; the
+    iterations of all phases are counted in ``b.iters``.  Returns the
+    ``n_iters`` of the finished call."""
     cfg = fg.cfg
     fg.pin(net)
     versions = tuple(t._version for t in net.encoder_weights())
 
-    def filt():
-        fg.run(("filter", id(net), versions), lambda b: _stage_filter(b, cfg, net))
+    def filt(b):
+        _stage_filter(b, cfg, net)
 
     if cfg.n_iters < 2:
-        iterations = fg.solve(want_static_mask, cfg.replace(n_iters=1))
-        filt()
-        return iterations, 1
-    n_pre, n_post = graphs.dnn_phases(cfg)
-    pre = fg.solve(False, cfg.replace(n_iters=n_pre, range_sigma=0.0), finish=False)
-    if not cfg.dnn_in_loop:
-        filt()
-        post = fg.solve(want_static_mask, cfg.replace(n_iters=n_post), it_offset=n_pre,
-                        masked=True, start="X")
-        return pre + post, n_post
-    step_cfg = cfg.replace(n_iters=1, convergence_tol=0.0)
-    for k in range(n_post - 1):
-        filt()
-        fg.solve(False, step_cfg.replace(range_sigma=0.0), it_offset=n_pre + k, masked=True,
-                 start="X", finish=False)
-    filt()
-    fg.solve(want_static_mask, step_cfg, it_offset=cfg.n_iters - 1, masked=True, start="X")
-    return pre + n_post, 1
+        schedule, n_final = fg.solve_schedule(want_static_mask, cfg.replace(n_iters=1)) + [filt], 1
+    else:
+        n_pre, n_post = graphs.dnn_phases(cfg)
+        schedule = fg.solve_schedule(False, cfg.replace(n_iters=n_pre, range_sigma=0.0),
+                                     finish=False)
+        if not cfg.dnn_in_loop:
+            schedule += [filt] + fg.solve_schedule(want_static_mask, cfg.replace(n_iters=n_post),
+                                                   it_offset=n_pre, masked=True, start="X")
+            n_final = n_post
+        else:
+            step_cfg = cfg.replace(n_iters=1, convergence_tol=0.0)
+            for k in range(n_post - 1):
+                schedule += [filt] + fg.solve_schedule(
+                    False, step_cfg.replace(range_sigma=0.0), it_offset=n_pre + k, masked=True,
+                    start="X", finish=False)
+            schedule += [filt] + fg.solve_schedule(want_static_mask, step_cfg,
+                                                   it_offset=cfg.n_iters - 1, masked=True,
+                                                   start="X")
+            n_final = 1
+    fg.run_schedule(("dnn", id(net), versions, want_static_mask), schedule)
+    return n_final
 
 
 def _samples_out(fg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -438,10 +442,10 @@ def odometry_step_dnn_jit(
     del prev_scan
     fg = compiled_graphs(scan, cfg)
     fg.load(scan=scan, x0=x0, model=model, samples=prev_samples)
-    iterations, n_final = solve_dnn(fg, net, False)
+    n_final = solve_dnn(fg, net, False)
     fg.run_prepare()
     fg.run(("samples", "prepared"), lambda b: _stage_samples(b, cfg, "prepared"))
-    res = fg.result(iterations, False, n_final)
+    res = fg.result(False, n_final)
     new_model, new_samples = fg.prepared(), _samples_out(fg)
     filt = _filter_out(fg) if return_filter else None
     fg.run(("handover",), _stage_handover)

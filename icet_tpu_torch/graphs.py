@@ -6,25 +6,26 @@
 ``keyframe_spawn_jit``, ``keyframe_sequence_jit``; ``solver.register_pair_jit``
 and ``pose_graph.close_loops``; ``mapping.map_update_jit``,
 ``map_step_jit``; ``pose_graph.optimize_poses`` and
-``optimize_poses_sparse``; ``parallel.sharding.make_sharded_register`` and
-the process mesh's step; ``models.bias_net.train_step``).
+``optimize_poses_sparse``, ``optimize_poses_sharded`` and
+``optimize_poses_sparse_sharded``; ``parallel.sharding.make_sharded_register``
+and the process mesh's step; ``models.bias_net.train_step``).
 
 The JAX package compiles each of them once per static shape and config.
 Here a frame runs as a few CUDA graphs, captured once per ``(device, N,
 cfg)`` (:func:`frame_graphs`) and replayed afterwards:
 
 * ``prepare``: the voxel model of the scan buffer;
-* ``first``: Gauss-Newton iteration 0 (the cold 6x6 eigendecomposition);
-* ``warm``: one warm iteration (a second graph where the moving-object
-  schedule switches on inside the solve);
-* ``finish``: the predicted covariance, the diagnostics and, for
-  ``register_jit``, the static mask, packed into one result buffer;
+* ``solve``: one registration, unrolled (see "Early exit" below):
+  Gauss-Newton iteration 0 (the cold 6x6 eigendecomposition), the warm
+  iterations, each with its global index (the moving-object schedule),
+  and the finish (the predicted covariance, the diagnostics and, for
+  ``register_jit``, the static mask, packed into one result buffer);
 * for the sequence runner, ``seed`` and ``glue``: the warm start, the
   divergence guard, the world pose and the hand-over of the model;
-* with the DNN filter (``filters``): ``filter`` (the reject mask at the
-  current X, kernels #1 and #4), the solve's phases as ``first``/``warm``/
-  ``finish`` graphs of their derived configs, keyed inside the one set of
-  the base config, ``samples`` and the frame's ``handover``;
+* with the DNN filter (``filters``): ``dnn``, the filtered solve as one
+  graph (its phases' schedules, each of its derived config, with the
+  ``filter`` stage between them: the reject mask at the current X,
+  kernels #1 and #4), ``samples`` and the frame's ``handover``;
 * for the keyframe path (``keyframe``): ``kf_predict``, ``kf_post`` (the
   covariance propagation, the delta guard, the spawn flag and the map
   insert staged under the device flag ``~spawn``), ``kf_spawn`` and, in
@@ -44,21 +45,37 @@ a drive, and capturing its hundreds of CG iterations would cost the host
 about what running them eagerly does.
 
 A mesh row of the sharded step has a set of its own
-(:class:`ShardedGraphs`: the bucket count of the distributed clustering,
-the prepare in two branches chosen by one host read of the summed
-overflow, the iterations and the finish, each a list of steps split at
-the axis's collectives).  A training step is one graph of its own set
+(:class:`ShardedGraphs`, a :class:`RowGraphs`: a pair is one schedule of
+the bucket count of the distributed clustering, the prepare in two
+branches, an if/else on the summed overflow, the iterations and the
+finish, each a list of steps split at the axis's collectives), and so has
+a sharded pose-graph solve (:class:`ShardedPoseGraphs`, one a ``(axis, K,
+F a shard, cg_iters, precond, robust, damping, prior)``: the dense step,
+or the assembly, a CG iteration and the update, split likewise).  A
+training step is one graph of its own set
 (:class:`TrainGraphs`), held with its optimizer (dropped with it), one a
 device and batch shape.
 
 The stages themselves are plain functions of the buffers (``solver``'s
 ``_stage_*``, ``odometry``'s ``_stage_seed``/``_stage_glue``,
-``mapping``'s ``_stage_map``, ``pose_graph``'s ``_stage_*``).
+``mapping``'s ``_stage_map``, ``pose_graph``'s ``_stage_*`` and the
+sharded solves' steps).
 
-Early exit: each iteration's graph leaves the flag ``|dx| >= threshold``
-on the device, and the host reads it once an iteration past ``min_it``,
-as the eager solver reads ``|dx|``, then replays the warm graph again or
-the finish.  A frame therefore executes the eager solve's iterations.
+Early exit: a registration is one graph (:meth:`FrameGraphs.solve`), its
+iterations unrolled up to the static cap ``n_iters``: iteration 0, the
+iterations below ``min_it`` unconditionally, each later one inside an IF
+conditional node on the device flag ``go`` (``|dx| >= threshold`` of the
+iteration before), then the finish.  Once an iteration clears ``go`` every
+later IF skips, as the JAX package's ``lax.while_loop`` stops; the host
+reads nothing inside a frame.  A schedule (a list of stages and
+:class:`If` entries) is built once and run by one of two executors: on
+CUDA it is captured with the IF nodes (an :class:`If` with an ``orelse``
+becomes two IF nodes, on the predicate and on its negation, computed
+before either body); on the CPU, and on a split row of the sharded step,
+the stages run as plain calls (or per-part graphs) and a guard is a host
+read of the flag, counted in :data:`host_ops` (``flag_reads``,
+``overflow_reads``), skipped where the flag is known false since nothing
+ran after its last read.
 
 Buffers: every graph reads and writes :class:`FrameBuffers`, allocated
 outside capture (the keyframe insert's staging among them,
@@ -82,12 +99,20 @@ image evicted from that cache stays alive while a graph reads it.
 Warm-up: before its capture each graph's stage runs once on a scratch set
 of buffers, on the capture stream, which builds and loads the kernels and
 makes the kernels' shared-memory opt-ins and the cuBLAS and cuSOLVER
-handles.
+handles; every body of a schedule is warmed up, guarded or not (both
+branches of an if/else).
 Those launches are real; the wrappers count them and
 :data:`warmup_launches` records them.  The capture launches nothing: each
-graph records how many launches of each counted wrapper it holds, and each
-replay adds them to the wrapper's count.  A failed capture raises, and
-the set is dropped from the cache.
+graph records how many launches of each counted wrapper (and, on a sharded
+row, collectives and bytes of its axis) it holds.  Which counts are exact,
+and when: a replay adds at once the counts of its unconditional stages.
+A guarded body adds one to its own slot of a device tally each time it
+runs; :func:`settle` reads every tally (one host read a device) and adds
+each body's counts times the runs since the last read.  So the counts are
+exact after :func:`settle`, and lag by the guarded bodies run since
+otherwise; :func:`clear` drops unsettled tallies.  A failed capture
+raises, and the set is dropped from the cache: no compiled solve falls
+back to host reads.
 
 On CPU tensors the stages run as plain calls on the same buffers.
 """
@@ -96,11 +121,16 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
+import functools
 import math
+import time
 import weakref
+from typing import Callable, NamedTuple
 
 import torch
 
+from icet_tpu_torch import _build
 from icet_tpu_torch.config import ICETConfig
 from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool, cached_image
 from icet_tpu_torch.ops.clustering import cluster_plan
@@ -125,11 +155,18 @@ COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
 warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: host operations of the compiled path: graph replays, exit-flag reads,
 #: keyframe spawn-flag reads, the sharded prepare's clustering-overflow
-#: reads, device copies of inputs in and of packed results out, draws of
-#: the inserts' uniforms, the device operations that write a staged insert
-#: or a spawn into a block map; and graphs captured
+#: reads (the last two only where a guard runs on the host), device copies
+#: of inputs in and of packed results out, draws of the inserts' uniforms,
+#: the device operations that write a staged insert or a spawn into a block
+#: map; graphs captured, and reads of the guarded bodies' tallies
+#: (:func:`settle`)
 host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "overflow_reads": 0,
-            "copies": 0, "draws": 0, "map_writes": 0, "captures": 0}
+            "copies": 0, "draws": 0, "map_writes": 0, "captures": 0, "tally_reads": 0}
+
+#: what the CUDA captures cost on the host: graphs captured (a guarded
+#: body is a graph of its own, cloned into its IF node), seconds warming up
+#: and capturing, and seconds instantiating
+capture_stats = {"graphs": 0, "capture_s": 0.0, "instantiate_s": 0.0}
 
 _sync_debug_mode = None
 
@@ -158,6 +195,90 @@ def _debug_mode():
         yield
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+
+
+@functools.lru_cache(maxsize=None)
+def _cond_lib() -> ctypes.CDLL:
+    """``csrc/graph_cond.cu``: the IF node."""
+    lib = _build.load("graph_cond")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.icet_graph_add_if.argtypes = [p, p, p]
+    lib.icet_graph_add_if.restype = i
+    lib.icet_cuda_error_string.argtypes = [i]
+    lib.icet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_cuda(err: int, what: str) -> None:
+    if err != 0:
+        msg = _cond_lib().icet_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def _add_if(flag: torch.Tensor, body) -> None:
+    """At the current stream's capture position, an IF node on the device
+    bool ``flag`` whose body is a clone of the captured graph ``body``."""
+    stream = torch.cuda.current_stream(flag.device).cuda_stream
+    _check_cuda(_cond_lib().icet_graph_add_if(stream, flag.data_ptr(), body.raw_cuda_graph()),
+                "adding an IF node")
+
+
+#: ``CUgraphNodeType`` names, by value
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+              "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free",
+              "batch_memop", "conditional")
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    p = ctypes.c_void_p
+    lib.cuGraphGetNodes.argtypes = [p, ctypes.POINTER(p), ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphNodeGetType.argtypes = [p, ctypes.POINTER(ctypes.c_int)]
+    lib.cuGraphChildGraphNodeGetGraph.argtypes = [p, ctypes.POINTER(p)]
+    return lib
+
+
+def _walk(graph: int, counts: dict) -> None:
+    drv = _libcuda()
+    n = ctypes.c_size_t(0)
+    err = drv.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if not err and n.value:
+        err = drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    for node in nodes:
+        t = ctypes.c_int(0)
+        if drv.cuGraphNodeGetType(node, ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = NODE_TYPES[t.value] if t.value < len(NODE_TYPES) else str(t.value)
+        counts[name] = counts.get(name, 0) + 1
+        if name == "graph":
+            sub = ctypes.c_void_p(0)
+            if drv.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(sub)):
+                raise RuntimeError("cuGraphChildGraphNodeGetGraph failed")
+            _walk(sub.value, counts)
+
+
+def node_types(graph) -> dict:
+    """The node types of a kept captured graph (``keep_graph=True``) and
+    its child graphs, by name (through libcuda); an IF node counts
+    once, its body not."""
+    counts: dict = {}
+    _walk(graph.raw_cuda_graph(), counts)
+    return counts
+
+
+def graph_nodes(gs: GraphSet) -> dict:
+    """The node types of every captured schedule of ``gs``: its graphs'
+    and, once each, its guarded bodies'."""
+    counts: dict = {}
+    for entry in gs._graphs.values():
+        for g in (entry.graph, *entry.bodies):
+            for name, k in node_types(g).items():
+                counts[name] = counts.get(name, 0) + k
+    return counts
 
 
 class Layout:
@@ -229,7 +350,8 @@ def result_layout(n: int, n_iters: int, static_mask: bool) -> Layout:
     f32 = torch.float32
     diags = [(name, (n_iters,), dt) for name, dt in zip(IterationDiag._fields, _DIAG_DTYPES)]
     return Layout([("X", (6,), f32), ("pred_stds", (6,), f32), ("Q", (6, 6), f32), *diags,
-                   ("static_mask", (n if static_mask else 0,), torch.bool)])
+                   ("static_mask", (n if static_mask else 0,), torch.bool),
+                   ("iterations", (), torch.int64)])
 
 
 def samples_layout(cfg: ICETConfig) -> Layout:
@@ -263,10 +385,11 @@ def result_iters(cfg: ICETConfig) -> tuple[int, ...]:
     return tuple(sorted(its))
 
 
-#: one frame of the sequence runner: its guarded X, pred_stds, world pose
-#: and divergence flag
+#: one frame of the sequence runner: its guarded X, pred_stds, world pose,
+#: divergence flag and the iterations its solve executed
 ROW_LAYOUT = Layout([("X", (6,), torch.float32), ("pred_stds", (6,), torch.float32),
-                     ("T_world", (4, 4), torch.float32), ("diverged", (), torch.bool)])
+                     ("T_world", (4, 4), torch.float32), ("diverged", (), torch.bool),
+                     ("iterations", (), torch.int64)])
 
 _F32 = torch.float32
 #: the keyframe runner's carry: pose relative to the keyframe, last delta,
@@ -279,11 +402,12 @@ KF_CARRY_LAYOUT = Layout([("x_rel", (6,), _F32), ("delta", (6,), _F32),
 KF_OUT_LAYOUT = Layout([("X_total", (6,), _F32), ("Q", (6, 6), _F32), ("pred_stds", (6,), _F32),
                         ("X", (6,), _F32), ("delta", (6,), _F32), ("diverged", (), torch.bool),
                         ("spawn", (), torch.bool), ("health", (2,), _F32)])
-#: one frame of the keyframe sequence runner, in the JAX package's order
+#: one frame of the keyframe sequence runner, in the JAX package's order,
+#: and the iterations its solve executed (a port-only column)
 KF_ROW_LAYOUT = Layout([("delta", (6,), _F32), ("delta_stds", (6,), _F32),
                         ("world6", (6,), _F32), ("diverged", (), torch.bool),
                         ("x_rel", (6,), _F32), ("is_keyframe", (), torch.bool),
-                        ("n_corr", (), torch.int32)])
+                        ("n_corr", (), torch.int32), ("iterations", (), torch.int64)])
 
 
 class MapBuffers:
@@ -366,6 +490,8 @@ class FrameBuffers:
         self.corr = z(cfg.n_voxels + 1, dtype=torch.bool)
         #: the next diagnostics row (an iteration count on the device)
         self.it = z(1, dtype=torch.int64)
+        #: the iterations of the current registration, all its phases
+        self.iters = z(1, dtype=torch.int64)
         #: the exit flag ``|dx| >= threshold`` of the last iteration
         self.go = z(dtype=torch.bool)
         self.diag = tuple(z(cfg.n_iters, dtype=dt) for dt in _DIAG_DTYPES[:5])
@@ -398,6 +524,65 @@ def _versions(obj) -> tuple:
     return tuple(t._version for t in obj)
 
 
+class If(NamedTuple):
+    """A guarded entry of a schedule: ``body(buffers)`` runs where the 0-d
+    bool ``pred(buffers)`` holds and, with ``orelse``, ``orelse(buffers)``
+    where it does not.  ``reads`` names the :data:`host_ops` count a host
+    read of the predicate adds to (the CPU and split-row executors)."""
+
+    pred: Callable
+    body: Callable
+    orelse: Callable | None = None
+    reads: str = "flag_reads"
+
+
+def _go(b) -> torch.Tensor:
+    return b.go
+
+
+def run_on_host(b, schedule, call) -> None:
+    """Run ``schedule`` with its guards read on the host: ``call(key, fn)``
+    runs an entry (``key``: its position, and the branch for a guarded
+    one).  A guard already read false is skipped unread while nothing ran
+    after its read, as the eager loop stops at the first false flag."""
+    known_false = set()
+    for k, e in enumerate(schedule):
+        if not isinstance(e, If):
+            call((k,), e)
+            known_false.clear()
+            continue
+        if e.orelse is None and e.pred in known_false:
+            continue
+        host_ops[e.reads] += 1
+        if bool(e.pred(b)):
+            call((k, True), e.body)
+            known_false.clear()
+        elif e.orelse is not None:
+            call((k, False), e.orelse)
+            known_false.clear()
+        else:
+            known_false.add(e.pred)
+
+
+class _Captured(NamedTuple):
+    """A captured schedule: its graph, the counts its unconditional stages
+    add a replay, the device tally of its guarded bodies (one slot a body,
+    None without one) with each body's counts and the tally's value at the
+    last :func:`settle`, and the bodies' own graphs (kept: an IF node holds
+    a clone, which may still refer to what a body's graph owns)."""
+
+    graph: object
+    counts: tuple
+    tally: torch.Tensor | None
+    body_counts: list
+    seen: list
+    bodies: list
+
+
+#: graph sets whose guarded bodies may have run since the last settle
+_TALLIED: weakref.WeakSet = weakref.WeakSet()
+
+
 class GraphSet:
     """Graphs captured over one set of static buffers (``self.buffers``),
     with one private memory pool and one capture stream on CUDA; a
@@ -427,49 +612,133 @@ class GraphSet:
     def run(self, key, stage) -> None:
         """Run ``stage(buffers)``: on CUDA replay its graph (``key`` names
         it; captured at first use), on the CPU call it."""
+        self.run_schedule(key, [stage])
+
+    def run_schedule(self, key, schedule: list) -> None:
+        """Run a schedule of stages and :class:`If` entries: on CUDA replay
+        its one graph (``key`` names it; captured at first use, the guards
+        as IF nodes), on the CPU call its stages with the guards read on
+        the host."""
         if self.device.type != "cuda":
-            stage(self.buffers)
+            run_on_host(self.buffers, schedule, lambda _, fn: fn(self.buffers))
             return
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(stage)
-        graph, counts = entry
-        graph.replay()
+            entry = self._graphs[key] = self._capture(schedule)
+        entry.graph.replay()
         host_ops["replays"] += 1
-        for (obj, attr), k in zip(self.counters(), counts):
+        for (obj, attr), k in zip(self.counters(), entry.counts):
             setattr(obj, attr, getattr(obj, attr) + k)
+        if entry.tally is not None:
+            _TALLIED.add(self)
 
-    def _capture(self, stage):
+    def settle(self) -> None:
+        """Add the counts of the guarded bodies run since the last settle
+        (one host read of this set's tallies)."""
+        entries = [e for e in self._graphs.values() if e.tally is not None]
+        if not entries:
+            return
+        values = torch.cat([e.tally for e in entries]).tolist()
+        host_ops["tally_reads"] += 1
+        counters = self.counters()
+        for e in entries:
+            for slot, counts in enumerate(e.body_counts):
+                runs = values[slot] - e.seen[slot]
+                e.seen[slot] = values[slot]
+                for (obj, attr), k in zip(counters, counts):
+                    setattr(obj, attr, getattr(obj, attr) + k * runs)
+            values = values[len(e.body_counts):]
+
+    def _capture(self, schedule: list) -> _Captured:
+        """Warm every body up on the scratch buffers, capture each guarded
+        body as a graph of its own, then the schedule, each guard an IF node
+        (an if/else two, on the predicate and on its negation, both computed
+        before either body runs)."""
         scratch = self.scratch()
         counters = self.counters()
 
         def read():
             return tuple(getattr(obj, attr) for obj, attr in counters)
 
+        def since(start):
+            return tuple(v - k for v, k in zip(read(), start))
+
+        guarded = [(e, fn) for e in schedule if isinstance(e, If)
+                   for fn in (e.body, e.orelse) if fn is not None]
+        t0 = time.perf_counter()
         with torch.cuda.device(self.device):
             before = read()
             self._stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(self._stream):
-                stage(scratch)
+                # Every body, guarded or not: as if each guard held.
+                for e in schedule:
+                    for fn in ((e.body, e.orelse) if isinstance(e, If) else (e,)):
+                        if fn is not None:
+                            fn(scratch)
             torch.cuda.current_stream().wait_stream(self._stream)
             warm = read()
             for w, a, b in zip(COUNTED, before, warm):
                 warmup_launches[w.__name__] += b - a
-            graph = torch.cuda.CUDAGraph()
+            tally = (torch.zeros(len(guarded), dtype=torch.int64, device=self.device)
+                     if guarded else None)
+            negated = {id(e): torch.zeros((), dtype=torch.bool, device=self.device)
+                       for e, _ in guarded if e.orelse is not None}
+            body_counts, bodies = [], []
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
+                for slot, (_, fn) in enumerate(guarded):
+                    body = torch.cuda.CUDAGraph(keep_graph=True)
+                    torch.cuda.synchronize(self.device)
+                    with torch.cuda.stream(self._stream):
+                        body.capture_begin(pool=self._pool, capture_error_mode=self.capture_mode)
+                        try:
+                            with _debug_mode():
+                                start = read()
+                                tally[slot:slot + 1].add_(1)
+                                fn(self.buffers)
+                                body_counts.append(since(start))
+                        finally:
+                            body.capture_end()
+                    bodies.append(body)
                 with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                       capture_error_mode=self.capture_mode):
                     with _debug_mode():
-                        stage(self.buffers)
+                        slot = 0
+                        for e in schedule:
+                            if not isinstance(e, If):
+                                e(self.buffers)
+                                continue
+                            pred = e.pred(self.buffers)
+                            flags = [pred]
+                            if e.orelse is not None:
+                                flags.append(torch.logical_not(pred, out=negated[id(e)]))
+                            for flag in flags:
+                                _add_if(flag, bodies[slot])
+                                slot += 1
+                t1 = time.perf_counter()
+                graph.instantiate()
+                t2 = time.perf_counter()
             except BaseException:
                 _forget(self)
                 raise
             finally:
-                counts = tuple(v - k for v, k in zip(read(), warm))
+                total = since(warm)
                 for (obj, attr), k in zip(counters, warm):
                     setattr(obj, attr, k)
         host_ops["captures"] += 1
-        return graph, counts
+        capture_stats["graphs"] += 1 + len(bodies)
+        capture_stats["capture_s"] += t1 - t0
+        capture_stats["instantiate_s"] += t2 - t1
+        counts = tuple(t - sum(c[i] for c in body_counts) for i, t in enumerate(total))
+        return _Captured(graph, counts, tally, body_counts, [0] * len(body_counts), bodies)
+
+
+def settle() -> None:
+    """Add to the counts every guarded body run since the last settle (one
+    host read of the tallies a graph set); after it the counts are exact."""
+    for gs in list(_TALLIED):
+        gs.settle()
+    _TALLIED.clear()
 
 
 class FrameGraphs(GraphSet):
@@ -572,44 +841,44 @@ class FrameGraphs(GraphSet):
                 copy_in(b.samples1_buf, src)
             self.hold("samples", samples)
 
-    def solve(self, want_static_mask: bool, cfg: ICETConfig | None = None, it_offset: int = 0,
-              masked: bool = False, start: str = "x0", finish: bool = True) -> int:
-        """One registration (the eager ``register``) of the loaded scan
-        against the loaded model: from ``b.x0`` or, with ``start="X"``, from
-        the last phase's X; ``cfg`` is this call's config (a phase's, derived
-        from the set's), ``it_offset`` its first global iteration, ``masked``
-        whether the filter's keep mask gates it; without ``finish`` only X
-        comes out.  Returns the iterations it executed."""
+    def solve_schedule(self, want_static_mask: bool, cfg: ICETConfig | None = None,
+                       it_offset: int = 0, masked: bool = False, start: str = "x0",
+                       finish: bool = True) -> list:
+        """The schedule of one registration (the eager ``register``) of the
+        loaded scan against the loaded model: from ``b.x0`` or, with
+        ``start="X"``, from the last phase's X; ``cfg`` is this call's
+        config (a phase's, derived from the set's), ``it_offset`` its first
+        global iteration, ``masked`` whether the filter's keep mask gates
+        it; without ``finish`` only X comes out.  Iteration 0, the
+        iterations below ``min_it``, then each later one guarded by ``go``,
+        each with its own global index."""
         cfg = cfg or self.cfg
         early, min_it = exit_schedule(cfg, it_offset)
-
-        def rm(it):
-            return cfg.remove_moving and it >= cfg.rm_start_iter
-
-        self.run(("first", cfg, rm(it_offset), masked, start),
-                 lambda b: _stage_first(b, cfg, it_offset, masked, start))
-        it = 1
-        while it < cfg.n_iters:
-            if early and it >= min_it:
-                host_ops["flag_reads"] += 1
-                if not bool(self.buffers.go):
-                    break
-            self.run(("warm", cfg, rm(it + it_offset), masked),
-                     lambda b, g=it + it_offset: _stage_warm(b, cfg, g, masked))
-            it += 1
+        entries = [lambda b: _stage_first(b, cfg, it_offset, masked, start)]
+        for it in range(1, cfg.n_iters):
+            def warm(b, g=it + it_offset):
+                _stage_warm(b, cfg, g, masked)
+            entries.append(If(_go, warm) if early and it >= min_it else warm)
         if finish:
-            self.run(("finish", cfg, want_static_mask, rm(it_offset + cfg.n_iters - 1), masked),
-                     lambda b: _stage_finish(b, cfg, want_static_mask, it_offset, masked))
-        return it
+            entries.append(lambda b: _stage_finish(b, cfg, want_static_mask, it_offset, masked))
+        return entries
+
+    def solve(self, want_static_mask: bool, cfg: ICETConfig | None = None, it_offset: int = 0,
+              masked: bool = False, start: str = "x0", finish: bool = True) -> None:
+        """Run :meth:`solve_schedule` as one graph: the iterations it
+        executes, all phases of the registration, are counted on the device
+        (``b.iters``, in the finished result's ``iterations``)."""
+        cfg = cfg or self.cfg
+        self.run_schedule(("solve", cfg, want_static_mask, it_offset, masked, start, finish),
+                          self.solve_schedule(want_static_mask, cfg, it_offset, masked, start,
+                                              finish))
 
     def run_prepare(self, src: str = "scan") -> None:
         self.run(("prepare", src), lambda b: _stage_prepare(b, self.cfg, src))
 
-    def result(self, iterations: int, want_static_mask: bool,
-               n_iters: int | None = None) -> RegistrationResult:
+    def result(self, want_static_mask: bool, n_iters: int | None = None) -> RegistrationResult:
         """The finished result of ``(n_iters, want_static_mask)`` (one copy)."""
-        return packed_result(self.buffers, (n_iters or self.cfg.n_iters, want_static_mask),
-                             iterations)
+        return packed_result(self.buffers, (n_iters or self.cfg.n_iters, want_static_mask))
 
     def prepared(self) -> VoxelModel:
         b = self.buffers
@@ -620,13 +889,14 @@ class FrameGraphs(GraphSet):
         return VoxelModel(**b.model_layout.views(clone_out(b.model_buf)))
 
 
-def packed_result(b: FrameBuffers, key: tuple, iterations: int) -> RegistrationResult:
+def packed_result(b: FrameBuffers, key: tuple) -> RegistrationResult:
     """The result buffer ``key = (n_iters, static mask)`` of ``b`` as a
-    :class:`RegistrationResult` of views of one copy."""
+    :class:`RegistrationResult` of views of one copy (``iterations`` a 0-d
+    device count)."""
     v = b.result_layout[key].views(clone_out(b.result_buf[key]))
     diag = IterationDiag(**{k: v[k] for k in IterationDiag._fields})
     return RegistrationResult(X=v["X"], pred_stds=v["pred_stds"], Q=v["Q"], diagnostics=diag,
-                              static_mask=v["static_mask"], iterations=iterations)
+                              static_mask=v["static_mask"], iterations=v["iterations"])
 
 
 def copy_in(dst: torch.Tensor, src) -> None:
@@ -786,56 +1056,76 @@ class _PartGraphs(GraphSet):
         return self._make_scratch()
 
 
-class ShardedGraphs(GraphSet):
-    """The graphs of one mesh row's compiled sharded step: the row's local
-    shard ``devices`` (one a local shard), the replicated math on the
-    first of them (the axis's device), ``n`` points a shard, ``shards``
-    shards on the axis.
+class RowGraphs(GraphSet):
+    """The graphs of one mesh row's sharded work: the row's local shard
+    ``devices`` (one a local shard), the replicated math on the first of
+    them (the axis's device), over buffers ``make(devices)`` with a list
+    ``shards`` (one a local shard) and a replicated ``rep``.
 
     A stage is a list of steps ``(kind, fn)``: ``"shard"`` runs
     ``fn(shard buffers)`` on every local shard, ``"rep"`` runs ``fn(rep
     buffers)``, ``"join"`` runs ``fn(all buffers)`` (the axis's collectives
-    and the copies between shards and ``rep``).  Where every device is one
-    device (repeats of one card; a process's one shard) the whole stage is
-    one graph: the shards' moments passes and the axis's collectives are
-    device operations on one stream.  Where the row holds distinct devices
-    (``split``) no capture spans two devices: each shard step is a graph a
-    shard on its own device (a plain call on a CPU shard), each replicated
-    step a graph on the axis's device, and the joins run between the
-    replays.
+    and the copies between shards and ``rep``).  A schedule is a list of
+    stages and :class:`If` entries over stages (:meth:`run_schedule`).
+    Where every device is one device (repeats of one card; a process's one
+    shard) the whole schedule is one graph, its guards IF nodes: the
+    shards' work and the axis's collectives are device operations on one
+    stream.  Where the row holds distinct devices (``split``) no capture
+    spans two devices: each shard step is a graph a shard on its own
+    device (a plain call on a CPU shard), each replicated step a graph on
+    the axis's device, the joins run between the replays, and every guard
+    is a host read of its flag (``flag_reads``, ``overflow_reads``): an IF
+    node cannot hold the CPU part's steps.
 
-    ``axis`` is bound by the caller before each pair; the collectives a
-    graph captured are added to the bound axis's counts at each replay.
+    ``axis`` is bound by :meth:`bind` before each run; the collectives a
+    graph captured are added to the bound axis's counts at each replay
+    (a guarded body's at :func:`settle`, which a new binding runs first).
     Captures run in ``thread_local`` mode: a process group's watchdog
     thread queries its events while a capture is open."""
 
     capture_mode = "thread_local"
 
-    def __init__(self, devices, n: int, cfg: ICETConfig, shards: int):
+    def __init__(self, devices, make):
         self.devices = tuple(_canonical(d) for d in devices)
         super().__init__(self.devices[0])
-        self.n, self.cfg, self.shards = n, cfg, shards
+        self._make = make
         self.split = len(set(self.devices)) > 1
-        self.buffers = ShardedBuffers(self.devices, n, cfg, shards)
+        self.buffers = make(self.devices)
         self.axis = None
         if self.split:
             self._parts = [_PartGraphs(d, sh, lambda i=i: self.scratch().shards[i])
                            for i, (d, sh) in enumerate(zip(self.devices, self.buffers.shards))]
             self._rep = _PartGraphs(self.device, self.buffers.rep, lambda: self.scratch().rep)
 
-    def scratch(self) -> ShardedBuffers:
+    def scratch(self):
         if self._scratch is None:
-            self._scratch = ShardedBuffers(self.devices, self.n, self.cfg, self.shards)
+            self._scratch = self._make(self.devices)
         return self._scratch
 
     def counters(self) -> list:
         return super().counters() + [(self.axis, "collectives"), (self.axis, "bytes")]
 
-    def stage(self, key, steps) -> None:
-        """Run one stage (see the class); ``key`` names its graphs."""
+    def bind(self, axis) -> None:
+        """The axis of the next run (the guarded bodies' counts settled
+        onto the one bound before, where it changes)."""
+        if axis is not self.axis:
+            if self in _TALLIED:
+                self.settle()
+            self.axis = axis
+
+    def run_schedule(self, key, schedule: list) -> None:
+        """Run a schedule whose entries are stages (lists of steps) or
+        :class:`If` entries over stages; ``key`` names its graphs."""
         if not self.split:
-            self.run(key, lambda b: _run_steps(b, steps))
+            def stage(steps):
+                return lambda b: _run_steps(b, steps)
+            super().run_schedule(key, [
+                If(e.pred, stage(e.body), e.orelse and stage(e.orelse), e.reads)
+                if isinstance(e, If) else stage(e) for e in schedule])
             return
+        run_on_host(self.buffers, schedule, lambda k, steps: self._split_stage((key, k), steps))
+
+    def _split_stage(self, key, steps) -> None:
         for k, (kind, fn) in enumerate(steps):
             if kind == "shard":
                 for part in self._parts:
@@ -844,6 +1134,92 @@ class ShardedGraphs(GraphSet):
                 self._rep.run((key, k), fn)
             else:
                 fn(self.buffers)
+
+
+class ShardedGraphs(RowGraphs):
+    """The graphs of one mesh row's compiled sharded registration step
+    (:class:`RowGraphs` over :class:`ShardedBuffers`): ``n`` points a
+    shard, ``shards`` shards on the axis; a pair is one schedule
+    (``parallel.sharding.pair_schedule``)."""
+
+    def __init__(self, devices, n: int, cfg: ICETConfig, shards: int):
+        self.n, self.cfg, self.shards = n, cfg, shards
+        super().__init__(devices, lambda devs: ShardedBuffers(devs, n, cfg, shards))
+
+
+class PoseShardBuffers:
+    """One factor shard's static buffers on its device, for a sharded
+    pose-graph solve of K poses: the states it reads, its ``F`` factors
+    ``(idx_i, idx_j, meas, info)`` and, for the block-sparse solve, its
+    share of the normals packed ``(K, 78)`` (gradient, diagonal and
+    backbone blocks), its factors' off-diagonal blocks, the CG direction
+    it reads and its off-diagonal product; for the dense solve its
+    ``(H, b)`` flattened."""
+
+    def __init__(self, device: torch.device, local: int, k: int, f: int, precond: str):
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.local = local
+        self.states = z(k, 6)
+        self.factors = (z(f, dtype=torch.int64), z(f, dtype=torch.int64), z(f, 6), z(f, 6, 6))
+        if precond == "dense":
+            self.Hb = z(36 * k * k + 6 * k)
+        else:
+            self.packed, self.off_ij, self.off_ji = z(k, 78), z(f, 6, 6), z(f, 6, 6)
+            self.v, self.off = z(k, 6), z(k, 6)
+
+
+class PoseRepBuffers:
+    """A sharded pose-graph solve's replicated buffers on the axis device:
+    the states and, for the block-sparse solve, the summed normals, the
+    damped diagonal blocks, the backbone's factor ``(S_inv, U)``, the CG
+    state ``x, r, p, rz`` and the summed off-diagonal product; for the
+    dense solve the summed ``(H, b)``."""
+
+    def __init__(self, device: torch.device, k: int, precond: str):
+        def z(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.states = z(k, 6)
+        if precond == "dense":
+            self.Hb = z(36 * k * k + 6 * k)
+        else:
+            self.packed, self.diag_d = z(k, 78), z(k, 6, 6)
+            self.factor = (z(k, 6, 6), z(k - 1, 6, 6))
+            self.x, self.r, self.p, self.rz, self.off = z(k, 6), z(k, 6), z(k, 6), z(), z(k, 6)
+
+
+class ShardedPoseBuffers:
+    def __init__(self, devices, k: int, f: int, precond: str):
+        self.shards = [PoseShardBuffers(d, i, k, f, precond) for i, d in enumerate(devices)]
+        self.rep = PoseRepBuffers(devices[0], k, precond)
+
+
+class ShardedPoseGraphs(RowGraphs):
+    """The graphs of one sharded pose-graph solve (:class:`RowGraphs` over
+    :class:`ShardedPoseBuffers`): K poses, ``f`` factors a shard, the
+    dense solve (``precond="dense"``) or the block-sparse one
+    (``"tridiag"``).  As :class:`PoseGraphs`, a solve is a few stages
+    replayed many times: the dense Gauss-Newton step, or the assembly, one
+    CG iteration and the update."""
+
+    def __init__(self, devices, k: int, f: int, precond: str):
+        super().__init__(devices, lambda devs: ShardedPoseBuffers(devs, k, f, precond))
+
+
+def sharded_pose_graphs(axis, k: int, f: int, cg_iters: int, precond: str, robust: float,
+                        damping: float, prior_weight: float) -> ShardedPoseGraphs:
+    """The graph set of a sharded pose-graph solve over ``axis`` (its
+    local shard devices and, over a process group, the group), made at
+    first use."""
+    devices = tuple(_canonical(d) for d in axis.shard_devices)
+    key = (_canonical(axis.device), "sharded_pose", devices, getattr(axis, "group", None), k, f,
+           cg_iters, precond, robust, damping, prior_weight)
+    pg = _CACHE.get(key)
+    if pg is None:
+        pg = _CACHE[key] = ShardedPoseGraphs(devices, k, f, precond)
+    return pg
 
 
 class TrainBuffers:
@@ -941,8 +1317,10 @@ def clear(device=None) -> None:
             del sets[key]
 
 
-__all__ = ["COUNTED", "MAP_OUT_LAYOUT", "FrameBuffers", "FrameGraphs", "GraphSet", "Layout",
-           "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "RowBuffers", "ShardBuffers",
-           "ShardedBuffers", "ShardedGraphs", "TrainBuffers", "TrainGraphs", "clear", "clone_out",
-           "copy_in", "dnn_phases", "frame_graphs", "host_ops", "packed_result", "pose_graphs",
-           "result_iters", "sync_debug", "train_graphs", "warmup_launches"]
+__all__ = ["COUNTED", "MAP_OUT_LAYOUT", "NODE_TYPES", "FrameBuffers", "FrameGraphs", "GraphSet",
+           "If", "Layout", "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "RowBuffers",
+           "PoseRepBuffers", "PoseShardBuffers", "RowGraphs", "ShardBuffers", "ShardedBuffers",
+           "ShardedGraphs", "ShardedPoseBuffers", "ShardedPoseGraphs", "TrainBuffers", "TrainGraphs",
+           "capture_stats", "clear", "clone_out", "copy_in", "dnn_phases", "frame_graphs", "graph_nodes",
+           "host_ops", "node_types", "packed_result", "pose_graphs", "result_iters", "run_on_host",
+           "settle", "sharded_pose_graphs", "sync_debug", "train_graphs", "warmup_launches"]

@@ -15,8 +15,9 @@ Differences from the JAX package, none of which changes a trajectory:
   them to its jitted steps);
 * the spawn decision is read on the host once a frame (the JAX sequence
   runner decides inside a ``lax.cond``); it gates the frame's map insert
-  and the keyframe prepare.  Besides it, the solver reads ``|dx|`` on the
-  host once an iteration, as in :mod:`icet_tpu_torch.solver`;
+  and the keyframe prepare.  Besides it, the eager solver reads ``|dx|``
+  on the host once an iteration, as in :mod:`icet_tpu_torch.solver` (the
+  compiled steps exit on the device);
 * random draws come from a ``torch.Generator`` seeded from ``seed``, not
   from ``jax.random``: map CONTENTS differ between the packages (the JAX
   package's own sequence runner and host loop differ the same way).  The
@@ -41,11 +42,13 @@ active block's slot and cursor from a device mirror of the host's
 ``n_blocks`` and ``cursor``, so one graph serves every cursor; the graph
 stages the rows and points, and the host writes them into the map's
 tables with a few device operations, so that no graph depends on which
-map it serves.  A ``torch.Generator`` (or the uniforms themselves) stands
-where the JAX functions take a PRNG key, drawn before the replay in the
-eager order.
+map it serves: a sharded map (:class:`BlockShards`) takes them as an
+unsharded one does, the staged rows written into the chunk that owns the
+active block, on its device.  A ``torch.Generator`` (or the uniforms
+themselves) stands where the JAX functions take a PRNG key, drawn before
+the replay in the eager order.
 ``KeyframeOdometry`` and :func:`run_keyframe_device` take them where
-``solver.compiled_route(cfg)`` holds and the map is not sharded.
+``solver.compiled_route(cfg)`` holds.
 """
 
 from __future__ import annotations
@@ -530,14 +533,34 @@ def _stage_insert(mb, scan, X_rel, min_range: float, enabled) -> None:
         cursor.copy_(torch.where(enabled, moved, cursor))
 
 
-def _apply_insert(mb, bm: BlockMap) -> None:
+def _owner(table, slot: int) -> tuple[torch.Tensor, int]:
+    """The tensor that holds block ``slot`` of a block-map table (a sharded
+    table's owning chunk) and the index of its first block there."""
+    if isinstance(table, BlockShards):
+        k = slot // table.per
+        return table.chunks[k], k * table.per
+    return table, 0
+
+
+def _apply_insert(mb, bm: BlockMap, slot: int | None = None) -> None:
     """Write a staged insert into the map's tables (outside any graph, so no
     graph depends on which map it serves): the new point where a sample is
     written and the old one elsewhere, the eager insert's values bit for
-    bit."""
-    points, valid = bm.points.view(-1, 3), bm.valid.view(-1)
-    points.index_put_((mb.idx,), torch.where(mb.write[:, None], mb.vals, points[mb.idx]))
-    valid.index_put_((mb.idx,), valid[mb.idx] | mb.write)
+    bit.  ``slot`` is the active block (default: ``bm``'s, from the host's
+    counters); a sharded map takes the rows in the chunk that owns it, on
+    that chunk's device."""
+    if slot is None:
+        slot = _map_state(bm)[0]
+    (points, base), (valid, _) = _owner(bm.points, slot), _owner(bm.valid, slot)
+    P = valid.shape[1]
+    points, valid = points.view(-1, 3), valid.view(-1)
+    idx, write, vals = mb.idx, mb.write, mb.vals
+    if points.device != idx.device or base:
+        idx = (idx - base * P).to(points.device)
+        write, vals = write.to(points.device), vals.to(points.device)
+        graphs.host_ops["map_writes"] += 3
+    points.index_put_((idx,), torch.where(write[:, None], vals, points[idx]))
+    valid.index_put_((idx,), valid[idx] | write)
     graphs.host_ops["map_writes"] += 6
 
 
@@ -598,7 +621,7 @@ def _stage_glue(b) -> None:
     row = b.kf_row
     for name, t in (("delta", o["delta"]), ("delta_stds", delta_stds), ("world6", world2),
                     ("diverged", o["diverged"]), ("x_rel", o["X"]), ("is_keyframe", spawn),
-                    ("n_corr", o["health"][0].to(torch.int32))):
+                    ("n_corr", o["health"][0].to(torch.int32)), ("iterations", b.iters[0])):
         row[name].copy_(t)
     c["x_rel"].copy_(torch.where(spawn, zero6, o["X"]))
     c["h0"].copy_(torch.where(spawn, torch.zeros_like(h0), h0))
@@ -617,11 +640,9 @@ def _map_state(bm: BlockMap) -> tuple[int, int, int]:
 def _keyframe_graphs(scan, cfg: ICETConfig, bm: BlockMap, bm_cfg: BlockMapConfig):
     """The frame graphs of ``scan``'s device, size and ``cfg`` with the
     insert staging of ``bm``'s shape, its mirror holding ``bm``'s slot and
-    cursor (copied in only when it holds something else)."""
-    if isinstance(bm.points, BlockShards):
-        raise NotImplementedError(
-            "the compiled keyframe entry points take an unsharded block map; use "
-            "keyframe_step and keyframe_spawn with a sharded one")
+    cursor (copied in only when it holds something else).  The staging is
+    keyed by the map's shape alone, sharded or not: no graph reads a
+    map's tables."""
     fg = compiled_graphs(scan, cfg)
     mb = fg.map_buffers(*bm.valid.shape, bm_cfg.points_per_scan)
     want = _map_state(bm)
@@ -668,9 +689,9 @@ def _advance(fg, bm: BlockMap, bm_cfg: BlockMapConfig, spawn: bool) -> BlockMap:
     return bm
 
 
-def _step_result(fg, bm, bm_cfg, iterations, n_final, spawn):
+def _step_result(fg, bm, bm_cfg, n_final, spawn):
     out = graphs.KF_OUT_LAYOUT.views(graphs.clone_out(fg.buffers.kf_out_buf))
-    res = fg.result(iterations, False, n_final)
+    res = fg.result(False, n_final)
     res = res._replace(X=out["X_total"], Q=out["Q"], pred_stds=out["pred_stds"])
     return (res, out["X"], out["delta"], out["diverged"], spawn, out["health"],
             _advance(fg, bm, bm_cfg, spawn))
@@ -695,9 +716,9 @@ def keyframe_step_jit(
     fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
     _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
     fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
-    iterations = fg.solve(False)
+    fg.solve(False)
     spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
-    return _step_result(fg, bm, bm_cfg, iterations, cfg.n_iters, spawn)
+    return _step_result(fg, bm, bm_cfg, cfg.n_iters, spawn)
 
 
 def keyframe_step_dnn_jit(
@@ -724,24 +745,26 @@ def keyframe_step_dnn_jit(
     _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
     fg.load(samples=key_samples)
     fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
-    iterations, n_final = solve_dnn(fg, net, False)
+    n_final = solve_dnn(fg, net, False)
     spawn = _post(fg, cfg, kf_cfg, bm, n_final)
-    return _step_result(fg, bm, bm_cfg, iterations, n_final, spawn)
+    return _step_result(fg, bm, bm_cfg, n_final, spawn)
 
 
 def _spawn(fg, cfg, bm: BlockMap, bm_cfg: BlockMapConfig, world, seed_insert: bool,
            carry_model: bool) -> BlockMap:
     """Replay the spawn graph, then open the new block in ``bm``'s tables at
     the mirror's slot (its validity cleared, its pose ``world``) and write
-    the staged seed insert; the host's counters follow."""
+    the staged seed insert; the host's counters follow.  The host's slot
+    is the mirror's (``n_blocks`` mod B, as :func:`_blockmap_spawn`)."""
     fg.run(("kf_spawn", seed_insert, carry_model, fg.buffers.map.shape),
            lambda b: _stage_spawn(b, cfg, seed_insert, carry_model))
     mb = fg.buffers.map
-    slot = mb.at[:1]
-    bm.valid.index_fill_(0, slot, False)
-    bm.poses.index_copy_(0, slot, world.to(bm.poses)[None])
+    slot = bm.n_blocks % bm.poses.shape[0]
+    _row(bm.valid, slot).fill_(False)
+    pose = _row(bm.poses, slot)
+    pose.copy_(world.to(pose))
     graphs.host_ops["map_writes"] += 2
-    _apply_insert(mb, bm)
+    _apply_insert(mb, bm, slot)
     nb = bm.n_blocks + 1
     bm = bm._replace(n_blocks=nb,
                      cursor=min(bm_cfg.points_per_scan, bm.valid.shape[1]) if seed_insert else 0)
@@ -783,7 +806,8 @@ def keyframe_sequence_jit(frames, model0, bm0, carry0, cfg, kf_cfg, bm_cfg,
     carry), outs`` with per-frame outs ``(delta, delta_stds, world6,
     diverged, x_rel, is_keyframe, n_corr)`` stacked on the device, as the
     JAX package's; with ``return_iterations`` a third element follows, the
-    iterations each frame executed (a host list)."""
+    iterations each frame executed (an ``(F,)`` int64 tensor on the
+    device)."""
     if frames.ndim != 3 or frames.shape[0] == 0:
         raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
     x_rel, delta, world_key, gen, h0, prev_stds = carry0
@@ -794,12 +818,12 @@ def keyframe_sequence_jit(frames, model0, bm0, carry0, cfg, kf_cfg, bm_cfg,
     for name, t in (("x_rel", x_rel), ("delta", delta), ("world_key", world_key), ("h0", h0),
                     ("prev_stds", prev_stds)):
         graphs.copy_in(b.kf[name], t)
-    bm, rows, iterations = bm0, [], []
+    bm, rows = bm0, []
     for k in range(frames.shape[0]):
         _load_uniforms(fg, gen)
         fg.load(raw=frames[k])
         fg.run(("kf_predict",), lambda bb: _stage_predict(bb, cfg))
-        iterations.append(fg.solve(False))
+        fg.solve(False)
         spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
         fg.run(("kf_glue",), _stage_glue)
         bm = _advance(fg, bm, bm_cfg, spawn)
@@ -810,9 +834,9 @@ def keyframe_sequence_jit(frames, model0, bm0, carry0, cfg, kf_cfg, bm_cfg,
     out = graphs.KF_ROW_LAYOUT.stacked_views(torch.stack(rows))
     c = graphs.KF_CARRY_LAYOUT.views(graphs.clone_out(b.kf_buf))
     carry = (c["x_rel"], c["delta"], c["world_key"], gen, c["h0"], c["prev_stds"])
-    outs = tuple(out[name] for name, *_ in graphs.KF_ROW_LAYOUT.fields)
+    outs = tuple(out[name] for name, *_ in graphs.KF_ROW_LAYOUT.fields if name != "iterations")
     result = ((fg.model_copy(), bm, carry), outs)
-    return result + (iterations,) if return_iterations else result
+    return result + (out["iterations"],) if return_iterations else result
 
 
 def run_keyframe_device(
@@ -859,7 +883,8 @@ def run_keyframe_device(
         if compiled:
             (model, bm, carry), outs, iters = keyframe_sequence_jit(
                 blk, model, bm, carry, cfg, kf_cfg, bm_cfg, return_iterations=True)
-            d2, stds, world6, div, x2, is_kf, n_corr = (o.cpu().numpy() for o in outs)
+            d2, stds, world6, div, x2, is_kf, n_corr, iters = (
+                o.cpu().numpy() for o in (*outs, iters))
         else:
             x_rel, delta, world_key, _, h0, prev_stds = carry
             (model, bm, (x_rel, delta, world_key, h0, prev_stds)), outs = keyframe_sequence(
@@ -895,12 +920,12 @@ class KeyframeOdometry:
     the perspective-shift rejection (the bundled bias network, loaded
     once), sampling the keyframe scan, whose samples are taken at spawn.
 
-    On a captured moment route (``solver.compiled_route``) and an unsharded
-    map, each frame is one :func:`keyframe_step_jit` (or
+    On a captured moment route (``solver.compiled_route``), the map
+    sharded or not, each frame is one :func:`keyframe_step_jit` (or
     :func:`keyframe_step_dnn_jit`) and each keyframe one
     :func:`keyframe_spawn_jit` (and :func:`~icet_tpu_torch.filters.
     model_voxel_samples_jit`); otherwise the eager functions.  The config
-    and the map's type decide, before any launch."""
+    decides, before any launch."""
 
     def __init__(
         self,
@@ -926,9 +951,9 @@ class KeyframeOdometry:
         self.reset()
 
     def _captured(self) -> bool:
-        """Whether this frame takes the compiled functions: a captured route
-        and a map that is not sharded."""
-        return self._compiled and not isinstance(self.blockmap.points, BlockShards)
+        """Whether this frame takes the compiled functions (a captured
+        route; a test may clear ``_compiled``)."""
+        return self._compiled
 
     def reset(self) -> None:
         dev = self.device
@@ -1057,7 +1082,8 @@ class KeyframeOdometry:
         self._x_rel = x_rel
         self._delta = delta
         host = torch.cat([x_rel, delta, res.pred_stds, diverged[None].float(),
-                          health[:1]]).cpu().numpy()
+                          health[:1], torch.as_tensor(res.iterations).reshape(1).to(x_rel)]
+                         ).cpu().numpy()
         X_rel, delta_np, cur_stds = host[0:6], host[6:12], host[12:18]
         T_world = self._T_key @ np_pose_matrix(X_rel)
         self._T_world_host = T_world
@@ -1080,7 +1106,7 @@ class KeyframeOdometry:
             X_rel=X_rel,
             is_keyframe=spawn,
             n_corr=np.asarray(host[19]).astype(np.int32),
-            iterations=res.iterations,
+            iterations=int(host[20]),
         )
         self._index += 1
         return frame

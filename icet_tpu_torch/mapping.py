@@ -236,16 +236,16 @@ def map_update_jit(
 
 def _map_frame(model, state, scan, u, divergence_clamp: float, cfg: ICETConfig,
                map_cfg: MapConfig):
-    """One compiled mapping frame: ``(fg, iterations, packed outputs
+    """One compiled mapping frame: ``(fg, packed outputs
     (graphs.MAP_OUT_LAYOUT, one copy), new state, new model)``."""
     fg = compiled_graphs(scan, cfg)
     fg.load(scan=scan, x0=torch.zeros(6, dtype=scan.dtype, device=scan.device), model=model)
-    iterations = fg.solve(False)
+    fg.solve(False)
     state = _map_run(fg, state, map_cfg, cfg.min_range, u,
                      divergence_clamp=float(divergence_clamp))
     fg.run_prepare()
     out = graphs.clone_out(fg.buffers.ring.out_buf)
-    return fg, iterations, out, state, fg.prepared()
+    return fg, out, state, fg.prepared()
 
 
 def map_step_jit(
@@ -263,10 +263,9 @@ def map_step_jit(
     ``state`` is donated, as in :func:`map_update_jit`.
 
     Returns ``(res, X_guarded, diverged, new_state, new_model)``."""
-    fg, iterations, out, state, model = _map_frame(model, state, scan, u, divergence_clamp,
-                                                   cfg, map_cfg)
+    fg, out, state, model = _map_frame(model, state, scan, u, divergence_clamp, cfg, map_cfg)
     v = graphs.MAP_OUT_LAYOUT.views(out)
-    return fg.result(iterations, False), v["X"], v["diverged"], state, model
+    return fg.result(False), v["X"], v["diverged"], state, model
 
 
 @dataclasses.dataclass

@@ -231,8 +231,10 @@ class OdometryPipeline:
         self._X_prev = X
         self._model = next_model
 
-        # One read-back of the frame's values (the filter's n_rejected too).
-        parts = [X, res.pred_stds, self._T_world.reshape(-1), pose_to_state(self._T_world)]
+        # One read-back of the frame's values (the iterations of a compiled
+        # step and the filter's n_rejected too).
+        parts = [X, res.pred_stds, self._T_world.reshape(-1), pose_to_state(self._T_world),
+                 torch.as_tensor(res.iterations).reshape(1).to(X)]
         if filt is not None:
             parts.append(filt.n_rejected.reshape(1).to(X.dtype))
         host = torch.cat(parts).cpu().numpy()
@@ -247,8 +249,8 @@ class OdometryPipeline:
             diverged=diverged,
             n_corr=res.diagnostics.n_corr.cpu().numpy(),
             solve_ms=(time.perf_counter() - t0) * 1000.0,
-            iterations=res.iterations,
-            n_rejected=int(host[34]) if filt is not None else 0,
+            iterations=int(host[34]),
+            n_rejected=int(host[35]) if filt is not None else 0,
         )
         self._index += 1
         return frame
@@ -294,6 +296,7 @@ def _stage_glue(b, clamp: float, warm_start: bool, mode: str) -> None:
     b.row["pred_stds"].copy_(b.result[(b.n_iters, False)]["pred_stds"])
     b.row["T_world"].copy_(T)
     b.row["diverged"].copy_(diverged)
+    b.row["iterations"].copy_(b.iters[0])
     b.T.copy_(T)
     b.xprev2.copy_(xprev2)
     b.xprev.copy_(X)
@@ -317,14 +320,16 @@ def odometry_sequence_jit(
     carried model from the seed, then fits its own model; the warm start
     (from ``x0`` at the block's start, so the velocity history of
     ``"extrapolate"`` restarts there), the divergence guard and the world
-    pose (from ``T0``) stay on the device.  Each frame replays its step's
-    graphs and one ``glue`` graph, the host reading only the exit flags.
+    pose (from ``T0``) stay on the device.  Each frame replays its solve's
+    graph (the early exit on the device), its prepare's and one ``glue``
+    graph; the host reads nothing until the block's outputs.
 
     Returns ``((model, X_last, T_last), (X, pred_stds, diverged, T_world))``
     as the JAX package's does: the carry for the next block and the
     per-frame outputs stacked on the device.  With ``return_iterations``
-    a third element follows, the iterations each frame executed (a host
-    list; the JAX runner does not return them)."""
+    a third element follows, the iterations each frame executed (an
+    ``(F,)`` int64 tensor on the device; the JAX runner does not return
+    them)."""
     if frames.ndim != 3 or frames.shape[0] == 0:
         raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
     fg = compiled_graphs(frames[0], cfg)
@@ -337,10 +342,10 @@ def odometry_sequence_jit(
     fg.run(("seed", warm_start, warm_start_mode),
            lambda bb: _stage_seed(bb, warm_start, warm_start_mode))
     glue = ("glue", float(divergence_clamp), warm_start, warm_start_mode)
-    rows, iterations = [], []
+    rows = []
     for k in range(frames.shape[0]):
         fg.load(scan=frames[k])
-        iterations.append(fg.solve(False))
+        fg.solve(False)
         fg.run_prepare()
         fg.run(glue, lambda bb: _stage_glue(bb, float(divergence_clamp), warm_start,
                                             warm_start_mode))
@@ -348,7 +353,7 @@ def odometry_sequence_jit(
     out = graphs.ROW_LAYOUT.stacked_views(torch.stack(rows))
     carry = (fg.model_copy(), graphs.clone_out(b.xprev), graphs.clone_out(b.T))
     outs = (out["X"], out["pred_stds"], out["diverged"], out["T_world"])
-    return (carry, outs, iterations) if return_iterations else (carry, outs)
+    return (carry, outs, out["iterations"]) if return_iterations else (carry, outs)
 
 
 def run_odometry_device(
@@ -389,7 +394,7 @@ def run_odometry_device(
             (model, x, T), outs, iterations = odometry_sequence_jit(
                 blk, model, x, T, cfg, clamp, odo_cfg.warm_start, odo_cfg.warm_start_mode,
                 return_iterations=True)
-            Xs, stds, divs, Ts = (o.cpu().numpy() for o in outs)
+            Xs, stds, divs, Ts, iterations = (o.cpu().numpy() for o in (*outs, iterations))
             frames += _block_frames(s, Xs, stds, divs, Ts, iterations, odo_cfg)
             continue
         xprev, xprev2 = x, x
@@ -425,5 +430,5 @@ def _block_frames(start, Xs, stds, divs, Ts, iterations, odo_cfg) -> list[Odomet
         diverged=bool(divs[j]),
         n_corr=np.zeros(0, np.int32),
         solve_ms=0.0,
-        iterations=iterations[j],
+        iterations=int(iterations[j]),
     ) for j in range(len(iterations))]

@@ -13,9 +13,11 @@ iteration; the solver's shard math is the one it runs in-process
 ``axis``.
 
 The step is compiled (the in-process mesh's ``sharding.sharded_pair``
-stages over a ``graphs.ShardedGraphs`` set on this process's device, the
-NCCL collectives inside the graphs, each warmed up once before its
-capture) on an NCCL group, and on no other backend.  A gloo group stages
+schedule over a ``graphs.ShardedGraphs`` set on this process's device,
+the NCCL collectives inside the graph, inside its IF nodes too, each
+warmed up once before its capture) on an NCCL group, and on no other
+backend; so are ``pose_graph.optimize_poses_sharded`` and
+``optimize_poses_sparse_sharded`` over the mesh's first axis.  A gloo group stages
 CUDA tensors through the host (:class:`GroupAxis`), which no graph can
 hold: there, as on any backend but NCCL, the step takes the eager
 functions, decided from the group's backend before any launch.

@@ -19,15 +19,17 @@ the multi-process mesh (:mod:`icet_tpu_torch.parallel.distributed`)
 supplies its own, so the shard math is written once, in the solver.
 
 :func:`make_sharded_register` (the JAX package's ``jax.jit(shard_map(...))``)
-runs each pair as captured stages (:func:`sharded_pair` over a
+runs each pair as one captured schedule (:func:`sharded_pair` over a
 ``graphs.ShardedGraphs`` set a mesh row): the clustering's bucket count,
-the prepare (one of two captured branches, chosen by one host read of the
-summed overflow, the JAX package's ``lax.cond``), the Gauss-Newton
-iterations (one host read of the exit flag each, as the unsharded
-compiled solve) and the finish.  The stages are the solver's shard math,
-split at the axis's collectives; on the CPU they run as plain calls, and
-equal :func:`make_sharded_register_eager` (``register_pair_impl`` with the
-axis, pair by pair) bit for bit.
+the prepare in two branches (an if/else of IF nodes on the summed
+overflow, the JAX package's ``lax.cond``), the Gauss-Newton iterations
+(the early exit on the device, as the unsharded compiled solve) and the
+finish.  The stages are the solver's shard math, split at the axis's
+collectives; on the CPU they run as plain calls, the guards read on the
+host, and equal :func:`make_sharded_register_eager` (``register_pair_impl``
+with the axis, pair by pair) bit for bit.  A row of distinct devices (a
+card and the CPU) runs its parts as separate graphs with the guards read
+on the host.
 """
 
 from __future__ import annotations
@@ -186,7 +188,8 @@ def shard_scan_batch(scans1, scans2, x0s, mesh: Mesh) -> ShardedBatch:
 
 def stack_results(results: list, device) -> RegistrationResult:
     """Per-pair results stacked along a leading batch axis on ``device``
-    (``iterations`` as a ``(B,)`` int64 tensor)."""
+    (``iterations`` as a ``(B,)`` int64 tensor: on ``device`` where the
+    pairs' counts are device counts, else on the CPU)."""
 
     def stack(get):
         return torch.stack([get(r).to(device) for r in results])
@@ -198,7 +201,9 @@ def stack_results(results: list, device) -> RegistrationResult:
         diagnostics=IterationDiag(*(stack(lambda r, k=k: r.diagnostics[k])
                                     for k in range(len(IterationDiag._fields)))),
         static_mask=stack(lambda r: r.static_mask),
-        iterations=torch.tensor([r.iterations for r in results], dtype=torch.int64),
+        iterations=(stack(lambda r: r.iterations)
+                    if isinstance(results[0].iterations, torch.Tensor)
+                    else torch.tensor([r.iterations for r in results], dtype=torch.int64)),
     )
 
 
@@ -253,12 +258,11 @@ def _count_steps(sg, cfg: ICETConfig) -> list:
     return [("shard", bucket), ("join", total)]
 
 
-def _prepare_steps(sg, cfg: ICETConfig, branch: str) -> list:
-    """Scan 1's model into ``rep.model``: the clusters by ``branch``
+def _cluster_steps(sg, cfg: ICETConfig, branch: str) -> list:
+    """Scan 1's clusters and anchors into ``rep.model`` by ``branch``
     (``"gather"``: the whole cloud gathered; ``"sharded"``: the buckets
     exchanged and each shard's voxels clustered where they live;
-    ``"fixed"``: fixed radial mode's shells), the anchors, the moments at X
-    = 0 and the replicated finalize."""
+    ``"fixed"``: fixed radial mode's shells)."""
     vps, _ = cluster_plan(sg.n, cfg.n_voxels, sg.shards)
     args = (cfg.min_pts, cfg.cluster_gap, cfg.cluster_buffer)
 
@@ -288,6 +292,12 @@ def _prepare_steps(sg, cfg: ICETConfig, branch: str) -> list:
                  ("rep", lambda rep: keep(rep, clusters_of_tables(rep.tables, cfg.n_voxels)))]
     else:
         steps = [("rep", lambda rep: keep(rep, fixed_clusters(cfg, rep.X.device)))]
+    return steps
+
+
+def _model_steps(sg, cfg: ICETConfig) -> list:
+    """The rest of scan 1's model from its clusters: the bounds and anchors
+    to the shards, the moments at X = 0 and the replicated finalize."""
 
     def to_shards(b):
         for sh in b.shards:
@@ -301,7 +311,7 @@ def _prepare_steps(sg, cfg: ICETConfig, branch: str) -> list:
         for dst, src in zip(m, model):
             dst.copy_(src)
 
-    return steps + [("join", to_shards), *_moments_steps(sg, cfg, "scan1"), ("rep", finalize)]
+    return [("join", to_shards), *_moments_steps(sg, cfg, "scan1"), ("rep", finalize)]
 
 
 def _iteration_steps(sg, cfg: ICETConfig, it: int, first: bool) -> list:
@@ -312,6 +322,7 @@ def _iteration_steps(sg, cfg: ICETConfig, it: int, first: bool) -> list:
     def math(rep):
         if first:
             rep.it.zero_()
+            rep.iters.zero_()
         out = iteration_from_sums(rep.model, rep.sums, getattr(rep, src), it, cfg, None,
                                   None if first else rep.U2)
         solver._commit(rep, cfg, *out[:6])
@@ -352,41 +363,51 @@ def _finish_steps(sg, cfg: ICETConfig) -> list:
     return steps + [("rep", math), ("join", to_shards), ("shard", mask), ("join", gather)]
 
 
+def _rep_overflow(b) -> torch.Tensor:
+    return b.rep.overflow
+
+
+def _rep_go(b) -> torch.Tensor:
+    return b.rep.go
+
+
+def pair_schedule(sg, cfg: ICETConfig) -> list:
+    """One pair's schedule (``graphs.ShardedGraphs.run_schedule``): the
+    bucket count and the clustering's two branches on the summed overflow
+    (``"gather"`` where a bucket overflowed, else ``"sharded"``; fixed
+    radial mode has one), the rest of the prepare, iteration 0, the
+    iterations below ``min_it``, each later one guarded by ``go``, the
+    finish."""
+    if cfg.radial_mode == "fixed":
+        entries = [_cluster_steps(sg, cfg, "fixed")]
+    else:
+        entries = [_count_steps(sg, cfg),
+                   graphs.If(_rep_overflow, _cluster_steps(sg, cfg, "gather"),
+                             _cluster_steps(sg, cfg, "sharded"), "overflow_reads")]
+    early, min_it = exit_schedule(cfg)
+    entries += [_model_steps(sg, cfg), _iteration_steps(sg, cfg, 0, True)]
+    for it in range(1, cfg.n_iters):
+        steps = _iteration_steps(sg, cfg, it, False)
+        entries.append(graphs.If(_rep_go, steps) if early and it >= min_it else steps)
+    return entries + [_finish_steps(sg, cfg)]
+
+
 def sharded_pair(sg, axis, scans1: list, scans2: list, x0: torch.Tensor) -> RegistrationResult:
     """``register_pair_impl(scans1, scans2, x0, cfg, axis)`` (the local
     shards of one pair) through the row's graph set ``sg``: the inputs
-    copied into its buffers, the staged prepare and solve, the result (with
-    its static mask) one copy of its packed buffer on the axis device."""
+    copied into its buffers, the pair's schedule (:func:`pair_schedule`;
+    one graph where the row is one device), the result (with its static
+    mask; ``iterations`` a 0-d device count) one copy of its packed buffer
+    on the axis device."""
     cfg = sg.cfg
-    sg.axis = axis
+    sg.bind(axis)
     b = sg.buffers
     for sh, s1, s2 in zip(b.shards, scans1, scans2):
         graphs.copy_in(sh.scan1, s1)
         graphs.copy_in(sh.scan2, s2)
     graphs.copy_in(b.rep.x0, x0)
-    branch = "fixed"
-    if cfg.radial_mode != "fixed":
-        sg.stage(("count",), _count_steps(sg, cfg))
-        graphs.host_ops["overflow_reads"] += 1
-        branch = "gather" if bool(b.rep.overflow) else "sharded"
-    sg.stage(("prepare", branch), _prepare_steps(sg, cfg, branch))
-
-    early, min_it = exit_schedule(cfg)
-
-    def rm(it):
-        return cfg.remove_moving and it >= cfg.rm_start_iter
-
-    sg.stage(("first", rm(0)), _iteration_steps(sg, cfg, 0, True))
-    it = 1
-    while it < cfg.n_iters:
-        if early and it >= min_it:
-            graphs.host_ops["flag_reads"] += 1
-            if not bool(b.rep.go):
-                break
-        sg.stage(("warm", rm(it)), _iteration_steps(sg, cfg, it, False))
-        it += 1
-    sg.stage(("finish", rm(cfg.n_iters - 1)), _finish_steps(sg, cfg))
-    return graphs.packed_result(b.rep, (cfg.n_iters, True), it)
+    sg.run_schedule(("pair",), pair_schedule(sg, cfg))
+    return graphs.packed_result(b.rep, (cfg.n_iters, True))
 
 
 class ShardedRegister:
@@ -398,6 +419,8 @@ class ShardedRegister:
     def __init__(self, cfg: ICETConfig, mesh: Mesh):
         self.cfg, self.mesh = cfg, mesh
         self.sets: dict = {}
+        #: each row's axis, made once (a set's collectives counts go to it)
+        self.axes = [mesh.axis("sp", r) for r in range(mesh.devices.shape[0])]
 
     def row_graphs(self, row: int, n: int):
         devices = tuple(self.mesh.devices[row])
@@ -413,8 +436,7 @@ class ShardedRegister:
     def __call__(self, scans1, scans2, x0s) -> RegistrationResult:
         batch = _batch(scans1, scans2, x0s, self.mesh)
         results = []
-        for r in range(self.mesh.devices.shape[0]):
-            axis = self.mesh.axis("sp", r)
+        for r, axis in enumerate(self.axes):
             sg = self.row_graphs(r, batch.scans1[r][0].shape[1])
             for b in range(batch.x0s[r].shape[0]):
                 results.append(sharded_pair(sg, axis, [s[b] for s in batch.scans1[r]],

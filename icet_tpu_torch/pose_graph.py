@@ -28,7 +28,10 @@ They equal :func:`optimize_poses_eager` and
 ``solver.register_pair_jit`` where ``solver.compiled_route(cfg)`` holds.
 
 * :func:`optimize_poses_sharded` and :func:`optimize_poses_sparse_sharded`
-  shard the factors over a mesh's first axis (``icet_tpu_torch.parallel``).
+  shard the factors over a mesh's first axis (``icet_tpu_torch.parallel``),
+  as captured stages split at the axis's collectives
+  (``graphs.ShardedPoseGraphs``); :func:`optimize_poses_sharded_eager` and
+  :func:`optimize_poses_sparse_sharded_eager` are their plain loops.
 
 Entry points run on CUDA unless given ``device="cpu"``; the sharded ones
 run on their mesh's devices.
@@ -275,21 +278,38 @@ def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0, axis
     ``b``, the diagonal and ``E`` are summed over the axis in one ``(K,
     78)`` collective, and ``off_ij``, ``off_ji`` are lists over the shards."""
     K = states.shape[0]
-    eye6 = torch.eye(6, dtype=states.dtype, device=states.device)
     if axis is None:
         b, diag, E, off_ij, off_ji = _sparse_local(states, graph, robust_delta)
     else:
         parts = [_sparse_local(states.to(g.meas.device), g, robust_delta) for g in graph]
-        packed = axis.psum([torch.cat([p[0], p[1].reshape(K, 36), p[2].reshape(K, 36)], 1)
-                            for p in parts])
-        b, diag, E = (packed[:, :6], packed[:, 6:42].reshape(K, 6, 6).contiguous(),
-                      packed[:, 42:].reshape(K, 6, 6))
+        b, diag, E = _unpack_normals(axis.psum([_pack_normals(p) for p in parts]))
         off_ij, off_ji = [p[3] for p in parts], [p[4] for p in parts]
+    return b, _damped(diag, prior_weight, damping), off_ij, off_ji, E[: K - 1].contiguous()
+
+
+def _pack_normals(local) -> torch.Tensor:
+    """One factor shard's gradient, diagonal and backbone blocks as one
+    ``(K, 78)`` tensor (what the axis sums)."""
+    b, diag, E = local[:3]
+    K = b.shape[0]
+    return torch.cat([b, diag.reshape(K, 36), E.reshape(K, 36)], 1)
+
+
+def _unpack_normals(packed):
+    K = packed.shape[0]
+    return (packed[:, :6], packed[:, 6:42].reshape(K, 6, 6).contiguous(),
+            packed[:, 42:].reshape(K, 6, 6))
+
+
+def _damped(diag, prior_weight, damping) -> torch.Tensor:
+    """The gauge prior added to ``diag[0]`` in place, and the damped
+    diagonal blocks (contiguous)."""
+    K = diag.shape[0]
+    eye6 = torch.eye(6, dtype=diag.dtype, device=diag.device)
     diag[0] += prior_weight * eye6
     # The dense path's damping scale: damping * trace(H) / (6K).
     scale = damping * torch.diagonal(diag, dim1=-2, dim2=-1).sum() / (6 * K)
-    diag_d = diag + scale * eye6
-    return b, diag_d.contiguous(), off_ij, off_ji, E[: K - 1].contiguous()
+    return (diag + scale * eye6).contiguous()
 
 
 def _offdiag(v, graph, off_ij, off_ji):
@@ -368,7 +388,11 @@ def _cg_start(b, precond):
 
 def _cg_step(x, r, p, rz, matvec, precond):
     """One preconditioned CG iteration: the next ``(x, r, p, rz)``."""
-    Hp = matvec(p)
+    return _cg_update(x, r, p, rz, matvec(p), precond)
+
+
+def _cg_update(x, r, p, rz, Hp, precond):
+    """:func:`_cg_step` from the product ``Hp = H p``."""
     alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-30)
     x = x + alpha * p
     r = r - alpha * Hp
@@ -514,6 +538,75 @@ def _factor_shards(graph: PoseGraph, axis) -> list:
             for i, d in zip(axis.index, axis.shard_devices)]
 
 
+def _dense_from_sum(states, Hb, damping, prior_weight) -> torch.Tensor:
+    """The sharded dense step's replicated part: the summed ``(H, b)``, the
+    gauge prior added once, the damping, the Cholesky solve; the updated
+    states."""
+    K = states.shape[0]
+    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
+    H, b = Hb[: 36 * K * K].reshape(6 * K, 6 * K), Hb[36 * K * K:]
+    H[:6, :6] += prior_weight * eye[:6, :6]
+    H = H + damping * torch.trace(H) / (6 * K) * eye
+    dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
+    return states + dx.reshape(K, 6)
+
+
+def _shard_normals(states, g) -> torch.Tensor:
+    """One factor shard's dense ``(H, b)`` (no prior), flattened."""
+    H, b = _build_normals(states, g, 0.0)
+    return torch.cat([H.reshape(-1), b])
+
+
+def optimize_poses_sharded_eager(
+    states0,
+    graph: PoseGraph,
+    mesh,
+    n_iters: int = 10,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+) -> torch.Tensor:
+    """:func:`optimize_poses_sharded` as a plain loop (the plain version the
+    compiled solve is held to, and the route of a process mesh on any
+    backend but NCCL)."""
+    axis = mesh.axis(mesh.axis_names[0])
+    shards = _factor_shards(graph, axis)
+    states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    for _ in range(n_iters):
+        Hb = axis.psum([_shard_normals(states.to(g.meas.device), g) for g in shards])
+        states = _dense_from_sum(states, Hb, damping, prior_weight)
+    return states
+
+
+def _compiled_mesh(mesh) -> bool:
+    """Whether a mesh's solves run captured: an in-process mesh always, a
+    process mesh where its step does (NCCL)."""
+    return getattr(mesh, "compiled", True)
+
+
+def _sharded_pose_set(states0, graph: PoseGraph, mesh, cg_iters: int, precond: str,
+                      robust_delta: float, damping: float, prior_weight: float):
+    """The graph set of a sharded solve over ``mesh``'s first axis, the
+    axis bound, the states and each shard's factors copied in."""
+    axis = mesh.axis(mesh.axis_names[0])
+    shards = _factor_shards(graph, axis)
+    states = torch.as_tensor(states0).to(dtype=torch.float32)
+    pg = graphs.sharded_pose_graphs(axis, states.shape[0], shards[0].idx_i.shape[0], cg_iters,
+                                    precond, float(robust_delta), float(damping),
+                                    float(prior_weight))
+    pg.bind(axis)
+    b = pg.buffers
+    graphs.copy_in(b.rep.states, states)
+    for sh, g in zip(b.shards, shards):
+        for dst, t in zip(sh.factors, g):
+            graphs.copy_in(dst, t)
+    return pg
+
+
+def _states_to_shards(b) -> None:
+    for sh in b.shards:
+        sh.states.copy_(b.rep.states)
+
+
 def optimize_poses_sharded(
     states0,
     graph: PoseGraph,
@@ -528,20 +621,53 @@ def optimize_poses_sharded(
     factors' dense normals; one sum of ``(H, b)`` over the axis a GN step
     gives the whole system, solved on the axis's first device (every
     process of a process mesh solves it).  The gauge prior is added once,
-    after the sum."""
+    after the sum.
+
+    The JAX package's ``jax.jit(shard_map(...))`` as one captured stage a
+    Gauss-Newton step (``graphs.ShardedPoseGraphs``: each shard's normals,
+    the sum, the solve), replayed ``n_iters`` times; on the CPU plain calls
+    on the same buffers, equal to :func:`optimize_poses_sharded_eager` bit
+    for bit.  A process mesh off NCCL takes the eager loop."""
+    if not _compiled_mesh(mesh):
+        return optimize_poses_sharded_eager(states0, graph, mesh, n_iters, damping,
+                                            prior_weight)
+    pg = _sharded_pose_set(states0, graph, mesh, 0, "dense", 0.0, damping, prior_weight)
+
+    def normals(sh):
+        sh.Hb.copy_(_shard_normals(sh.states, PoseGraph(*sh.factors)))
+
+    def total(b):
+        b.rep.Hb.copy_(pg.axis.psum([sh.Hb for sh in b.shards]))
+
+    def solve(rep):
+        with _cusolver(rep.states.device):
+            rep.states.copy_(_dense_from_sum(rep.states, rep.Hb, damping, prior_weight))
+
+    step = [("join", _states_to_shards), ("shard", normals), ("join", total), ("rep", solve)]
+    for _ in range(n_iters):
+        pg.run_schedule(("step",), [step])
+    return graphs.clone_out(pg.buffers.rep.states)
+
+
+def optimize_poses_sparse_sharded_eager(
+    states0,
+    graph: PoseGraph,
+    mesh,
+    n_iters: int = 10,
+    cg_iters: int = 50,
+    damping: float = 1e-6,
+    prior_weight: float = 1e8,
+    robust_delta: float = 0.0,
+) -> torch.Tensor:
+    """:func:`optimize_poses_sparse_sharded` as a plain loop of sharded
+    Gauss-Newton steps (the plain version the compiled solve is held to,
+    and the route of a process mesh on any backend but NCCL)."""
     axis = mesh.axis(mesh.axis_names[0])
     shards = _factor_shards(graph, axis)
     states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
-    K = states.shape[0]
-    eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
     for _ in range(n_iters):
-        parts = [_build_normals(states.to(g.meas.device), g, 0.0) for g in shards]
-        Hb = axis.psum([torch.cat([H.reshape(-1), b]) for H, b in parts])
-        H, b = Hb[: 36 * K * K].reshape(6 * K, 6 * K), Hb[36 * K * K:]
-        H[:6, :6] += prior_weight * eye[:6, :6]
-        H = H + damping * torch.trace(H) / (6 * K) * eye
-        dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
-        states = states + dx.reshape(K, 6)
+        states = _sparse_gn_step(states, shards, prior_weight, damping, cg_iters,
+                                 "tridiag", robust_delta, axis)
     return states
 
 
@@ -559,14 +685,61 @@ def optimize_poses_sparse_sharded(
     factors sharded over the mesh's first axis: one ``(K, 78)`` sum of the
     gradient, diagonal and backbone blocks a GN step and one ``(K, 6)`` sum
     a CG matvec.  The CG state and the backbone kernels run replicated, on
-    the axis's first device."""
-    axis = mesh.axis(mesh.axis_names[0])
-    shards = _factor_shards(graph, axis)
-    states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    the axis's first device.
+
+    The JAX package's ``jax.jit(shard_map(...))`` as three captured stages
+    (``graphs.ShardedPoseGraphs``), each split at the axis's collectives:
+    the assembly (each shard's share of the normals, their sum, the
+    backbone's factor, the CG start), one CG iteration (each shard's
+    off-diagonal product, their sum, the update) and the step's update,
+    replayed ``n_iters x (1 + cg_iters + 1)`` times; on the CPU plain calls
+    on the same buffers, equal to :func:`optimize_poses_sparse_sharded_eager`
+    bit for bit.  A process mesh off NCCL takes the eager loop."""
+    if not _compiled_mesh(mesh):
+        return optimize_poses_sparse_sharded_eager(states0, graph, mesh, n_iters, cg_iters,
+                                                   damping, prior_weight, robust_delta)
+    pg = _sharded_pose_set(states0, graph, mesh, cg_iters, "tridiag", robust_delta, damping,
+                           prior_weight)
+    precond = _make_precond("tridiag", pg.buffers.rep.factor)
+
+    def local(sh):
+        part = _sparse_local(sh.states, PoseGraph(*sh.factors), robust_delta)
+        _copy_all((sh.packed, sh.off_ij, sh.off_ji), (_pack_normals(part), *part[3:]))
+
+    def total(b):
+        b.rep.packed.copy_(pg.axis.psum([sh.packed for sh in b.shards]))
+
+    def system(rep):
+        K = rep.states.shape[0]
+        rhs, diag, E = _unpack_normals(rep.packed)
+        rep.diag_d.copy_(_damped(diag, prior_weight, damping))
+        _copy_all(rep.factor, tridiag_factor(rep.diag_d, E[: K - 1].contiguous()))
+        _copy_all((rep.x, rep.r, rep.p, rep.rz), _cg_start(rhs, precond))
+
+    def direction(b):
+        for sh in b.shards:
+            sh.v.copy_(b.rep.p)
+
+    def offdiag(sh):
+        sh.off.copy_(_offdiag(sh.v, PoseGraph(*sh.factors), sh.off_ij, sh.off_ji))
+
+    def off_total(b):
+        b.rep.off.copy_(pg.axis.psum([sh.off for sh in b.shards]))
+
+    def cg(rep):
+        Hp = torch.einsum("kab,kb->ka", rep.diag_d, rep.p) + rep.off
+        _copy_all((rep.x, rep.r, rep.p, rep.rz),
+                  _cg_update(rep.x, rep.r, rep.p, rep.rz, Hp, precond))
+
+    assemble = [("join", _states_to_shards), ("shard", local), ("join", total), ("rep", system)]
+    cg_iteration = [("join", direction), ("shard", offdiag), ("join", off_total), ("rep", cg)]
+    update = [("rep", _stage_update)]
     for _ in range(n_iters):
-        states = _sparse_gn_step(states, shards, prior_weight, damping, cg_iters,
-                                 "tridiag", robust_delta, axis)
-    return states
+        pg.run_schedule(("assemble",), [assemble])
+        for _ in range(cg_iters):
+            pg.run_schedule(("cg",), [cg_iteration])
+        pg.run_schedule(("update",), [update])
+    return graphs.clone_out(pg.buffers.rep.states)
 
 
 def states_to_poses(states) -> np.ndarray:

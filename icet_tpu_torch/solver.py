@@ -116,8 +116,11 @@ class RegistrationResult(NamedTuple):
     Q: torch.Tensor  # (6, 6) predicted solution error covariance
     diagnostics: IterationDiag
     static_mask: torch.Tensor  # (N2,) scan-2 points in used voxels (local shards)
-    #: Gauss-Newton iterations executed (each one moments pass)
-    iterations: int
+    #: Gauss-Newton iterations executed (each one moments pass): a host int
+    #: from the eager functions, a 0-d int64 device count from the compiled
+    #: ones (read it with ``int(...)`` where needed: the read waits for the
+    #: device)
+    iterations: int | torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -621,10 +624,8 @@ def compiled_route(cfg: ICETConfig) -> bool:
     every moment route does (``moment_route`` raises ValueError on an
     unknown one).  The runners read it once, when they are built.  It is
     kept as a test hook: tests force it False to reach the runners' eager
-    branches, which stay as the references the compiled steps are held to
-    until the sharded pose-graph solves land (ROADMAP A19.9).  The sharded
-    block map's keyframe step takes the eager branch by its own check
-    (``keyframe.KeyframeOdometry``), not through this function."""
+    branches, which stay as the references the compiled steps are held
+    to."""
     moment_route(cfg)
     return True
 
@@ -637,13 +638,15 @@ def _stage_prepare(b, cfg: ICETConfig, src: str = "scan") -> None:
 
 
 def _commit(b, cfg: ICETConfig, X, w6, keep, corr, U2, d) -> None:
-    """Store one iteration's state and its diagnostics row ``b.it``, and
-    leave the exit flag ``|dx| >= threshold`` in ``b.go``."""
+    """Store one iteration's state and its diagnostics row ``b.it``, count
+    it in ``b.iters``, and leave the exit flag ``|dx| >= threshold`` in
+    ``b.go``."""
     for dst, src in ((b.X, X), (b.w6, w6), (b.keep, keep), (b.corr, corr), (b.U2, U2)):
         dst.copy_(src)
     for col, v in zip(b.diag, d):
         col.index_copy_(0, b.it, v.reshape(1))
     b.it.add_(1)
+    b.iters.add_(1)
     if exit_schedule(cfg)[0]:
         torch.ge(d[2], _exit_threshold(w6, U2, cfg), out=b.go)
 
@@ -656,8 +659,12 @@ def _corr_mask(b, masked: bool):
 def _stage_first(b, cfg: ICETConfig, it: int = 0, masked: bool = False,
                  start: str = "x0") -> None:
     """Iteration ``it`` (a phase's first) from ``b.x0`` or, with ``start="X"``,
-    from the previous phase's ``b.X``: the cold 6x6 eigendecomposition."""
+    from the previous phase's ``b.X``: the cold 6x6 eigendecomposition.  A
+    registration starts from ``b.x0``, so that start zeroes its iteration
+    count too."""
     b.it.zero_()
+    if start == "x0":
+        b.iters.zero_()
     x = b.x0 if start == "x0" else b.X
     _commit(b, cfg, *_iteration(b.model, b.scan, x, it, cfg, _corr_mask(b, masked))[:6])
 
@@ -705,6 +712,7 @@ def finish_result(b, cfg: ICETConfig, want_static_mask: bool, sens=None) -> None
     for name, col in zip(IterationDiag._fields, b.diag):
         out[name].copy_(col[fill])
     out["windowed_overflow"].zero_()
+    out["iterations"].copy_(b.iters[0])
 
 
 def compiled_graphs(scan, cfg: ICETConfig):
@@ -735,12 +743,13 @@ def prepare_reference_jit(scan1: torch.Tensor, cfg: ICETConfig) -> VoxelModel:
 def register_jit(
     model: VoxelModel, scan2: torch.Tensor, x0: torch.Tensor, cfg: ICETConfig
 ) -> RegistrationResult:
-    """:func:`register` (with the static mask) as captured graphs: one
-    replay for iteration 0, one for each further iteration, one for the
+    """:func:`register` (with the static mask) as one captured graph:
+    iteration 0, the later iterations under the device's early exit, the
     finish (the JAX package's ``register_jit``)."""
     fg = compiled_graphs(scan2, cfg)
     fg.load(scan=scan2, x0=x0, model=model)
-    return fg.result(fg.solve(True), True)
+    fg.solve(True)
+    return fg.result(True)
 
 
 def register_pair_jit(
@@ -758,7 +767,8 @@ def register_pair_jit(
     fg1.run_prepare()
     fg = compiled_graphs(scan2, cfg)
     fg.load(scan=scan2, x0=x0, model=VoxelModel(**fg1.buffers.prepared))
-    return fg.result(fg.solve(want_static_mask), want_static_mask)
+    fg.solve(want_static_mask)
+    return fg.result(want_static_mask)
 
 
 def odometry_step_jit(
@@ -769,9 +779,9 @@ def odometry_step_jit(
     ``odometry_step_jit``)."""
     fg = compiled_graphs(scan, cfg)
     fg.load(scan=scan, x0=x0, model=model)
-    iterations = fg.solve(False)
+    fg.solve(False)
     fg.run_prepare()
-    return fg.result(iterations, False), fg.prepared()
+    return fg.result(False), fg.prepared()
 
 
 __all__ = [

@@ -19,7 +19,7 @@ its capture-safe stages run as plain calls on the static buffers of
    a filtered solve); the sequence runner's trajectory and keyframe
    indices (its map contents come from each package's own random stream).
 4. ``KeyframeOdometry`` (plain and DNN) and ``run_keyframe_device`` take
-   the compiled functions on a captured route with an unsharded map and
+   the compiled functions on a captured route, the map sharded or not, and
    equal the eager route bit for bit; recovery drops the graph sets.
 
 25 azimuth bins against 256-column sweeps keep every point off the bin
@@ -258,6 +258,64 @@ def test_keyframe_sequence_jit_equals_eager(drive, kf_cfg):
     assert bool(spawns.all()) == (kf_cfg.delta_clamp < 1e-3) and bool(spawns.any())
 
 
+def _shard(bm):
+    """``bm`` with its block axis over three CPU devices (one block each)."""
+    from icet_tpu_torch.parallel.sharding import registration_mesh
+
+    return tkf.shard_blockmap(bm, registration_mesh(3, 1, ["cpu"] * 3))
+
+
+def _whole(bm):
+    return bm._replace(**{k: tkf.whole_table(getattr(bm, k)) for k in ("points", "valid",
+                                                                        "poses")})
+
+
+def test_sharded_map_step_and_spawn_equal_eager(drive):
+    """Over a map sharded in three chunks, the compiled step (its insert
+    into the chunk of block 1) and spawn (opening block 2, the third
+    chunk) equal the eager functions on the same sharded map bit for bit;
+    the map stays sharded."""
+    model, bm = _spawned(drive[0])
+    bm = bm._replace(n_blocks=2)
+    want = _chain(tkf.keyframe_step, drive, model, _shard(_clone_bm(bm)))
+    got = _chain(tkf.keyframe_step_jit, drive, model, _shard(_clone_bm(bm)))
+    for g, w in zip(got, want):
+        _steps_equal(g[:-1] + (_whole(g[-1]),), w[:-1] + (_whole(w[-1]),))
+    bm_g, bm_w = got[-1][-1], want[-1][-1]
+    assert isinstance(bm_g.points, tkf.BlockShards) and bm_g.cursor > 0
+    world = _t(np.array([1.0, 0.5, 0.0, 0.0, 0.0, 0.3], np.float32))
+    u = torch.rand(BM["points_per_scan"], generator=torch.Generator().manual_seed(5))
+    m_w, s_w = tkf.keyframe_spawn(bm_w, _t(drive[5]), world, u, True, TCFG, BCFG)
+    m_g, s_g = tkf.keyframe_spawn_jit(bm_g, _t(drive[5]), world, u, True, TCFG, BCFG)
+    for name, a, b in zip(m_w._fields, m_g, m_w):
+        _assert_equal(a, b, name)
+    assert s_g.n_blocks == 3 and isinstance(s_g.valid, tkf.BlockShards)
+    _bm_equal(_whole(s_g), _whole(s_w))
+
+
+def test_sharded_map_sequence_equals_eager(drive):
+    """``keyframe_sequence_jit`` over a sharded map, spawning into every
+    chunk and wrapping, against the eager ``keyframe_sequence`` on the
+    same sharded map."""
+    model0, bm0 = _spawned(drive[0])
+    z6 = torch.zeros(6)
+    out = []
+    for run in (_eager_sequence, tkf.keyframe_sequence_jit):
+        carry = (z6, z6, z6, torch.Generator().manual_seed(9), torch.zeros(2), z6)
+        kw = {} if run is _eager_sequence else {"return_iterations": True}
+        (model, bm, _), outs, iters = run(_t(drive[1:]), model0, _shard(_clone_bm(bm0)), carry,
+                                          TCFG, KeyframeConfig(delta_clamp=1e-4), BCFG, **kw)
+        out.append((model, _whole(bm), outs, [int(i) for i in iters]))
+    (m_w, bm_w, o_w, i_w), (m_g, bm_g, o_g, i_g) = out
+    names = ("delta", "delta_stds", "world6", "diverged", "x_rel", "is_keyframe", "n_corr")
+    for name, a, b in zip(names, o_g, o_w):
+        _assert_equal(a, b.to(a.dtype), name)
+    assert i_g == i_w and bm_g.n_blocks == len(drive) > BM["n_blocks"]
+    for name, a, b in zip(m_w._fields, m_g, m_w):
+        _assert_equal(a, b, name)
+    _bm_equal(bm_g, bm_w)
+
+
 # ---------------------------------------------------------------------------
 # 3. Against the JAX package's functions, with its draws
 # ---------------------------------------------------------------------------
@@ -297,6 +355,32 @@ def test_keyframe_step_jit_matches_jax(drive):
     assert bool(tdiv) == bool(jdiv) is False and tspawn == bool(jspawn)
     assert th[0].item() == float(jh[0]) > 0
     _bm_close(tbm, jbm, 1e-4)
+
+
+def test_keyframe_step_jit_sharded_map_matches_jax(drive):
+    """The compiled step over the port's map sharded in three chunks
+    against the JAX package's step over its map sharded by
+    ``shard_blockmap`` on three virtual devices, at
+    test_keyframe_step_jit_matches_jax's tolerances."""
+    jmodel, tmodel, jbm, tbm = _jax_setup(drive[0], CFG)
+    jbm = jkf.shard_blockmap(jbm, jax.sharding.Mesh(np.array(jax.devices()[:3]), ("dp",)))
+    x_prev = np.array([0.3, 0.0, 0.0, 0.0, 0.0, -0.02], np.float32)
+    d_prev = np.array([0.28, 0.01, 0.0, 0.0, 0.0, -0.015], np.float32)
+    health0 = np.array([60.0, 0.01], np.float32)
+    key = jax.random.PRNGKey(4)
+    u = np.asarray(jax.random.uniform(key, (BM["points_per_scan"],)))
+    jres, jX, jd, jdiv, jspawn, jh, jbm = jkf.keyframe_step_jit(
+        jmodel, jbm, jnp.asarray(drive[2]), jnp.asarray(x_prev), jnp.asarray(d_prev), key,
+        jnp.asarray(health0), CFG, JKeyframe(**KF), JBlockMap(**BM))
+    tres, tX, td, tdiv, tspawn, th, tbm = tkf.keyframe_step_jit(
+        tmodel, _shard(tbm), _t(drive[2]), _t(x_prev), _t(d_prev), _t(u), _t(health0), TCFG,
+        KCFG, BCFG)
+    assert isinstance(tbm.points, tkf.BlockShards)
+    np.testing.assert_allclose(tX.numpy(), np.asarray(jX), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tres.pred_stds.numpy(), np.asarray(jres.pred_stds), rtol=1e-3)
+    assert bool(tdiv) == bool(jdiv) is False and tspawn == bool(jspawn)
+    _bm_close(_whole(tbm), jbm, 1e-4)
 
 
 @pytest.fixture
@@ -435,16 +519,26 @@ def test_run_keyframe_device_routes_compiled(drive, monkeypatch):
 
 
 def test_sharded_map_takes_the_eager_step(drive, monkeypatch):
+    """A map sharded over three devices takes the compiled step now, and
+    its frames and map equal the eager step's over the same sharded map
+    (the step it used to take) bit for bit."""
     from icet_tpu_torch.parallel.sharding import registration_mesh
 
     calls = _spy(monkeypatch, ["keyframe_step_jit", "keyframe_step"])
-    odo = tkf.KeyframeOdometry(TCFG, KCFG, BCFG, device="cpu")
-    odo.blockmap = tkf.shard_blockmap(odo.blockmap, registration_mesh(3, 1, ["cpu"] * 3))
-    odo.run(drive[:3])
-    assert calls == ["keyframe_step", "keyframe_step"]
-    with pytest.raises(NotImplementedError):
-        tkf.keyframe_step_jit(None, odo.blockmap, _t(drive[1]), torch.zeros(6), torch.zeros(6),
-                              torch.zeros(400), torch.zeros(2), TCFG, KCFG, BCFG)
+    runs = []
+    for compiled in (True, False):
+        odo = tkf.KeyframeOdometry(TCFG, KCFG, BCFG, device="cpu")
+        odo._compiled = compiled
+        odo.blockmap = tkf.shard_blockmap(odo.blockmap, registration_mesh(3, 1, ["cpu"] * 3))
+        runs.append((odo.run(drive[:4]), odo.blockmap))
+    assert calls == ["keyframe_step_jit"] * 3 + ["keyframe_step"] * 3
+    (got, bm_g), (want, bm_w) = runs
+    _frames_equal(got, want)
+    assert isinstance(bm_g.points, tkf.BlockShards)
+    for name in ("points", "valid", "poses"):
+        _assert_equal(tkf.whole_table(getattr(bm_g, name)), tkf.whole_table(getattr(bm_w, name)),
+                      f"bm.{name}")
+    assert (bm_g.n_blocks, bm_g.cursor) == (bm_w.n_blocks, bm_w.cursor)
 
 
 def test_recovery_clears_the_graphs(drive):
