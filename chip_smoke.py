@@ -208,7 +208,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     equal) and timed in turns; what the IF nodes cost: a warm iteration
     as a graph of its own against the same iteration in an IF body (taken
     and skipped), and a fixed-run-length solve as one unrolled graph
-    against its stages replayed one by one.
+    against its stages replayed one by one;
+29. the keyframe spawn decided on the card: ``run_keyframe_device`` on the
+    drive at 64x1024 and at 64x2048 (phase 22's sequence), compiled (its
+    graphs captured under ``set_sync_debug_mode("error")``) against eager,
+    bit for bit (frames, map tables and counters), and a second compiled
+    drive against the first; no spawn-flag, exit-flag or map write on the
+    host inside a block, one read a block; kernel #1's settled launches
+    equal to the eager drive's plus the warm-ups, one of them in the
+    spawn's IF body a spawn; a block with a spawn every frame into a ring
+    of fewer blocks (eviction), a block over a map sharded on two repeats
+    of the card and a block on the scatter route (#3 in the spawn body,
+    within the eager route's spread: float atomics), each against eager; a
+    warm block under the global ``set_sync_debug_mode("error")`` save its
+    block-end read; the sequence frame eager and compiled in turns at both
+    sizes, host operations, device operations and idle share;
+    ``KeyframeOdometry``'s compiled frame: one read, no map write, one
+    host synchronisation a frame without a spawn.
 
 ``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
 runs none of these phases: it times that tree's compiled paths against
@@ -217,8 +233,9 @@ turns parent, this, this, parent.
 
 Every compiled phase gates its host exit-flag reads at 0: the solves'
 early exits run on the card, in IF conditional nodes (phases 6, 18, 19,
-26, 27); launch counts read ``graphs.settle()`` first, which adds the
-launches of the guarded bodies run since.
+26, 27, 29), and so does the keyframe sequence runner's spawn (phase 29);
+launch counts read ``graphs.settle()`` first, which adds the launches of
+the guarded bodies run since.
 
 It prints, before the last line, one JSON object with the kernels' numbers
 and, as the last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -3071,6 +3088,370 @@ def phase_if_cost(scans, cfg, dev, card) -> None:
 
 #: ``--parent DIR``: the compiled paths timed in a tree's own process
 #: (``--time-tree``), the parent's and this tree's in turns
+#: phase 29: the spawn-every-frame block (frames, and the blocks of its map:
+#: fewer than its spawns, so the ring evicts) and the scatter-route block
+EVERY_FRAMES, EVERY_BLOCKS = 12, 8
+#: phase 29: the sharded map's blocks (two a chunk: the drive's keyframes
+#: wrap round both chunks)
+SHARD_BLOCKS = 4
+SCATTER_FRAMES = 9
+#: phase 29: the scatter route's float atomics make its compiled block
+#: differ from the eager one within the eager route's own spread (phase 6)
+SCATTER_X_ATOL_M = 1e-4
+
+
+def frames_differ(got, want) -> list:
+    """``(index, fields)`` of each frame where two runs' ``KeyframeFrame``
+    records differ in a bit."""
+    out = [(-1, ["count"])] if len(got) != len(want) else []
+    for g, w in zip(got, want):
+        bad = [n for n in ("X", "pred_stds", "T_world", "X_rel", "n_corr")
+               if not np.array_equal(getattr(g, n), getattr(w, n))]
+        bad += [n for n in ("index", "is_keyframe", "diverged", "iterations")
+                if getattr(g, n) != getattr(w, n)]
+        if bad:
+            out.append((w.index, bad))
+    return out
+
+
+def maps_differ(a, b) -> list:
+    """The tables (sharded ones gathered) and counters in which two block
+    maps differ in a bit."""
+    from icet_tpu_torch.keyframe import whole_table
+
+    bad = [n for n in ("points", "valid", "poses")
+           if not torch.equal(whole_table(getattr(a, n)), whole_table(getattr(b, n)))]
+    return bad + (["counters"] if (a.n_blocks, a.cursor) != (b.n_blocks, b.cursor) else [])
+
+
+def frames_equal(what: str, got, want) -> None:
+    bad = frames_differ(got, want)
+    check(not bad, f"{what}: {len(bad)} frames differ, the first {bad[:1]}")
+
+
+def maps_equal(what: str, a, b) -> None:
+    bad = maps_differ(a, b)
+    check(not bad, f"{what}: the maps differ in {bad} (counters {(a.n_blocks, a.cursor)} "
+          f"against {(b.n_blocks, b.cursor)})")
+
+
+def sequence_block(frames, c, kc, bc, compiled: bool, dev, mesh=None) -> tuple:
+    """One ``keyframe_sequence_jit`` (or eager ``keyframe_sequence``) block
+    over ``frames[1:]`` from an eager seed spawn at ``frames[0]`` (the map
+    sharded over ``mesh`` where given), generator seed 0: ``(model, map,
+    carry, outputs on the host, iterations)``."""
+    from icet_tpu_torch import keyframe as kfm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    zero6, zero2 = torch.zeros(6, device=dev), torch.zeros(2, device=dev)
+    bm = kfm.blockmap_init(bc, dev)
+    if mesh is not None:
+        bm = kfm.shard_blockmap(bm, mesh)
+    model, bm = kfm.keyframe_spawn(bm, frames[0], zero6,
+                                   kfm._uniforms(gen, bc.points_per_scan, dev), True, c, bc)
+    carry = (zero6, zero6, zero6, zero2, zero6)
+    if compiled:
+        (model, bm, cc), outs, iters = kfm.keyframe_sequence_jit(
+            frames[1:], model, bm, (*carry[:3], gen, *carry[3:]), c, kc, bc,
+            return_iterations=True)
+        carry = (*cc[:3], *cc[4:])
+    else:
+        (model, bm, carry), o = kfm.keyframe_sequence(frames[1:], model, bm, carry, gen, c, kc,
+                                                      bc)
+        d2, stds, world6, div, x2, n_corr, is_kf, iters = o
+        outs = (d2, stds, world6, div, x2, is_kf, n_corr)
+    return model, bm, carry, [o.cpu() for o in outs], [int(i) for i in iters]
+
+
+def blocks_equal(what: str, got, want) -> None:
+    names = ("delta", "delta_stds", "world6", "diverged", "x_rel", "is_keyframe", "n_corr")
+    (m_g, bm_g, c_g, o_g, i_g), (m_w, bm_w, c_w, o_w, i_w) = got, want
+    bad = [n for n, a, b in zip(names, o_g, o_w) if not torch.equal(a, b.to(a.dtype))]
+    bad += [n for n, a, b in zip(m_w._fields, m_g, m_w) if not torch.equal(a, b)]
+    bad += [f"carry[{k}]" for k in range(5) if not torch.equal(c_g[k], c_w[k])]
+    check(not bad and i_g == i_w, f"{what}: compiled and eager differ in {bad} (iterations "
+          f"{i_g} against {i_w})")
+    maps_equal(what, bm_g, bm_w)
+
+
+def phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card) -> None:
+    """Phase 29: the keyframe spawn decided on the card.  ``run_keyframe_device``
+    on the drive at 64x1024 and at 64x2048, compiled (captured under
+    ``set_sync_debug_mode("error")``) against eager, bit for bit, twice;
+    host operations (no spawn, exit-flag or map write inside a block, one
+    read a block); kernel #1's launches (settled) equal to eager's plus the
+    warm-ups, and its one launch in the spawn's IF body; a block with a
+    spawn every frame and a ring that evicts, a block over a map sharded on
+    two repeats of the card, and a block on the scatter route (#3 in the
+    spawn body too); a warm block under the global sync debug mode "error"
+    save its one block-end read; ms a frame in turns with host operations
+    and idle share; ``KeyframeOdometry``'s compiled frame, one read and no
+    map write."""
+    import warnings
+
+    from icet_tpu_torch import graphs
+    from icet_tpu_torch import keyframe as kfm
+    from icet_tpu_torch.config import BlockMapConfig, ICETConfig, KeyframeConfig
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
+    from icet_tpu_torch.parallel.sharding import registration_mesh
+
+    kcfg = ICETConfig(n_iters=7, min_range=2.0, convergence_tol=1e-4)  # phase 27's at 64x2048
+    keys = ("replays", "flag_reads", "spawn_reads", "block_reads", "copies", "draws",
+            "map_writes")
+    fused_slot = graphs.COUNTED.index(fused_moment_sums)
+    t0 = time.perf_counter()
+
+    def at() -> str:
+        return f"[{time.perf_counter() - t0:.1f} s]"
+
+    def run(sc, c):
+        return kfm.run_keyframe_device(sc, c, kf_cfg, bm_cfg, device=dev)
+
+    # -- the drives, compiled against eager -----------------------------------
+    for size, sc, c in (("64x1024", scans, cfg), ("64x2048", wide, kcfg)):
+        n_frames = sc.shape[0] - 1
+        graphs.clear()
+        runs = {}
+        for turn, mode in enumerate(("compiled", "eager", "compiled", "eager")):
+            ops0 = dict(graphs.host_ops)
+            with graphs.sync_debug("error" if turn == 0 else None), \
+                    patched(kfm, "compiled_route", lambda _c, m=mode: m == "compiled"):
+                (frames, bm), fused, _, (w1, _) = drive_launches(lambda: run(sc, c))
+            ops = {k: graphs.host_ops[k] - ops0[k] for k in keys}
+            runs.setdefault(mode, []).append((frames, bm, fused, w1, ops))
+        (got, bm_g, fused, w1, ops), (again, bm_a, fused2, w1b, ops2) = runs["compiled"]
+        (want, bm_w, efused, ew, _), (want2, _, _, _, _) = runs["eager"]
+        kfs = [0] + [f.index for f in got if f.is_keyframe]
+        for what, frames, bm, n, w in (("compiled", got, bm_g, fused, w1),
+                                       ("second compiled", again, bm_a, fused2, w1b),
+                                       ("eager", want, bm_w, efused, ew)):
+            check([0] + [f.index for f in frames if f.is_keyframe] == kfs,
+                  f"run_keyframe_device {size}: the {what} drive's keyframes differ from {kfs}")
+            its = sum(f.iterations for f in frames)
+            check(n == its + len(kfs) + w and bm.n_blocks == len(kfs),
+                  f"run_keyframe_device {size}, {what} drive: #1 launches {n} != {its} "
+                  f"iterations + {len(kfs)} prepares + {w} warm-ups; {bm.n_blocks} blocks")
+        check(ew == 0 and w1b == 0, f"run_keyframe_device {size}: warm-ups {ew} (eager), "
+              f"{w1b} (second compiled drive)")
+        for o in (ops, ops2):
+            check(o["block_reads"] == -(-n_frames // 64) and o["spawn_reads"] == 0
+                  and o["flag_reads"] == 0 and o["map_writes"] == 0,
+                  f"run_keyframe_device {size}: host operations {o}")
+
+        def dT(a, b):
+            return max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(a, b))
+
+        pairs = ((got, bm_g, want, bm_w), (again, bm_a, got, bm_g), (want2, runs["eager"][1][1],
+                                                                    want, bm_w))
+        if not any(frames_differ(a, b) or maps_differ(ma, mb) for a, ma, b, mb in pairs):
+            check(fused == efused + w1, f"run_keyframe_device {size}: #1 launches {fused}, "
+                  f"eager {efused} + warm-ups {w1}")
+            agree = "compiled = eager bit for bit (frames and map), twice"
+        else:
+            # Float atomics (kernel #1's shared-memory sums, the clustering's
+            # index_add_) can move a frame run to run: hold each compiled
+            # drive within four times the larger of the two routes' own
+            # run-to-run spreads of the eager drive in its turn.
+            spread = max(dT(again, got), dT(want2, want))
+            d_ce = max(dT(got, want), dT(again, want2))
+            check(d_ce <= 4.0 * spread
+                  and all(torch.equal(m.valid, bm_w.valid) and m.cursor == bm_w.cursor
+                          for m in (bm_g, bm_a)),
+                  f"run_keyframe_device {size}: compiled {d_ce:.3e} m from eager, the routes' "
+                  f"own spread {spread:.3e} m; or the map's validity or cursor differ")
+            agree = (f"compiled within {d_ce:.3e} m of eager, the routes' own run-to-run "
+                     f"spread {spread:.3e} m (compiled {dT(again, got):.3e}, eager "
+                     f"{dT(want2, want):.3e}: float atomics; bit-identical pairs: compiled/"
+                     f"eager {not frames_differ(got, want)} and {not frames_differ(again, want2)}"
+                     f", compiled/compiled {not frames_differ(again, got)}, eager/eager "
+                     f"{not frames_differ(want2, want)}), map validity and counters equal")
+        fg = graphs.frame_graphs(dev, sc.shape[1], c)
+        entry = next(e for k, e in fg._graphs.items() if k[0] == "kf_frame")
+        nodes = graphs.node_types(entry.graph)
+        spawn_runs = int(entry.tally[-1])
+        body = entry.body_counts[-1][fused_slot]
+        check(body == 1 and spawn_runs == 2 * (len(kfs) - 1),
+              f"run_keyframe_device {size}: the spawn body holds {body} launches of #1 and ran "
+              f"{spawn_runs} times for {len(kfs) - 1} spawns a drive, two drives")
+        ate = f", ATE {trajectory_ate(got, gt) * 100:.6f} cm" if size == "64x1024" else ""
+        print(f"{at()} phase 29 run_keyframe_device {size} ({card}): {agree}; keyframes "
+              f"{kfs}{ate}; "
+              f"#1 launches {fused} = {fused - len(kfs) - w1} iterations + {len(kfs)} prepares "
+              f"+ {w1} warm-ups (eager {efused}, the second compiled drive {fused2}); the spawn "
+              f"body holds 1 launch of #1 and ran {spawn_runs} times; host operations a frame "
+              + ", ".join(f"{k} {v / n_frames:.2f}" for k, v in ops.items())
+              + f"; the frame graph's nodes {nodes}")
+
+    # -- a spawn every frame (the ring evicts), a sharded map, the scatter route -
+    drive = torch.from_numpy(scans).to(dev)
+    every = KeyframeConfig(delta_clamp=1e-4)
+    small = BlockMapConfig(n_blocks=EVERY_BLOCKS)
+    got = sequence_block(drive[:EVERY_FRAMES], cfg, every, small, True, dev)
+    blocks_equal("every-frame spawn block", got, sequence_block(drive[:EVERY_FRAMES], cfg,
+                                                                 every, small, False, dev))
+    n_every = got[1].n_blocks
+    check(n_every == EVERY_FRAMES > EVERY_BLOCKS and bool(got[3][5].all()),
+          f"every-frame spawn block: {n_every} blocks in a ring of {EVERY_BLOCKS}")
+    mesh, ring = registration_mesh(2, 1, [dev] * 2), BlockMapConfig(n_blocks=SHARD_BLOCKS)
+    got = sequence_block(drive, cfg, kf_cfg, ring, True, dev, mesh)
+    blocks_equal("sharded map block", got, sequence_block(drive, cfg, kf_cfg, ring, False,
+                                                          dev, mesh))
+    check(isinstance(got[1].valid, kfm.BlockShards) and got[1].n_blocks > SHARD_BLOCKS
+          and all(bool(ch.any()) for ch in got[1].valid.chunks),
+          f"sharded map block: {got[1].n_blocks} blocks, a chunk holds no point")
+    print(f"{at()} phase 29 blocks, compiled = eager bit for bit: a spawn every frame over "
+          f"{EVERY_FRAMES} frames ({n_every} blocks opened in a ring of {EVERY_BLOCKS}: it "
+          f"evicted); the 24-frame drive over a {SHARD_BLOCKS}-block map sharded on 2 x {dev} "
+          f"({got[1].n_blocks} blocks opened, both chunks written)")
+    pcfg = cfg.replace(moment_method="pallas")
+    counts = {}
+    for mode in ("compiled", "eager"):
+        torch.cuda.synchronize()
+        settle()
+        moment_scatter_sums.launches = 0
+        zero_warmups()
+        blk = sequence_block(drive[:SCATTER_FRAMES], pcfg, kf_cfg, bm_cfg, mode == "compiled",
+                             dev)
+        torch.cuda.synchronize()
+        settle()
+        counts[mode] = (blk, moment_scatter_sums.launches, warmups("moment_scatter_sums"))
+    (bc, sc3, sw3), (be, se3, _) = counts["compiled"], counts["eager"]
+    dx = float((bc[3][2] - be[3][2]).abs().max())
+    check(torch.equal(bc[3][5], be[3][5]) and bool(bc[3][5].any()) and dx <= SCATTER_X_ATOL_M,
+          f"scatter-route block: keyframes {bc[3][5].tolist()} against {be[3][5].tolist()}, "
+          f"world poses {dx:.3e} apart")
+    check(sc3 == se3 + sw3 and bc[4] == be[4],
+          f"scatter-route block: #3 launches {sc3}, eager {se3} + warm-ups {sw3}; iterations "
+          f"{bc[4]} against {be[4]}")
+    print(f"{at()} phase 29 scatter-route block ({SCATTER_FRAMES - 1} frames, spawns "
+          f"{int(bc[3][5].sum())}): #3 launches {sc3} = eager {se3} + {sw3} warm-ups, world "
+          f"poses within {dx:.3e} of eager (float atomics), bit-identical: "
+          f"{dx == 0.0 and torch.equal(bc[3][0], be[3][0])}")
+
+    # -- a warm block under the global sync debug mode ----------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    zero6 = torch.zeros(6, device=dev)
+    model, bm = kfm.keyframe_spawn_jit(kfm.blockmap_init(bm_cfg, dev), drive[0], zero6, gen,
+                                       True, cfg, bm_cfg)
+    carry = (zero6, zero6, zero6, gen, torch.zeros(2, device=dev), zero6)
+    torch.cuda.synchronize()
+    real_read, reads = kfm._read_block, []
+
+    def exempt(rows):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            reads.append(rows.shape)
+            return real_read(rows)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    ops0 = dict(graphs.host_ops)
+    with patched(kfm, "_read_block", exempt):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (_, bm2, _), outs = kfm.keyframe_sequence_jit(drive[1:], model, bm, carry, cfg, kf_cfg,
+                                                          bm_cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    ops = {k: graphs.host_ops[k] - ops0[k] for k in keys}
+    ref, _ = run(scans, cfg)
+    check(len(reads) == 1 and ops["block_reads"] == 1 and ops["spawn_reads"] == 0
+          and ops["map_writes"] == 0 and ops["replays"] == 2 * (drive.shape[0] - 1),
+          f"the warm block: {len(reads)} exempt reads, host operations {ops}")
+    check(np.array_equal(outs[0].numpy(), np.stack([f.X for f in ref]))
+          and outs[5].tolist() == [f.is_keyframe for f in ref],
+          "the warm block under sync debug mode differs from run_keyframe_device's")
+    print(f"{at()} phase 29 warm block of {drive.shape[0] - 1} frames under "
+          f"set_sync_debug_mode('error')"
+          f": no host synchronisation but the block-end read; host operations {ops}; "
+          f"{bm2.n_blocks} blocks, outputs equal to run_keyframe_device's")
+
+    # -- ms a frame in turns, host operations and idle share ----------------------
+    # A map made once a size and the frames on the card: the timed call is the
+    # seed spawn and one block, as run_keyframe_device runs them, without its
+    # uploads and without the map-write graph's capture for a new map.
+    for size, sc, c in (("64x1024", scans, cfg), ("64x2048", wide, kcfg)):
+        frames = torch.from_numpy(sc).to(dev)
+        n_frames = frames.shape[0] - 1
+        bm0 = kfm.blockmap_init(bm_cfg, dev)
+
+        def block(compiled, frames=frames, c=c, bm0=bm0):
+            g = torch.Generator(device=dev)
+            g.manual_seed(0)
+            z6, z2 = torch.zeros(6, device=dev), torch.zeros(2, device=dev)
+            bm = bm0._replace(n_blocks=0, cursor=0)
+            if compiled:
+                m, bm = kfm.keyframe_spawn_jit(bm, frames[0], z6, g, True, c, bm_cfg)
+                kfm.keyframe_sequence_jit(frames[1:], m, bm, (z6, z6, z6, g, z2, z6), c, kf_cfg,
+                                          bm_cfg)
+            else:
+                m, bm = kfm.keyframe_spawn(bm, frames[0], z6,
+                                           kfm._uniforms(g, bm_cfg.points_per_scan, dev), True,
+                                           c, bm_cfg)
+                kfm.keyframe_sequence(frames[1:], m, bm, (z6, z6, z6, z2, z6), g, c, kf_cfg,
+                                      bm_cfg)
+
+        ms = {"eager": [], "compiled": []}
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            ms[mode].append(median_ms(lambda m=mode: block(m == "compiled"), reps=1,
+                                      rounds=1) / n_frames)
+        ops0 = dict(graphs.host_ops)
+        block(True)
+        torch.cuda.synchronize()
+        host = {k: (graphs.host_ops[k] - ops0[k]) / n_frames for k in keys}
+        prof, short = {}, frames[:PROFILE_FRAMES + 1]
+        for mode in ("compiled", "eager"):
+            fn = (lambda m=mode: block(m == "compiled", short))
+            dops = device_profile(fn, reps=1)
+            wall = median_ms(fn, reps=1, rounds=1)
+            busy = sum(v for v, _ in dops.values())
+            prof[mode] = (sum(k for _, k in dops.values()) / PROFILE_FRAMES,
+                          busy / PROFILE_FRAMES, 1.0 - busy / wall)
+        print(f"{at()} keyframe sequence frame {size} ({card}), eager / compiled / compiled / "
+              f"eager: "
+              f"{ms['eager'][0]:.3f} / {ms['compiled'][0]:.3f} / {ms['compiled'][1]:.3f} / "
+              f"{ms['eager'][1]:.3f} ms a frame (CUDA events over the seed spawn and the "
+              f"{n_frames}-frame block)")
+        print(f"  host operations a frame, compiled: {sum(host.values()):.2f} ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in host.items()) + ")")
+        for mode in ("compiled", "eager"):
+            n_ops, busy, idle = prof[mode]
+            print(f"  {mode}: {n_ops:.1f} device operations a frame, device busy {busy:.3f} ms "
+                  f"a frame, idle share {idle:.3f} (torch.profiler and CUDA events over the "
+                  f"seed spawn and a {PROFILE_FRAMES}-frame block)")
+
+    # -- KeyframeOdometry's compiled frame: one read, no map write ---------------
+    kfm.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev).run(drive)  # every graph captured
+    odo = kfm.KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev, snapshot_every=10**6)
+    odo.step(drive[0])
+    odo.step(drive[1])
+    torch.cuda.synchronize()
+    ops0, syncs = dict(graphs.host_ops), []
+    for k in range(2, drive.shape[0]):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                f = odo.step(drive[k])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append((f.is_keyframe, sum("synchroniz" in str(w.message) for w in caught)))
+    ops = {k: graphs.host_ops[k] - ops0[k] for k in keys}
+    plain = [n for spawn, n in syncs if not spawn]
+    spawned = [n for spawn, n in syncs if spawn]
+    check(ops["spawn_reads"] == len(syncs) and ops["map_writes"] == 0
+          and ops["flag_reads"] == 0 and set(plain) == {1},
+          f"KeyframeOdometry's compiled frame: host operations {ops}, synchronisations a frame "
+          f"{syncs}")
+    print(f"{at()} phase 29 KeyframeOdometry compiled frame ({card}): {len(syncs)} frames, host "
+          f"operations a frame " + ", ".join(f"{k} {v / len(syncs):.2f}" for k, v in ops.items())
+          + f"; synchronisations (set_sync_debug_mode('warn')) {plain[0]} a frame without a "
+          f"spawn (the one read), {spawned} on spawn frames (the read and the pose's upload)")
+
+
 TREE_TIMEOUT_S = 400
 
 
@@ -3090,7 +3471,7 @@ def time_tree(spec: dict) -> int:
     from icet_tpu_torch import pose_graph
     from icet_tpu_torch.config import (PROFILES, BlockMapConfig, ICETConfig, KeyframeConfig,
                                        MapConfig, OdometryConfig)
-    from icet_tpu_torch.keyframe import KeyframeOdometry
+    from icet_tpu_torch.keyframe import KeyframeOdometry, run_keyframe_device
     from icet_tpu_torch.mapping import MapMaker
     from icet_tpu_torch.odometry import OdometryPipeline, odometry_sequence_jit
     from icet_tpu_torch.parallel.sharding import (make_sharded_register, registration_mesh,
@@ -3147,6 +3528,10 @@ def time_tree(spec: dict) -> int:
           len(short) - 1)
     runner("DNN frame 64x1024", OdometryPipeline(cfg.replace(dnn_filter=True), odo, device=dev))
     runner("keyframe frame 64x1024", KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev))
+    # The whole drive through the public runner, its uploads and seed spawn included.
+    timed("keyframe sequence frame 64x1024",
+          lambda: run_keyframe_device(data["scans"], cfg, kf_cfg, bm_cfg, device=dev),
+          drive.shape[0] - 1, 3)
     runner("MapMaker frame 64x1024", MapMaker(PROFILES["mapping"], MapConfig(), odo, device=dev))
     lcfg = ICETConfig()
     n_pairs = min(8, drive.shape[0] - 3)
@@ -4256,6 +4641,10 @@ def main() -> int:
                                     kitti)
         phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev, card)
         t27 = time.perf_counter() - t0 - t22 - t23 - t24 - t25 - t26
+        from icet_tpu_torch.datasets.kitti import KittiOdometrySource
+
+        wide = np.stack([sc for sc, _ in KittiOdometrySource(kitti["seq"], max_points=131072)]
+                        ).astype(np.float32)
     print(f"phases 22-27: {t22:.1f} / {t23:.1f} / {t24:.1f} / {t25:.1f} / {t26:.1f} / "
           f"{t27:.1f} s")
 
@@ -4265,6 +4654,11 @@ def main() -> int:
     phase_sharded_solves(lc_solves, dev, card)
     phase_if_cost(scans, cfg, dev, card)
     print(f"phase 28: {time.perf_counter() - t0:.1f} s")
+
+    # -- 29: the keyframe spawn on the card -----------------------------------
+    t0 = time.perf_counter()
+    phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card)
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

@@ -28,8 +28,11 @@ cfg)`` (:func:`frame_graphs`) and replayed afterwards:
   kernels #1 and #4), ``samples`` and the frame's ``handover``;
 * for the keyframe path (``keyframe``): ``kf_predict``, ``kf_post`` (the
   covariance propagation, the delta guard, the spawn flag and the map
-  insert staged under the device flag ``~spawn``), ``kf_spawn`` and, in
-  the sequence runner, ``kf_glue``;
+  insert staged under the device flag ``~spawn``), ``kf_spawn``, and the
+  map-write stage, keyed by the map's addresses (the staged block opening
+  and insert written into a map's tables, one graph a table set); the
+  sequence runner's frame is one schedule, ``kf_predict``, the solve,
+  ``kf_post``, the glue and the spawn in an IF node on the spawn flag;
 * for the ring map (``mapping``): ``map_update`` and ``map_step`` (the
   divergence guard, the re-expression of the ring and the trail, the
   downsample and the insert at the device mirror of the ring's cursor),
@@ -78,10 +81,10 @@ read of the flag, counted in :data:`host_ops` (``flag_reads``,
 ran after its last read.
 
 Buffers: every graph reads and writes :class:`FrameBuffers`, allocated
-outside capture (the keyframe insert's staging among them,
-:class:`MapBuffers`: a block map's own tables are written by the host,
-outside any graph); the graphs' intermediates come from one private
-memory pool a set.  No graph leaves an output in the pool, so the graphs
+outside capture (the keyframe map's staging among them,
+:class:`MapBuffers`, and the block-map or ring tables attached to it for
+the stages that write them); the graphs' intermediates come from one
+private memory pool a set.  No graph leaves an output in the pool, so the graphs
 of a set may replay in any order (one at a time: they share the pool and
 the buffers).  Results come back as views of one clone of a packed
 buffer, so no returned tensor is overwritten by a later call.
@@ -154,14 +157,16 @@ COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
 #: launches of each counted wrapper made by warm-ups before a capture
 warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: host operations of the compiled path: graph replays, exit-flag reads,
-#: keyframe spawn-flag reads, the sharded prepare's clustering-overflow
-#: reads (the last two only where a guard runs on the host), device copies
-#: of inputs in and of packed results out, draws of the inserts' uniforms,
-#: the device operations that write a staged insert or a spawn into a block
-#: map; graphs captured, and reads of the guarded bodies' tallies
-#: (:func:`settle`)
+#: keyframe spawn-flag reads (a keyframe step's one read of its outputs,
+#: or a guard run on the host), the sharded prepare's clustering-overflow
+#: reads (only where a guard runs on the host), the keyframe sequence
+#: runner's one read a block, device copies of inputs in and of packed
+#: results out, draws of the keyframe uniforms, device operations the host
+#: issues to write a block map (none since the map-write stage writes it);
+#: graphs captured, and reads of the guarded bodies' tallies (:func:`settle`)
 host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "overflow_reads": 0,
-            "copies": 0, "draws": 0, "map_writes": 0, "captures": 0, "tally_reads": 0}
+            "block_reads": 0, "copies": 0, "draws": 0, "map_writes": 0, "captures": 0,
+            "tally_reads": 0}
 
 #: what the CUDA captures cost on the host: graphs captured (a guarded
 #: body is a graph of its own, cloned into its IF node), seconds warming up
@@ -398,10 +403,12 @@ _F32 = torch.float32
 KF_CARRY_LAYOUT = Layout([("x_rel", (6,), _F32), ("delta", (6,), _F32),
                           ("world_key", (6,), _F32), ("h0", (2,), _F32),
                           ("prev_stds", (6,), _F32), ("world", (6,), _F32), ("x0", (6,), _F32)])
-#: one keyframe step's outputs besides its registration result
+#: one keyframe step's outputs besides its registration result, and the
+#: iterations its solve executed (read on the host in one copy)
 KF_OUT_LAYOUT = Layout([("X_total", (6,), _F32), ("Q", (6, 6), _F32), ("pred_stds", (6,), _F32),
                         ("X", (6,), _F32), ("delta", (6,), _F32), ("diverged", (), torch.bool),
-                        ("spawn", (), torch.bool), ("health", (2,), _F32)])
+                        ("spawn", (), torch.bool), ("health", (2,), _F32),
+                        ("iterations", (), torch.int64)])
 #: one frame of the keyframe sequence runner, in the JAX package's order,
 #: and the iterations its solve executed (a port-only column)
 KF_ROW_LAYOUT = Layout([("delta", (6,), _F32), ("delta_stds", (6,), _F32),
@@ -410,22 +417,56 @@ KF_ROW_LAYOUT = Layout([("delta", (6,), _F32), ("delta_stds", (6,), _F32),
                         ("n_corr", (), torch.int32), ("iterations", (), torch.int64)])
 
 
+def map_staging_layout(p: int, k: int) -> Layout:
+    """What a keyframe frame stages for the map-write stage of a ``P``-row
+    block map and ``K`` samples a scan: the insert's flat row indices,
+    points and write mask, the device mirror ``at = [slot, cursor,
+    active]``, whether the frame opens the block at ``at``'s slot, and that
+    block's pose."""
+    kw = min(k, p)
+    return Layout([("idx", (kw,), torch.int64), ("vals", (kw, 3), _F32),
+                   ("write", (kw,), torch.bool), ("at", (3,), torch.int64),
+                   ("spawn", (), torch.bool), ("pose", (6,), _F32)])
+
+
 class MapBuffers:
-    """The keyframe insert's staging for a ``(B, P)`` block map and ``K``
-    samples a scan: the uniforms, the device mirror ``at = [slot, cursor,
-    active]`` of the host's ``(n_blocks, cursor)`` (``expect``: the host
-    value it holds, None when unknown), and the staged insert (flat row
-    indices, points and write mask) that the host applies to the map."""
+    """The keyframe map staging for a ``(B, P)`` block map and ``K``
+    samples a scan: ``draws``, a frame's uniforms (the insert's ``u``, then
+    the spawn's ``su``); the staging of :func:`map_staging_layout`, one
+    packed buffer (``staging``; ``at`` the device mirror of the host's
+    ``(n_blocks, cursor)``, ``expect`` the host value it holds, None when
+    unknown); and ``tables``, the ``(points, valid, poses)`` the map-write
+    stage writes (a map's own tables or one chunk of a sharded map's,
+    attached before each replay; a twin's own zeros for the warm-ups)."""
 
     def __init__(self, b: int, p: int, k: int, device):
         self.shape = (b, p, k)
-        kw = min(k, p)
-        self.u = torch.zeros(k, dtype=torch.float32, device=device)
-        self.at = torch.zeros(3, dtype=torch.int64, device=device)
-        self.idx = torch.zeros(kw, dtype=torch.int64, device=device)
-        self.vals = torch.zeros(kw, 3, dtype=torch.float32, device=device)
-        self.write = torch.zeros(kw, dtype=torch.bool, device=device)
+        self.draws = torch.zeros(2 * k, dtype=torch.float32, device=device)
+        self.u, self.su = self.draws[:k], self.draws[k:]
+        layout = map_staging_layout(p, k)
+        self.staging = layout.empty(device)
+        v = layout.views(self.staging)
+        self.idx, self.vals, self.write = v["idx"], v["vals"], v["write"]
+        self.at, self.spawn, self.pose = v["at"], v["spawn"], v["pose"]
         self.expect = None
+        self.tables = None
+        self._own: dict = {}
+
+    def key(self) -> tuple:
+        """The attached tables' addresses and shapes (the map-write graph
+        that writes them is keyed by them)."""
+        return tuple((t.data_ptr(), tuple(t.shape)) for t in self.tables)
+
+    def twin_of(self, tables) -> None:
+        """Attach zero tables of ``tables``' shapes (the warm-ups' own,
+        made once a shape)."""
+        if tables is None:
+            self.tables = None
+            return
+        shapes = tuple((tuple(t.shape), t.dtype) for t in tables)
+        if shapes not in self._own:
+            self._own[shapes] = tuple(torch.zeros_like(t) for t in tables)
+        self.tables = self._own[shapes]
 
 
 #: one ring-map frame's outputs, read on the host in one copy: the guarded
@@ -759,7 +800,8 @@ class FrameGraphs(GraphSet):
         if self._scratch is None:
             self._scratch = FrameBuffers(self.device, self.n, self.cfg)
         if self.buffers.map is not None:
-            self._scratch.map = self._maps[self.buffers.map.shape][1]
+            twin = self._scratch.map = self._maps[self.buffers.map.shape][1]
+            twin.twin_of(self.buffers.map.tables)
         if self.buffers.ring is not None:
             self._scratch.ring = self._rings[self.buffers.ring.shape][1]
         return self._scratch
@@ -775,9 +817,10 @@ class FrameGraphs(GraphSet):
             self.pinned.append((net, img))
 
     def map_buffers(self, b: int, p: int, k: int) -> MapBuffers:
-        """The insert staging of a ``(B, P)`` map and ``K`` samples (made at
+        """The map staging of a ``(B, P)`` map and ``K`` samples (made at
         first use, with a twin for the warm-ups), now the one the stages
-        see.  No graph reads or writes a map's own tables."""
+        see.  Only the map-write stage writes a map's own tables, those
+        attached to it."""
         key = (b, p, k)
         if key not in self._maps:
             self._maps[key] = (MapBuffers(b, p, k, self.device), MapBuffers(b, p, k, self.device))

@@ -13,11 +13,13 @@ Differences from the JAX package, none of which changes a trajectory:
 * the block map's ``n_blocks`` and ``cursor`` are host integers, and its
   point and validity tensors are updated in place (the JAX package donates
   them to its jitted steps);
-* the spawn decision is read on the host once a frame (the JAX sequence
-  runner decides inside a ``lax.cond``); it gates the frame's map insert
-  and the keyframe prepare.  Besides it, the eager solver reads ``|dx|``
-  on the host once an iteration, as in :mod:`icet_tpu_torch.solver` (the
-  compiled steps exit on the device);
+* the eager functions read the spawn decision on the host once a frame;
+  it gates the frame's map insert and the keyframe prepare.  Besides it,
+  the eager solver reads ``|dx|`` on the host once an iteration, as in
+  :mod:`icet_tpu_torch.solver`.  The compiled sequence runner decides on
+  the device, as the JAX package's ``lax.cond`` does, and reads once a
+  block; ``KeyframeOdometry`` decides on the host, as the JAX package's
+  host loop does, from its step's one read;
 * random draws come from a ``torch.Generator`` seeded from ``seed``, not
   from ``jax.random``: map CONTENTS differ between the packages (the JAX
   package's own sequence runner and host loop differ the same way).  The
@@ -39,14 +41,14 @@ The compiled entry points :func:`keyframe_step_jit`,
 CPU, which equal the eager functions bit for bit).  Their insert is gated
 on the device (``enabled = ~spawn``, as in the JAX package) and reads the
 active block's slot and cursor from a device mirror of the host's
-``n_blocks`` and ``cursor``, so one graph serves every cursor; the graph
-stages the rows and points, and the host writes them into the map's
-tables with a few device operations, so that no graph depends on which
-map it serves: a sharded map (:class:`BlockShards`) takes them as an
-unsharded one does, the staged rows written into the chunk that owns the
-active block, on its device.  A ``torch.Generator`` (or the uniforms
-themselves) stands where the JAX functions take a PRNG key, drawn before
-the replay in the eager order.
+``n_blocks`` and ``cursor``, so one graph serves every cursor.  The
+frame's graphs stage the rows, the points and any block opening; a small
+map-write graph a table set, keyed by the tables' addresses, writes them
+into the map, so the frame's graphs depend on no map: a sharded map
+(:class:`BlockShards`) has one map-write graph a chunk, each masked by
+whether its chunk holds the active block.  A ``torch.Generator`` (or the
+uniforms themselves) stands where the JAX functions take a PRNG key,
+drawn on the device before the replay, in the eager order.
 ``KeyframeOdometry`` and :func:`run_keyframe_device` take them where
 ``solver.compiled_route(cfg)`` holds.
 """
@@ -472,22 +474,23 @@ def keyframe_sequence(frames, model, bm, carry, gen, cfg, kf_cfg, bm_cfg):
     """Run the ``(F, N, 3)`` frames on their device, chained as the JAX
     package's ``keyframe_sequence_jit`` chains them; results stay on the
     device.  ``carry = (x_rel, delta, world_key6, health0, prev_stds)``.
-    Returns ``(model, bm, carry), outs`` with per-frame outs ``(delta,
-    delta_stds, world6, diverged, x_rel, n_corr, is_keyframe, iterations)``,
-    each stacked over the frames (the last two host values as tensors)."""
+    Each frame draws the insert's and the spawn's uniforms at once, spawn
+    or not (the JAX package splits its key three ways a frame).  Returns
+    ``(model, bm, carry), outs`` with per-frame outs ``(delta, delta_stds,
+    world6, diverged, x_rel, n_corr, is_keyframe, iterations)``, each
+    stacked over the frames (the last two host values as tensors)."""
     x_rel, delta, world_key, h0, prev_stds = carry
     K = bm_cfg.points_per_scan
     outs = []
     for scan in frames:
-        u = _uniforms(gen, K, scan.device)
+        u = _uniforms(gen, 2 * K, scan.device)
         res, x2, d2, div, spawn, health, bm = keyframe_step(
-            model, bm, scan, x_rel, delta, u, h0, cfg, kf_cfg, bm_cfg)
+            model, bm, scan, x_rel, delta, u[:K], h0, cfg, kf_cfg, bm_cfg)
         h0 = update_health0(h0, health)
         world2 = compose_states(world_key, x2)
         delta_stds = torch.sqrt(res.pred_stds**2 + prev_stds**2)
         if spawn:
-            model, bm = keyframe_spawn(bm, scan, world2, _uniforms(gen, K, scan.device),
-                                       True, cfg, bm_cfg)
+            model, bm = keyframe_spawn(bm, scan, world2, u[K:], True, cfg, bm_cfg)
             x_rel, h0, world_key = torch.zeros_like(x2), torch.zeros_like(h0), world2
             prev_stds = torch.zeros_like(prev_stds)
         else:
@@ -505,10 +508,10 @@ def keyframe_sequence(frames, model, bm, carry, gen, cfg, kf_cfg, bm_cfg):
 # ---------------------------------------------------------------------------
 
 
-def _stage_insert(mb, scan, X_rel, min_range: float, enabled) -> None:
-    """:func:`_blockmap_insert` staged on the device for
-    :func:`_apply_insert`: the active block's slot, cursor and whether one
-    is open come from the mirror ``mb.at``, the uniforms from ``mb.u``;
+def _stage_insert(mb, scan, X_rel, min_range: float, enabled, u=None) -> None:
+    """:func:`_blockmap_insert` staged on the device for the map-write
+    stage: the active block's slot, cursor and whether one is open come
+    from the mirror ``mb.at``, the uniforms from ``u`` (default ``mb.u``);
     ``enabled`` is a host or device bool.  Every one of the ``min(K, P)``
     candidate samples gets a row (rows past the capacity wrap onto rows
     below the cursor, so no two samples share a row), its point, and
@@ -516,11 +519,12 @@ def _stage_insert(mb, scan, X_rel, min_range: float, enabled) -> None:
     B, P, K = mb.shape
     n = scan.shape[0]
     kw = min(K, P)
+    u = mb.u if u is None else u
     slot, cursor, active = mb.at[0], mb.at[1], mb.at[2]
     local = transform_points(scan, X_rel)
     ok = torch.sum(scan * scan, dim=-1) > (min_range * min_range)
     ar = torch.arange(K, dtype=torch.float32, device=scan.device)
-    take = torch.floor((ar + mb.u.to(ar)) * (n / K)).to(torch.int64)
+    take = torch.floor((ar + u.to(ar)) * (n / K)).to(torch.int64)
     take = torch.clamp(take, max=n - 1)[:kw]
     rows = cursor + torch.arange(kw, device=scan.device)
     mb.idx.copy_(slot * P + torch.remainder(rows, P))
@@ -533,35 +537,55 @@ def _stage_insert(mb, scan, X_rel, min_range: float, enabled) -> None:
         cursor.copy_(torch.where(enabled, moved, cursor))
 
 
-def _owner(table, slot: int) -> tuple[torch.Tensor, int]:
-    """The tensor that holds block ``slot`` of a block-map table (a sharded
-    table's owning chunk) and the index of its first block there."""
-    if isinstance(table, BlockShards):
-        k = slot // table.per
-        return table.chunks[k], k * table.per
-    return table, 0
+def _stage_write(mb, base: int) -> None:
+    """The frame's staged map work written into the attached tables
+    ``mb.tables`` (a whole map's, or the chunk of a sharded one whose first
+    block is ``base``): where ``mb.spawn`` holds, the block at the mirror's
+    slot is opened (its validity cleared, its pose ``mb.pose``), then the
+    staged insert's rows get the new point where a sample is written and
+    keep the old one elsewhere, the eager spawn's and insert's values bit
+    for bit.  A chunk that does not hold the slot is left as it was."""
+    points, valid, poses = mb.tables
+    c, P = valid.shape
+    slot = mb.at[0:1] - base
+    own = (slot >= 0) & (slot < c)
+    loc = torch.clamp(slot, 0, c - 1)
+    pts, ok = points.view(-1, 3), valid.view(-1)
+    opening = own & mb.spawn
+    block = loc * P + torch.arange(P, device=loc.device)
+    ok.index_put_((block,), ok[block] & ~opening)
+    poses.index_copy_(0, loc, torch.where(opening, mb.pose, poses.index_select(0, loc)))
+    idx = torch.clamp(mb.idx - base * P, 0, c * P - 1)
+    write = mb.write & own
+    pts.index_put_((idx,), torch.where(write[:, None], mb.vals, pts[idx]))
+    ok.index_put_((idx,), ok[idx] | write)
 
 
-def _apply_insert(mb, bm: BlockMap, slot: int | None = None) -> None:
-    """Write a staged insert into the map's tables (outside any graph, so no
-    graph depends on which map it serves): the new point where a sample is
-    written and the old one elsewhere, the eager insert's values bit for
-    bit.  ``slot`` is the active block (default: ``bm``'s, from the host's
-    counters); a sharded map takes the rows in the chunk that owns it, on
-    that chunk's device."""
-    if slot is None:
-        slot = _map_state(bm)[0]
-    (points, base), (valid, _) = _owner(bm.points, slot), _owner(bm.valid, slot)
-    P = valid.shape[1]
-    points, valid = points.view(-1, 3), valid.view(-1)
-    idx, write, vals = mb.idx, mb.write, mb.vals
-    if points.device != idx.device or base:
-        idx = (idx - base * P).to(points.device)
-        write, vals = write.to(points.device), vals.to(points.device)
-        graphs.host_ops["map_writes"] += 3
-    points.index_put_((idx,), torch.where(write[:, None], vals, points[idx]))
-    valid.index_put_((idx,), valid[idx] | write)
-    graphs.host_ops["map_writes"] += 6
+def _table_sets(bm: BlockMap) -> list:
+    """``((points, valid, poses), first block)`` of each part of ``bm``'s
+    tables: the whole map, or each chunk of a sharded one."""
+    if not isinstance(bm.points, BlockShards):
+        return [((bm.points, bm.valid, bm.poses), 0)]
+    per = bm.points.per
+    return [(t, k * per) for k, t in enumerate(zip(bm.points.chunks, bm.valid.chunks,
+                                                   bm.poses.chunks))]
+
+
+def _write_map(fg, bm: BlockMap) -> None:
+    """Replay the map-write graph of each table set of ``bm`` (one graph a
+    set, keyed by its addresses), after the frame's stages on the same
+    stream.  A chunk on another device takes a copy of the staging there,
+    device to device, and replays a graph of that device's set."""
+    mb = fg.buffers.map
+    for tables, base in _table_sets(bm):
+        dev = tables[0].device
+        wg = fg if dev == fg.device else graphs.frame_graphs(dev, fg.n, fg.cfg)
+        wmb = wg.map_buffers(*mb.shape)
+        if wmb is not mb:
+            graphs.copy_in(wmb.staging, mb.staging)
+        wmb.tables = tables
+        wg.run(("kf_write", mb.shape, base, wmb.key()),
+               lambda b, base=base: _stage_write(b.map, base))
 
 
 def _stage_predict(b, cfg: ICETConfig) -> None:
@@ -574,9 +598,9 @@ def _stage_predict(b, cfg: ICETConfig) -> None:
 
 
 def _stage_post(b, cfg: ICETConfig, kf_cfg: KeyframeConfig, n_final: int) -> None:
-    """:func:`_propagate` of the finished result into ``b.kf_out``, then the
-    insert of the raw scan at the guarded pose staged, ``enabled =
-    ~spawn``."""
+    """:func:`_propagate` of the finished result into ``b.kf_out`` (with the
+    iterations the solve executed), then the insert of the raw scan at the
+    guarded pose staged, ``enabled = ~spawn``, opening no block."""
     r = b.result[(n_final, False)]
     res = RegistrationResult(X=r["X"], pred_stds=r["pred_stds"], Q=r["Q"],
                              diagnostics=IterationDiag(**{k: r[k] for k in IterationDiag._fields}),
@@ -586,23 +610,26 @@ def _stage_post(b, cfg: ICETConfig, kf_cfg: KeyframeConfig, n_final: int) -> Non
     out = b.kf_out
     for name, t in (("X_total", res.X), ("Q", res.Q), ("pred_stds", res.pred_stds), ("X", X),
                     ("delta", delta), ("diverged", diverged), ("spawn", spawn),
-                    ("health", health)):
+                    ("health", health), ("iterations", b.iters[0])):
         out[name].copy_(t)
     _stage_insert(b.map, b.raw, X, cfg.min_range, ~spawn)
+    b.map.spawn.fill_(False)
 
 
 def _stage_spawn(b, cfg: ICETConfig, seed_insert: bool, carry_model: bool) -> None:
-    """:func:`keyframe_spawn` of the raw scan: the prepare, the new block's
-    slot (the mirror's next) and the seeded insert staged (:func:`_spawned`
-    writes them); with ``carry_model`` the new model goes into the model
-    buffer too."""
+    """:func:`keyframe_spawn` of the raw scan: the prepare, the new block
+    (the mirror's next slot, opened at the pose ``b.kf["world"]``) and the
+    seeded insert from the spawn's uniforms staged for the map-write stage;
+    with ``carry_model`` the new model goes into the model buffer too."""
     _stage_prepare(b, cfg, "raw")
     mb = b.map
     mb.at[0].copy_(torch.remainder(mb.at[0] + mb.at[2], mb.shape[0]))
     mb.at[1].zero_()
     mb.at[2].fill_(1)
+    mb.spawn.fill_(True)
+    mb.pose.copy_(b.kf["world"])
     _stage_insert(mb, b.raw, torch.zeros(6, dtype=torch.float32, device=b.raw.device),
-                  cfg.min_range, seed_insert)
+                  cfg.min_range, seed_insert, mb.su)
     if carry_model:
         b.model_buf.copy_(b.prepared_buf)
 
@@ -631,6 +658,22 @@ def _stage_glue(b) -> None:
     c["world"].copy_(world2)
 
 
+def _spawn_flag(b) -> torch.Tensor:
+    return b.kf_out["spawn"]
+
+
+def _frame_schedule(fg, cfg: ICETConfig, kf_cfg: KeyframeConfig) -> list:
+    """One frame of the sequence runner: the prediction, the solve, the
+    propagation with the insert staged, the glue, and the spawn (the
+    prepare, the new block, the seeded insert and the model hand-over)
+    guarded by the device's spawn flag, a host read only where the guard
+    runs on the host (``spawn_reads``)."""
+    return ([lambda b: _stage_predict(b, cfg)] + fg.solve_schedule(False)
+            + [lambda b: _stage_post(b, cfg, kf_cfg, cfg.n_iters), _stage_glue,
+               graphs.If(_spawn_flag, lambda b: _stage_spawn(b, cfg, True, True),
+                         reads="spawn_reads")])
+
+
 def _map_state(bm: BlockMap) -> tuple[int, int, int]:
     """The mirror's host value ``(slot, cursor, active)`` of ``bm``."""
     B = bm.poses.shape[0]
@@ -638,11 +681,11 @@ def _map_state(bm: BlockMap) -> tuple[int, int, int]:
 
 
 def _keyframe_graphs(scan, cfg: ICETConfig, bm: BlockMap, bm_cfg: BlockMapConfig):
-    """The frame graphs of ``scan``'s device, size and ``cfg`` with the
-    insert staging of ``bm``'s shape, its mirror holding ``bm``'s slot and
-    cursor (copied in only when it holds something else).  The staging is
-    keyed by the map's shape alone, sharded or not: no graph reads a
-    map's tables."""
+    """The frame graphs of ``scan``'s device, size and ``cfg`` with the map
+    staging of ``bm``'s shape, its mirror holding ``bm``'s slot and cursor
+    (copied in only when it holds something else).  The staging is keyed
+    by the map's shape alone, sharded or not: only the map-write graphs
+    are keyed by a map's tables."""
     fg = compiled_graphs(scan, cfg)
     mb = fg.map_buffers(*bm.valid.shape, bm_cfg.points_per_scan)
     want = _map_state(bm)
@@ -652,14 +695,15 @@ def _keyframe_graphs(scan, cfg: ICETConfig, bm: BlockMap, bm_cfg: BlockMapConfig
     return fg
 
 
-def _load_uniforms(fg, u) -> None:
-    """The insert's uniforms into the map's buffer: drawn from ``u`` when it
-    is a generator (as the eager runners draw them), else copied."""
-    mb = fg.buffers.map
+def _load_uniforms(dst: torch.Tensor, u) -> None:
+    """Uniforms into the staging buffer ``dst``: drawn in place from ``u``
+    when it is a generator (one ``torch.rand``, as the eager runners draw
+    them), else copied."""
     if isinstance(u, torch.Generator):
-        u = _uniforms(u, mb.u.shape[0], mb.u.device)
+        torch.rand(dst.shape, generator=u, out=dst)
         graphs.host_ops["draws"] += 1
-    graphs.copy_in(mb.u, u)
+    else:
+        graphs.copy_in(dst, u)
 
 
 def _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0) -> None:
@@ -667,18 +711,19 @@ def _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0) -> None:
     fg.load(model=model, raw=scan)
     for name, t in (("x_rel", x_prev_rel), ("delta", delta_prev), ("h0", health0)):
         graphs.copy_in(b.kf[name], t)
-    _load_uniforms(fg, u)
+    _load_uniforms(b.map.u, u)
 
 
-def _post(fg, cfg, kf_cfg, bm, n_final) -> bool:
-    """Replay the step's post stage, write its staged insert into ``bm``'s
-    tables and read the spawn flag (the one host read of a frame besides
-    the solver's exit flags)."""
+def _post(fg, cfg, kf_cfg, bm, n_final) -> dict:
+    """Replay the step's post stage and the map-write graphs (the insert,
+    gated on the device), then read the step's packed outputs, the spawn
+    flag among them, in one copy (the one host read of a step)."""
     fg.run(("kf_post", kf_cfg, fg.buffers.map.shape, n_final),
            lambda b: _stage_post(b, cfg, kf_cfg, n_final))
-    _apply_insert(fg.buffers.map, bm)
+    _write_map(fg, bm)
     graphs.host_ops["spawn_reads"] += 1
-    return bool(fg.buffers.kf_out["spawn"])
+    host = fg.buffers.kf_out_buf.to("cpu", copy=True)
+    return {k: v.numpy() for k, v in graphs.KF_OUT_LAYOUT.views(host).items()}
 
 
 def _advance(fg, bm: BlockMap, bm_cfg: BlockMapConfig, spawn: bool) -> BlockMap:
@@ -689,12 +734,14 @@ def _advance(fg, bm: BlockMap, bm_cfg: BlockMapConfig, spawn: bool) -> BlockMap:
     return bm
 
 
-def _step_result(fg, bm, bm_cfg, n_final, spawn):
+def _step_result(fg, bm, bm_cfg, n_final, host: dict, host_out: bool):
+    spawn = bool(host["spawn"])
     out = graphs.KF_OUT_LAYOUT.views(graphs.clone_out(fg.buffers.kf_out_buf))
     res = fg.result(False, n_final)
     res = res._replace(X=out["X_total"], Q=out["Q"], pred_stds=out["pred_stds"])
-    return (res, out["X"], out["delta"], out["diverged"], spawn, out["health"],
+    step = (res, out["X"], out["delta"], out["diverged"], spawn, out["health"],
             _advance(fg, bm, bm_cfg, spawn))
+    return step + (host,) if host_out else step
 
 
 def keyframe_step_jit(
@@ -708,17 +755,22 @@ def keyframe_step_jit(
     cfg: ICETConfig,
     kf_cfg: KeyframeConfig,
     bm_cfg: BlockMapConfig,
+    *,
+    host_out: bool = False,
 ):
     """:func:`keyframe_step` as captured graphs (the JAX package's
     ``keyframe_step_jit``; ``u`` a generator or the uniforms): the
     prediction, the solve, the propagation, the guard, the spawn flag and
-    the gated insert.  The spawn flag is read on the host, once."""
+    the insert, gated on the device and written by the map-write graphs.
+    The step's outputs are read on the host once, in one copy, for the
+    spawn flag; ``host_out`` appends them to the result (numpy arrays by
+    ``graphs.KF_OUT_LAYOUT``'s names)."""
     fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
     _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
     fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
     fg.solve(False)
-    spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
-    return _step_result(fg, bm, bm_cfg, cfg.n_iters, spawn)
+    host = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
+    return _step_result(fg, bm, bm_cfg, cfg.n_iters, host, host_out)
 
 
 def keyframe_step_dnn_jit(
@@ -735,38 +787,34 @@ def keyframe_step_dnn_jit(
     kf_cfg: KeyframeConfig,
     bm_cfg: BlockMapConfig,
     net,
+    *,
+    host_out: bool = False,
 ):
     """:func:`keyframe_step_dnn` as captured graphs (the JAX package's
     ``keyframe_step_dnn_jit``): the filtered solve of
     ``filters.solve_dnn`` with the keyframe as scan 1, given by its
-    samples (``key_scan`` is not read, as in the eager step)."""
+    samples (``key_scan`` is not read, as in the eager step); one host read
+    and ``host_out`` as :func:`keyframe_step_jit`."""
     del key_scan
     fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
     _load_step(fg, model, scan, x_prev_rel, delta_prev, u, health0)
     fg.load(samples=key_samples)
     fg.run(("kf_predict",), lambda b: _stage_predict(b, cfg))
     n_final = solve_dnn(fg, net, False)
-    spawn = _post(fg, cfg, kf_cfg, bm, n_final)
-    return _step_result(fg, bm, bm_cfg, n_final, spawn)
+    host = _post(fg, cfg, kf_cfg, bm, n_final)
+    return _step_result(fg, bm, bm_cfg, n_final, host, host_out)
 
 
-def _spawn(fg, cfg, bm: BlockMap, bm_cfg: BlockMapConfig, world, seed_insert: bool,
+def _spawn(fg, cfg, bm: BlockMap, bm_cfg: BlockMapConfig, seed_insert: bool,
            carry_model: bool) -> BlockMap:
-    """Replay the spawn graph, then open the new block in ``bm``'s tables at
-    the mirror's slot (its validity cleared, its pose ``world``) and write
-    the staged seed insert; the host's counters follow.  The host's slot
-    is the mirror's (``n_blocks`` mod B, as :func:`_blockmap_spawn`)."""
+    """Replay the spawn graph (the new block at the mirror's next slot,
+    ``n_blocks`` mod B as :func:`_blockmap_spawn`'s, its pose
+    ``b.kf["world"]``) and the map-write graphs; the host's counters
+    follow."""
     fg.run(("kf_spawn", seed_insert, carry_model, fg.buffers.map.shape),
            lambda b: _stage_spawn(b, cfg, seed_insert, carry_model))
-    mb = fg.buffers.map
-    slot = bm.n_blocks % bm.poses.shape[0]
-    _row(bm.valid, slot).fill_(False)
-    pose = _row(bm.poses, slot)
-    pose.copy_(world.to(pose))
-    graphs.host_ops["map_writes"] += 2
-    _apply_insert(mb, bm, slot)
-    nb = bm.n_blocks + 1
-    bm = bm._replace(n_blocks=nb,
+    _write_map(fg, bm)
+    bm = bm._replace(n_blocks=bm.n_blocks + 1,
                      cursor=min(bm_cfg.points_per_scan, bm.valid.shape[1]) if seed_insert else 0)
     fg.buffers.map.expect = _map_state(bm)
     return bm
@@ -782,56 +830,74 @@ def keyframe_spawn_jit(
     bm_cfg: BlockMapConfig,
 ) -> tuple[VoxelModel, BlockMap]:
     """:func:`keyframe_spawn` as a captured graph (the JAX package's
-    ``keyframe_spawn_jit``; ``u`` a generator or the uniforms)."""
+    ``keyframe_spawn_jit``; ``u`` a generator or the uniforms); the block's
+    pose ``world_state`` is copied in, and nothing is read."""
     seed_insert = bool(seed_insert)
     fg = _keyframe_graphs(scan, cfg, bm, bm_cfg)
     fg.load(raw=scan)
-    _load_uniforms(fg, u)
-    world = torch.as_tensor(world_state, device=scan.device)
-    bm = _spawn(fg, cfg, bm, bm_cfg, world, seed_insert, False)
+    _load_uniforms(fg.buffers.map.su, u)
+    graphs.copy_in(fg.buffers.kf["world"], world_state)
+    bm = _spawn(fg, cfg, bm, bm_cfg, seed_insert, False)
     return fg.prepared(), bm
+
+
+def _read_block(rows: torch.Tensor) -> torch.Tensor:
+    """The sequence runner's one host read a block: its stacked rows and
+    the map's mirror."""
+    graphs.host_ops["block_reads"] += 1
+    return rows.cpu()
 
 
 def keyframe_sequence_jit(frames, model0, bm0, carry0, cfg, kf_cfg, bm_cfg,
                           return_iterations: bool = False):
     """The ``(F, N, 3)`` frames chained on the device as captured graphs
-    (the JAX package's ``keyframe_sequence_jit``): each frame draws its
-    uniforms, replays the step's graphs and the ``kf_glue`` graph (health
-    latch, world pose, delta stds, carry), and on a spawn frame draws again
-    and replays ``kf_spawn`` (prepare, block, seeded insert, model
-    hand-over); the host reads the spawn flag once a frame.
+    (the JAX package's ``keyframe_sequence_jit``).  Each frame draws both
+    sets of uniforms (the insert's, then the spawn's: the JAX package's
+    three-way key split), copies its scan in and replays two graphs: the
+    frame's schedule (:func:`_frame_schedule`; the spawn, kernel #1's
+    prepare among it, in an IF node on the device's spawn flag) and the
+    map-write graph of each table set of ``bm0``.  Nothing is read inside
+    the block: the device mirror of the map's slot and cursor is the truth
+    there, and the block's end reads it with the stacked outputs in one
+    copy, from which the host's ``n_blocks`` (the old count plus the
+    block's keyframes) and ``cursor`` follow.
 
     ``carry0 = (x_rel, delta, world_key6, gen, health0, prev_stds)``, a
     ``torch.Generator`` in the JAX key's place; returns ``(model, bm,
     carry), outs`` with per-frame outs ``(delta, delta_stds, world6,
-    diverged, x_rel, is_keyframe, n_corr)`` stacked on the device, as the
-    JAX package's; with ``return_iterations`` a third element follows, the
-    iterations each frame executed (an ``(F,)`` int64 tensor on the
-    device)."""
+    diverged, x_rel, is_keyframe, n_corr)`` stacked, as the JAX package's,
+    on the host (the block-end read); with ``return_iterations`` a third
+    element follows, the iterations each frame executed (an ``(F,)``
+    int64 tensor).  The model and carry stay on the device."""
     if frames.ndim != 3 or frames.shape[0] == 0:
         raise ValueError(f"frames must be a non-empty (F, N, 3) block, got {tuple(frames.shape)}")
     x_rel, delta, world_key, gen, h0, prev_stds = carry0
     fg = _keyframe_graphs(frames[0], cfg, bm0, bm_cfg)
     b = fg.buffers
+    mb = b.map
     fg.load(model=model0)
     fg.hold("model", None)  # a spawn hands its model over in the buffer
     for name, t in (("x_rel", x_rel), ("delta", delta), ("world_key", world_key), ("h0", h0),
                     ("prev_stds", prev_stds)):
         graphs.copy_in(b.kf[name], t)
-    bm, rows = bm0, []
-    for k in range(frames.shape[0]):
-        _load_uniforms(fg, gen)
+    schedule = _frame_schedule(fg, cfg, kf_cfg)
+    F = frames.shape[0]
+    rows = torch.empty((F + 1, graphs.KF_ROW_LAYOUT.nbytes), dtype=torch.uint8, device=fg.device)
+    for k in range(F):
+        _load_uniforms(mb.draws, gen)
         fg.load(raw=frames[k])
-        fg.run(("kf_predict",), lambda bb: _stage_predict(bb, cfg))
-        fg.solve(False)
-        spawn = _post(fg, cfg, kf_cfg, bm, cfg.n_iters)
-        fg.run(("kf_glue",), _stage_glue)
-        bm = _advance(fg, bm, bm_cfg, spawn)
-        if spawn:
-            _load_uniforms(fg, gen)
-            bm = _spawn(fg, cfg, bm, bm_cfg, b.kf["world"], True, True)
-        rows.append(graphs.clone_out(b.kf_row_buf))
-    out = graphs.KF_ROW_LAYOUT.stacked_views(torch.stack(rows))
+        fg.run_schedule(("kf_frame", kf_cfg, mb.shape), schedule)
+        _write_map(fg, bm0)
+        graphs.copy_in(rows[k], b.kf_row_buf)
+    graphs.copy_in(rows[F, :mb.at.nbytes].view(torch.int64), mb.at)
+    host = _read_block(rows)
+    out = graphs.KF_ROW_LAYOUT.stacked_views(host[:F])
+    at = tuple(host[F, :mb.at.nbytes].view(torch.int64).tolist())
+    bm = bm0._replace(n_blocks=bm0.n_blocks + int(out["is_keyframe"].sum()), cursor=at[1])
+    if at != _map_state(bm):
+        raise RuntimeError(f"the map mirror {at} disagrees with the block's keyframes "
+                           f"({_map_state(bm)})")
+    mb.expect = at
     c = graphs.KF_CARRY_LAYOUT.views(graphs.clone_out(b.kf_buf))
     carry = (c["x_rel"], c["delta"], c["world_key"], gen, c["h0"], c["prev_stds"])
     outs = tuple(out[name] for name, *_ in graphs.KF_ROW_LAYOUT.fields if name != "iterations")
@@ -854,7 +920,8 @@ def run_keyframe_device(
     records as :class:`KeyframeOdometry` and the final block map.  Where
     ``solver.compiled_route(cfg)`` holds, the seed spawn is
     :func:`keyframe_spawn_jit` and each block one
-    :func:`keyframe_sequence_jit`; otherwise the eager functions chain it.
+    :func:`keyframe_sequence_jit`, one host read a block; otherwise the
+    eager functions chain it.
     ``cfg.dnn_filter`` raises NotImplementedError: use
     :class:`KeyframeOdometry`, whose DNN step carries the keyframe's
     per-voxel samples."""
@@ -884,7 +951,7 @@ def run_keyframe_device(
             (model, bm, carry), outs, iters = keyframe_sequence_jit(
                 blk, model, bm, carry, cfg, kf_cfg, bm_cfg, return_iterations=True)
             d2, stds, world6, div, x2, is_kf, n_corr, iters = (
-                o.cpu().numpy() for o in (*outs, iters))
+                o.numpy() for o in (*outs, iters))
         else:
             x_rel, delta, world_key, _, h0, prev_stds = carry
             (model, bm, (x_rel, delta, world_key, h0, prev_stds)), outs = keyframe_sequence(
@@ -1066,25 +1133,31 @@ class KeyframeOdometry:
         health0 = (self._health0 if self._health0 is not None
                    else torch.zeros(2, device=self.device))  # fresh keyframe: tests off
         captured = self._captured()
+        # The compiled step reads its outputs once and hands them over.
+        kw = {"host_out": True} if captured else {}
         if self._dnn is not None:
             step = (keyframe_step_dnn_jit if captured else keyframe_step_dnn)(
                 self._model, self.blockmap, scan_dev, self._key_scan, self._key_samples,
                 self._x_rel, self._delta, self._draw(captured), health0,
-                self.cfg, self.kf_cfg, self.bm_cfg, self._dnn,
+                self.cfg, self.kf_cfg, self.bm_cfg, self._dnn, **kw,
             )
         else:
             step = (keyframe_step_jit if captured else keyframe_step)(
                 self._model, self.blockmap, scan_dev, self._x_rel, self._delta,
-                self._draw(captured), health0, self.cfg, self.kf_cfg, self.bm_cfg,
+                self._draw(captured), health0, self.cfg, self.kf_cfg, self.bm_cfg, **kw,
             )
-        res, x_rel, delta, diverged, spawn, health, self.blockmap = step
+        res, x_rel, delta, diverged, spawn, health, self.blockmap = step[:7]
         self._health0 = update_health0(health0, health)
         self._x_rel = x_rel
         self._delta = delta
-        host = torch.cat([x_rel, delta, res.pred_stds, diverged[None].float(),
-                          health[:1], torch.as_tensor(res.iterations).reshape(1).to(x_rel)]
-                         ).cpu().numpy()
-        X_rel, delta_np, cur_stds = host[0:6], host[6:12], host[12:18]
+        if captured:
+            host = step[7]
+        else:
+            h = torch.cat([x_rel, delta, res.pred_stds, diverged[None].float(), health[:1],
+                           torch.as_tensor(res.iterations).reshape(1).to(x_rel)]).cpu().numpy()
+            host = {"X": h[0:6], "delta": h[6:12], "pred_stds": h[12:18], "diverged": h[18],
+                    "health": h[19:20], "iterations": h[20]}
+        X_rel, delta_np, cur_stds = host["X"], host["delta"], host["pred_stds"]
         T_world = self._T_key @ np_pose_matrix(X_rel)
         self._T_world_host = T_world
 
@@ -1102,11 +1175,11 @@ class KeyframeOdometry:
             X=delta_np,
             pred_stds=delta_stds,
             T_world=T_world,
-            diverged=bool(host[18]),
+            diverged=bool(host["diverged"]),
             X_rel=X_rel,
             is_keyframe=spawn,
-            n_corr=np.asarray(host[19]).astype(np.int32),
-            iterations=int(host[20]),
+            n_corr=np.asarray(host["health"][0]).astype(np.int32),
+            iterations=int(host["iterations"]),
         )
         self._index += 1
         return frame

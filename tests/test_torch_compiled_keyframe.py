@@ -145,7 +145,8 @@ def test_masked_insert_equals_eager(drive, n_blocks, cursor, enabled, k, p):
     mb.at.copy_(torch.tensor(tkf._map_state(bm)))
     mb.u.copy_(u)
     tkf._stage_insert(mb, scan, X, TCFG.min_range, torch.tensor(enabled))
-    tkf._apply_insert(mb, got)
+    mb.tables = (got.points, got.valid, got.poses)
+    tkf._stage_write(mb, 0)
     got = got._replace(cursor=int(mb.at[1]))
     _bm_equal(got, want)
     assert got.cursor == (min(cursor + k, p) if enabled else cursor)
