@@ -26,8 +26,8 @@ class ICETConfig:
     # ---- radial voxelization mode -------------------------------------------
     #: "adaptive" (per-spike radial clustering) or "fixed" (geometric shells).
     #: The fused moments kernel takes adaptive mode only; fixed mode's sums
-    #: take the plain ``index_add_`` version (or, under "pallas", the
-    #: scatter kernel's global-atomics branch).
+    #: take the plain route: PyTorch binning, then the scatter kernel's
+    #: sorted-parts branch on CUDA (``index_add_`` on the CPU).
     radial_mode: str = "adaptive"
     n_shells: int = 50
 
@@ -70,7 +70,8 @@ class ICETConfig:
 
     # ---- implementation knobs -----------------------------------------------
     #: "auto"/"fused": the fused CUDA kernel on CUDA tensors, its plain
-    #: PyTorch version on CPU tensors; "segsum": plain ``index_add_``;
+    #: PyTorch version on CPU tensors; "segsum": PyTorch binning, summed by
+    #: the moment scatter kernel on CUDA and ``index_add_`` on the CPU;
     #: "pallas": PyTorch transform and binning, then the moment scatter
     #: kernel; "onehot": the same binning, then blocked one-hot products of
     #: ``moment_block`` points in float32 (``torch.matmul``, any device).

@@ -33,8 +33,14 @@
 //   at V = 1,800): no window, no spill, any scan order.
 // - Warp aggregation: the lanes that share a voxel id form a group
 //   (__match_any_sync); the group's lowest lane sums the group's features
-//   with shuffles in ascending lane order and alone issues the row's ten
-//   shared atomicAdds and sets the row's bit in a shared bitmap.
+//   with shuffles in ascending lane order and sets the row's bit in a
+//   shared bitmap (an order-free atomicOr).
+// - The groups' sums are added to the table in a fixed order: round by
+//   round, and within a round warp 0 to warp 15, one turn a warp with a
+//   barrier between turns.  Within one warp the leaders' voxel ids are
+//   distinct, so a turn's plain adds never meet.  Every row's sum is thus
+//   taken in an order the code fixes, whatever order the hardware runs
+//   the warps in.
 // - The block writes only the rows it touched, compacted in vid order
 //   (slot = the bitmap's prefix count), with its bitmap and the bitmap's
 //   per-word prefix counts: ~4 KB a block on a beam-major scan instead of
@@ -44,10 +50,10 @@
 //   blocks are resident).  Block b writes bitmap words b, b + G, ... of the output; its
 //   warps split the source blocks into contiguous runs, a lane (a row)
 //   sums its run in ascending block order, loading up to 8 partial rows
-//   at once, and the runs' sums are added in warp order.  The cross-block
-//   order is fixed; within a block, the atomics of different groups commit
-//   in hardware order, so the float sums can differ in their last bits
-//   from run to run (the count column is exact).
+//   at once, and the runs' sums are added in warp order.
+// The order of every float addition is fixed by the code, in the block and
+// across blocks, so a launch on the same inputs with the same grid gives
+// the same bits every time.
 //
 // Built without FMA contraction (-fmad=false, see icet_tpu_torch/_build.py)
 // and with the operations in the order of the plain PyTorch version
@@ -62,6 +68,7 @@
 namespace {
 
 constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kFeatures = 10;   // accumulated columns
 constexpr int kOutCols = 16;    // the JAX package's padded layout
 constexpr int kGather = 8;      // blocks whose partial rows a lane loads at once
@@ -85,6 +92,7 @@ fused_moments_kernel(const float* __restrict__ pts, int n, int per_block,
   int* pre = reinterpret_cast<int*>(bits + words);
 
   const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int p0 = blockIdx.x * per_block;
   const int p1 = min(n, p0 + per_block);
   // The thread's point of the first round, loaded before the table is
@@ -190,11 +198,15 @@ fused_moments_kernel(const float* __restrict__ pts, int n, int per_block,
       }
       rest &= rest - 1u;
     }
-    if (leader) {
-      float* row = table + vid * kFeatures;
+    if (leader) atomicOr(bits + vid / 32, 1u << (vid % 32));
+    // The leaders' adds, warp by warp: a fixed order of addition.
+    for (int turn = 0; turn < kWarps; ++turn) {
+      if (leader && warp == turn) {
+        float* row = table + vid * kFeatures;
 #pragma unroll
-      for (int k = 0; k < kFeatures; ++k) atomicAdd(row + k, s[k]);
-      atomicOr(bits + vid / 32, 1u << (vid % 32));
+        for (int k = 0; k < kFeatures; ++k) row[k] += s[k];
+      }
+      __syncthreads();
     }
   }
   __syncthreads();
@@ -245,7 +257,7 @@ fused_moments_kernel(const float* __restrict__ pts, int n, int per_block,
   // ascending block order, loading up to kGather of them at once, and
   // warp 0 adds the runs' sums in warp order: a fixed order of addition.
   const int G = gridDim.x;
-  const int warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  const int warps = kWarps;
   float* runs = table;  // (warps, 32, kFeatures)
   const int b_lo = G * warp / warps, b_hi = G * (warp + 1) / warps;
   for (int w = blockIdx.x; w < words; w += G) {

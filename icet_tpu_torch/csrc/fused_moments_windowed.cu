@@ -41,9 +41,11 @@
 //   kPer x threads is binned twice (same code, same bits).
 // - Per point block: vmin by warp shuffles and one shared atomicMin; the
 //   members' features aggregated across the lanes that share a voxel id
-//   (__match_any_sync, ordered shuffles; the group's lowest lane issues the
-//   ten shared atomicAdds) into a (window, 10) shared table with a bitmap
-//   of the rows touched; then only the touched rows are written, compacted
+//   (__match_any_sync, ordered shuffles) into a (window, 10) shared table
+//   with a bitmap of the rows touched, the groups' lowest lanes adding
+//   their sums in a fixed order: warp 0 to the last warp, one turn a warp
+//   with a barrier between turns (a warp's leaders hold distinct rows);
+//   then only the touched rows are written, compacted
 //   in row order (slot = the bitmap's prefix count), beside the bitmap
 //   words with their prefix counts, the block's start and its overflow.
 // - Grid barrier (cooperative_groups' grid sync), then the combine: a warp
@@ -55,9 +57,9 @@
 //   point-block order, loading those of up to kGather point blocks at
 //   once: a fixed order of addition.  Every output row is written (row V and columns
 //   10-15 zero); warp 0 of block 0 sums the overflow counts (an exact
-//   integer sum).  Within a point block the shared atomics of different
-//   groups commit in hardware order, so the float sums can differ in their
-//   last bits from run to run (the count column is exact).
+//   integer sum).  Every float addition, in a point block and across them,
+//   is in an order the code fixes, so the same inputs and grid give the
+//   same bits every launch.
 //
 // Built without FMA contraction (-fmad=false, see icet_tpu_torch/_build.py)
 // and with the operations in the order of the plain PyTorch version, so
@@ -145,7 +147,7 @@ windowed_kernel(const float* __restrict__ pts, int n, const float* __restrict__ 
   int* pre = reinterpret_cast<int*>(bits + words);               // words
   __shared__ int s_vmin, s_ovf;
 
-  const int T = blockDim.x, tid = threadIdx.x, lane = tid % 32;
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int chunk = T * kPer;
 
   // euler_R(-X[3:6]), entry by entry as geometry.euler_R forms it.
@@ -242,11 +244,16 @@ windowed_kernel(const float* __restrict__ pts, int n, const float* __restrict__ 
           }
           rest &= rest - 1u;
         }
-        if (leader) {
-          float* row = table + key * kFeatures;
+        if (leader) atomicOr(bits + key / 32, 1u << (key % 32));
+        // The leaders' adds, warp by warp: a fixed order of addition (within
+        // a warp the leaders' rows are distinct).
+        for (int turn = 0; turn < T / 32; ++turn) {
+          if (leader && warp == turn) {
+            float* row = table + key * kFeatures;
 #pragma unroll
-          for (int k = 0; k < kFeatures; ++k) atomicAdd(row + k, s[k]);
-          atomicOr(bits + key / 32, 1u << (key % 32));
+            for (int k = 0; k < kFeatures; ++k) row[k] += s[k];
+          }
+          __syncthreads();
         }
       }
     }

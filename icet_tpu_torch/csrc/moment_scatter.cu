@@ -1,55 +1,76 @@
 // Moment scatter: out[vid[i], f] += feats[i, f] for N points and 16
-// feature columns, the accumulator of moment_method="pallas".  Ids outside
-// [0, rows) are dropped.
+// feature columns, the accumulator of moment_method="pallas" and of the
+// plain moments route on the card.  Ids outside [0, rows) are dropped.
 //
 // Replaces the TPU kernel icet_tpu/ops/pallas_moments.py::_moment_kernel
 // (wrapper pallas_moment_sums, pallas_call at pallas_moments.py:86), which
 // built a (block, V) one-hot matrix in VMEM and contracted it with the
 // feature block on the MXU; an id that matches no one-hot column (negative,
-// or past the table) adds nothing, and so it is dropped here.  On Hopper the
-// scatter is done directly with atomics; there is no one-hot.
+// or past the table) adds nothing, and so it is dropped here.  On Hopper
+// there is no one-hot: the rows are summed by id.
 //
 // Bound on the card: the call must read the ids and the features (68 B a
 // point, 4.46 MB at N = 65,536) and write the (V+1, 16) table (115 KB at
-// V = 1,800): 1.36 us at 3.35 TB/s.  One add a feature element, so bytes
-// bound it.  At this size the call is set by latency: the loads in flight,
-// the adds that collide on one row, and the sum across blocks.
+// V = 1,800; 5.76 MB at fixed radial mode's 90,001 rows): 1.36 us and
+// 3.05 us at 3.35 TB/s.  One add a feature element, so bytes bound it.  At
+// these sizes the call is set by latency: the loads in flight, the adds
+// that collide on one row, and the sum across blocks.
 //
-// Design, one cooperative launch a call, no memset:
-// - Four lanes a point, each loading one 16-byte quarter of its 64-byte
-//   row (a warp reads 8 consecutive rows, 512 contiguous bytes), and the
-//   point's id; at most one block of 1,024 threads an SM, each block a
-//   contiguous slice of the points, the next round's loads issued before
-//   this round's adds.
-// - Warp aggregation: the lanes of one column quarter that share an id
-//   form a group (__match_any_sync); the group's lowest lane sums the
-//   group's float4s (a shuffle tree when the whole warp shares one id,
-//   the common case of a beam-major scan, else ordered shuffles) and alone
-//   adds the sum, skipping an all-zero one (a non-member's features).
-// - Tables of up to 3,631 rows (the drive's 1,801): the whole table in the
-//   block's shared memory, summed with shared atomics; then, after a grid
-//   barrier, every nonzero float4 of it is added to the output with one
-//   16-byte global atomic (sm_90).  The output is zeroed by the grid before
-//   the barrier.  The barrier is cooperative_groups' grid sync: the launch
-//   is cooperative, so all blocks are resident.
-// - Larger tables (fixed radial mode's 90,001 rows): the output is zeroed,
-//   then after the grid barrier the groups' sums go straight to it with
-//   16-byte global atomics.
-// The cross-block sum is in hardware order, not a fixed one: within a block
-// the shared atomics of different warps commit in hardware order anyway, so
-// a fixed-order combine would not make the sums reproducible, and the
-// atomics need no round trip after the barrier.  The float sums can differ
-// in their last bits from run to run; a count column of ones is exact.
+// Every float addition is in an order the code fixes, so the same inputs
+// give the same bits every launch.  Design, one cooperative launch a call,
+// no memset:
+// - The points are cut into parts, each a contiguous slice; a part's sums
+//   go to a compacted partial: the rows it touched in row order (slot =
+//   the bitmap's prefix count), its bitmap of those rows and the bitmap's
+//   per-word prefix counts.
+// - Tables of up to 3,631 rows (the drive's 1,801): one part a block, at
+//   most one block of 1,024 threads an SM, the whole table in the block's
+//   shared memory.  Four lanes a point, each loading one 16-byte quarter
+//   of its 64-byte row (a warp reads 8 consecutive rows, 512 contiguous
+//   bytes); a round takes two sets of 256 points (one round a block at
+//   N = 65,536), the next round's loads issued before this round's adds.
+//   Warp aggregation, each set on its own: the lanes of one column quarter
+//   that share an id form a group (__match_any_sync); the group's lowest
+//   lane sums the group's float4s (a shuffle tree when the whole warp
+//   shares one id, the common case of a beam-major scan, else ordered
+//   shuffles).  The groups' sums are added round by round, and within a
+//   round warp 0 to warp 31, one turn a warp with a barrier between turns,
+//   the warp's first set before its second (a set's leaders hold distinct
+//   cells); an all-zero sum (a non-member's features) is skipped.  The
+//   rows touched are the nonzero ones (a row whose sums cancel to zero is
+//   written as zero either way).
+// - Larger tables (fixed radial mode's 90,001 rows): parts of at most
+//   1,024 points, each block walking parts blockIdx.x, + gridDim.x, ...
+//   A part's (id, position) keys are sorted in the block (a bitonic sort,
+//   shuffles below a distance of 32, shared memory above), and each id's
+//   rows summed in sorted order by a segmented scan: shuffles inside a
+//   warp, then the warps' carries chained in warp order; an all-zero sum
+//   touches no row.
+// - After a grid barrier (cooperative_groups' grid sync: the launch is
+//   cooperative, so all blocks are resident) the partials are added in
+//   ascending part order and every output row is written (zero where no
+//   part touched it).  A shared table's few bitmap words (57 at V + 1 =
+//   1,801) take a block each: its warps split the parts into contiguous
+//   runs, a lane (a row) sums its run, loading the rows of two parts at
+//   once, and warp 0 adds the runs in warp order.  A large table's many
+//   words (2,813 at 90,001 rows) take a warp each, its lanes adding part
+//   after part (64 parts of 1,024 points at N = 65,536).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
 constexpr int kQuarters = 4;                          // float4s of a 16-float row
-constexpr int kPointsPerRound = kThreads / kQuarters;  // 256
+constexpr int kPointsPerRound = kThreads / kQuarters;  // 256, a set
+constexpr int kSets = 2;                              // sets of points a round
+constexpr int kMaxWordsPerWarp = 4;                   // bitmap words of a warp, shared table
+constexpr int kGather = 2;                            // parts whose rows a lane loads at once
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoKey = 0xffffffffu;
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -58,6 +79,11 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 __device__ __forceinline__ float4 shfl4(float4 v, int src) {
   return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
                      __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+}
+
+__device__ __forceinline__ float4 shfl_up4(float4 v, int off) {
+  return make_float4(__shfl_up_sync(kFull, v.x, off), __shfl_up_sync(kFull, v.y, off),
+                     __shfl_up_sync(kFull, v.z, off), __shfl_up_sync(kFull, v.w, off));
 }
 
 __device__ __forceinline__ float4 shfl_xor4(float4 v, int mask) {
@@ -107,97 +133,411 @@ __device__ __forceinline__ void load_point(const int* __restrict__ vid,
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-scatter_kernel(const int* __restrict__ vid, const float4* __restrict__ feats, int n,
-               int per_block, int rows, float4* __restrict__ out) {
-  extern __shared__ float4 table[];  // rows x 4 float4s (shared-table variant)
-  const int quarter = threadIdx.x % kQuarters;
-  const int p0 = blockIdx.x * per_block;
-  const int p1 = min(n, p0 + per_block);
-  // The first round's point, loaded before the zeroing so the load overlaps it.
-  int next_key;
-  float4 next_f;
-  load_point(vid, feats, p0 + threadIdx.x / kQuarters, p1, rows, next_key, next_f);
+// Where the partials live: part p's rows (cap x 4 float4s, compacted), its
+// bitmap words and their exclusive prefix counts.
+struct Partials {
+  float4* rows;
+  uint32_t* bits;
+  int* pre;
+  int cap, words;
+};
 
-  const int cells = rows * kQuarters;
+// The block's share of the points as one part: the whole table in shared
+// memory, the groups' sums added warp by warp; then the part's partial.
+__device__ void shared_part(const int* __restrict__ vid, const float4* __restrict__ feats,
+                            int n, int chunk, int rows, const Partials& P, float4* table) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int quarter = threadIdx.x % kQuarters;
+  const int part = blockIdx.x;
+  const int p0 = part * chunk;
+  const int p1 = min(n, p0 + chunk);
+  // The first round's points, loaded before the zeroing so the loads overlap it.
+  int next_key[kSets];
+  float4 next_f[kSets];
+#pragma unroll
+  for (int s = 0; s < kSets; ++s)
+    load_point(vid, feats, p0 + s * kPointsPerRound + threadIdx.x / kQuarters, p1, rows,
+               next_key[s], next_f[s]);
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k = blockIdx.x * kThreads + threadIdx.x; k < cells; k += gridDim.x * kThreads)
-    out[k] = zero;
-  if (kShared) {
-    for (int k = threadIdx.x; k < cells; k += kThreads) table[k] = zero;
-    __syncthreads();
-  } else {
-    cooperative_groups::this_grid().sync();  // the output is zero everywhere
-  }
+  for (int k = threadIdx.x; k < rows * kQuarters; k += kThreads) table[k] = zero;
+  __syncthreads();
 
   // Every thread of the block runs the same number of rounds, so each
-  // round's warp-wide collectives see all 32 lanes.
-  for (int base = p0; base < p1; base += kPointsPerRound) {
-    int key = next_key;
-    float4 f = next_f;
-    load_point(vid, feats, base + kPointsPerRound + threadIdx.x / kQuarters, p1, rows,
-               next_key, next_f);
-    if (aggregate(key, f) && nonzero(f)) {
-      if (kShared) {
-        float* cell = reinterpret_cast<float*>(table + key * kQuarters + quarter);
-        atomicAdd(cell + 0, f.x);
-        atomicAdd(cell + 1, f.y);
-        atomicAdd(cell + 2, f.z);
-        atomicAdd(cell + 3, f.w);
-      } else {
-        atomicAdd(out + (size_t)key * kQuarters + quarter, f);
+  // round's warp-wide collectives and barriers see every thread.
+  for (int base = p0; base < p1; base += kSets * kPointsPerRound) {
+    int key[kSets];
+    float4 f[kSets];
+    bool lead[kSets];
+#pragma unroll
+    for (int s = 0; s < kSets; ++s) {
+      key[s] = next_key[s];
+      f[s] = next_f[s];
+      load_point(vid, feats, base + (kSets + s) * kPointsPerRound + threadIdx.x / kQuarters,
+                 p1, rows, next_key[s], next_f[s]);
+    }
+#pragma unroll
+    for (int s = 0; s < kSets; ++s) lead[s] = aggregate(key[s], f[s]) && nonzero(f[s]);
+    for (int turn = 0; turn < kWarps; ++turn) {
+      if (warp == turn) {
+#pragma unroll
+        for (int s = 0; s < kSets; ++s) {
+          if (lead[s]) {
+            float4* cell = table + key[s] * kQuarters + quarter;
+            *cell = add4(*cell, f[s]);
+          }
+          __syncwarp();
+        }
       }
+      __syncthreads();
     }
   }
+  __syncthreads();
 
-  if (kShared) {
-    // Grid barrier: the output is zero everywhere and this block's table is
-    // complete; then its nonzero float4s are added to the output.
-    cooperative_groups::this_grid().sync();
-    for (int k = threadIdx.x; k < cells; k += kThreads) {
-      const float4 v = table[k];
-      if (nonzero(v)) atomicAdd(out + k, v);
+  // The touched rows' bitmap, a warp a contiguous run of words held in
+  // registers, and the runs' counts (at most 128 rows each) in the bytes
+  // after the table.
+  const int words = P.words;
+  const int per = (words + kWarps - 1) / kWarps;
+  const int w0 = min(words, warp * per), w1 = min(words, w0 + per);
+  uint32_t wb[kMaxWordsPerWarp];
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxWordsPerWarp; ++k) {
+    const int r = 32 * (w0 + k) + lane;
+    bool touched = false;
+    if (w0 + k < w1 && r < rows) {
+      const float4* row = table + r * kQuarters;
+      touched = nonzero(row[0]) || nonzero(row[1]) || nonzero(row[2]) || nonzero(row[3]);
+    }
+    wb[k] = __ballot_sync(kFull, touched);
+    count += __popc(wb[k]);
+  }
+  uint8_t* counts = reinterpret_cast<uint8_t*>(table + rows * kQuarters);
+  if (lane == 0) counts[warp] = (uint8_t)count;
+  __syncthreads();
+  int slot0 = 0;
+  for (int k = 0; k < warp; ++k) slot0 += counts[k];
+  uint32_t* my_bits = P.bits + (size_t)part * words;
+  int* my_pre = P.pre + (size_t)part * words;
+  float4* my_rows = P.rows + (size_t)part * P.cap * kQuarters;
+#pragma unroll
+  for (int k = 0; k < kMaxWordsPerWarp; ++k) {
+    const int w = w0 + k;
+    if (w < w1) {
+      if (lane == 0) {
+        my_bits[w] = wb[k];
+        my_pre[w] = slot0;
+      }
+      if ((wb[k] >> lane) & 1u) {
+        const int slot = slot0 + __popc(wb[k] & ((1u << lane) - 1u));
+        const float4* row = table + (32 * w + lane) * kQuarters;
+#pragma unroll
+        for (int q = 0; q < kQuarters; ++q) my_rows[slot * kQuarters + q] = row[q];
+      }
+      slot0 += __popc(wb[k]);
     }
   }
 }
 
+// Sorts one 64-bit key a thread across the block, ascending (bitonic:
+// shuffles for partners within a warp, shared memory `s` beyond).
+__device__ __forceinline__ unsigned long long block_sort(unsigned long long v,
+                                                         unsigned long long* s) {
+  const int t = threadIdx.x;
+  for (int k = 2; k <= kThreads; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      unsigned long long o;
+      if (j >= 32) {
+        s[t] = v;
+        __syncthreads();
+        o = s[t ^ j];
+        __syncthreads();
+      } else {
+        o = __shfl_xor_sync(kFull, v, j);
+      }
+      const bool keep_min = ((t & j) == 0) == ((t & k) == 0);
+      v = keep_min ? (o < v ? o : v) : (o < v ? v : o);
+    }
+  }
+  return v;
+}
+
+// The shared memory of the sorted parts.
+struct SortSmem {
+  unsigned long long keys[kThreads];
+  float4 tail[kWarps][kQuarters];   // each warp's last running sum
+  float4 carry[kWarps][kQuarters];  // the running sum carried into each warp
+  uint32_t tail_key[kWarps], carry_key[kWarps];
+  int counts[kWarps], sums[kWarps];
+};
+
+// The parts blockIdx.x, + gridDim.x, ... of `chunk` points each, each
+// sorted by id and summed in sorted order; then each part's partial.
+__device__ void sorted_parts(const int* __restrict__ vid, const float4* __restrict__ feats,
+                             int n, int chunk, int parts, int rows, const Partials& P,
+                             SortSmem& sm, uint32_t* bits) {
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int words = P.words;
+  const int per = (words + kThreads - 1) / kThreads;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int part = blockIdx.x; part < parts; part += gridDim.x) {
+    const int p0 = part * chunk;
+    const int len = max(0, min(chunk, n - p0));
+    for (int w = t; w < words; w += kThreads) bits[w] = 0u;
+    uint32_t key = kNoKey;
+    if (t < len) {
+      const int v = __ldg(vid + p0 + t);
+      if ((unsigned)v < (unsigned)rows) key = (uint32_t)v;
+    }
+    // Sorted by (id, position): the ties keep the points' order.
+    const unsigned long long e = block_sort(((unsigned long long)key << 32) | (unsigned)t, sm.keys);
+    key = (uint32_t)(e >> 32);
+    float4 q[kQuarters];
+#pragma unroll
+    for (int c = 0; c < kQuarters; ++c) q[c] = zero;
+    if (key != kNoKey) {
+      const float4* src = feats + (size_t)(p0 + (int)(e & 0xffffffffu)) * kQuarters;
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) q[c] = __ldg(src + c);
+    }
+    // Segmented inclusive scan in the warp: each lane adds the running sum
+    // `off` lanes back where that lane holds the same id, earlier first.
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t back = __shfl_up_sync(kFull, key, off);
+      const bool take = lane >= off && back == key;
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) {
+        const float4 o = shfl_up4(q[c], off);
+        if (take) q[c] = add4(o, q[c]);
+      }
+    }
+    uint32_t* sorted = reinterpret_cast<uint32_t*>(sm.keys);  // the ids, after the sort
+    sorted[t] = key;
+    if (lane == 31) {
+      sm.tail_key[warp] = key;
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) sm.tail[warp][c] = q[c];
+    }
+    __syncthreads();
+    // The carries, warp by warp in order: four lanes, a column quarter each.
+    if (t < kQuarters) {
+      uint32_t ck = kNoKey;
+      float4 cv = zero;
+      for (int w = 0; w < kWarps; ++w) {
+        sm.carry_key[w] = ck;
+        sm.carry[w][t] = cv;
+        const uint32_t tk = sm.tail_key[w];
+        cv = tk == ck ? add4(cv, sm.tail[w][t]) : sm.tail[w][t];
+        ck = tk;
+      }
+    }
+    __syncthreads();
+    if (key != kNoKey && key == sm.carry_key[warp]) {
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) q[c] = add4(sm.carry[warp][c], q[c]);
+    }
+    // An id's last position holds its sum; its slot is the ids before it.
+    // An all-zero sum (non-members' features, all on the sentinel row in
+    // every part) touches no row, as in the shared table, so no part sends
+    // it to the combine.
+    const uint32_t next = t + 1 < kThreads ? sorted[t + 1] : kNoKey;
+    const bool last = key != kNoKey && next != key
+                      && (nonzero(q[0]) || nonzero(q[1]) || nonzero(q[2]) || nonzero(q[3]));
+    const unsigned ends = __ballot_sync(kFull, last);
+    if (lane == 0) sm.counts[warp] = __popc(ends);
+    if (last) atomicOr(bits + key / 32, 1u << (key % 32));
+    __syncthreads();
+    if (last) {
+      int slot = __popc(ends & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) slot += sm.counts[w];
+      float4* dst = P.rows + ((size_t)part * P.cap + slot) * kQuarters;
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) dst[c] = q[c];
+    }
+    // The bitmap's exclusive prefix counts: a thread a run of words, the
+    // runs' counts scanned across the block.
+    const int w0 = min(words, t * per), w1 = min(words, w0 + per);
+    int c = 0;
+    for (int w = w0; w < w1; ++w) c += __popc(bits[w]);
+    int incl = c;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) sm.sums[warp] = incl;
+    __syncthreads();
+    int run = incl - c;
+    for (int w = 0; w < warp; ++w) run += sm.sums[w];
+    uint32_t* my_bits = P.bits + (size_t)part * words;
+    int* my_pre = P.pre + (size_t)part * words;
+    for (int w = w0; w < w1; ++w) {
+      my_bits[w] = bits[w];
+      my_pre[w] = run;
+      run += __popc(bits[w]);
+    }
+    __syncthreads();  // before the next part reuses the shared memory
+  }
+}
+
+// Adds to `acc`, on each lane (row 32 w + lane), the rows of bitmap word w
+// that parts lo, lo + 1, ..., hi - 1 touched, in that order: a lane loads
+// one part's word and prefix count, 32 parts at a time, and the rows of up
+// to kGather parts at once.
+__device__ __forceinline__ void add_parts(const Partials& P, int lo, int hi, int w,
+                                          float4 (&acc)[kQuarters]) {
+  const int lane = threadIdx.x % 32;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int b0 = lo; b0 < hi; b0 += 32) {
+    const int b = b0 + lane;
+    const uint32_t word = b < hi ? __ldcg(P.bits + (size_t)b * P.words + w) : 0u;
+    const int wpre = b < hi ? __ldcg(P.pre + (size_t)b * P.words + w) : 0;
+    unsigned todo = __ballot_sync(kFull, word != 0u);
+    while (todo) {
+      float4 v[kGather][kQuarters];
+#pragma unroll
+      for (int j = 0; j < kGather; ++j) {
+        const int src = todo ? __ffs(todo) - 1 : 0;
+        const bool any = todo != 0u;
+        todo &= todo - 1u;
+        const uint32_t bw = __shfl_sync(kFull, word, src);
+        const int bp = __shfl_sync(kFull, wpre, src);
+        const bool mine = any && ((bw >> lane) & 1u);
+        const int slot = bp + __popc(bw & ((1u << lane) - 1u));
+        const float4* row = P.rows + ((size_t)(b0 + src) * P.cap + slot) * kQuarters;
+#pragma unroll
+        for (int c = 0; c < kQuarters; ++c) v[j][c] = mine ? __ldcg(row + c) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < kGather; ++j)
+#pragma unroll
+        for (int c = 0; c < kQuarters; ++c) acc[c] = add4(acc[c], v[j][c]);
+    }
+  }
+}
+
+// The combine of many words after the grid barrier: a warp owns 32 output
+// rows (one bitmap word) and its lanes add, part by part in ascending
+// order, the rows each part touched.
+__device__ void combine(const Partials& P, int parts, int rows, float4* __restrict__ out) {
+  const int lane = threadIdx.x % 32;
+  const int n_warps = gridDim.x * kWarps;
+  for (int w = blockIdx.x * kWarps + threadIdx.x / 32; w < P.words; w += n_warps) {
+    float4 acc[kQuarters];
+#pragma unroll
+    for (int c = 0; c < kQuarters; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    add_parts(P, 0, parts, w, acc);
+    const int r = 32 * w + lane;
+    if (r < rows) {
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) out[(size_t)r * kQuarters + c] = acc[c];
+    }
+  }
+}
+
+// The combine of few words: a block a word, its warps splitting the parts
+// into contiguous runs, each lane (a row) summing its run in ascending part
+// order; the runs' sums added in warp order by warp 0.
+__device__ void combine_by_block(const Partials& P, int parts, int rows,
+                                 float4* __restrict__ out, float4* runs) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b_lo = parts * warp / kWarps, b_hi = parts * (warp + 1) / kWarps;
+  for (int w = blockIdx.x; w < P.words; w += gridDim.x) {
+    float4 acc[kQuarters];
+#pragma unroll
+    for (int c = 0; c < kQuarters; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    add_parts(P, b_lo, b_hi, w, acc);
+#pragma unroll
+    for (int c = 0; c < kQuarters; ++c) runs[(warp * 32 + lane) * kQuarters + c] = acc[c];
+    __syncthreads();
+    const int r = 32 * w + lane;
+    if (warp == 0 && r < rows) {
+      float4 sum[kQuarters];
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) sum[c] = runs[lane * kQuarters + c];
+      for (int wp = 1; wp < kWarps; ++wp)
+#pragma unroll
+        for (int c = 0; c < kQuarters; ++c)
+          sum[c] = add4(sum[c], runs[(wp * 32 + lane) * kQuarters + c]);
+#pragma unroll
+      for (int c = 0; c < kQuarters; ++c) out[(size_t)r * kQuarters + c] = sum[c];
+    }
+    __syncthreads();
+  }
+}
+
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads, 1)
+scatter_kernel(const int* __restrict__ vid, const float4* __restrict__ feats, int n,
+               int chunk, int parts, int rows, Partials P, float4* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  if (kShared) {
+    shared_part(vid, feats, n, chunk, rows, P, smem);
+  } else {
+    SortSmem& sm = *reinterpret_cast<SortSmem*>(smem);
+    sorted_parts(vid, feats, n, chunk, parts, rows, P, sm,
+                 reinterpret_cast<uint32_t*>(&sm + 1));
+  }
+  // Grid barrier: every part's partial is written and visible.
+  cooperative_groups::this_grid().sync();
+  if (kShared) combine_by_block(P, parts, rows, out, smem);
+  else combine(P, parts, rows, out);
+}
+
 // Above 48 KB of dynamic shared memory needs an opt-in, which is kept per
-// device: set it once a device and size (the current device may differ
-// from one call to the next).
+// device and variant: set it once a device, variant and size (the current
+// device may differ from one call to the next).
+template <bool kShared>
 cudaError_t opt_in_shared(int smem) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   static int opted_in[64] = {};
   if (device < 64 && opted_in[device] >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(scatter_kernel<true>,
+  err = cudaFuncSetAttribute(scatter_kernel<kShared>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess && device < 64) opted_in[device] = smem;
   return err;
+}
+
+// Dynamic shared memory of one block: the table and its warps' counts, or
+// the combine's run sums if larger (shared); or the sort's buffers and the
+// part's bitmap of `rows` rows.
+int smem_bytes(int rows, bool shared) {
+  const int words = (rows + 31) / 32;
+  return shared ? max(rows * kQuarters * (int)sizeof(float4) + kWarps,
+                     kThreads * kQuarters * (int)sizeof(float4))
+                : (int)sizeof(SortSmem) + words * (int)sizeof(uint32_t);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`: `blocks` blocks of `per_block` points
-// each, the table in shared memory when `shared` is nonzero.  vid (n,)
-// int32, feats (n, 16) float32 (16-byte aligned), out (rows, 16) float32,
-// all device arrays.  A cooperative launch: it fails, rather than waits, if
-// the blocks cannot all be resident.  Returns cudaGetLastError() (0 = ok).
+// Launches the kernel on `stream`: `blocks` blocks, `parts` parts of
+// `chunk` points each (shared: one a block), the table in shared memory
+// when `shared` is nonzero.  vid (n,) int32, feats (n, 16) float32
+// (16-byte aligned), out (rows, 16) float32, scratch parts * cap * 16
+// floats of compacted rows (cap >= the rows one part can touch), then
+// parts * words bitmap words and parts * words prefix counts (words =
+// ceil(rows / 32)), all device arrays.  A cooperative launch: it fails,
+// rather than waits, if the blocks cannot all be resident.  Returns
+// cudaGetLastError() (0 = ok).
 int icet_moment_scatter(const void* vid, const void* feats, int n, int rows, void* out,
-                        int blocks, int per_block, int shared, void* stream) {
+                        void* scratch, int blocks, int chunk, int parts, int cap, int shared,
+                        void* stream) {
   const int* p_vid = static_cast<const int*>(vid);
   const float4* p_feats = static_cast<const float4*>(feats);
   float4* p_out = static_cast<float4*>(out);
-  void* args[] = {&p_vid, &p_feats, &n, &per_block, &rows, &p_out};
-  const int smem = shared ? rows * kQuarters * (int)sizeof(float4) : 0;
-  cudaError_t err = cudaSuccess;
-  if (shared) {
-    err = opt_in_shared(smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  Partials P;
+  P.cap = cap;
+  P.words = (rows + 31) / 32;
+  P.rows = static_cast<float4*>(scratch);
+  P.bits = reinterpret_cast<uint32_t*>(P.rows + (size_t)parts * cap * kQuarters);
+  P.pre = reinterpret_cast<int*>(P.bits + (size_t)parts * P.words);
+  void* args[] = {&p_vid, &p_feats, &n, &chunk, &parts, &rows, &P, &p_out};
+  const int smem = smem_bytes(rows, shared != 0);
+  cudaError_t err = shared ? opt_in_shared<true>(smem) : opt_in_shared<false>(smem);
+  if (err != cudaSuccess) return (int)err;
   const void* kernel = shared ? reinterpret_cast<const void*>(scatter_kernel<true>)
                               : reinterpret_cast<const void*>(scatter_kernel<false>);
   err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, smem,

@@ -973,9 +973,30 @@ def frame_graphs(device, n: int, cfg: ICETConfig) -> FrameGraphs:
     return fg
 
 
+def _incidence_buffers(owner, inc) -> bool:
+    """Copy a factor graph's incidence (``pose_graph.Incidence``) into
+    ``owner.incidence``, made anew where its shapes differ (then True: the
+    graphs captured over the old buffers are stale)."""
+    fresh = [tuple(t.shape) for t in owner.incidence] != [tuple(t.shape) for t in inc]
+    if fresh:
+        owner.incidence = tuple(torch.empty(t.shape, dtype=t.dtype, device=owner.states.device)
+                                for t in inc)
+    for dst, t in zip(owner.incidence, inc):
+        copy_in(dst, t)
+    return fresh
+
+
+def _incidence_twin(dst, src) -> None:
+    """A scratch twin's copy of ``src``'s incidence (valid indices for the
+    warm-ups)."""
+    dst.incidence = tuple(t.clone() for t in src.incidence)
+
+
 class PoseBuffers:
     """The static buffers of one pose-graph solve of K poses and F factors:
-    the states, the factors ``(idx_i, idx_j, meas, info)``, ``damping`` and
+    the states, the factors ``(idx_i, idx_j, meas, info)``, their incidence
+    (the order of every sum of the normals; its shapes depend on the
+    graph, so :meth:`PoseGraphs.attach_incidence` makes it), ``damping`` and
     ``prior_weight``; for the block-sparse solve (``precond`` "tridiag" or
     "jacobi"; "dense" is the dense solve) also the damped diagonal blocks,
     the factors' off-diagonal blocks, the preconditioner's factor (the
@@ -988,6 +1009,7 @@ class PoseBuffers:
 
         self.states = z(k, 6)
         self.factors = (z(f, dtype=torch.int64), z(f, dtype=torch.int64), z(f, 6), z(f, 6, 6))
+        self.incidence = ()
         self.damping, self.prior_weight = z(), z()
         if precond != "dense":
             self.diag_d, self.off_ij, self.off_ji = z(k, 6, 6), z(f, 6, 6), z(f, 6, 6)
@@ -1008,7 +1030,16 @@ class PoseGraphs(GraphSet):
     def scratch(self) -> PoseBuffers:
         if self._scratch is None:
             self._scratch = PoseBuffers(self.device, *self.shape)
+            _incidence_twin(self._scratch, self.buffers)
         return self._scratch
+
+    def attach_incidence(self, inc) -> None:
+        """Copy the solve's factor incidence into the buffers; a graph of
+        other incidence shapes drops the graphs captured over the old
+        buffers (they are captured anew at their next run)."""
+        if _incidence_buffers(self.buffers, inc):
+            self._graphs.clear()
+            self._scratch = None
 
 
 def pose_graphs(device, k: int, f: int, cg_iters: int, precond: str,
@@ -1193,7 +1224,8 @@ class ShardedGraphs(RowGraphs):
 class PoseShardBuffers:
     """One factor shard's static buffers on its device, for a sharded
     pose-graph solve of K poses: the states it reads, its ``F`` factors
-    ``(idx_i, idx_j, meas, info)`` and, for the block-sparse solve, its
+    ``(idx_i, idx_j, meas, info)``, their incidence and, for the
+    block-sparse solve, its
     share of the normals packed ``(K, 78)`` (gradient, diagonal and
     backbone blocks), its factors' off-diagonal blocks, the CG direction
     it reads and its off-diagonal product; for the dense solve its
@@ -1206,6 +1238,7 @@ class PoseShardBuffers:
         self.local = local
         self.states = z(k, 6)
         self.factors = (z(f, dtype=torch.int64), z(f, dtype=torch.int64), z(f, 6), z(f, 6, 6))
+        self.incidence = ()
         if precond == "dense":
             self.Hb = z(36 * k * k + 6 * k)
         else:
@@ -1249,6 +1282,23 @@ class ShardedPoseGraphs(RowGraphs):
 
     def __init__(self, devices, k: int, f: int, precond: str):
         super().__init__(devices, lambda devs: ShardedPoseBuffers(devs, k, f, precond))
+
+    def scratch(self):
+        if self._scratch is None:
+            for dst, src in zip(super().scratch().shards, self.buffers.shards):
+                _incidence_twin(dst, src)
+        return self._scratch
+
+    def attach_incidence(self, incs: list) -> None:
+        """Copy each local shard's factor incidence into its buffers; new
+        shapes drop the graphs captured over the old buffers."""
+        fresh = [_incidence_buffers(sh, inc) for sh, inc in zip(self.buffers.shards, incs)]
+        if any(fresh):
+            self._graphs.clear()
+            self._scratch = None
+            if self.split:
+                for part in (*self._parts, self._rep):
+                    part._graphs.clear()
 
 
 def sharded_pose_graphs(axis, k: int, f: int, cg_iters: int, precond: str, robust: float,

@@ -11,9 +11,10 @@ Two sources:
 
 The scans and scenes come from numpy's rng, as in the JAX package, so the
 voxel samples can be held against its own.  The preparation uses the
-config's ``moment_method="segsum"``: the plain ``index_add_`` sums on any
-device, as the JAX package's segsum is XLA and not a Pallas kernel.  Batch
-draws come from a ``torch.Generator``.
+config's ``moment_method="segsum"``, the solver's plain route, as the JAX
+package's segsum is XLA and not a Pallas kernel: ``index_add_`` on the
+CPU, the moment scatter kernel's fixed order of addition on the card.
+Batch draws come from a ``torch.Generator``.
 """
 
 from __future__ import annotations

@@ -124,26 +124,90 @@ def _factor_blocks(states: torch.Tensor, graph: PoseGraph):
     )
 
 
-def _build_normals(states: torch.Tensor, graph: PoseGraph, prior_weight: float):
+class Incidence(NamedTuple):
+    """Which factor pieces each sum of a graph's normals adds, in a fixed
+    order: every sum is a gather and a ``sum`` over a padded axis, so it
+    adds in the same order on every run and device (a float ``index_add_``
+    or ``index_put_(accumulate=True)`` on CUDA adds in whatever order the
+    hardware's atomics commit).  Built once a graph on the host
+    (:func:`incidence`); a pad slot names an appended zero row, which adds
+    exactly nothing.  Within each sum the pieces come in the order the
+    scatters added them: the i-side pieces in factor order, then the
+    j-side ones."""
+
+    #: (K, D) each pose's pieces in the (2F) stack of the i-side pieces
+    #: (row f) and the j-side pieces (row F + f), padded with 2F
+    ends: torch.Tensor
+    #: (K, C) each pose's consecutive factors (f with idx_j = idx_i + 1 and
+    #: idx_i the pose), padded with F
+    chain: torch.Tensor
+    #: (P,) row and (P,) column pose of each distinct 6x6 block of the dense
+    #: normals
+    pair_r: torch.Tensor
+    pair_c: torch.Tensor
+    #: (P, Q) each block's pieces in the (4F) stack of the ii, ij, ji and jj
+    #: blocks (row m F + f), padded with 4F
+    pairs: torch.Tensor
+
+    def to(self, device) -> "Incidence":
+        return Incidence(*(t.to(device) for t in self))
+
+
+def _slots(rows: np.ndarray, n: int, ids: np.ndarray, pad: int) -> np.ndarray:
+    """``(n, D)``: for each row r of ``n``, the ``ids`` of the entries of
+    ``rows`` equal to r in their order, padded with ``pad`` (D >= 1)."""
+    order = np.argsort(rows, kind="stable")
+    counts = np.bincount(rows, minlength=n)
+    starts = np.cumsum(counts) - counts
+    out = np.full((n, max(1, int(counts.max(initial=0)))), pad, np.int64)
+    r = rows[order]
+    out[r, np.arange(r.shape[0]) - starts[r]] = ids[order]
+    return out
+
+
+def incidence(graph: PoseGraph, K: int) -> Incidence:
+    """The :class:`Incidence` of ``graph`` over K poses, on the host (one
+    read of the factor indices where they lie on a card)."""
+    i = np.asarray(_host(graph.idx_i), np.int64)
+    j = np.asarray(_host(graph.idx_j), np.int64)
+    F = i.shape[0]
+    ends = _slots(np.concatenate([i, j]), K, np.arange(2 * F), 2 * F)
+    consec = np.flatnonzero(j == i + 1)
+    chain = _slots(i[consec], K, consec, F)
+    keys, inverse = np.unique(np.concatenate([i, i, j, j]) * K + np.concatenate([i, j, i, j]),
+                              return_inverse=True)
+    pairs = _slots(inverse.reshape(-1), keys.shape[0], np.arange(4 * F), 4 * F)
+    return Incidence(*(torch.from_numpy(a) for a in (ends, chain, keys // K, keys % K, pairs)))
+
+
+def _gather_sum(parts: list, slots: torch.Tensor) -> torch.Tensor:
+    """``out[k] = sum_d stack[slots[k, d]]`` for ``stack`` the ``parts``
+    concatenated, a slot equal to its length naming a zero row: one
+    concatenation, a gather and a ``sum``, in an order fixed by ``slots``."""
+    first = parts[0]
+    padded = torch.cat([*parts, first.new_zeros((1,) + first.shape[1:])])
+    return padded[slots].sum(dim=1)
+
+
+def _build_normals(states: torch.Tensor, graph: PoseGraph, prior_weight: float,
+                   inc: Incidence):
     """The dense (6K, 6K) Gauss-Newton normals and the (6K,) gradient, with
-    the gauge prior pinning pose 0."""
+    the gauge prior pinning pose 0, summed in ``inc``'s order."""
     K = states.shape[0]
     blocks, rhs = _factor_blocks(states, graph)
-    bi, bj = graph.idx_i, graph.idx_j
     H = states.new_zeros((K, K, 6, 6))
-    H.index_put_((bi, bi), blocks[:, 0], accumulate=True)
-    H.index_put_((bi, bj), blocks[:, 1], accumulate=True)
-    H.index_put_((bj, bi), blocks[:, 2], accumulate=True)
-    H.index_put_((bj, bj), blocks[:, 3], accumulate=True)
-    b = states.new_zeros((K, 6)).index_add_(0, bi, rhs[:, 0]).index_add_(0, bj, rhs[:, 1])
+    # The distinct blocks are written once each: no accumulation.
+    H[inc.pair_r, inc.pair_c] = _gather_sum(blocks.unbind(1), inc.pairs)
+    b = _gather_sum(rhs.unbind(1), inc.ends)
     H[0, 0] += prior_weight * torch.eye(6, dtype=states.dtype, device=states.device)
     return H.permute(0, 2, 1, 3).reshape(6 * K, 6 * K), b.reshape(6 * K)
 
 
 def _on_device(states0, graph: PoseGraph, device):
+    """The states, the graph and its :class:`Incidence` on ``device``."""
     dev = resolve_device(device)
     states = torch.as_tensor(states0).to(device=dev, dtype=torch.float32)
-    return states, graph.to(dev)
+    return states, graph.to(dev), incidence(graph, states.shape[0]).to(dev)
 
 
 @contextlib.contextmanager
@@ -164,11 +228,11 @@ def _cusolver(device: torch.device):
         torch.backends.cuda.preferred_linalg_library(prev)
 
 
-def _dense_step(states, graph: PoseGraph, damping, prior_weight) -> torch.Tensor:
+def _dense_step(states, graph: PoseGraph, inc: Incidence, damping, prior_weight) -> torch.Tensor:
     """One dense Gauss-Newton step: the normals, the damping, the Cholesky
     solve.  ``damping`` and ``prior_weight`` are floats or 0-dim tensors."""
     K = states.shape[0]
-    H, b = _build_normals(states, graph, prior_weight)
+    H, b = _build_normals(states, graph, prior_weight, inc)
     eye = torch.eye(6 * K, dtype=states.dtype, device=states.device)
     H = H + damping * torch.trace(H) / (6 * K) * eye
     dx = torch.cholesky_solve(-b[:, None], cholesky(H))[:, 0]
@@ -185,19 +249,21 @@ def optimize_poses_eager(
 ) -> torch.Tensor:
     """:func:`optimize_poses` as a plain loop of :func:`_dense_step` calls
     (the plain version the compiled solve is held to)."""
-    states, graph = _on_device(states0, graph, device)
+    states, graph, inc = _on_device(states0, graph, device)
     for _ in range(n_iters):
-        states = _dense_step(states, graph, damping, prior_weight)
+        states = _dense_step(states, graph, inc, damping, prior_weight)
     return states
 
 
-def _pose_set(states, graph: PoseGraph, cg_iters: int, precond: str, robust_delta: float,
-              damping: float, prior_weight: float) -> graphs.PoseGraphs:
+def _pose_set(states, graph: PoseGraph, inc: Incidence, cg_iters: int, precond: str,
+              robust_delta: float, damping: float, prior_weight: float) -> graphs.PoseGraphs:
     """The graph set of this solve's shapes and options, with the states,
-    the factors, ``damping`` and ``prior_weight`` copied into its buffers."""
+    the factors, their incidence, ``damping`` and ``prior_weight`` copied
+    into its buffers."""
     pg = graphs.pose_graphs(states.device, states.shape[0], graph.idx_i.shape[0], cg_iters,
                             precond, float(robust_delta))
     b = pg.buffers
+    pg.attach_incidence(inc)
     graphs.copy_in(b.states, states)
     for dst, t in zip(b.factors, graph):
         graphs.copy_in(dst, t)
@@ -209,8 +275,8 @@ def _pose_set(states, graph: PoseGraph, cg_iters: int, precond: str, robust_delt
 def _stage_dense(b) -> None:
     """One dense Gauss-Newton step of the states buffer, in place."""
     with _cusolver(b.states.device):
-        b.states.copy_(_dense_step(b.states, PoseGraph(*b.factors), b.damping,
-                                   b.prior_weight))
+        b.states.copy_(_dense_step(b.states, PoseGraph(*b.factors), Incidence(*b.incidence),
+                                   b.damping, b.prior_weight))
 
 
 def optimize_poses(
@@ -229,20 +295,19 @@ def optimize_poses(
     The JAX package's jitted program as one captured graph a Gauss-Newton
     step, replayed ``n_iters`` times (on the CPU, plain calls on the same
     buffers); equal to :func:`optimize_poses_eager` bit for bit."""
-    states, graph = _on_device(states0, graph, device)
-    pg = _pose_set(states, graph, 0, "dense", 0.0, damping, prior_weight)
+    states, graph, inc = _on_device(states0, graph, device)
+    pg = _pose_set(states, graph, inc, 0, "dense", 0.0, damping, prior_weight)
     for _ in range(n_iters):
         pg.run(("step",), _stage_dense)
     return graphs.clone_out(pg.buffers.states)
 
 
-def _sparse_local(states, graph, robust_delta):
-    """One factor set's share of the block-sparse normals: the gradient
-    ``b (K, 6)``, the diagonal blocks ``(K, 6, 6)`` (no prior), the
-    backbone's super-diagonal blocks ``(K, 6, 6)`` (row K-1 takes the
-    non-consecutive factors and is dropped later) and each factor's
-    off-diagonal blocks ``off_ij, off_ji (F, 6, 6)``."""
-    K = states.shape[0]
+def _sparse_local(states, graph, inc, robust_delta):
+    """One factor set's share of the block-sparse normals, summed in
+    ``inc``'s order: the gradient ``b (K, 6)``, the diagonal blocks ``(K,
+    6, 6)`` (no prior), the backbone's super-diagonal blocks ``(K, 6, 6)``
+    (row K-1 is zero and dropped later) and each factor's off-diagonal
+    blocks ``off_ij, off_ji (F, 6, 6)``."""
     if robust_delta > 0.0:
         # Cauchy IRLS: factor weight 1 / (1 + chi2 / delta^2), from the
         # original information at the current states (a redescending
@@ -254,34 +319,33 @@ def _sparse_local(states, graph, robust_delta):
         w = 1.0 / (1.0 + chi2 / robust_delta**2)
         graph = graph._replace(info=graph.info * w[:, None, None])
     blocks, rhs = _factor_blocks(states, graph)
-    bi, bj = graph.idx_i, graph.idx_j
-
-    b = states.new_zeros((K, 6)).index_add_(0, bi, rhs[:, 0]).index_add_(0, bj, rhs[:, 1])
-    diag = states.new_zeros((K, 6, 6)).index_add_(0, bi, blocks[:, 0]).index_add_(
-        0, bj, blocks[:, 3])
-    # Consecutive factors form the backbone; the others go to a dropped row.
-    consec = bj == bi + 1
-    sent = torch.where(consec, bi, K - 1)
-    E = states.new_zeros((K, 6, 6)).index_add_(
-        0, sent, torch.where(consec[:, None, None], blocks[:, 1], 0.0))
+    b = _gather_sum(rhs.unbind(1), inc.ends)
+    diag = _gather_sum([blocks[:, 0], blocks[:, 3]], inc.ends)
+    # Consecutive factors form the backbone.
+    E = _gather_sum([blocks[:, 1]], inc.chain)
     return b, diag, E, blocks[:, 1], blocks[:, 2]
 
 
-def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0, axis=None):
+def _sparse_normals(states, graph, prior_weight, damping, robust_delta=0.0, axis=None,
+                    inc=None):
     """The block-sparse normal equations at ``states``: the gradient ``b
     (K, 6)``, the damped diagonal blocks ``diag_d (K, 6, 6)``, the
     off-diagonal blocks of each factor ``off_ij, off_ji (F, 6, 6)`` and the
     backbone's super-diagonal blocks ``E (K-1, 6, 6)`` (the consecutive
-    factors' ij blocks).
+    factors' ij blocks), summed in the order of the graph's
+    :class:`Incidence` ``inc`` (built here when not given).
 
-    Under a factor ``axis``, ``graph`` is the list of local factor shards:
-    ``b``, the diagonal and ``E`` are summed over the axis in one ``(K,
-    78)`` collective, and ``off_ij``, ``off_ji`` are lists over the shards."""
+    Under a factor ``axis``, ``graph`` and ``inc`` are the lists of local
+    factor shards and their incidences: ``b``, the diagonal and ``E`` are
+    summed over the axis in one ``(K, 78)`` collective, and ``off_ij``,
+    ``off_ji`` are lists over the shards."""
     K = states.shape[0]
     if axis is None:
-        b, diag, E, off_ij, off_ji = _sparse_local(states, graph, robust_delta)
+        inc = incidence(graph, K).to(states.device) if inc is None else inc
+        b, diag, E, off_ij, off_ji = _sparse_local(states, graph, inc, robust_delta)
     else:
-        parts = [_sparse_local(states.to(g.meas.device), g, robust_delta) for g in graph]
+        parts = [_sparse_local(states.to(g.meas.device), g, n, robust_delta)
+                 for g, n in zip(graph, inc)]
         b, diag, E = _unpack_normals(axis.psum([_pack_normals(p) for p in parts]))
         off_ij, off_ji = [p[3] for p in parts], [p[4] for p in parts]
     return b, _damped(diag, prior_weight, damping), off_ij, off_ji, E[: K - 1].contiguous()
@@ -312,20 +376,19 @@ def _damped(diag, prior_weight, damping) -> torch.Tensor:
     return (diag + scale * eye6).contiguous()
 
 
-def _offdiag(v, graph, off_ij, off_ji):
-    """One factor set's off-diagonal product ``H_off v``."""
+def _offdiag(v, graph, inc, off_ij, off_ji):
+    """One factor set's off-diagonal product ``H_off v``, summed in
+    ``inc``'s order."""
     bi, bj = graph.idx_i, graph.idx_j
-    off = torch.zeros_like(v)
-    off.index_add_(0, bi, torch.einsum("fab,fb->fa", off_ij, v[bj]))
-    off.index_add_(0, bj, torch.einsum("fab,fb->fa", off_ji, v[bi]))
-    return off
+    return _gather_sum([torch.einsum("fab,fb->fa", off_ij, v[bj]),
+                        torch.einsum("fab,fb->fa", off_ji, v[bi])], inc.ends)
 
 
 #: the sparse solve's preconditioners
 PRECONDITIONERS = ("tridiag", "jacobi")
 
 
-def _sparse_system(states, graph, prior_weight, damping, precond_kind, robust_delta=0.0,
+def _sparse_system(states, graph, inc, prior_weight, damping, precond_kind, robust_delta=0.0,
                    axis=None):
     """The block-sparse normals at ``states`` and the preconditioner's
     factor: ``(b, diag_d, off_ij, off_ji, factor)``, ``factor`` the
@@ -334,7 +397,7 @@ def _sparse_system(states, graph, prior_weight, damping, precond_kind, robust_de
     of hundreds) or the diagonal blocks' Cholesky factors ``(L,)``
     ("jacobi")."""
     b, diag_d, off_ij, off_ji, E = _sparse_normals(states, graph, prior_weight, damping,
-                                                   robust_delta, axis)
+                                                   robust_delta, axis, inc)
     if precond_kind == "tridiag":
         factor = tridiag_factor(diag_d, E)
     elif precond_kind == "jacobi":
@@ -346,17 +409,18 @@ def _sparse_system(states, graph, prior_weight, damping, precond_kind, robust_de
     return b, diag_d, off_ij, off_ji, factor
 
 
-def _make_matvec(graph, diag_d, off_ij, off_ji, axis=None):
+def _make_matvec(graph, inc, diag_d, off_ij, off_ji, axis=None):
     """``v -> H v`` applied factor by factor.  Under a factor ``axis``
-    (``graph`` the local shards) the shards' off-diagonal products are
-    summed in one ``(K, 6)`` collective."""
+    (``graph`` and ``inc`` the local shards') the shards' off-diagonal
+    products are summed in one ``(K, 6)`` collective."""
     if axis is None:
         def matvec(v):
-            return torch.einsum("kab,kb->ka", diag_d, v) + _offdiag(v, graph, off_ij, off_ji)
+            return (torch.einsum("kab,kb->ka", diag_d, v)
+                    + _offdiag(v, graph, inc, off_ij, off_ji))
     else:
         def matvec(v):
-            off = axis.psum([_offdiag(v.to(g.meas.device), g, oij, oji)
-                             for g, oij, oji in zip(graph, off_ij, off_ji)])
+            off = axis.psum([_offdiag(v.to(g.meas.device), g, n, oij, oji)
+                             for g, n, oij, oji in zip(graph, inc, off_ij, off_ji)])
             return torch.einsum("kab,kb->ka", diag_d, v) + off
     return matvec
 
@@ -402,17 +466,18 @@ def _cg_update(x, r, p, rz, Hp, precond):
     return x, r, z + beta * p, rz_new
 
 
-def _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+def _sparse_gn_step(states, graph, inc, prior_weight, damping, cg_iters,
                     precond_kind="tridiag", robust_delta=0.0, axis=None):
     """One Gauss-Newton step without densifying H: the system is applied
     factor by factor (block-sparse matvec) and solved by ``cg_iters``
     preconditioned CG iterations.  Returns the updated states.  Under a
-    factor ``axis`` (``graph`` the local shards), each matvec sums the
-    shards' off-diagonal products in one ``(K, 6)`` collective; the CG
-    state and the backbone factor are replicated."""
-    b, diag_d, off_ij, off_ji, factor = _sparse_system(states, graph, prior_weight, damping,
-                                                       precond_kind, robust_delta, axis)
-    matvec = _make_matvec(graph, diag_d, off_ij, off_ji, axis)
+    factor ``axis`` (``graph`` and ``inc`` the local shards'), each matvec
+    sums the shards' off-diagonal products in one ``(K, 6)`` collective;
+    the CG state and the backbone factor are replicated."""
+    b, diag_d, off_ij, off_ji, factor = _sparse_system(states, graph, inc, prior_weight,
+                                                       damping, precond_kind, robust_delta,
+                                                       axis)
+    matvec = _make_matvec(graph, inc, diag_d, off_ij, off_ji, axis)
     precond = _make_precond(precond_kind, factor)
     x, r, p, rz = _cg_start(b, precond)
     for _ in range(cg_iters):
@@ -433,9 +498,9 @@ def optimize_poses_sparse_eager(
 ) -> torch.Tensor:
     """:func:`optimize_poses_sparse` as a plain loop of Gauss-Newton steps
     (the plain version the compiled solve is held to)."""
-    states, graph = _on_device(states0, graph, device)
+    states, graph, inc = _on_device(states0, graph, device)
     for _ in range(n_iters):
-        states = _sparse_gn_step(states, graph, prior_weight, damping, cg_iters,
+        states = _sparse_gn_step(states, graph, inc, prior_weight, damping, cg_iters,
                                  precond, robust_delta)
     return states
 
@@ -450,15 +515,16 @@ def _stage_assemble(b, precond_kind: str, robust_delta: float) -> None:
     the CG start, into the buffers."""
     with _cusolver(b.states.device):
         rhs, diag_d, off_ij, off_ji, factor = _sparse_system(
-            b.states, PoseGraph(*b.factors), b.prior_weight, b.damping, precond_kind,
-            robust_delta)
+            b.states, PoseGraph(*b.factors), Incidence(*b.incidence), b.prior_weight,
+            b.damping, precond_kind, robust_delta)
     _copy_all((b.diag_d, b.off_ij, b.off_ji, *b.factor), (diag_d, off_ij, off_ji, *factor))
     _copy_all((b.x, b.r, b.p, b.rz), _cg_start(rhs, _make_precond(precond_kind, factor)))
 
 
 def _stage_cg(b, precond_kind: str) -> None:
     """One CG iteration of the buffers' state."""
-    matvec = _make_matvec(PoseGraph(*b.factors), b.diag_d, b.off_ij, b.off_ji)
+    matvec = _make_matvec(PoseGraph(*b.factors), Incidence(*b.incidence), b.diag_d, b.off_ij,
+                          b.off_ji)
     _copy_all((b.x, b.r, b.p, b.rz),
               _cg_step(b.x, b.r, b.p, b.rz, matvec, _make_precond(precond_kind, b.factor)))
 
@@ -495,8 +561,8 @@ def optimize_poses_sparse(
     :func:`optimize_poses_sparse_eager` bit for bit."""
     if precond not in PRECONDITIONERS:
         raise ValueError(f"unknown preconditioner {precond!r}")
-    states, graph = _on_device(states0, graph, device)
-    pg = _pose_set(states, graph, cg_iters, precond, robust_delta, damping, prior_weight)
+    states, graph, inc = _on_device(states0, graph, device)
+    pg = _pose_set(states, graph, inc, cg_iters, precond, robust_delta, damping, prior_weight)
 
     def assemble(b):
         _stage_assemble(b, precond, robust_delta)
@@ -528,14 +594,15 @@ def _pad_factors(graph: PoseGraph, n_shards: int) -> PoseGraph:
     )
 
 
-def _factor_shards(graph: PoseGraph, axis) -> list:
-    """The axis's local factor shards: ``graph`` padded to a multiple of
-    ``axis.size`` and cut into that many contiguous pieces, each of this
-    process's on its shard's device."""
+def _factor_shards(graph: PoseGraph, axis, K: int) -> tuple[list, list]:
+    """The axis's local factor shards and their incidences over K poses:
+    ``graph`` padded to a multiple of ``axis.size`` and cut into that many
+    contiguous pieces, each of this process's on its shard's device."""
     graph = _pad_factors(graph.to("cpu"), axis.size)
     f = graph.idx_i.shape[0] // axis.size
-    return [PoseGraph(*(t[i * f:(i + 1) * f] for t in graph)).to(d)
-            for i, d in zip(axis.index, axis.shard_devices)]
+    pieces = [(PoseGraph(*(t[i * f:(i + 1) * f] for t in graph)), d)
+              for i, d in zip(axis.index, axis.shard_devices)]
+    return ([g.to(d) for g, d in pieces], [incidence(g, K).to(d) for g, d in pieces])
 
 
 def _dense_from_sum(states, Hb, damping, prior_weight) -> torch.Tensor:
@@ -551,9 +618,9 @@ def _dense_from_sum(states, Hb, damping, prior_weight) -> torch.Tensor:
     return states + dx.reshape(K, 6)
 
 
-def _shard_normals(states, g) -> torch.Tensor:
+def _shard_normals(states, g, inc) -> torch.Tensor:
     """One factor shard's dense ``(H, b)`` (no prior), flattened."""
-    H, b = _build_normals(states, g, 0.0)
+    H, b = _build_normals(states, g, 0.0, inc)
     return torch.cat([H.reshape(-1), b])
 
 
@@ -569,10 +636,11 @@ def optimize_poses_sharded_eager(
     compiled solve is held to, and the route of a process mesh on any
     backend but NCCL)."""
     axis = mesh.axis(mesh.axis_names[0])
-    shards = _factor_shards(graph, axis)
     states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    shards, incs = _factor_shards(graph, axis, states.shape[0])
     for _ in range(n_iters):
-        Hb = axis.psum([_shard_normals(states.to(g.meas.device), g) for g in shards])
+        Hb = axis.psum([_shard_normals(states.to(g.meas.device), g, n)
+                        for g, n in zip(shards, incs)])
         states = _dense_from_sum(states, Hb, damping, prior_weight)
     return states
 
@@ -588,13 +656,14 @@ def _sharded_pose_set(states0, graph: PoseGraph, mesh, cg_iters: int, precond: s
     """The graph set of a sharded solve over ``mesh``'s first axis, the
     axis bound, the states and each shard's factors copied in."""
     axis = mesh.axis(mesh.axis_names[0])
-    shards = _factor_shards(graph, axis)
     states = torch.as_tensor(states0).to(dtype=torch.float32)
+    shards, incs = _factor_shards(graph, axis, states.shape[0])
     pg = graphs.sharded_pose_graphs(axis, states.shape[0], shards[0].idx_i.shape[0], cg_iters,
                                     precond, float(robust_delta), float(damping),
                                     float(prior_weight))
     pg.bind(axis)
     b = pg.buffers
+    pg.attach_incidence(incs)
     graphs.copy_in(b.rep.states, states)
     for sh, g in zip(b.shards, shards):
         for dst, t in zip(sh.factors, g):
@@ -634,7 +703,7 @@ def optimize_poses_sharded(
     pg = _sharded_pose_set(states0, graph, mesh, 0, "dense", 0.0, damping, prior_weight)
 
     def normals(sh):
-        sh.Hb.copy_(_shard_normals(sh.states, PoseGraph(*sh.factors)))
+        sh.Hb.copy_(_shard_normals(sh.states, PoseGraph(*sh.factors), Incidence(*sh.incidence)))
 
     def total(b):
         b.rep.Hb.copy_(pg.axis.psum([sh.Hb for sh in b.shards]))
@@ -663,10 +732,10 @@ def optimize_poses_sparse_sharded_eager(
     Gauss-Newton steps (the plain version the compiled solve is held to,
     and the route of a process mesh on any backend but NCCL)."""
     axis = mesh.axis(mesh.axis_names[0])
-    shards = _factor_shards(graph, axis)
     states = torch.as_tensor(states0).to(device=axis.device, dtype=torch.float32)
+    shards, incs = _factor_shards(graph, axis, states.shape[0])
     for _ in range(n_iters):
-        states = _sparse_gn_step(states, shards, prior_weight, damping, cg_iters,
+        states = _sparse_gn_step(states, shards, incs, prior_weight, damping, cg_iters,
                                  "tridiag", robust_delta, axis)
     return states
 
@@ -703,7 +772,8 @@ def optimize_poses_sparse_sharded(
     precond = _make_precond("tridiag", pg.buffers.rep.factor)
 
     def local(sh):
-        part = _sparse_local(sh.states, PoseGraph(*sh.factors), robust_delta)
+        part = _sparse_local(sh.states, PoseGraph(*sh.factors), Incidence(*sh.incidence),
+                             robust_delta)
         _copy_all((sh.packed, sh.off_ij, sh.off_ji), (_pack_normals(part), *part[3:]))
 
     def total(b):
@@ -721,7 +791,8 @@ def optimize_poses_sparse_sharded(
             sh.v.copy_(b.rep.p)
 
     def offdiag(sh):
-        sh.off.copy_(_offdiag(sh.v, PoseGraph(*sh.factors), sh.off_ij, sh.off_ji))
+        sh.off.copy_(_offdiag(sh.v, PoseGraph(*sh.factors), Incidence(*sh.incidence),
+                              sh.off_ij, sh.off_ji))
 
     def off_total(b):
         b.rep.off.copy_(pg.axis.psum([sh.off for sh in b.shards]))

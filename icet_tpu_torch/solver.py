@@ -62,7 +62,6 @@ from icet_tpu_torch.ops.clustering import (
 from icet_tpu_torch.ops.fused_moments import (
     MAX_SHARED_BYTES,
     fused_moment_sums,
-    fused_moment_sums_reference,
     shared_bytes,
 )
 from icet_tpu_torch.ops.geometry import (
@@ -206,19 +205,23 @@ def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig, method: str) -> torc
 def moment_route(cfg: ICETConfig) -> str:
     """Which moments pass a solve with ``cfg`` takes, decided from the
     config alone before any launch: ``"fused"`` (the fused kernel's
-    wrapper: kernel on CUDA, plain version on CPU), ``"plain"`` (the plain
-    ``index_add_`` version on any device), ``"scatter"`` (the moment
-    scatter) or ``"onehot"`` (blocked one-hot products, on any device,
-    where the JAX package's ``_moment_method`` sends ``"onehot"``).
+    wrapper: kernel on CUDA, plain version on CPU), ``"plain"`` (transform,
+    bin, membership and features in PyTorch, summed by the moment scatter
+    kernel on CUDA and by ``index_add_`` on the CPU), ``"scatter"`` (the
+    moment scatter) or ``"onehot"`` (blocked one-hot products, on any
+    device, where the JAX package's ``_moment_method`` sends ``"onehot"``).
 
     ``"auto"``/``"fused"`` take the fused kernel when its whole table fits
     one block's shared memory (adaptive radial mode, V <= 5,774 voxels).
     Fixed radial mode's 90,000-row table and larger adaptive grids do not
     fit: there, as the JAX package computes fixed mode and its segsum
-    outside any Pallas kernel, they take the plain version.  ``"segsum"``
-    is the plain version, ``"pallas"`` the scatter, ``"onehot"`` the
+    outside any Pallas kernel, they take the plain route.  ``"segsum"``
+    is the plain route, ``"pallas"`` the scatter, ``"onehot"`` the
     one-hot products (an XLA ``dot_general`` in the JAX package, not a
-    Pallas kernel, so ``torch.matmul`` here)."""
+    Pallas kernel, so ``torch.matmul`` here).  The plain route sums on the
+    card with the scatter kernel and not ``index_add_``, whose float
+    atomics add in whatever order the hardware commits them: every route
+    gives the same bits on every run."""
     method = cfg.moment_method
     if method in ("auto", "fused"):
         fits = (cfg.radial_mode != "fixed"
@@ -242,7 +245,10 @@ def _moment_sums(pts, X, bounds, anchors, cfg: ICETConfig) -> torch.Tensor:
     if route == "fused":
         return fused_moment_sums(pts, X, bounds, anchors, cfg)
     if route == "plain":
-        return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
+        # The plain version's ``index_add_`` on the CPU, the scatter kernel's
+        # fixed order of addition on the card.
+        return _scatter_sums(pts, X, bounds, anchors, cfg,
+                             "pallas" if pts.device.type == "cuda" else "segsum")
     return _scatter_sums(pts, X, bounds, anchors, cfg,
                          "pallas" if route == "scatter" else "onehot")
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the port's CUDA kernels of an earlier tree against this tree's, in
-one process on one card: fused moments (#1), windowed fused moments (#2),
-the moment scatter (#3) and the BiasNet encoder (#4).
+"""Times the port's moment kernels of an earlier tree against this tree's,
+in one process on one card: fused moments (#1), windowed fused moments (#2)
+and the moment scatter (#3), beside the PyTorch call that computes #3's
+function (``index_add_``).
 
 Unpack the earlier tree into a directory that .gitignore lists, then run
 from the repository root on a machine with an NVIDIA GPU:
@@ -9,24 +10,24 @@ from the repository root on a machine with an NVIDIA GPU:
     git archive <commit> | tar -x -C _checkout/parent
     python3 tools/compare_kernel_versions.py --parent _checkout/parent
 
-The earlier tree's ``csrc/*.cu`` of the four kernels are built with this
-tree's nvcc flags and called through their own C interfaces (those of the
-tree before the redesign of #2 and #3: the windowed pass as two kernels
-with a (blocks, window, 10) partial, the scatter with a memset and its
-banded shared table).  Inputs are ``chip_smoke.py``'s: the drive's frame 1
-against frame 0's model at X = [1, 0.05, 0, 0, 0, 0.02] (N = 65,536,
-V = 1,800; #2 at block 512, window 256; #3 on the ``moment_method="pallas"``
-ids and features of the same frame), and the DNN filter's encoder input
-on it (1,801 x 200 x 4, tile 16).  The kernels run in turns, earlier,
-this, this, earlier; each turn records the device time a call by
+The earlier tree's ``csrc/*.cu`` of the three kernels are built with this
+tree's nvcc flags and called through their own C interfaces: those of the
+tree before the kernels' sums were put in a fixed order (#1 and #2 as this
+tree's, called through this tree's wrappers with the earlier library; #3
+with ``(blocks, points a block, shared)`` and no scratch).  Inputs are
+``chip_smoke.py``'s: the drive's frame 1 against frame 0's model at X =
+[1, 0.05, 0, 0, 0, 0.02], at 64x1024 (N = 65,536) and 64x2048 (N =
+131,072) with V = 1,800; #2 at block 512, window 256; #3 on the
+``moment_method="pallas"`` ids and features of the same frame, at V = 1,800
+and in fixed radial mode (90,001 rows).  The versions run in turns,
+earlier, this, this, earlier; each turn records the device time a call by
 torch.profiler (``chip_smoke.device_profile``, with the device operations
-it recorded a call), the CUDA-event time over back-to-back
-calls and the host time to enqueue a call.  The two versions' results are checked against
-each other first.  For the earlier #3 it also splits the profiler's device
-time by operation (its memset and its kernel) and times the launches
-queued behind a spin kernel, so that the host cannot hold the device back.
-The last line is one JSON object with every number and the card's name and
-power limit.
+it recorded a call), the CUDA-event time over back-to-back calls, the time
+a call with the calls queued behind a spin kernel (so that the host cannot
+hold the device back) and the host time to enqueue a call.  Both versions
+are checked against the plain version first, and each is launched twice on
+one input: this tree's must repeat bit for bit.  The last line is one JSON
+object with every number and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import math
 import os
 import subprocess
 import sys
@@ -49,13 +49,13 @@ sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
     device_line,
     device_profile,
-    filter_input,
     median_ms,
+    patched,
     scatter_inputs,
 )
 from icet_tpu_torch import _build  # noqa: E402
 
-KERNELS = ["fused_moments", "fused_moments_windowed", "moment_scatter", "bias_encoder"]
+KERNELS = ["fused_moments", "fused_moments_windowed", "moment_scatter"]
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -69,11 +69,6 @@ def host_us(fn, reps: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e6
-
-
-def device_ms_by_op(fn, reps: int) -> dict[str, float]:
-    """Device ms a call of each device operation ``fn`` runs, by name."""
-    return {name[:60]: ms for name, (ms, _) in device_profile(fn, reps).items()}
 
 
 def device_ms_ops(fn, reps: int) -> tuple[float, float]:
@@ -123,14 +118,15 @@ def build_parent(parent: str, names: list[str]) -> dict[str, ctypes.CDLL]:
 
 def turns(fns, reps: int) -> list[dict]:
     """Earlier, this, this, earlier: device ms by the profiler, CUDA-event
-    ms over back-to-back calls, host us to enqueue."""
+    ms over back-to-back calls, ms a call queued behind a spin kernel, host
+    us to enqueue."""
     rows = []
     for which in (0, 1, 1, 0):
         fn = fns[which]
         dev_ms, ops = device_ms_ops(fn, reps)
         rows.append({"version": ("earlier", "this")[which], "device_ms": dev_ms,
                      "device_ops": ops, "event_ms": median_ms(fn, reps),
-                     "host_us": host_us(fn)})
+                     "queued_ms": queued_ms(fn, reps), "host_us": host_us(fn)})
     return rows
 
 
@@ -145,10 +141,9 @@ def main() -> int:
 
     from icet_tpu_torch.config import ICETConfig
     from icet_tpu_torch.datasets.replay import CityDriveSource
-    from icet_tpu_torch.filters import model_voxel_samples, pretrained_dnn
-    from icet_tpu_torch.ops import bias_encoder as be
     from icet_tpu_torch.ops import fused_moments as fm
     from icet_tpu_torch.ops import moment_scatter as ms
+    from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.solver import prepare_reference
 
     card = device_line()
@@ -158,153 +153,113 @@ def main() -> int:
         print(f"this {name}.cu:\n{log.strip()}")
     old = build_parent(args.parent, KERNELS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old_fused = old["fused_moments"].icet_fused_moment_sums
-    old_fused.argtypes = [p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p]
-    old_fused.restype = i
-    old_enc = old["bias_encoder"].icet_bias_encoder
-    old_enc.argtypes = [p, i, i, p, p, i, i, p]
-    old_enc.restype = i
-    old_win = old["fused_moments_windowed"].icet_fused_moment_sums_windowed
-    old_win.argtypes = [p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, p, p, p, p, p, p]
-    old_win.restype = i
+    old["fused_moments"].icet_fused_moment_sums.argtypes = [
+        p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p]
+    old["fused_moments_windowed"].icet_fused_moment_sums_windowed.argtypes = [
+        p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, i, i, p, p, p, p]
+    old["fused_moments_windowed"].icet_windowed_shared_bytes.argtypes = [i]
+    for lib in old.values():
+        lib.icet_cuda_error_string.argtypes = [i]
+        lib.icet_cuda_error_string.restype = ctypes.c_char_p
     old_scat = old["moment_scatter"].icet_moment_scatter
-    old_scat.argtypes = [p, p, i, i, p, i, i, p]
+    old_scat.argtypes = [p, p, i, i, p, i, i, i, p]
     old_scat.restype = i
 
     dev = torch.device("cuda")
-    src = CityDriveSource(n_frames=2, speed=1.0, n_beams=64, n_azimuth=1024)
-    scans = [s.astype(np.float32) for s, _ in src]
     cfg = ICETConfig(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0)
-    dcfg = cfg.replace(dnn_filter=True)
-    model = prepare_reference(torch.from_numpy(scans[0]).to(dev), cfg)
-    pts = torch.from_numpy(scans[1]).to(dev)
+    fixed = cfg.replace(radial_mode="fixed")
+    fb = fixed_shell_bounds(fixed, dev)
+    fa = voxel_anchors(fb, fixed)
     X = torch.tensor([1.0, 0.05, 0.0, 0.0, 0.0, 0.02], device=dev)
-    n, V, v1 = pts.shape[0], cfg.n_voxels, cfg.n_voxels + 1
+    V, v1 = cfg.n_voxels, cfg.n_voxels + 1
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    grid = (V, cfg.n_theta, cfg.n_phi, cfg.phi_min, cfg.phi_max - cfg.phi_min, cfg.min_range)
 
-    # #1: the C interface is unchanged since the redesign of #1.
-    nb1, per_block, cap = fm.launch_plan(n, V, sms)
+    def earlier(module, attr, lib, fn):
+        """``fn`` through this tree's wrapper with the earlier library."""
+        def call():
+            with patched(module, attr, lambda: lib):
+                return fn()
+        return call
 
-    def fused_old():
-        fm._check(pts, X, model.bounds, model.anchors, cfg)
-        scratch = torch.empty(fm.scratch_floats(nb1, cap, V), device=dev)
-        out = torch.empty((v1, 16), device=dev)
-        err = old_fused(pts.data_ptr(), n, X.data_ptr(), model.bounds.data_ptr(),
-                        model.anchors.data_ptr(), *grid, scratch.data_ptr(), nb1, per_block,
-                        cap, out.data_ptr(), stream)
-        assert err == 0, err
-        return out
+    def scat_old(vid, feats, nv):
+        def call():
+            ms._check(vid, feats)
+            blocks, per_block, shared = ms.launch_plan(vid.shape[0], nv, sms)
+            out = torch.empty((nv + 1, 16), device=dev)
+            err = old_scat(vid.data_ptr(), feats.data_ptr(), vid.shape[0], nv + 1,
+                           out.data_ptr(), blocks, per_block, int(shared), stream)
+            assert err == 0, err
+            return out
+        return call
 
-    def fused_new():
-        return fm.fused_moment_sums(pts, X, model.bounds, model.anchors, cfg)
+    rows, agree, ok = {}, {}, True
+    for az in (1024, 2048):
+        src = CityDriveSource(n_frames=2, speed=1.0, n_beams=64, n_azimuth=az)
+        scans = [s.astype(np.float32) for s, _ in src]
+        model = prepare_reference(torch.from_numpy(scans[0]).to(dev), cfg)
+        pts = torch.from_numpy(scans[1]).to(dev)
+        n = pts.shape[0]
+        vid, feats = scatter_inputs(pts, X, model.bounds, model.anchors, cfg)
+        vid_f, feats_f = scatter_inputs(pts, X, fb, fa, fixed)
 
-    # #2 as the earlier wrapper ran it: five buffers, two kernels.
-    block, window = 512, 256
-    nb2 = -(-n // block)
+        def fused():
+            return fm.fused_moment_sums(pts, X, model.bounds, model.anchors, cfg)
 
-    def win_old():
-        fm._check_windowed(pts, X, model.bounds, model.anchors, cfg, block, window)
-        partial = torch.empty((nb2, window, 10), device=dev)
-        starts = torch.empty(nb2, dtype=torch.int32, device=dev)
-        block_ovf = torch.empty(nb2, dtype=torch.int32, device=dev)
-        out = torch.empty((v1, 16), device=dev)
-        overflow = torch.empty((), dtype=torch.int32, device=dev)
-        err = old_win(pts.data_ptr(), n, X.data_ptr(), model.bounds.data_ptr(),
-                      model.anchors.data_ptr(), *grid, 0, cfg.n_shells,
-                      math.log(cfg.shell_growth), block, window, fm._windowed_v_pad(V, window),
-                      partial.data_ptr(), starts.data_ptr(), block_ovf.data_ptr(),
-                      out.data_ptr(), overflow.data_ptr(), stream)
-        assert err == 0, err
-        return out, overflow
+        def win():
+            return fm.fused_moment_sums_windowed(pts, X, model.bounds, model.anchors, cfg, 512,
+                                                 256)[0]
 
-    def win_new():
-        return fm.fused_moment_sums_windowed(pts, X, model.bounds, model.anchors, cfg, block,
-                                             window)
-
-    # #3 as the earlier wrapper launched it (memset and kernel; its host read
-    # of the ids' range is timed apart, as "earlier wrapper").
-    vid, feats = scatter_inputs(pts, X, model.bounds, model.anchors, cfg)
-    nb3 = min(sms, -(-n * 16 // 16_384))
-
-    def scat_old():
-        ms._check(vid, feats)
-        out = torch.empty((v1, 16), device=dev)
-        err = old_scat(vid.data_ptr(), feats.data_ptr(), n, v1, out.data_ptr(), nb3, 1, stream)
-        assert err == 0, err
-        return out
-
-    def scat_old_wrapper():
-        lo, hi = torch.aminmax(vid)
-        assert not bool((lo < 0) | (hi > V))
-        return scat_old()
-
-    def scat_new():
-        return ms.moment_scatter_sums(vid, feats, V)
-
-    net = pretrained_dnn(dcfg, dev)
-    w = net.encoder_weights()
-    samples0 = model_voxel_samples(model, torch.from_numpy(scans[0]).to(dev), dcfg)
-    x = filter_input(model, samples0, pts, X, dcfg)
-    b, pp, _ = x.shape
-
-    def enc_old():
-        be._check(x, w, 16)
-        out = torch.empty((b, 256), device=dev)
-        err = old_enc(x.data_ptr(), b, pp, be._cached_image(w).data_ptr(), out.data_ptr(), 16,
-                      be.encoder_blocks(b, sms), stream)
-        assert err == 0, err
-        return out
-
-    def enc_new():
-        return be.bias_encoder_pool(x, w, 16)
-
-    # The two versions agree before they are timed.
-    fo, fn_ = fused_old(), fused_new()
-    (wo, wo_ovf), (wn, wn_ovf) = win_old(), win_new()
-    so, sn = scat_old(), scat_new()
-    eo, en = enc_old(), enc_new()
-    torch.cuda.synchronize()
-    agree = {
-        "fused": (bool(torch.equal(fo[:, 0], fn_[:, 0])), float((fo - fn_).abs().max())),
-        "windowed": (bool(torch.equal(wo[:, 0], wn[:, 0])) and int(wo_ovf) == int(wn_ovf),
-                     float((wo - wn).abs().max())),
-        "scatter": (bool(torch.equal(so[:, 0], sn[:, 0])), float((so - sn).abs().max())),
-    }
-    enc_close = float(((eo - en).abs() <= 2.0**-7 * eo.abs()).float().mean())
-    for name, (counts, diff) in agree.items():
-        print(f"{name}: counts (and overflow) equal {counts}, max |earlier - this| {diff:.3e}")
-    print(f"encoder: codes within one bf16 ulp {enc_close:.5f}, max |diff| "
-          f"{float((eo - en).abs().max()):.3e}; windowed overflow {int(wn_ovf)}")
-    if not all(c and d <= 1e-2 for c, d in agree.values()) or enc_close < 0.995:
-        print("compare_kernel_versions: the two versions disagree", file=sys.stderr)
-        return 1
-
-    # The earlier #3 in detail: its device time by operation, and its
-    # launches queued behind a spin kernel (no host gaps).
-    scat_ops = device_ms_by_op(scat_old, args.reps)
-    scat_queued = {"earlier": queued_ms(scat_old, args.reps), "this": queued_ms(scat_new, args.reps)}
-    wrapper_ev = {"earlier wrapper": median_ms(scat_old_wrapper, args.reps)}
-    print(f"moment_scatter earlier: device ms a call by operation {scat_ops}; queued behind "
-          f"a spin kernel {scat_queued} ms a call; the earlier wrapper with its id check "
-          f"{wrapper_ev} ms by CUDA events ({card})")
-
-    rows = {"moment_scatter earlier by operation device_ms": scat_ops,
-            "moment_scatter queued_ms": scat_queued,
-            "moment_scatter earlier wrapper event_ms": wrapper_ev}
-    for kernel, fns, reps in (("fused_moment_sums", (fused_old, fused_new), args.reps),
-                              ("fused_moment_sums_windowed", (win_old, win_new), args.reps),
-                              ("moment_scatter_sums", (scat_old, scat_new), args.reps),
-                              ("bias_encoder_pool", (enc_old, enc_new), max(5, args.reps // 5))):
-        rows[kernel] = turns(fns, reps)
-        for t in rows[kernel]:
-            print(f"{kernel} {t['version']}: device {t['device_ms']:.5f} ms a call "
-                  f"({t['device_ops']:g} operations recorded a call), CUDA events {t['event_ms']:.5f} ms, host {t['host_us']:.1f} us to "
-                  f"enqueue ({card})")
-    print(json.dumps({"card": card, "fused_shape": [n, V], "windowed": [block, window],
-                      "encoder_shape": list(x.shape), "turns": rows}))
-    return 0
+        cases = {
+            f"fused_moment_sums N={n}": (
+                earlier(fm, "_lib", old["fused_moments"], fused), fused,
+                lambda: fm.fused_moment_sums_reference(pts, X, model.bounds, model.anchors, cfg),
+                None),
+            f"fused_moment_sums_windowed N={n}": (
+                earlier(fm, "_windowed_lib", old["fused_moments_windowed"], win), win,
+                lambda: fm.fused_moment_sums_windowed_reference(pts, X, model.bounds,
+                                                                model.anchors, cfg, 512, 256)[0],
+                None),
+            f"moment_scatter_sums N={n} V+1={v1}": (
+                scat_old(vid, feats, V), lambda: ms.moment_scatter_sums(vid, feats, V),
+                lambda: ms.moment_scatter_reference(vid, feats, V),
+                lambda: torch.zeros((v1, 16), device=dev).index_add_(0, vid.long(), feats)),
+            f"moment_scatter_sums N={n} V+1={fixed.n_voxels + 1}": (
+                scat_old(vid_f, feats_f, fixed.n_voxels),
+                lambda: ms.moment_scatter_sums(vid_f, feats_f, fixed.n_voxels),
+                lambda: ms.moment_scatter_reference(vid_f, feats_f, fixed.n_voxels),
+                lambda: torch.zeros((fixed.n_voxels + 1, 16), device=dev).index_add_(
+                    0, vid_f.long(), feats_f)),
+        }
+        for name, (fo, fn_, plain, library) in cases.items():
+            want = plain()
+            outs = {"earlier": (fo(), fo()), "this": (fn_(), fn_())}
+            torch.cuda.synchronize()
+            res = {}
+            for k, (a, b) in outs.items():
+                err = float((a - want).abs().max())
+                res[k] = {"max_abs_err": err, "run_to_run": float((a - b).abs().max()),
+                          "counts_equal": bool(torch.equal(a[:, 0], want[:, 0]))}
+                ok &= bool(((a - want).abs() <= 1e-3 + 1e-4 * want.abs()).all())
+            ok &= bool(torch.equal(*outs["this"]))
+            agree[name] = res
+            print(f"{name}: {res}")
+            rows[name] = turns((fo, fn_), args.reps)
+            if library is not None:
+                rows[name + " index_add_"] = {"event_ms": median_ms(library, args.reps),
+                                               "queued_ms": queued_ms(library, args.reps),
+                                               "device_ms": device_ms_ops(library, args.reps)[0]}
+                print(f"{name} index_add_: {rows[name + ' index_add_']} ({card})")
+            for t in rows[name]:
+                print(f"{name} {t['version']}: device {t['device_ms']:.5f} ms a call "
+                      f"({t['device_ops']:g} operations recorded a call), CUDA events "
+                      f"{t['event_ms']:.5f} ms, queued {t['queued_ms']:.5f} ms, host "
+                      f"{t['host_us']:.1f} us to enqueue ({card})")
+    if not ok:
+        print("compare_kernel_versions: a version disagrees with the plain version, or this "
+              "tree's kernel did not repeat bit for bit", file=sys.stderr)
+    print(json.dumps({"card": card, "agree": agree, "turns": rows}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
