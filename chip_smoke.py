@@ -15,7 +15,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
       75x24 (V = 1,800) voxel model, at three transforms, in shuffled point
       order, and with NaN and zero rows; then 65,536 points in one voxel
       (the worst contention), no member at all, N = 1 and N = 65,537 (a
-      ragged last block); each launched twice, the two bitwise equal;
+      ragged last block); each launched twice, the two bitwise equal; then
+      its sorted parts (fixed radial mode and tables past one block's
+      shared memory): fixed radial mode at 90,001 rows at three transforms,
+      shuffled, with NaN and zero rows, at N = 131,072 (a 64x2048 frame)
+      beam-major and shuffled, one voxel, no member, N = 1 and N = 65,537;
+      the 150x48 grid (7,201 rows) beam-major and shuffled; 75x77 (V =
+      5,775, the first grid past the shared table); a fixed grid of 800
+      shells (1,440,001 rows), whose part bitmaps live in device memory; counts
+      exact up to the points within EDGE_RAD of a bin or shell edge, each
+      launched twice, the two bitwise equal; one device operation a call
+      and no host synchronisation;
    b. the BiasNet encoder on the drive's real filter input (1,801 voxels x
       200 points, frames 0 -> 1), on a 37-voxel batch and at P in {1, 63,
       64, 65, 200} x B in {1, 37, 1,801}: codes within one bf16 ulp on
@@ -45,7 +55,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    share, the memory its graph sets reserve; one fixed-radial-mode pair on
    the scatter route (#3's sorted parts) and 4 DNN-filtered frames on it
    (#3 and #4 in one set of graphs), compiled against eager bit for bit;
-7. fixed radial mode: one registration on the card against the CPU path;
+7. fixed radial mode: one registration on the card through the fused
+   route (#1's sorted parts, launches counted) against the CPU path, and
+   the same pair at ``moment_method="segsum"`` (PyTorch binning, then #3)
+   beside it, whether the two routes' X are bit-equal reported;
 8. windowed moments (kernel #2) against its plain version at block 512,
    window 256: beam-major at X = 0 (and, with no overflow, against kernel
    #1) and at a 1 m step, shuffled (overflow > 0), fixed radial mode at
@@ -74,9 +87,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
     time over back-to-back calls; the encoder's LayerNorm-epilogue floor;
+    #1's sorted parts at fixed radial mode's 90,001 rows (N = 65,536 and
+    131,072), 7,201 and 5,776 rows beside the plain version and the plain
+    route's moments pass (PyTorch binning, then #3);
 14. a grid above the fused kernel's shared-memory table (150x48, V =
-    7,200): one registration through the plain route, the fused kernel not
-    launched, X equal to the CPU path's;
+    7,200): one registration through the fused route (#1's sorted parts,
+    launches counted), X within 1e-3 m of the CPU path's, the segsum route
+    beside it as in phase 7;
 15. BiasNet training at ``train_bias_net_mixed``'s published size (batch
     256, S = 100, 6 raycast pairs), cut to TRAIN_STEPS steps: the captured
     ``train_step`` against ``train_step_eager`` (three steps from one seed:
@@ -227,8 +244,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``KeyframeOdometry``'s compiled frame: one read, no map write, one
     host synchronisation a frame without a spawn;
 30. run to run: kernels #1 and #2 at N = 65,536 and 131,072 (V = 1,800)
-    and #3 at V = 1,800 and at fixed radial mode's 90,001 rows, each
-    launched twice on one input, all 16 columns bitwise equal; two eager
+    and #3 and #1's sorted parts at V = 1,800 and at fixed radial mode's
+    90,001 rows, each launched twice on one input, all 16 columns bitwise
+    equal; two compiled fixed-radial-mode drives equal; two eager
     and two compiled 10,000-pose solves equal; whether two 100-step
     BiasNet training runs from one seed repeat, reported without a gate.
     Every float sum of the port's card paths is in an order the code
@@ -236,8 +254,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 ``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
 runs none of these phases: it times that tree's compiled paths against
-this one's, each tree in a process of its own (``--time-tree``), in the
-turns parent, this, this, parent.
+this one's (among them the fixed-radial-mode and 150x48 frames, which an
+earlier tree may take through its plain route), each tree in a process of
+its own (``--time-tree``), in the turns parent, this, this, parent.
 
 Every compiled phase gates its host exit-flag reads at 0: the solves'
 early exits run on the card, in IF conditional nodes (phases 6, 18, 19,
@@ -254,6 +273,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -330,6 +350,8 @@ LC_LOOPS_REF = 94
 LC_ATE_REF_M = 0.037278022472340286
 #: the loop-closure drive (tests/test_citydrive.py's block at full width)
 LC_DRIVE = dict(n_frames=250, speed=1.0, rect=(-24, 24, -19, 19), n_beams=64, n_azimuth=1024)
+#: frames of phase 30's compiled fixed-radial-mode drive
+FIXED_DRIVE_FRAMES = 8
 #: frames of phase 26-27's profiled chains (prepare, then PROFILE_FRAMES - 1
 #: steps)
 PROFILE_FRAMES = 4
@@ -519,8 +541,9 @@ def pose_ate(poses, gt) -> float:
 def edge_points(pts, X, cfg) -> int:
     """Points past the raw range gate whose transformed theta or phi lies
     within EDGE_RAD of a bin edge (where an ulp of difference can move them
-    to the next voxel); theta == 0 exactly (y == 0, x > 0) is not an edge
-    case, as every atan2 returns 0 there."""
+    to the next voxel), or, in fixed radial mode, whose shell index lies
+    within EDGE_RAD of a shell edge (``log`` rounds too); theta == 0 exactly
+    (y == 0, x > 0) is not an edge case, as every atan2 returns 0 there."""
     from icet_tpu_torch.ops.geometry import (
         cart_to_spherical,
         point_norm,
@@ -534,7 +557,12 @@ def edge_points(pts, X, cfg) -> int:
     fp = (rtp[:, 2] - cfg.phi_min) / w_p
     on_theta = ((ft - torch.round(ft)).abs() * w_t < EDGE_RAD) & (rtp[:, 1] > 0)
     on_phi = (fp - torch.round(fp)).abs() * w_p < EDGE_RAD
-    return int(((on_theta | on_phi) & (point_norm(pts) >= cfg.min_range)).sum())
+    near = on_theta | on_phi
+    if cfg.radial_mode == "fixed":
+        fs = torch.log(rtp[:, 0].clamp(min=cfg.min_range) / cfg.min_range) / math.log(
+            cfg.shell_growth)
+        near |= ((fs - torch.round(fs)).abs() < EDGE_RAD) & (rtp[:, 0] >= cfg.min_range)
+    return int((near & (point_norm(pts) >= cfg.min_range)).sum())
 
 
 def compare(name, pts, X, model, cfg, report):
@@ -699,6 +727,18 @@ def encoder_compare(name, net, x, report) -> float:
     return err
 
 
+def rows_read(pts, X, cfg) -> int:
+    """Distinct voxel rows whose bounds and anchors kernel #1 reads on this
+    input: those of the points past the raw range gate that fall in the
+    grid's band (``voxel_ids`` below V)."""
+    from icet_tpu_torch.ops.geometry import cart_to_spherical, point_norm, transform_points
+    from icet_tpu_torch.ops.grid import voxel_ids
+
+    vid = voxel_ids(cart_to_spherical(transform_points(pts, X)), cfg)
+    return int(torch.unique(vid[(point_norm(pts) >= cfg.min_range) & (vid < cfg.n_voxels)])
+               .numel())
+
+
 def scatter_inputs(pts, X, bounds, anchors, cfg):
     """(vid int32, feats (N, 16)) as ``moment_method="pallas"`` builds them."""
     from icet_tpu_torch.ops.clustering import membership
@@ -786,20 +826,27 @@ def ptxas_usage(logs: dict) -> dict:
 
 def one_voxel_case(cfg, dev, n, rng):
     """``n`` points in one voxel (a 0.5 m cube at 20 m range, on a 1/16 m
-    lattice) with bounds that admit every range and that voxel's anchor at
+    lattice; in fixed radial mode a 0.25 m cube in the middle of shell 45,
+    7.8 m out) with bounds that admit every range and that voxel's anchor at
     the cube's centre: at X = 0 every offset, square and product is a short
     dyadic number and every sum of them is exact in float32, so kernel and
     plain version agree whatever their order of addition."""
     it, ip = 10, 12
     theta = (it + 0.5) * 2 * np.pi / cfg.n_theta
     phi = cfg.phi_min + (ip + 0.5) * (cfg.phi_max - cfg.phi_min) / cfg.n_phi
-    c = np.round(20.0 * np.array([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
-                                  np.cos(phi)]) * 16) / 16
-    pts = (c + rng.integers(-4, 5, size=(n, 3)) / 16.0).astype(np.float32)
+    fixed = cfg.radial_mode == "fixed"
+    r, spread, row = 20.0, 4, ip * cfg.n_theta + it
+    if fixed:
+        shell = 45
+        r, spread = cfg.min_range * cfg.shell_growth ** (shell + 0.5), 2
+        row += shell * cfg.n_angular
+    c = np.round(r * np.array([np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta),
+                               np.cos(phi)]) * 16) / 16
+    pts = (c + rng.integers(-spread, spread + 1, size=(n, 3)) / 16.0).astype(np.float32)
     bounds = torch.zeros((cfg.n_voxels + 1, 2), device=dev)
     bounds[:, 1] = 1000.0
     anchors = torch.zeros((cfg.n_voxels + 1, 3), device=dev)
-    anchors[ip * cfg.n_theta + it] = torch.from_numpy(c.astype(np.float32)).to(dev)
+    anchors[row] = torch.from_numpy(c.astype(np.float32)).to(dev)
     return torch.from_numpy(pts).to(dev), types.SimpleNamespace(bounds=bounds, anchors=anchors)
 
 
@@ -3462,12 +3509,15 @@ TREE_TIMEOUT_S = 400
 
 def phase_run_to_run(scans, wide, pairs, cfg, dev, card) -> None:
     """Phase 30: the card's results repeat run to run.  Kernels #1 and #2 at
-    N = 65,536 and 131,072 (V = 1,800) and #3 at V = 1,800 and at fixed
-    radial mode's 90,001 rows, each launched twice on one input: all 16
-    columns equal (and #2's overflow); two eager and two compiled
+    N = 65,536 and 131,072 (V = 1,800), #3 at V = 1,800 and at fixed radial
+    mode's 90,001 rows and #1's sorted parts at 90,001 rows, each launched
+    twice on one input: all 16 columns equal (and #2's overflow); two
+    compiled fixed-radial-mode drives equal; two eager and two compiled
     10,000-pose solves all equal; and, reported without a gate, whether two
     100-step BiasNet training runs repeat."""
     import icet_tpu_torch.models.train_data as train_data
+    from icet_tpu_torch.config import OdometryConfig
+    from icet_tpu_torch.odometry import run_odometry_device
     from icet_tpu_torch.ops.fused_moments import fused_moment_sums, fused_moment_sums_windowed
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
@@ -3496,6 +3546,8 @@ def phase_run_to_run(scans, wide, pairs, cfg, dev, card) -> None:
                 lambda: moment_scatter_sums(vid_s, feats_s, cfg.n_voxels),
             f"#3 N={n} V+1={fixed.n_voxels + 1}":
                 lambda: moment_scatter_sums(vid_f, feats_f, fixed.n_voxels),
+            f"#1 sorted parts N={n} V+1={fixed.n_voxels + 1}":
+                lambda: fused_moment_sums(pts, X, fb, fa, fixed),
         }
         for what, fn in calls.items():
             a, b = fn(), fn()
@@ -3504,6 +3556,17 @@ def phase_run_to_run(scans, wide, pairs, cfg, dev, card) -> None:
             check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
                   f"phase 30, {what}: two launches differ by up to {d}")
             lines.append(f"{what}: two launches bitwise equal ({int(a.numel())} values)")
+    # The compiled fixed-radial-mode drive (#1's sorted parts in its graphs), twice.
+    drives = [run_odometry_device(scans[:FIXED_DRIVE_FRAMES], fixed,
+                                  OdometryConfig(divergence_clamp=2.5), device="cuda")
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    xs = [np.stack([np.asarray(f.X) for f in d]) for d in drives]
+    d = float(np.abs(xs[0] - xs[1]).max())
+    check(np.array_equal(xs[0], xs[1]) and bool(np.isfinite(xs[0]).all()),
+          f"phase 30, compiled fixed-mode drive: two runs differ by up to {d}")
+    lines.append(f"compiled fixed-radial-mode drive ({FIXED_DRIVE_FRAMES} frames 64x1024): two "
+                 f"runs equal bit for bit")
     ring0, ring, _ = ring_graph(RING_POSES)
     solves = [optimize_poses_sparse_eager(ring0, ring, 10, 25, device="cuda") for _ in range(2)]
     solves += [optimize_poses_sparse(ring0, ring, 10, 25, device="cuda") for _ in range(2)]
@@ -3604,8 +3667,10 @@ def time_tree(spec: dict) -> int:
     timed("sequence frame 64x2048", sequence(wide), wide.shape[0] - 1)
     timed("scatter-route frame 64x1024", sequence(short, cfg.replace(moment_method="pallas")),
           len(short) - 1)
-    timed("fixed-radial-mode frame 64x1024 (the plain route)",
+    timed("fixed-radial-mode frame 64x1024",
           sequence(short, cfg.replace(radial_mode="fixed")), len(short) - 1)
+    timed("150x48 frame 64x1024", sequence(short, cfg.replace(n_theta=150, n_phi=48)),
+          len(short) - 1)
     runner("DNN frame 64x1024", OdometryPipeline(cfg.replace(dnn_filter=True), odo, device=dev))
     runner("keyframe frame 64x1024", KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev))
     # The whole drive through the public runner, its uploads and seed spawn included.
@@ -3687,6 +3752,48 @@ def parent_times(parent: str) -> int:
               f"{p[0]:.3f} / {t[0]:.3f} / {t[1]:.3f} / {p[1]:.3f} ms (CUDA events, median of "
               f"the rounds, each tree in its own process)")
     return 0
+
+
+def route_pair(scans, x0, c, what: str) -> tuple[np.ndarray, int]:
+    """Phases 7 and 14: frames 0 -> 1 registered on the card through the
+    fused route (the compiled ``register_pair``; #1's sorted parts), against
+    the CPU path (X within 1e-3 m) and beside the same pair on the card at
+    ``moment_method="segsum"`` (PyTorch binning, then #3), whether the two
+    routes' X are equal bit for bit reported; returns (X, #1's settled
+    launches in the fused registration, warm-ups included)."""
+    from icet_tpu_torch.ops.fused_moments import fused_moment_sums
+    from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
+    from icet_tpu_torch.solver import register_pair
+
+    torch.cuda.synchronize()
+    settle()
+    fused_moment_sums.launches = 0
+    zero_warmups()
+    res = register_pair(scans[0], scans[1], x0, c, device="cuda")
+    torch.cuda.synchronize()
+    settle()
+    launches, warm = fused_moment_sums.launches, warmups()
+    before = (fused_moment_sums.launches, moment_scatter_sums.launches)
+    seg = register_pair(scans[0], scans[1], x0, c.replace(moment_method="segsum"), device="cuda")
+    torch.cuda.synchronize()
+    settle()
+    seg_fused = fused_moment_sums.launches - before[0]
+    seg_scat = moment_scatter_sums.launches - before[1]
+    cpu = register_pair(scans[0], scans[1], x0, c, device="cpu")
+    X, sX, cX = res.X.cpu().numpy(), seg.X.cpu().numpy(), cpu.X.numpy()
+    check(launches > warm, f"{what}: #1 launches {launches} with {warm} warm-ups")
+    check(seg_fused == 0 and seg_scat > 0,
+          f"{what}, segsum: #1 launches {seg_fused}, #3 launches {seg_scat}")
+    check(bool(np.isfinite(X).all()) and abs(X[0] - 1.0) < 0.1, f"{what}: X {X}")
+    check(float(np.abs(X - cX).max()) <= 1e-3, f"{what}: card X {X} vs CPU X {cX}")
+    check(float(np.abs(sX - cX).max()) <= 1e-3, f"{what}, segsum: card X {sX} vs CPU X {cX}")
+    print(f"{what} (V = {c.n_voxels}, fused route, #1's sorted parts): #1 launches {launches} "
+          f"({warm} warm-ups before capture), {int(res.iterations)} iterations, card X "
+          f"{np.round(X, 5).tolist()}, max |card - CPU| {float(np.abs(X - cX).max()):.3e}; "
+          f"segsum route on the card: #3 launches {seg_scat}, {int(seg.iterations)} iterations, "
+          f"max |fused - segsum| {float(np.abs(X - sX).max()):.3e} (bit-equal: "
+          f"{bool(np.array_equal(X, sX))})")
+    return X, launches
 
 
 def dataclasses_dict(obj) -> dict:
@@ -3810,6 +3917,72 @@ def main() -> int:
     for line in report:
         print(f"fused moments vs plain, {line}")
 
+    # -- 3a, #1's sorted parts: fixed radial mode and tables past shared memory
+    fixed = cfg.replace(radial_mode="fixed")
+    fbounds = fixed_shell_bounds(fixed, dev)
+    fmodel = types.SimpleNamespace(bounds=fbounds, anchors=voxel_anchors(fbounds, fixed))
+    big = cfg.replace(n_theta=150, n_phi=48)     # V + 1 = 7,201
+    past = cfg.replace(n_theta=75, n_phi=77)     # V = 5,775, the first past the shared table
+    # 800 shells, V + 1 = 1,440,001: a part's bitmap no longer fits shared
+    # memory (the points fill the first ~70 shells).
+    huge = fixed.replace(n_shells=800)
+    hbounds = fixed_shell_bounds(huge, dev)
+    hmodel = types.SimpleNamespace(bounds=hbounds, anchors=voxel_anchors(hbounds, huge))
+    bmodel = prepare_reference(torch.from_numpy(scans[0]).to(dev), big)
+    pmodel = prepare_reference(torch.from_numpy(scans[0]).to(dev), past)
+    wide_pts = torch.from_numpy(np.ascontiguousarray(next(iter(CityDriveSource(
+        n_frames=1, speed=1.0, n_beams=64, n_azimuth=2048)))[0], np.float32)).to(dev)
+    wperm = torch.from_numpy(rng.permutation(wide_pts.shape[0])).to(dev)
+    fvox_pts, fvox_model = one_voxel_case(fixed, dev, pts.shape[0], rng)
+    ffar = types.SimpleNamespace(bounds=torch.full_like(fbounds, 1e4), anchors=fmodel.anchors)
+    fsingle = next(k for k in range(0, pts.shape[0], 97)
+                   if edge_points(pts[k:k + 1], X_step, fixed) == 0
+                   and float(fused_moment_sums_reference(pts[k:k + 1], X_step, fbounds,
+                                                         fmodel.anchors, fixed)[:, 0].sum()) == 1.0)
+    large_cases = {
+        "fixed X=0": (pts, zero6, fmodel, fixed),
+        "fixed X=1m/0.02rad": (pts, X_step, fmodel, fixed),
+        "fixed X=3m/0.1rad": (pts, cases["X=3m/0.1rad"][1], fmodel, fixed),
+        "fixed shuffled": (cases["shuffled"][0], X_step, fmodel, fixed),
+        "fixed nan+zero rows": (cases["nan+zero rows"][0], X_step, fmodel, fixed),
+        "fixed N=131072": (wide_pts, X_step, fmodel, fixed),
+        "fixed N=131072 shuffled": (wide_pts[wperm].contiguous(), X_step, fmodel, fixed),
+        "fixed one voxel, N=65536": (fvox_pts, zero6, fvox_model, fixed),
+        "fixed no member": (pts, X_step, ffar, fixed),
+        "fixed N=1": (pts[fsingle:fsingle + 1].contiguous(), X_step, fmodel, fixed),
+        "fixed N=65537": (torch.cat([pts, pts[fsingle:fsingle + 1]]).contiguous(), X_step, fmodel,
+                          fixed),
+        "150x48 X=1m/0.02rad": (pts, X_step, bmodel, big),
+        "150x48 shuffled": (cases["shuffled"][0], X_step, bmodel, big),
+        "75x77 X=1m/0.02rad": (pts, X_step, pmodel, past),
+        "fixed 800 shells (bitmap in device memory)": (pts, X_step, hmodel, huge),
+    }
+    report, large_err = [], 0.0
+    for name, (p, X, m, c) in large_cases.items():
+        err, outs[name] = compare(f"{name} (V+1={c.n_voxels + 1})", p, X, m, c, report)
+        large_err = max(large_err, err)
+    check(torch.equal(outs["fixed shuffled"][:, 0], outs["fixed X=1m/0.02rad"][:, 0])
+          and torch.equal(outs["150x48 shuffled"][:, 0], outs["150x48 X=1m/0.02rad"][:, 0]),
+          "sorted parts: shuffled order changed the kernel's counts")
+    vox = outs["fixed one voxel, N=65536"][:, 0]
+    check(float(vox.sum()) == fvox_pts.shape[0] and int((vox > 0).sum()) == 1,
+          "sorted parts, one voxel: not every point counted in one row")
+    check(bool((outs["fixed no member"] == 0).all()), "sorted parts, no member: nonzero sums")
+    check(float(outs["fixed N=1"][:, 0].sum()) == 1.0,
+          "sorted parts, N=1: the point is not counted once")
+    check(torch.equal(outs["fixed N=65537"][:, 0] - outs["fixed X=1m/0.02rad"][:, 0],
+                      outs["fixed N=1"][:, 0]),
+          "sorted parts, N=65537: counts are not N=65536's plus N=1's")
+    # One device operation a call (no memset, no second kernel) and no host
+    # synchronisation, in both branches of the sorted parts.
+    for name, (p, m, c) in {"sorted parts, fixed": (pts, fmodel, fixed),
+                            "sorted parts, 150x48": (pts, bmodel, big),
+                            "sorted parts, bitmap in device memory": (pts, hmodel, huge)}.items():
+        check_one_launch(name, lambda: fused_moment_sums(p, X_step, m.bounds, m.anchors, c),
+                         fused_moment_sums, "fused_large_kernel", report)
+    for line in report:
+        print(f"fused moments (sorted parts) vs plain, {line}")
+
     # -- encoder kernel vs plain ------------------------------------------
     net = pretrained_dnn(dcfg, dev)
     samples0 = model_voxel_samples(model, torch.from_numpy(scans[0]).to(dev), dcfg)
@@ -3831,8 +4004,6 @@ def main() -> int:
         print(f"encoder vs plain, {line}")
 
     # -- scatter kernel vs index_add_ -------------------------------------
-    fixed = cfg.replace(radial_mode="fixed")
-    fbounds = fixed_shell_bounds(fixed, dev)
     report = []
     vid_s, feats_s = scatter_inputs(pts, X_step, model.bounds, model.anchors, cfg)
     vid_f, feats_f = scatter_inputs(pts, X_step, fbounds, voxel_anchors(fbounds, fixed), fixed)
@@ -3947,17 +4118,11 @@ def main() -> int:
     pcfg = cfg.replace(moment_method="pallas")
     scat_launches = phase_routes(scans, gt, cfg, dcfg, odo, dev, card)
 
-    # -- fixed radial mode ------------------------------------------------
+    # -- 7. fixed radial mode: #1's sorted parts -----------------------------
     # Seeded 10 cm off the drive's 1 m step, as a warm start would be.
     x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
-    fres = register_pair(scans[0], scans[1], x0, fixed, device="cuda")
-    fcpu = register_pair(scans[0], scans[1], x0, fixed, device="cpu")
-    fX, cX = fres.X.cpu().numpy(), fcpu.X.numpy()
-    check(bool(np.isfinite(fX).all()) and abs(fX[0] - 1.0) < 0.1, f"fixed mode: X {fX}")
-    check(float(np.abs(fX - cX).max()) <= 1e-3,
-          f"fixed mode: card X {fX} vs CPU X {cX}")
-    print(f"fixed radial mode (V = {fixed.n_voxels}): card X {np.round(fX, 5).tolist()}, "
-          f"max |card - CPU| {float(np.abs(fX - cX).max()):.3e}")
+    _, large_launches = route_pair(scans, x0, fixed, "fixed radial mode")
+
 
     # -- windowed moments kernel vs plain, then its own path ----------------
     fanchors = voxel_anchors(fbounds, fixed)
@@ -4256,12 +4421,14 @@ def main() -> int:
     members = float(fused_moment_sums_reference(
         pts, X_step, model.bounds, model.anchors, cfg)[:, 0].sum())
     n, v1 = pts.shape[0], cfg.n_voxels + 1
-    # Bytes: points, X, bounds, anchors read once; (V+1, 16) sums written.
-    # Operations: per point the raw norm (6), transform (18), nan scrub and
-    # r' (6), theta/phi with atan2/acos counted as 20 each (43), binning and
-    # gates (10); per member the anchor offset (3) and 10 accumulated
-    # features (6 products + 10 adds).
-    fused_bound, fused_by = bound(n * 12 + 6 * 4 + v1 * 8 + v1 * 12 + v1 * 16 * 4,
+    # Bytes: points and X read once, the bounds and anchors (8 + 12 B) of
+    # the rows the points fall in, the (V+1, 16) sums written.  Operations:
+    # per point the raw norm (6), transform (18), nan scrub and r' (6),
+    # theta/phi with atan2/acos counted as 20 each (43), binning and gates
+    # (10); per member the anchor offset (3) and 10 accumulated features (6
+    # products + 10 adds).
+    fused_rows = rows_read(pts, X_step, cfg)
+    fused_bound, fused_by = bound(n * 12 + 6 * 4 + fused_rows * 20 + v1 * 16 * 4,
                                   n * 83 + members * 19, PEAK_FP32_PER_S)
 
     win_args = (pts, X_step, model.bounds, model.anchors, cfg, WIN_BLOCK, WIN_WINDOW)
@@ -4301,6 +4468,31 @@ def main() -> int:
     # Bytes: ids and features read once, the table written; one add an element.
     scat_bound, scat_by = bound(n * 4 + n * 64 + v1 * 64, n * 16, PEAK_FP32_PER_S)
 
+    # #1's sorted parts at each size, beside the plain version and the
+    # plain route's moments pass (PyTorch binning, then #3) on the same input.
+    from icet_tpu_torch.solver import _scatter_sums
+
+    large_rows = []
+    for what, p, m, c in (("fixed N=65536", pts, fmodel, fixed),
+                          ("fixed N=131072", wide_pts, fmodel, fixed),
+                          ("150x48 N=65536", pts, bmodel, big),
+                          ("75x77 N=65536", pts, pmodel, past)):
+        args = (p, X_step, m.bounds, m.anchors, c)
+        k_ms, k_ev = kernel_times(lambda: fused_moment_sums(*args), reps=100)
+        pl_ms, pl_ev = kernel_times(lambda: fused_moment_sums_reference(*args), reps=20)
+        rt_ms, rt_ev = kernel_times(lambda: _scatter_sums(*args, "pallas"), reps=20)
+        mem = float(fused_moment_sums_reference(*args)[:, 0].sum())
+        nn, vv, read = p.shape[0], c.n_voxels + 1, rows_read(p, X_step, c)
+        # As kernel #1 above (the bounds and anchors of the rows read, the
+        # whole table written); fixed mode adds the shell's log and divide
+        # (about 24 operations) a point.
+        kb, kby = bound(nn * 12 + 6 * 4 + read * 20 + vv * 16 * 4,
+                        nn * (107 if c.radial_mode == "fixed" else 83) + mem * 19,
+                        PEAK_FP32_PER_S)
+        large_rows.append({"what": what, "rows": vv, "rows_read": read, "ms": k_ms, "ev": k_ev,
+                           "plain_ms": pl_ms, "plain_ev": pl_ev, "route_ms": rt_ms,
+                           "route_ev": rt_ev, "bound_ms": kb, "bound_by": kby})
+
     print(f"times ({card}), eager frames (phases 26-27 time the compiled ones): odometry "
           f"frame {frame_ms:.4f} ms, DNN-filtered frame {dnn_frame_ms:.4f} ms, keyframe frame "
           f"{kf_frame_ms:.4f} ms, DNN-filtered keyframe frame {dkf_frame_ms:.4f} ms, "
@@ -4308,7 +4500,8 @@ def main() -> int:
     print(f"times ({card}), device ms a call by the profiler (CUDA events over "
           f"back-to-back calls in brackets):")
     print(f"  fused moments {fused_ms:.5f} ({fused_ev:.5f}) at N={n} V={cfg.n_voxels}, plain "
-          f"{fused_plain_ms:.4f} ({fused_plain_ev:.4f}), bound {fused_bound:.6f} ({fused_by}); "
+          f"{fused_plain_ms:.4f} ({fused_plain_ev:.4f}), bound {fused_bound:.6f} ({fused_by}, "
+          f"{fused_rows} rows read); "
           f"no single PyTorch call computes this fused function, so library_ms is null")
     print(f"  windowed moments {win_ms:.5f} ({win_ev:.5f}) at N={n} V={cfg.n_voxels} block "
           f"{WIN_BLOCK} window {WIN_WINDOW}, plain {win_plain_ms:.4f} ({win_plain_ev:.4f}), "
@@ -4323,29 +4516,20 @@ def main() -> int:
           f"{scat_plain_ms:.5f} "
           f"({scat_plain_ev:.5f}), index_add_ {scat_lib_ms:.5f} ({scat_lib_ev:.5f}), bound "
           f"{scat_bound:.6f} ({scat_by})")
-    # -- 14. C6: a grid above the fused kernel's shared-memory table ----------
+    for r in large_rows:
+        print(f"  fused moments, sorted parts, {r['what']} V+1={r['rows']} ({r['rows_read']} "
+              f"rows read): {r['ms']:.5f} "
+              f"({r['ev']:.5f}), plain {r['plain_ms']:.4f} ({r['plain_ev']:.4f}), the plain "
+              f"route's pass (PyTorch binning + #3) {r['route_ms']:.5f} ({r['route_ev']:.5f}), "
+              f"bound {r['bound_ms']:.6f} ({r['bound_by']})")
+    # -- 14. a grid above the fused kernel's shared-memory table (#1's sorted parts)
     from icet_tpu_torch.solver import moment_route
 
-    big = cfg.replace(n_theta=150, n_phi=48)
-    check(moment_route(big) == "plain" and moment_route(cfg) == "fused",
+    check(moment_route(big) == "fused" and moment_route(cfg) == "fused",
           f"routes: {moment_route(big)} at V={big.n_voxels}, {moment_route(cfg)} at "
           f"V={cfg.n_voxels}")
-    x0 = np.array([0.9, 0.05, 0.0, 0.0, 0.0, 0.0], np.float32)
-    torch.cuda.synchronize()
-    settle()
-    fused_before = fused_moment_sums.launches
-    bres = register_pair(scans[0], scans[1], x0, big, device="cuda")
-    torch.cuda.synchronize()
-    settle()
-    big_fused = fused_moment_sums.launches - fused_before
-    bcpu = register_pair(scans[0], scans[1], x0, big, device="cpu")
-    bX, bcX = bres.X.cpu().numpy(), bcpu.X.numpy()
-    check(big_fused == 0, f"V={big.n_voxels}: {big_fused} fused launches")
-    check(bool(np.isfinite(bX).all()) and abs(bX[0] - 1.0) < 0.1, f"V={big.n_voxels}: X {bX}")
-    check(float(np.abs(bX - bcX).max()) <= 1e-3, f"V={big.n_voxels}: card X {bX} vs CPU {bcX}")
-    print(f"C6, 150x48 grid (V = {big.n_voxels}): route {moment_route(big)}, fused launches "
-          f"{big_fused}, {int(bres.iterations)} iterations, card X {np.round(bX, 5).tolist()}, "
-          f"max |card - CPU| {float(np.abs(bX - bcX).max()):.3e}")
+    _, big_launches = route_pair(scans, x0, big, "150x48 grid")
+    large_launches += big_launches
 
     # -- 15. BiasNet training at full width ------------------------------------
     import tempfile
@@ -4765,6 +4949,20 @@ def main() -> int:
             "bound_ms": fused_bound,
             "bound_by": fused_by,
             "library_ms": None,
+        },
+        {
+            "name": "fused_moment_sums (sorted parts, fixed radial mode V+1=90001)",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/fused_moments.cu",
+            "replaces": "icet_tpu/ops/pallas_fused.py:73",
+            "launches": large_launches,
+            "max_abs_err": large_err,
+            "ms": large_rows[0]["ms"],
+            "plain_ms": large_rows[0]["plain_ms"],
+            "bound_ms": large_rows[0]["bound_ms"],
+            "bound_by": large_rows[0]["bound_by"],
+            "library_ms": None,
+            "sizes": large_rows,
         },
         {
             "name": "fused_moment_sums_windowed",

@@ -25,9 +25,8 @@ class ICETConfig:
 
     # ---- radial voxelization mode -------------------------------------------
     #: "adaptive" (per-spike radial clustering) or "fixed" (geometric shells).
-    #: The fused moments kernel takes adaptive mode only; fixed mode's sums
-    #: take the plain route: PyTorch binning, then the scatter kernel's
-    #: sorted-parts branch on CUDA (``index_add_`` on the CPU).
+    #: The fused moments kernel takes both: fixed mode's 90,000-row table
+    #: by its sorted parts (the moment scatter kernel's large-table branch).
     radial_mode: str = "adaptive"
     n_shells: int = 50
 

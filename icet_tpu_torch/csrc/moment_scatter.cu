@@ -45,7 +45,8 @@
 //   shuffles below a distance of 32, shared memory above), and each id's
 //   rows summed in sorted order by a segmented scan: shuffles inside a
 //   warp, then the warps' carries chained in warp order; an all-zero sum
-//   touches no row.
+//   touches no row.  This branch is csrc/sorted_parts.cuh, which kernel #1
+//   (csrc/fused_moments.cu) shares for its own large tables.
 // - After a grid barrier (cooperative_groups' grid sync: the launch is
 //   cooperative, so all blocks are resident) the partials are added in
 //   ascending part order and every output row is written (zero where no
@@ -60,40 +61,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_parts.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQuarters = 4;                          // float4s of a 16-float row
+using icet::add4;
+using icet::add_parts;
+using icet::kFull;
+using icet::kNoKey;
+using icet::kQuarters;
+using icet::kThreads;
+using icet::kWarps;
+using icet::nonzero;
+using icet::Partials;
+using icet::shfl4;
+using icet::shfl_xor4;
+using icet::SortSmem;
+
 constexpr int kPointsPerRound = kThreads / kQuarters;  // 256, a set
 constexpr int kSets = 2;                              // sets of points a round
 constexpr int kMaxWordsPerWarp = 4;                   // bitmap words of a warp, shared table
-constexpr int kGather = 2;                            // parts whose rows a lane loads at once
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kNoKey = 0xffffffffu;
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-__device__ __forceinline__ float4 shfl4(float4 v, int src) {
-  return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
-                     __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
-}
-
-__device__ __forceinline__ float4 shfl_up4(float4 v, int off) {
-  return make_float4(__shfl_up_sync(kFull, v.x, off), __shfl_up_sync(kFull, v.y, off),
-                     __shfl_up_sync(kFull, v.z, off), __shfl_up_sync(kFull, v.w, off));
-}
-
-__device__ __forceinline__ float4 shfl_xor4(float4 v, int mask) {
-  return make_float4(__shfl_xor_sync(kFull, v.x, mask), __shfl_xor_sync(kFull, v.y, mask),
-                     __shfl_xor_sync(kFull, v.z, mask), __shfl_xor_sync(kFull, v.w, mask));
-}
-
-__device__ __forceinline__ bool nonzero(float4 v) {
-  return v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f;
-}
 
 // Sums into f, on the lowest lane of each group of lanes with the same key
 // and the same column quarter, the group's float4s; returns true on that
@@ -132,15 +119,6 @@ __device__ __forceinline__ void load_point(const int* __restrict__ vid,
     if ((unsigned)v < (unsigned)rows) key = v;
   }
 }
-
-// Where the partials live: part p's rows (cap x 4 float4s, compacted), its
-// bitmap words and their exclusive prefix counts.
-struct Partials {
-  float4* rows;
-  uint32_t* bits;
-  int* pre;
-  int cap, words;
-};
 
 // The block's share of the points as one part: the whole table in shared
 // memory, the groups' sums added warp by warp; then the part's partial.
@@ -239,200 +217,23 @@ __device__ void shared_part(const int* __restrict__ vid, const float4* __restric
   }
 }
 
-// Sorts one 64-bit key a thread across the block, ascending (bitonic:
-// shuffles for partners within a warp, shared memory `s` beyond).
-__device__ __forceinline__ unsigned long long block_sort(unsigned long long v,
-                                                         unsigned long long* s) {
-  const int t = threadIdx.x;
-  for (int k = 2; k <= kThreads; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      unsigned long long o;
-      if (j >= 32) {
-        s[t] = v;
-        __syncthreads();
-        o = s[t ^ j];
-        __syncthreads();
-      } else {
-        o = __shfl_xor_sync(kFull, v, j);
-      }
-      const bool keep_min = ((t & j) == 0) == ((t & k) == 0);
-      v = keep_min ? (o < v ? o : v) : (o < v ? v : o);
-    }
+// The ids and features of the moment scatter's points, for the sorted
+// parts: a point's key is its id where in [0, rows), its row its features.
+struct ScatterSource {
+  const int* vid;
+  const float4* feats;
+  int rows;
+  __device__ __forceinline__ uint32_t key(int i, int) const {
+    if (i < 0) return kNoKey;
+    const int v = __ldg(vid + i);
+    return (unsigned)v < (unsigned)rows ? (uint32_t)v : kNoKey;
   }
-  return v;
-}
-
-// The shared memory of the sorted parts.
-struct SortSmem {
-  unsigned long long keys[kThreads];
-  float4 tail[kWarps][kQuarters];   // each warp's last running sum
-  float4 carry[kWarps][kQuarters];  // the running sum carried into each warp
-  uint32_t tail_key[kWarps], carry_key[kWarps];
-  int counts[kWarps], sums[kWarps];
+  __device__ __forceinline__ void row(int i, int, float4 (&q)[kQuarters]) const {
+    const float4* src = feats + (size_t)i * kQuarters;
+#pragma unroll
+    for (int c = 0; c < kQuarters; ++c) q[c] = __ldg(src + c);
+  }
 };
-
-// The parts blockIdx.x, + gridDim.x, ... of `chunk` points each, each
-// sorted by id and summed in sorted order; then each part's partial.
-__device__ void sorted_parts(const int* __restrict__ vid, const float4* __restrict__ feats,
-                             int n, int chunk, int parts, int rows, const Partials& P,
-                             SortSmem& sm, uint32_t* bits) {
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int words = P.words;
-  const int per = (words + kThreads - 1) / kThreads;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int part = blockIdx.x; part < parts; part += gridDim.x) {
-    const int p0 = part * chunk;
-    const int len = max(0, min(chunk, n - p0));
-    for (int w = t; w < words; w += kThreads) bits[w] = 0u;
-    uint32_t key = kNoKey;
-    if (t < len) {
-      const int v = __ldg(vid + p0 + t);
-      if ((unsigned)v < (unsigned)rows) key = (uint32_t)v;
-    }
-    // Sorted by (id, position): the ties keep the points' order.
-    const unsigned long long e = block_sort(((unsigned long long)key << 32) | (unsigned)t, sm.keys);
-    key = (uint32_t)(e >> 32);
-    float4 q[kQuarters];
-#pragma unroll
-    for (int c = 0; c < kQuarters; ++c) q[c] = zero;
-    if (key != kNoKey) {
-      const float4* src = feats + (size_t)(p0 + (int)(e & 0xffffffffu)) * kQuarters;
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) q[c] = __ldg(src + c);
-    }
-    // Segmented inclusive scan in the warp: each lane adds the running sum
-    // `off` lanes back where that lane holds the same id, earlier first.
-    for (int off = 1; off < 32; off <<= 1) {
-      const uint32_t back = __shfl_up_sync(kFull, key, off);
-      const bool take = lane >= off && back == key;
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) {
-        const float4 o = shfl_up4(q[c], off);
-        if (take) q[c] = add4(o, q[c]);
-      }
-    }
-    uint32_t* sorted = reinterpret_cast<uint32_t*>(sm.keys);  // the ids, after the sort
-    sorted[t] = key;
-    if (lane == 31) {
-      sm.tail_key[warp] = key;
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) sm.tail[warp][c] = q[c];
-    }
-    __syncthreads();
-    // The carries, warp by warp in order: four lanes, a column quarter each.
-    if (t < kQuarters) {
-      uint32_t ck = kNoKey;
-      float4 cv = zero;
-      for (int w = 0; w < kWarps; ++w) {
-        sm.carry_key[w] = ck;
-        sm.carry[w][t] = cv;
-        const uint32_t tk = sm.tail_key[w];
-        cv = tk == ck ? add4(cv, sm.tail[w][t]) : sm.tail[w][t];
-        ck = tk;
-      }
-    }
-    __syncthreads();
-    if (key != kNoKey && key == sm.carry_key[warp]) {
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) q[c] = add4(sm.carry[warp][c], q[c]);
-    }
-    // An id's last position holds its sum; its slot is the ids before it.
-    // An all-zero sum (non-members' features, all on the sentinel row in
-    // every part) touches no row, as in the shared table, so no part sends
-    // it to the combine.
-    const uint32_t next = t + 1 < kThreads ? sorted[t + 1] : kNoKey;
-    const bool last = key != kNoKey && next != key
-                      && (nonzero(q[0]) || nonzero(q[1]) || nonzero(q[2]) || nonzero(q[3]));
-    const unsigned ends = __ballot_sync(kFull, last);
-    if (lane == 0) sm.counts[warp] = __popc(ends);
-    if (last) atomicOr(bits + key / 32, 1u << (key % 32));
-    __syncthreads();
-    if (last) {
-      int slot = __popc(ends & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) slot += sm.counts[w];
-      float4* dst = P.rows + ((size_t)part * P.cap + slot) * kQuarters;
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) dst[c] = q[c];
-    }
-    // The bitmap's exclusive prefix counts: a thread a run of words, the
-    // runs' counts scanned across the block.
-    const int w0 = min(words, t * per), w1 = min(words, w0 + per);
-    int c = 0;
-    for (int w = w0; w < w1; ++w) c += __popc(bits[w]);
-    int incl = c;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += u;
-    }
-    if (lane == 31) sm.sums[warp] = incl;
-    __syncthreads();
-    int run = incl - c;
-    for (int w = 0; w < warp; ++w) run += sm.sums[w];
-    uint32_t* my_bits = P.bits + (size_t)part * words;
-    int* my_pre = P.pre + (size_t)part * words;
-    for (int w = w0; w < w1; ++w) {
-      my_bits[w] = bits[w];
-      my_pre[w] = run;
-      run += __popc(bits[w]);
-    }
-    __syncthreads();  // before the next part reuses the shared memory
-  }
-}
-
-// Adds to `acc`, on each lane (row 32 w + lane), the rows of bitmap word w
-// that parts lo, lo + 1, ..., hi - 1 touched, in that order: a lane loads
-// one part's word and prefix count, 32 parts at a time, and the rows of up
-// to kGather parts at once.
-__device__ __forceinline__ void add_parts(const Partials& P, int lo, int hi, int w,
-                                          float4 (&acc)[kQuarters]) {
-  const int lane = threadIdx.x % 32;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int b0 = lo; b0 < hi; b0 += 32) {
-    const int b = b0 + lane;
-    const uint32_t word = b < hi ? __ldcg(P.bits + (size_t)b * P.words + w) : 0u;
-    const int wpre = b < hi ? __ldcg(P.pre + (size_t)b * P.words + w) : 0;
-    unsigned todo = __ballot_sync(kFull, word != 0u);
-    while (todo) {
-      float4 v[kGather][kQuarters];
-#pragma unroll
-      for (int j = 0; j < kGather; ++j) {
-        const int src = todo ? __ffs(todo) - 1 : 0;
-        const bool any = todo != 0u;
-        todo &= todo - 1u;
-        const uint32_t bw = __shfl_sync(kFull, word, src);
-        const int bp = __shfl_sync(kFull, wpre, src);
-        const bool mine = any && ((bw >> lane) & 1u);
-        const int slot = bp + __popc(bw & ((1u << lane) - 1u));
-        const float4* row = P.rows + ((size_t)(b0 + src) * P.cap + slot) * kQuarters;
-#pragma unroll
-        for (int c = 0; c < kQuarters; ++c) v[j][c] = mine ? __ldcg(row + c) : zero;
-      }
-#pragma unroll
-      for (int j = 0; j < kGather; ++j)
-#pragma unroll
-        for (int c = 0; c < kQuarters; ++c) acc[c] = add4(acc[c], v[j][c]);
-    }
-  }
-}
-
-// The combine of many words after the grid barrier: a warp owns 32 output
-// rows (one bitmap word) and its lanes add, part by part in ascending
-// order, the rows each part touched.
-__device__ void combine(const Partials& P, int parts, int rows, float4* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int n_warps = gridDim.x * kWarps;
-  for (int w = blockIdx.x * kWarps + threadIdx.x / 32; w < P.words; w += n_warps) {
-    float4 acc[kQuarters];
-#pragma unroll
-    for (int c = 0; c < kQuarters; ++c) acc[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    add_parts(P, 0, parts, w, acc);
-    const int r = 32 * w + lane;
-    if (r < rows) {
-#pragma unroll
-      for (int c = 0; c < kQuarters; ++c) out[(size_t)r * kQuarters + c] = acc[c];
-    }
-  }
-}
 
 // The combine of few words: a block a word, its warps splitting the parts
 // into contiguous runs, each lane (a row) summing its run in ascending part
@@ -474,13 +275,14 @@ scatter_kernel(const int* __restrict__ vid, const float4* __restrict__ feats, in
     shared_part(vid, feats, n, chunk, rows, P, smem);
   } else {
     SortSmem& sm = *reinterpret_cast<SortSmem*>(smem);
-    sorted_parts(vid, feats, n, chunk, parts, rows, P, sm,
-                 reinterpret_cast<uint32_t*>(&sm + 1));
+    ScatterSource src{vid, feats, rows};
+    icet::sorted_parts<false>(src, n, chunk, parts, P, sm,
+                               reinterpret_cast<uint32_t*>(&sm + 1));
   }
   // Grid barrier: every part's partial is written and visible.
   cooperative_groups::this_grid().sync();
   if (kShared) combine_by_block(P, parts, rows, out, smem);
-  else combine(P, parts, rows, out);
+  else icet::combine(P, parts, rows, out);
 }
 
 // Above 48 KB of dynamic shared memory needs an opt-in, which is kept per

@@ -5,11 +5,14 @@ one pass over the scan.
 on CUDA tensors and takes the plain version,
 ``fused_moment_sums_reference``, only for CPU tensors.  It replaces the TPU
 kernel ``icet_tpu/ops/pallas_fused.py::_kernel`` and computes what
-``icet_tpu/solver.py::_jnp_sums`` computes.  The kernel holds the whole
-voxel table in shared memory, so it has no window: nothing overflows, and
+``icet_tpu/solver.py::_jnp_sums`` computes, in both radial modes and at any
+table size.  The kernel has no window: nothing overflows, and
 ``IterationDiag.windowed_overflow`` is always 0 in the port.  One launch a
-call: after a grid barrier the blocks sum each other's compacted partials
-(``launch_plan`` and ``scratch_floats`` size them).
+call: after a grid barrier the blocks sum each other's compacted partials.
+Adaptive tables that fit one block's shared memory (V <= 5,774) are summed
+there (``launch_plan`` and ``scratch_floats`` size the launch); fixed
+radial mode and larger tables take the sorted parts of the moment scatter
+kernel (``large_table``, ``large_plan``, ``moment_scatter.scratch_words``).
 
 ``fused_moment_sums_windowed`` is the port of the TPU's windowed variant
 (``_windowed_kernel``, kernel ``csrc/fused_moments_windowed.cu``): each
@@ -28,6 +31,7 @@ import torch
 
 from icet_tpu_torch import _build
 from icet_tpu_torch.config import ICETConfig
+from icet_tpu_torch.ops import moment_scatter
 from icet_tpu_torch.ops.clustering import membership
 from icet_tpu_torch.ops.geometry import cart_to_spherical, point_norm, transform_points
 from icet_tpu_torch.ops.grid import voxel_ids
@@ -35,10 +39,13 @@ from icet_tpu_torch.ops.moments import N_FEATURES, voxel_moment_sums
 
 #: shared memory one block can hold on Hopper (227 KB)
 MAX_SHARED_BYTES = 232_448
-#: threads a block of the kernel (``kThreads`` in ``csrc/fused_moments.cu``)
+#: threads a block of the shared table (``kThreads`` in ``csrc/fused_moments.cu``)
 THREADS = 512
 #: the fewest points a block takes before the grid stops growing
 MIN_POINTS_PER_BLOCK = 256
+#: the kernel's ``branch``: the shared table; the sorted parts (the kernel
+#: keeps a part's bitmap in shared memory where it fits)
+SHARED, SORTED = 0, 1
 
 
 def fused_moment_sums_reference(
@@ -64,7 +71,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_moments")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.icet_fused_moment_sums.argtypes = [
-        p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p,
+        p, i, p, p, p, i, i, i, f, f, f, i, i, f, p, i, i, i, i, i, p, p,
     ]
     lib.icet_fused_moment_sums.restype = i
     lib.icet_cuda_error_string.argtypes = [i]
@@ -106,17 +113,25 @@ def scratch_floats(blocks: int, cap: int, n_voxels: int) -> int:
     return blocks * cap * 10 + 2 * blocks * bitmap_words(n_voxels)
 
 
+def large_table(cfg: ICETConfig) -> bool:
+    """Whether ``cfg``'s table takes the sorted parts: fixed radial mode,
+    or an adaptive table whose :func:`shared_bytes` exceed one block."""
+    return cfg.radial_mode == "fixed" or shared_bytes(cfg.n_voxels) > MAX_SHARED_BYTES
+
+
+def large_plan(n: int, n_voxels: int, sm_count: int) -> tuple[int, int, int, int]:
+    """``(blocks, points a part, parts, cap)`` of a launch of the sorted
+    parts: one block an SM, walking parts of ``moment_scatter.SORT_POINTS``
+    points (at least one part), as the moment scatter plans its large
+    tables (``moment_scatter.part_plan``); ``cap`` bounds the rows one part
+    can touch."""
+    chunk, parts, cap = moment_scatter.part_plan(n, n_voxels, sm_count, -(-n // sm_count),
+                                                 False)
+    return sm_count, chunk, parts, cap
+
+
 def _check(pts, X, bounds, anchors, cfg: ICETConfig) -> None:
     v1 = cfg.n_voxels + 1
-    if cfg.radial_mode != "adaptive":
-        raise NotImplementedError(
-            "the fused moments kernel takes adaptive radial mode only; "
-            "fixed mode's table does not fit shared memory"
-        )
-    if shared_bytes(cfg.n_voxels) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{v1} voxel rows x 40 B and their bitmap exceed one block's shared memory"
-        )
     shapes = {"pts": (pts, (pts.shape[0], 3)), "X": (X, (6,)),
               "bounds": (bounds, (v1, 2)), "anchors": (anchors, (v1, 3))}
     for name, (t, shape) in shapes.items():
@@ -128,8 +143,8 @@ def _check(pts, X, bounds, anchors, cfg: ICETConfig) -> None:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if pts.shape[0] >= 2**31 // 3:
-        raise ValueError("too many points for 32-bit indexing")
+    if pts.shape[0] >= 2**31 // 3 or v1 * N_FEATURES >= 2**31:
+        raise ValueError("too many points or voxels for 32-bit indexing")
 
 
 def fused_moment_sums(
@@ -141,10 +156,10 @@ def fused_moment_sums(
 ) -> torch.Tensor:
     """``(V+1, 16)`` anchored moment sums of ``pts`` transformed by ``X``.
 
-    CUDA tensors go to the kernel, one launch a call
-    (``fused_moment_sums.launches`` counts its launches); CPU tensors go to
-    :func:`fused_moment_sums_reference`.  Columns 10-15 and the sentinel
-    row V are zero.
+    CUDA tensors go to the kernel, one launch a call, in either radial
+    mode and at any table size (``fused_moment_sums.launches`` counts its
+    launches); CPU tensors go to :func:`fused_moment_sums_reference`.
+    Columns 10-15 and the sentinel row V are zero.
     """
     if pts.device.type == "cpu":
         return fused_moment_sums_reference(pts, X, bounds, anchors, cfg)
@@ -153,8 +168,13 @@ def fused_moment_sums(
     _check(pts, X, bounds, anchors, cfg)
     n, V = pts.shape[0], cfg.n_voxels
     index = pts.device.index if pts.device.index is not None else torch.cuda.current_device()
-    blocks, per_block, cap = launch_plan(n, V, _sm_count(index))
-    scratch = torch.empty(scratch_floats(blocks, cap, V), dtype=torch.float32, device=pts.device)
+    if large_table(cfg):
+        blocks, per_block, parts, cap = large_plan(n, V, _sm_count(index))
+        branch, words = SORTED, moment_scatter.scratch_words(parts, cap, V)
+    else:
+        blocks, per_block, cap = launch_plan(n, V, _sm_count(index))
+        parts, branch, words = blocks, SHARED, scratch_floats(blocks, cap, V)
+    scratch = torch.empty(words, dtype=torch.float32, device=pts.device)
     out = torch.empty((V + 1, N_FEATURES), dtype=torch.float32, device=pts.device)
     lib = _lib()
     with torch.cuda.device(pts.device):
@@ -163,7 +183,10 @@ def fused_moment_sums(
             pts.data_ptr(), n, X.data_ptr(), bounds.data_ptr(),
             anchors.data_ptr(), V, cfg.n_theta, cfg.n_phi,
             cfg.phi_min, cfg.phi_max - cfg.phi_min, cfg.min_range,
-            scratch.data_ptr(), blocks, per_block, cap, out.data_ptr(), stream,
+            # The log growth as the float32 that grid.voxel_ids divides by
+            # (ctypes rounds it as torch rounds the Python scalar).
+            int(cfg.radial_mode == "fixed"), cfg.n_shells, math.log(cfg.shell_growth),
+            scratch.data_ptr(), branch, blocks, per_block, parts, cap, out.data_ptr(), stream,
         )
     if err != 0:
         msg = lib.icet_cuda_error_string(err).decode()

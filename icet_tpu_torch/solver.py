@@ -59,11 +59,7 @@ from icet_tpu_torch.ops.clustering import (
     membership,
     radial_cluster_bounds,
 )
-from icet_tpu_torch.ops.fused_moments import (
-    MAX_SHARED_BYTES,
-    fused_moment_sums,
-    shared_bytes,
-)
+from icet_tpu_torch.ops.fused_moments import fused_moment_sums
 from icet_tpu_torch.ops.geometry import (
     cart_to_spherical,
     point_norm,
@@ -211,22 +207,19 @@ def moment_route(cfg: ICETConfig) -> str:
     moment scatter) or ``"onehot"`` (blocked one-hot products, on any
     device, where the JAX package's ``_moment_method`` sends ``"onehot"``).
 
-    ``"auto"``/``"fused"`` take the fused kernel when its whole table fits
-    one block's shared memory (adaptive radial mode, V <= 5,774 voxels).
-    Fixed radial mode's 90,000-row table and larger adaptive grids do not
-    fit: there, as the JAX package computes fixed mode and its segsum
-    outside any Pallas kernel, they take the plain route.  ``"segsum"``
-    is the plain route, ``"pallas"`` the scatter, ``"onehot"`` the
-    one-hot products (an XLA ``dot_general`` in the JAX package, not a
-    Pallas kernel, so ``torch.matmul`` here).  The plain route sums on the
-    card with the scatter kernel and not ``index_add_``, whose float
-    atomics add in whatever order the hardware commits them: every route
-    gives the same bits on every run."""
+    ``"auto"``/``"fused"`` take the fused kernel on every grid, as the TPU
+    kernel takes both radial modes and any table size: adaptive tables of
+    up to 5,774 voxels in one block's shared memory, fixed radial mode's
+    90,000-row table and larger adaptive grids by the kernel's sorted
+    parts.  ``"segsum"`` is the plain route, ``"pallas"`` the scatter,
+    ``"onehot"`` the one-hot products (an XLA ``dot_general`` in the JAX
+    package, not a Pallas kernel, so ``torch.matmul`` here).  The plain
+    route sums on the card with the scatter kernel and not ``index_add_``,
+    whose float atomics add in whatever order the hardware commits them:
+    every route gives the same bits on every run."""
     method = cfg.moment_method
     if method in ("auto", "fused"):
-        fits = (cfg.radial_mode != "fixed"
-                and shared_bytes(cfg.n_voxels) <= MAX_SHARED_BYTES)
-        return "fused" if fits else "plain"
+        return "fused"
     if method == "segsum":
         return "plain"
     if method == "pallas":

@@ -276,20 +276,24 @@ def _scan(seed: int, n_beams=16, n_azimuth=256):
 
 
 @pytest.mark.parametrize("cfg", [
-    ICETConfig(n_theta=25, n_phi=8, radial_mode="fixed", n_shells=20),
+    ICETConfig(n_theta=25, n_phi=8, radial_mode="fixed", n_shells=20, moment_method="segsum"),
     ICETConfig(n_theta=25, n_phi=8, moment_method="segsum"),
-    ICETConfig(n_theta=250, n_phi=24),
+    ICETConfig(n_theta=250, n_phi=24, moment_method="segsum"),
 ], ids=["fixed", "segsum", "large-adaptive"])
 def test_plain_route_cpu_unchanged(cfg):
     """On the CPU the plain route is still ``fused_moment_sums_reference``
-    (its ``index_add_``), bit for bit."""
+    (its ``index_add_``), bit for bit, and so is the fused route, which
+    fixed radial mode and the large adaptive grid take at ``"auto"``."""
     assert moment_route(cfg) == "plain"
+    auto = cfg.replace(moment_method="auto")
+    assert moment_route(auto) == "fused"
     ref, pts = (torch.from_numpy(_scan(s)) for s in (1, 2))
     model = prepare_reference(ref, cfg)
     X = torch.tensor([0.3, -0.1, 0.02, 0.01, -0.005, 0.03])
     got = _moment_sums(pts, X, model.bounds, model.anchors, cfg)
     want = fused_moment_sums_reference(pts, X, model.bounds, model.anchors, cfg)
     assert torch.equal(got, want)
+    assert torch.equal(_moment_sums(pts, X, model.bounds, model.anchors, auto), got)
 
 
 @pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 65_536, 131_072, 200_000])

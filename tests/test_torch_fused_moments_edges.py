@@ -158,15 +158,16 @@ def test_shared_memory_sizing():
     assert fm.shared_bytes(1800) == 1801 * 40 + 57 * 8
     # A small table: the combine's run sums take more.
     assert fm.shared_bytes(10) == fm.THREADS * 10 * 4
-    # The largest table that fits one block, and the first that does not.
+    # The largest table that fits one block, and the first that does not:
+    # that one takes the sorted parts, which the wrapper's check accepts.
     v = max(v for v in range(5000, 6000) if fm.shared_bytes(v) <= fm.MAX_SHARED_BYTES)
-    assert fm.shared_bytes(v + 1) > fm.MAX_SHARED_BYTES
+    assert v == 5774 and fm.shared_bytes(v + 1) > fm.MAX_SHARED_BYTES
     too_big = TCFG.replace(n_theta=v + 1, n_phi=1)
-    pts = torch.zeros((4, 3))
-    with pytest.raises(ValueError):
-        fm._check(pts, torch.zeros(6), torch.zeros((v + 2, 2)), torch.zeros((v + 2, 3)),
-                  too_big)
     ok = TCFG.replace(n_theta=v, n_phi=1)
+    assert fm.large_table(too_big) and not fm.large_table(ok)
+    assert fm.large_table(ok.replace(radial_mode="fixed"))
+    pts = torch.zeros((4, 3))
+    fm._check(pts, torch.zeros(6), torch.zeros((v + 2, 2)), torch.zeros((v + 2, 3)), too_big)
     fm._check(pts, torch.zeros(6), torch.zeros((v + 1, 2)), torch.zeros((v + 1, 3)), ok)
 
 
@@ -174,8 +175,14 @@ def test_check_refusals(scene):
     scan, bounds, anchors = (_t(a) for a in scene)
     X = _t(X_SMALL)
     fm._check(scan, X, bounds, anchors, TCFG)
-    with pytest.raises(NotImplementedError):
-        fm._check(scan, X, bounds, anchors, TCFG.replace(radial_mode="fixed"))
+    # Fixed radial mode is taken with its own (V+1)-row tables, and a table
+    # shaped for the adaptive grid is refused.
+    fixed = TCFG.replace(radial_mode="fixed", n_shells=3)
+    v1 = fixed.n_voxels + 1
+    fm._check(scan, X, torch.zeros((v1, 2)), torch.zeros((v1, 3)), fixed)
+    for b, a in (((v1 - 1, 2), (v1, 3)), ((v1, 2), (v1, 2)), (bounds.shape, anchors.shape)):
+        with pytest.raises(ValueError):
+            fm._check(scan, X, torch.zeros(b), torch.zeros(a), fixed)
     with pytest.raises(TypeError):
         fm._check(scan.double(), X, bounds, anchors, TCFG)
     for bad in (

@@ -11,23 +11,27 @@ from the repository root on a machine with an NVIDIA GPU:
     python3 tools/compare_kernel_versions.py --parent _checkout/parent
 
 The earlier tree's ``csrc/*.cu`` of the three kernels are built with this
-tree's nvcc flags and called through their own C interfaces: those of the
-tree before the kernels' sums were put in a fixed order (#1 and #2 as this
-tree's, called through this tree's wrappers with the earlier library; #3
-with ``(blocks, points a block, shared)`` and no scratch).  Inputs are
-``chip_smoke.py``'s: the drive's frame 1 against frame 0's model at X =
-[1, 0.05, 0, 0, 0, 0.02], at 64x1024 (N = 65,536) and 64x2048 (N =
-131,072) with V = 1,800; #2 at block 512, window 256; #3 on the
-``moment_method="pallas"`` ids and features of the same frame, at V = 1,800
-and in fixed radial mode (90,001 rows).  The versions run in turns,
-earlier, this, this, earlier; each turn records the device time a call by
-torch.profiler (``chip_smoke.device_profile``, with the device operations
-it recorded a call), the CUDA-event time over back-to-back calls, the time
-a call with the calls queued behind a spin kernel (so that the host cannot
-hold the device back) and the host time to enqueue a call.  Both versions
-are checked against the plain version first, and each is launched twice on
-one input: this tree's must repeat bit for bit.  The last line is one JSON
-object with every number and the card's name and power limit.
+tree's nvcc flags (and its own ``csrc`` headers) and called through their
+own C interfaces: those of the tree before kernel #1 took fixed radial mode
+and large tables (#1 with its shared table only, called here directly;
+#2 and #3 as this tree's, called through this tree's wrappers with the
+earlier library).  Inputs are ``chip_smoke.py``'s: the drive's frame 1
+against frame 0's model at X = [1, 0.05, 0, 0, 0, 0.02], at 64x1024 (N =
+65,536) and 64x2048 (N = 131,072) with V = 1,800; #2 at block 512, window
+256; #3 on the ``moment_method="pallas"`` ids and features of the same
+frame, at V = 1,800 and in fixed radial mode (90,001 rows); and the fixed
+radial mode's moments pass, the earlier tree's plain route (PyTorch
+binning, then its #3) against this tree's #1 (its sorted parts).  The
+versions run in turns, earlier, this, this, earlier; each turn records the
+device time a call by torch.profiler (``chip_smoke.device_profile``, with
+the device operations it recorded a call), the CUDA-event time over
+back-to-back calls, the time a call with the calls queued behind a spin
+kernel (so that the host cannot hold the device back) and the host time to
+enqueue a call.  Both versions are checked against the plain version
+first, and each is launched twice on one input: this tree's must repeat
+bit for bit; whether the two versions give the same bits is reported.  The
+last line is one JSON object with every number and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -143,6 +147,7 @@ def main() -> int:
     from icet_tpu_torch.datasets.replay import CityDriveSource
     from icet_tpu_torch.ops import fused_moments as fm
     from icet_tpu_torch.ops import moment_scatter as ms
+    from icet_tpu_torch import solver
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.solver import prepare_reference
 
@@ -153,17 +158,17 @@ def main() -> int:
         print(f"this {name}.cu:\n{log.strip()}")
     old = build_parent(args.parent, KERNELS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old["fused_moments"].icet_fused_moment_sums.argtypes = [
-        p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p]
+    old_fused = old["fused_moments"].icet_fused_moment_sums
+    old_fused.argtypes = [p, i, p, p, p, i, i, i, f, f, f, p, i, i, i, p, p]
+    old_fused.restype = i
     old["fused_moments_windowed"].icet_fused_moment_sums_windowed.argtypes = [
         p, i, p, p, p, i, i, i, f, f, f, i, i, f, i, i, i, i, i, p, p, p, p]
     old["fused_moments_windowed"].icet_windowed_shared_bytes.argtypes = [i]
     for lib in old.values():
         lib.icet_cuda_error_string.argtypes = [i]
         lib.icet_cuda_error_string.restype = ctypes.c_char_p
-    old_scat = old["moment_scatter"].icet_moment_scatter
-    old_scat.argtypes = [p, p, i, i, p, i, i, i, p]
-    old_scat.restype = i
+    old["moment_scatter"].icet_moment_scatter.argtypes = [p, p, i, i, p, p, i, i, i, i, i, p]
+    old["moment_scatter"].icet_moment_scatter.restype = i
 
     dev = torch.device("cuda")
     cfg = ICETConfig(n_iters=7, convergence_tol=1e-4, convergence_stat_scale=1.0)
@@ -182,13 +187,17 @@ def main() -> int:
                 return fn()
         return call
 
-    def scat_old(vid, feats, nv):
+    def fused_old(pts, X, bounds, anchors, c):
+        """The earlier #1 (its shared table) through its own C interface."""
         def call():
-            ms._check(vid, feats)
-            blocks, per_block, shared = ms.launch_plan(vid.shape[0], nv, sms)
-            out = torch.empty((nv + 1, 16), device=dev)
-            err = old_scat(vid.data_ptr(), feats.data_ptr(), vid.shape[0], nv + 1,
-                           out.data_ptr(), blocks, per_block, int(shared), stream)
+            n = pts.shape[0]
+            blocks, per_block, cap = fm.launch_plan(n, c.n_voxels, sms)
+            scratch = torch.empty(fm.scratch_floats(blocks, cap, c.n_voxels), device=dev)
+            out = torch.empty((c.n_voxels + 1, 16), device=dev)
+            err = old_fused(pts.data_ptr(), n, X.data_ptr(), bounds.data_ptr(),
+                            anchors.data_ptr(), c.n_voxels, c.n_theta, c.n_phi, c.phi_min,
+                            c.phi_max - c.phi_min, c.min_range, scratch.data_ptr(), blocks,
+                            per_block, cap, out.data_ptr(), stream)
             assert err == 0, err
             return out
         return call
@@ -210,10 +219,18 @@ def main() -> int:
             return fm.fused_moment_sums_windowed(pts, X, model.bounds, model.anchors, cfg, 512,
                                                  256)[0]
 
+        def fixed_route():
+            return solver._scatter_sums(pts, X, fb, fa, fixed, "pallas")
+
         cases = {
             f"fused_moment_sums N={n}": (
-                earlier(fm, "_lib", old["fused_moments"], fused), fused,
+                fused_old(pts, X, model.bounds, model.anchors, cfg), fused,
                 lambda: fm.fused_moment_sums_reference(pts, X, model.bounds, model.anchors, cfg),
+                None),
+            f"fixed-mode moments N={n} V+1={fixed.n_voxels + 1} (earlier: the plain route)": (
+                earlier(ms, "_lib", old["moment_scatter"], fixed_route),
+                lambda: fm.fused_moment_sums(pts, X, fb, fa, fixed),
+                lambda: fm.fused_moment_sums_reference(pts, X, fb, fa, fixed),
                 None),
             f"fused_moment_sums_windowed N={n}": (
                 earlier(fm, "_windowed_lib", old["fused_moments_windowed"], win), win,
@@ -221,11 +238,14 @@ def main() -> int:
                                                                 model.anchors, cfg, 512, 256)[0],
                 None),
             f"moment_scatter_sums N={n} V+1={v1}": (
-                scat_old(vid, feats, V), lambda: ms.moment_scatter_sums(vid, feats, V),
+                earlier(ms, "_lib", old["moment_scatter"],
+                        lambda: ms.moment_scatter_sums(vid, feats, V)),
+                lambda: ms.moment_scatter_sums(vid, feats, V),
                 lambda: ms.moment_scatter_reference(vid, feats, V),
                 lambda: torch.zeros((v1, 16), device=dev).index_add_(0, vid.long(), feats)),
             f"moment_scatter_sums N={n} V+1={fixed.n_voxels + 1}": (
-                scat_old(vid_f, feats_f, fixed.n_voxels),
+                earlier(ms, "_lib", old["moment_scatter"],
+                        lambda: ms.moment_scatter_sums(vid_f, feats_f, fixed.n_voxels)),
                 lambda: ms.moment_scatter_sums(vid_f, feats_f, fixed.n_voxels),
                 lambda: ms.moment_scatter_reference(vid_f, feats_f, fixed.n_voxels),
                 lambda: torch.zeros((fixed.n_voxels + 1, 16), device=dev).index_add_(
@@ -242,6 +262,7 @@ def main() -> int:
                           "counts_equal": bool(torch.equal(a[:, 0], want[:, 0]))}
                 ok &= bool(((a - want).abs() <= 1e-3 + 1e-4 * want.abs()).all())
             ok &= bool(torch.equal(*outs["this"]))
+            res["versions_bit_equal"] = bool(torch.equal(outs["earlier"][0], outs["this"][0]))
             agree[name] = res
             print(f"{name}: {res}")
             rows[name] = turns((fo, fn_), args.reps)
