@@ -150,6 +150,7 @@ from icet_tpu_torch.solver import (
     _stage_warm,
     exit_schedule,
 )
+from icet_tpu_torch.utils.profiling import frame_log as _flog
 
 #: the kernel wrappers whose launches a graph records and its replays count
 COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
@@ -161,12 +162,11 @@ warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: or a guard run on the host), the sharded prepare's clustering-overflow
 #: reads (only where a guard runs on the host), the keyframe sequence
 #: runner's one read a block, device copies of inputs in and of packed
-#: results out, draws of the keyframe uniforms, device operations the host
-#: issues to write a block map (none since the map-write stage writes it);
-#: graphs captured, and reads of the guarded bodies' tallies (:func:`settle`)
+#: results out, draws of the keyframe uniforms; graphs captured, and reads
+#: of the guarded bodies' tallies (:func:`settle`).  The runners' own reads
+#: are counted in the frame log (``utils.profiling.frame_log``), not here.
 host_ops = {"replays": 0, "flag_reads": 0, "spawn_reads": 0, "overflow_reads": 0,
-            "block_reads": 0, "copies": 0, "draws": 0, "map_writes": 0, "captures": 0,
-            "tally_reads": 0}
+            "block_reads": 0, "copies": 0, "draws": 0, "captures": 0, "tally_reads": 0}
 
 #: what the CUDA captures cost on the host: graphs captured (a guarded
 #: body is a graph of its own, cloned into its IF node), seconds warming up
@@ -470,9 +470,11 @@ class MapBuffers:
 
 
 #: one ring-map frame's outputs, read on the host in one copy: the guarded
-#: X, pred_stds, the divergence flag and the ring's fill
+#: X, pred_stds, the divergence flag, the ring's fill and the iterations
+#: the frame's solve executed
 MAP_OUT_LAYOUT = Layout([("X", (6,), _F32), ("pred_stds", (6,), _F32),
-                         ("diverged", (), torch.bool), ("n_valid", (), torch.int64)])
+                         ("diverged", (), torch.bool), ("n_valid", (), torch.int64),
+                         ("iterations", (), torch.int64)])
 
 
 class RingBuffers:
@@ -661,12 +663,16 @@ class GraphSet:
         as IF nodes), on the CPU call its stages with the guards read on
         the host."""
         if self.device.type != "cuda":
+            span = _flog.begin(key[0]) if _flog.active else -1
             run_on_host(self.buffers, schedule, lambda _, fn: fn(self.buffers))
+            _flog.end(span)
             return
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._graphs[key] = self._capture(schedule)
+        span = _flog.begin(key[0], timed=True) if _flog.active else -1
         entry.graph.replay()
+        _flog.end(span)
         host_ops["replays"] += 1
         for (obj, attr), k in zip(self.counters(), entry.counts):
             setattr(obj, attr, getattr(obj, attr) + k)
@@ -861,6 +867,7 @@ class FrameGraphs(GraphSet):
         packed in this set's layout by one copy, and none where the buffer
         already holds them (the buffer itself, or the object it holds)."""
         b = self.buffers
+        span = _flog.begin("load")
         if scan is not None:
             copy_in(b.scan, scan)
         if x0 is not None:
@@ -883,6 +890,7 @@ class FrameGraphs(GraphSet):
             elif src.data_ptr() != b.samples1_buf.data_ptr():
                 copy_in(b.samples1_buf, src)
             self.hold("samples", samples)
+        _flog.end(span)
 
     def solve_schedule(self, want_static_mask: bool, cfg: ICETConfig | None = None,
                        it_offset: int = 0, masked: bool = False, start: str = "x0",

@@ -47,6 +47,7 @@ from icet_tpu_torch.solver import (
     prepare_reference_jit,
     register,
 )
+from icet_tpu_torch.utils.profiling import frame_log as _flog
 
 _log = logging.getLogger(__name__)
 
@@ -163,17 +164,19 @@ def _stage_map(b, map_cfg: MapConfig, min_range: float, roll: bool,
                divergence_clamp: float | None = None) -> None:
     """The ring map stage on ``b.ring`` (:class:`graphs.RingBuffers`): with
     ``divergence_clamp``, the divergence guard of the finished solve's X
-    and the frame's outputs (X, pred_stds, the flag) first; without it the
-    staged X.  Then the ring re-expressed, sampled and inserted in place
-    at the mirror's cursor, the trail's new origin at the mirror's length,
-    the mirror advanced, and the ring's fill."""
+    and the frame's outputs (X, pred_stds, the flag, the solve's
+    iterations) first; without it the staged X.  Then the ring
+    re-expressed, sampled and inserted in place at the mirror's cursor, the
+    trail's new origin at the mirror's length, the mirror advanced, and the
+    ring's fill."""
     rb = b.ring
     points, valid, trail = rb.ring
     X = rb.X
     if divergence_clamp is not None:
         r = b.result[(b.n_iters, False)]
         diverged, X = _guard(r["X"], divergence_clamp)
-        for name, t in (("X", X), ("pred_stds", r["pred_stds"]), ("diverged", diverged)):
+        for name, t in (("X", X), ("pred_stds", r["pred_stds"]), ("diverged", diverged),
+                        ("iterations", r["iterations"])):
             rb.out[name].copy_(t)
     cap, tcap, K = rb.shape
     slot = torch.clamp(rb.at[1:], max=tcap - 1)
@@ -194,6 +197,7 @@ def _map_run(fg, state: MapState, map_cfg: MapConfig, min_range: float, u, X=Non
     the host's; the host's counters follow.  Returns the advanced state
     (the same ring tensors)."""
     rb = fg.ring_buffers((state.points, state.valid, state.trail), map_cfg.points_per_scan)
+    span = _flog.begin("load")
     want = (state.write_ptr, state.trail_len)
     if rb.expect != want:
         graphs.copy_in(rb.at, torch.tensor(want, dtype=torch.int64))
@@ -201,6 +205,7 @@ def _map_run(fg, state: MapState, map_cfg: MapConfig, min_range: float, u, X=Non
     graphs.copy_in(rb.u, u)
     if X is not None:
         graphs.copy_in(rb.X, X)
+    _flog.end(span)
     tcap = state.trail.shape[0]
     roll = state.trail_len >= tcap
     fg.run(("map", rb.shape, rb.key(), roll, min_range, divergence_clamp),
@@ -275,6 +280,8 @@ class MapFrame:
     pred_stds: np.ndarray
     diverged: bool
     n_map_points: int
+    #: Gauss-Newton iterations the frame's registration executed
+    iterations: int = 0
 
 
 class MapMaker:
@@ -333,24 +340,36 @@ class MapMaker:
         scan and retries once; ``recoveries`` counts these.  With
         ``snapshot_every=1`` the recovered run equals an unfailed one.  On
         CUDA this covers failures that leave the context usable; after a
-        sticky error the probe finds no device or the retry raises."""
-        if not isinstance(scan, torch.Tensor):
-            scan = np.asarray(scan, np.float32)
+        sticky error the probe finds no device or the retry raises.
+
+        Each call is one frame of the frame log (``utils.profiling``), root
+        ``map.step``, failed or not."""
+        token = _flog.open("map.step", self._index, self.device)
+        frame, failed = None, True
         try:
-            frame = self._step_device(scan)
-        except (TypeError, ValueError):
-            raise
-        except Exception:
-            _log.warning("frame %d failed; recovering", self._index, exc_info=True)
-            self._recover()
-            frame = self._step_device(scan)
-        self._last_scan = scan
-        self._gen_host = self._gen.get_state()
-        if self._index % self.snapshot_every == 0:
-            st = self.state
-            self._snapshot = st._replace(**{k: getattr(st, k).to("cpu", copy=True)
-                                            for k in ("points", "valid", "trail")})
-        return frame
+            if not isinstance(scan, torch.Tensor):
+                scan = np.asarray(scan, np.float32)
+            try:
+                frame = self._step_device(scan)
+            except (TypeError, ValueError):
+                raise
+            except Exception:
+                _log.warning("frame %d failed; recovering", self._index, exc_info=True)
+                self._recover()
+                frame = self._step_device(scan)
+            self._last_scan = scan
+            self._gen_host = self._gen.get_state()
+            if self._index % self.snapshot_every == 0:
+                span = _flog.begin("snapshot")
+                _flog.read()
+                st = self.state
+                self._snapshot = st._replace(**{k: getattr(st, k).to("cpu", copy=True)
+                                                for k in ("points", "valid", "trail")})
+                _flog.end(span)
+            failed = False
+            return frame
+        finally:
+            _flog.close(token, failed, 0 if frame is None else frame.iterations)
 
     def _recover(self) -> None:
         from icet_tpu_torch.parallel.elastic import probe_devices
@@ -375,8 +394,12 @@ class MapMaker:
             self._model = prepare(as_points(self._last_scan, dev), self.cfg)
 
     def _step_device(self, scan) -> MapFrame | None:
+        span = _flog.begin("upload")
         scan_dev = as_points(scan, self.device)
+        _flog.end(span)
+        span = _flog.begin("uniforms")
         u = self._uniforms(scan_dev.shape[0])
+        _flog.end(span)
         if self._model is None:
             zero = torch.zeros(6, device=self.device)
             if self._compiled:
@@ -398,17 +421,28 @@ class MapMaker:
         if self._compiled:
             _, X, _, self.state, self._model = map_step_jit(*args)
             self._fg = compiled_graphs(scan_dev, self.cfg)
-            # X, pred_stds, the flag and the fill: one packed buffer, one copy.
+            # X, pred_stds, the flag, the fill and the iterations: one
+            # packed buffer, one copy.
+            span = _flog.begin("readback")
+            _flog.read()
             v = graphs.MAP_OUT_LAYOUT.views(graphs.MAP_OUT_LAYOUT.buffer(X).cpu())
+            _flog.end(span)
             X, stds = v["X"].numpy(), v["pred_stds"].numpy()
             diverged, n_points = bool(v["diverged"]), int(v["n_valid"])
+            iterations = int(v["iterations"])
         else:
             res, X, diverged, self.state, self._model = map_step(*args)
-            host = torch.cat([X, res.pred_stds, diverged[None].float(),
-                              self.state.valid.sum()[None].float()]).cpu().numpy()
+            packed = torch.cat([X, res.pred_stds, diverged[None].float(),
+                                self.state.valid.sum()[None].float(),
+                                torch.as_tensor(res.iterations).reshape(1).to(X)])
+            span = _flog.begin("readback")
+            _flog.read()
+            host = packed.cpu().numpy()
+            _flog.end(span)
             X, stds, diverged, n_points = host[:6], host[6:12], bool(host[12]), int(host[13])
+            iterations = int(host[14])
         frame = MapFrame(index=self._index, X=X, pred_stds=stds, diverged=diverged,
-                         n_map_points=n_points)
+                         n_map_points=n_points, iterations=iterations)
         self._index += 1
         return frame
 

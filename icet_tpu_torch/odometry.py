@@ -53,6 +53,7 @@ from icet_tpu_torch.solver import (
     prepare_reference,
     prepare_reference_jit,
 )
+from icet_tpu_torch.utils.profiling import frame_log as _flog
 
 _log = logging.getLogger(__name__)
 
@@ -149,24 +150,33 @@ class OdometryPipeline:
         process's context usable; after a sticky error (an illegal address,
         an Xid) the probe finds no device or the retry raises, and a new
         process must resume from a checkpoint
-        (:func:`~icet_tpu_torch.utils.checkpoint.restore_odometry`)."""
-        if not isinstance(scan, torch.Tensor):
-            scan = np.asarray(scan, np.float32)
+        (:func:`~icet_tpu_torch.utils.checkpoint.restore_odometry`).
+
+        Each call is one frame of the frame log (``utils.profiling``), root
+        ``odometry.step``, failed or not."""
+        token = _flog.open("odometry.step", self._index, self.device)
+        frame, failed = None, True
         try:
-            frame = self._step_device(scan)
-        except (TypeError, ValueError):
-            raise
-        except Exception:
-            _log.warning("frame %d failed; recovering", self._index, exc_info=True)
-            self._recover()
-            frame = self._step_device(scan)
-        # The mirrors move only once the frame has completed: a failure in
-        # its read-back must not refit the model from the retried scan.
-        self._last_scan = scan
-        if frame is not None:
-            self._X_host = frame.X
-            self._T_host = frame.T_world
-        return frame
+            if not isinstance(scan, torch.Tensor):
+                scan = np.asarray(scan, np.float32)
+            try:
+                frame = self._step_device(scan)
+            except (TypeError, ValueError):
+                raise
+            except Exception:
+                _log.warning("frame %d failed; recovering", self._index, exc_info=True)
+                self._recover()
+                frame = self._step_device(scan)
+            # The mirrors move only once the frame has completed: a failure
+            # in its read-back must not refit the model from the retried scan.
+            self._last_scan = scan
+            if frame is not None:
+                self._X_host = frame.X
+                self._T_host = frame.T_world
+            failed = False
+            return frame
+        finally:
+            _flog.close(token, failed, 0 if frame is None else frame.iterations)
 
     def _recover(self) -> None:
         from icet_tpu_torch.parallel.elastic import probe_devices
@@ -198,16 +208,20 @@ class OdometryPipeline:
 
     def _step_device(self, scan) -> OdometryFrame | None:
         t0 = time.perf_counter()
+        span = _flog.begin("upload")
         scan_dev = as_points(scan, self.device)
+        _flog.end(span)
         if self._model is None:
             self._refit(scan_dev)
             self._index += 1
             return None
 
+        span = _flog.begin("seed")
         if self.odo_cfg.warm_start:
             x0 = warm_start_seed(self._X_prev, self._X_prev2, self.odo_cfg.warm_start_mode)
         else:
             x0 = torch.zeros(6, device=self.device)
+        _flog.end(span)
         filt = None
         if self._dnn is not None:
             args = (self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
@@ -223,7 +237,11 @@ class OdometryPipeline:
         else:
             res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
         X = res.X
+        span = _flog.begin("divergence_read")
+        _flog.read()
         diverged = bool(torch.any(torch.abs(X) > self.odo_cfg.divergence_clamp))
+        _flog.end(span)
+        span = _flog.begin("glue")
         if diverged:
             X = torch.zeros(6, device=self.device)
         self._T_world = compose_pose(self._T_world, X)
@@ -232,12 +250,19 @@ class OdometryPipeline:
         self._model = next_model
 
         # One read-back of the frame's values (the iterations of a compiled
-        # step and the filter's n_rejected too).
+        # step and the filter's n_rejected too), and the correspondences.
         parts = [X, res.pred_stds, self._T_world.reshape(-1), pose_to_state(self._T_world),
                  torch.as_tensor(res.iterations).reshape(1).to(X)]
         if filt is not None:
             parts.append(filt.n_rejected.reshape(1).to(X.dtype))
-        host = torch.cat(parts).cpu().numpy()
+        packed = torch.cat(parts)
+        _flog.end(span)
+        span = _flog.begin("readback")
+        _flog.read()
+        host = packed.cpu().numpy()
+        _flog.read()
+        n_corr = res.diagnostics.n_corr.cpu().numpy()
+        _flog.end(span)
         X_np = host[0:6]
         frame = OdometryFrame(
             index=self._index,
@@ -247,7 +272,7 @@ class OdometryPipeline:
             pose=host[28:34],
             twist=X_np * self.odo_cfg.sensor_hz,
             diverged=diverged,
-            n_corr=res.diagnostics.n_corr.cpu().numpy(),
+            n_corr=n_corr,
             solve_ms=(time.perf_counter() - t0) * 1000.0,
             iterations=int(host[34]),
             n_rejected=int(host[35]) if filt is not None else 0,

@@ -200,7 +200,9 @@ def _eager(maker):
 def _assert_frames_identical(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
-        assert (g.index, g.diverged, g.n_map_points) == (w.index, w.diverged, w.n_map_points)
+        assert (g.index, g.diverged, g.n_map_points, g.iterations) == (
+            w.index, w.diverged, w.n_map_points, w.iterations)
+        assert g.iterations > 0
         assert np.array_equal(g.X, w.X) and np.array_equal(g.pred_stds, w.pred_stds)
 
 
