@@ -252,6 +252,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
     Every float sum of the port's card paths is in an order the code
     fixes, so each phase's compiled-against-eager gate is bit for bit.
 
+31. kernel #6, the normal-equation assembly (run after phase 3): against
+    its plain version at 75x24, 150x48 and fixed radial mode, in every
+    branch (a mask, the moving-object test before and from
+    ``rm_start_iter``, the range sensitivity, all together): masks and
+    counts equal, sums within ``GN_RTOL``, two launches equal bit for bit;
+    rows held alone by the mask bit for bit; one device operation a call;
+    two graph replays equal an eager launch; a compiled solve launches it
+    once an iteration (and once for the range sensitivity); its
+    ``-Xptxas -v``, ms a launch, bound and the plain chain's ms.
+
 ``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
 runs none of these phases: it times that tree's compiled paths against
 this one's (among them the fixed-radial-mode and 150x48 frames, which an
@@ -3592,6 +3602,213 @@ def phase_run_to_run(scans, wide, pairs, cfg, dev, card) -> None:
     print(f"phase 30: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Kernel #6: the Gauss-Newton normal-equation assembly
+# ---------------------------------------------------------------------------
+
+#: kernel #6 vs its plain version: each row's values are equal bit for bit;
+#: the sums over rows are added in another order (block partials, then the
+#: blocks in order, against torch.sum's), so the sums agree to this share
+#: of their largest entry
+GN_RTOL = 1e-5
+#: the grids of kernel #6's checks: 75x24 (1,801 rows), 150x48 (7,201),
+#: fixed radial mode (90,001)
+GN_GRIDS = (("75x24", {}), ("150x48", {"n_theta": 150, "n_phi": 48}),
+            ("fixed", {"radial_mode": "fixed"}))
+#: rows of each grid held alone (the sums then exact in any order)
+GN_SINGLE_ROWS = 12
+
+
+def gn_branches(cfg, rows: int, dev):
+    """``(name, cfg, it, corr_mask, want_range_sens)`` of every branch of
+    kernel #6: plain, a mask, the moving-object test before and from
+    ``rm_start_iter``, the range sensitivity, and all three together."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    mask = (torch.rand(rows, generator=gen) > 0.25).to(dev)
+    moving = cfg.replace(remove_moving=True, rm_start_iter=2)
+    return [("plain", cfg, 0, None, False), ("mask", cfg, 0, mask, False),
+            ("moving, it 1 (off)", moving, 1, None, False),
+            ("moving, it 2", moving, 2, None, False),
+            ("range sensitivity", cfg, 0, None, True),
+            ("mask + moving it 3 + range sensitivity", moving, 3, mask, True)]
+
+
+def gn_outputs(out) -> list:
+    """Kernel #6's outputs as a flat list of tensors (HTWg left out when
+    None)."""
+    return [t for t in out if t is not None]
+
+
+def gn_bits(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of ``t`` (so -0.0 and 0.0, and NaNs, compare by bits)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def gn_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale > 0 else float((a - b).abs().max())
+
+
+def gn_compare(what: str, args: tuple, report: list) -> dict:
+    """Kernel #6 against its plain version on the card, twice: the masks and
+    counts equal, the sums within :data:`GN_RTOL`, the two launches equal
+    bit for bit."""
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly, gn_assembly_reference
+
+    got = gn_outputs(gn_assembly(*args))
+    again = gn_outputs(gn_assembly(*args))
+    want = gn_outputs(gn_assembly_reference(*args))
+    check(torch.equal(got[0], want[0]), f"{what}: corr differs from the plain version's")
+    check(int(got[1]) == int(want[1]) and int(got[2]) == int(want[2]),
+          f"{what}: n_corr {int(got[1])} / {int(want[1])}, n_rejected {int(got[2])} / "
+          f"{int(want[2])} (kernel / plain)")
+    rel = max(gn_rel(g, w) for g, w in zip(got[3:], want[3:]))
+    check(rel <= GN_RTOL, f"{what}: sums {rel:.3e} off the plain version's (limit {GN_RTOL})")
+    check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(got, again)),
+          f"{what}: two launches differ")
+    report.append(f"{what}: n_corr {int(got[1])}, n_rejected {int(got[2])}, sums {rel:.3e} "
+                  f"of their largest entry off the plain version's, two launches equal")
+    return {"rel": rel, "n_rejected": int(got[2])}
+
+
+def gn_single_rows(what: str, args: tuple, report: list) -> None:
+    """Each of :data:`GN_SINGLE_ROWS` correspondences held alone by the mask:
+    the sums over rows are then that row's values, exact in any order, so
+    the kernel's must equal the plain version's bit for bit."""
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly, gn_assembly_reference
+
+    model, sums, X, dR, it, cfg, _, sens = args
+    corr = gn_assembly_reference(*args)[0]
+    rows = torch.nonzero(corr).flatten()
+    check(rows.numel() > 0, f"{what}: no correspondence to hold alone")
+    picks = sorted(set(rows[torch.linspace(0, rows.numel() - 1, GN_SINGLE_ROWS).long()].tolist()))
+    for r in picks:
+        one = torch.zeros_like(corr)
+        one[r] = True
+        a = (model, sums, X, dR, it, cfg, one, sens)
+        got, want = gn_outputs(gn_assembly(*a)), gn_outputs(gn_assembly_reference(*a))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{what}: row {r} alone differs from the plain version's bits")
+    report.append(f"{what}: {len(picks)} rows alone equal the plain version bit for bit")
+
+
+def gn_replays(what: str, args: tuple, dev, report: list) -> None:
+    """One launch captured in a CUDA graph: two replays give the eager
+    launch's bits."""
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly
+
+    eager_out = [t.clone() for t in gn_outputs(gn_assembly(*args))]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gn_assembly(*args)  # the warm-up the capture needs
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gn_outputs(gn_assembly(*args))
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        replays.append([t.clone() for t in out])
+    for rep in replays:
+        check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(rep, eager_out)),
+              f"{what}: a graph replay differs from the eager launch")
+    report.append(f"{what}: two graph replays equal the eager launch bit for bit")
+
+
+def gn_solve_launches(scan1, scan2, cfg, report: list) -> None:
+    """The compiled solve launches #6 once an iteration: a second
+    registration (no capture) adds its iterations to the count, its guarded
+    iterations counted through ``graphs.settle``."""
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly
+    from icet_tpu_torch.solver import register_pair_jit
+
+    x0 = torch.zeros(6, device=scan1.device)
+    register_pair_jit(scan1, scan2, x0, cfg)
+    for _ in range(2):
+        settle()
+        before = gn_assembly.launches
+        res = register_pair_jit(scan1, scan2, x0, cfg)
+        settle()
+        launched = gn_assembly.launches - before
+        want = int(res.iterations) + (1 if cfg.range_sigma > 0.0 else 0)
+        check(launched == want, f"compiled solve: {launched} launches of #6 for {want}")
+    report.append(f"compiled solve ({cfg.n_iters} at most, early exit on the card): "
+                  f"{launched} launches for {int(res.iterations)} iterations"
+                  + (" + the range sensitivity" if cfg.range_sigma > 0.0 else ""))
+
+
+def gn_timing(args: tuple, rows: int) -> dict:
+    """Kernel #6 and its plain chain at one shape: device ms a call and
+    device operations a call (torch.profiler), CUDA-event ms a call of
+    back-to-back launches, and the bound (the sums and the model read once,
+    the mask and 48 floats written, at 3.35 TB/s)."""
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly, gn_assembly_reference
+
+    k_ms, k_event_ms = kernel_times(lambda: gn_assembly(*args), 50)
+    plain_ops = device_profile(lambda: gn_assembly_reference(*args), 3)
+    nbytes = rows * (16 * 4 + 113 + 1) + 48 * 4 + 8
+    b_ms, by = bound(nbytes, 0, PEAK_FP32_PER_S)
+    return {"ms": k_ms, "event_ms": k_event_ms,
+            "plain_ms": sum(ms for ms, _ in plain_ops.values()),
+            "plain_launches": sum(k for _, k in plain_ops.values()),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def phase_gn_assembly(scan1, scan2, cfg, dev, card) -> dict:
+    """Kernel #6 against its plain version on the card, at 75x24, 150x48 and
+    fixed radial mode, in every branch; rows alone bit for bit; graph
+    replays; the launches of a compiled solve; its ms beside its bound and
+    the plain chain's."""
+    from icet_tpu_torch import _build
+    from icet_tpu_torch.ops.geometry import rotation_jacobian
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly
+    from icet_tpu_torch.solver import _sums, prepare_reference, register
+
+    t0 = time.perf_counter()
+    for name, usage in ptxas_usage(_build.build(["gn_assembly"])).items():
+        print(f"ptxas {name}: {usage}")
+    report, rel, rejected, times = [], 0.0, 0, {}
+    for grid, kw in GN_GRIDS:
+        c = cfg.replace(**kw)
+        model = prepare_reference(scan1, c)
+        X = register(model, scan2, torch.zeros(6, device=dev), c, want_static_mask=False).X
+        X = X + torch.tensor([0.05, -0.03, 0.01, 0.002, -0.001, 0.004], device=dev)
+        sums = _sums(scan2, X, model.bounds, model.anchors, c)
+        dR = rotation_jacobian(X[3:6])
+        # The compiled paths' model buffers are contiguous; so is this one.
+        model = type(model)(*(t.contiguous() for t in model))
+        rows = c.n_voxels + 1
+        for name, cb, it, mask, sens in gn_branches(c, rows, dev):
+            args = (model, sums, X, dR, it, cb, mask, sens)
+            what = f"{grid} (V+1={rows}) {name}"
+            r = gn_compare(what, args, report)
+            rel = max(rel, r["rel"])
+            rejected += r["n_rejected"]
+            if name == "plain":
+                check_one_launch(what, lambda: gn_assembly(*args), gn_assembly,
+                                 "gn_assembly_kernel", report)
+                gn_single_rows(what, args, report)
+                gn_replays(what, args, dev, report)
+                times[grid] = gn_timing(args, rows)
+            if name.startswith("mask + moving"):
+                gn_replays(what, args, dev, report)
+    check(rejected > 0, "the moving-object test rejected nothing: its branch is untested")
+    gn_solve_launches(scan1, scan2, cfg, report)
+    gn_solve_launches(scan1, scan2, cfg.replace(range_sigma=0.02, convergence_tol=0.0,
+                                                convergence_stat_scale=0.0), report)
+    for line in report:
+        print(f"gn_assembly vs plain, {line}")
+    for grid, t in times.items():
+        print(f"gn_assembly {grid} ({card}): {t['ms']:.5f} ms a launch (CUDA events "
+              f"{t['event_ms']:.5f}), bound {t['bound_ms']:.6f} ({t['bound_by']}); plain chain "
+              f"{t['plain_ms']:.4f} ms in {t['plain_launches']:g} device operations")
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s")
+    return {"rel": rel, "times": times}
+
+
 def time_tree(spec: dict) -> int:
     """A spawned process of phase 28c: the compiled entry points of the tree
     at ``spec["root"]`` (this one or an earlier one; only the entry points
@@ -3832,6 +4049,7 @@ def main() -> int:
     )
     from icet_tpu_torch.scan_matcher import ScanMatcher
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
+    from icet_tpu_torch.ops.gn_assembly import gn_assembly
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
     from icet_tpu_torch import graphs
@@ -4033,10 +4251,15 @@ def main() -> int:
     for line in report:
         print(f"scatter vs index_add_, {line}")
 
+    # -- 31. kernel #6, the normal-equation assembly, vs plain ---------------
+    gn = phase_gn_assembly(torch.from_numpy(scans[0]).to(dev), torch.from_numpy(scans[1]).to(dev),
+                           cfg, dev, card)
+
     # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
     settle()
     fused_moment_sums.launches = 0
+    gn_assembly.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
@@ -4045,6 +4268,7 @@ def main() -> int:
     settle()
     fused_launches = fused_moment_sums.launches
     seq_warm = warmups()
+    gn_launches, gn_warm = gn_assembly.launches, warmups("gn_assembly")
     iters = [f.iterations for f in out]
     check(len(out) == len(scans) - 1, f"{len(out)} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in out),
@@ -4053,11 +4277,14 @@ def main() -> int:
     check(fused_launches == sum(iters) + len(scans) + seq_warm,
           f"fused launches {fused_launches} != iterations {sum(iters)} + prepares {len(scans)} "
           f"+ warm-ups before capture {seq_warm}")
+    check(gn_launches == sum(iters) + gn_warm,
+          f"#6 launches {gn_launches} != iterations {sum(iters)} + warm-ups {gn_warm}")
     ate = trajectory_ate(out, gt)
     print(f"sequence odometry (compiled): {len(out)} frames in {path_s:.2f} s with the graphs' "
           f"capture, fused launches {fused_launches} = {sum(iters)} iterations + {len(scans)} "
           f"prepares + {seq_warm} warm-ups before capture, "
-          f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm")
+          f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm; "
+          f"#6 launches {gn_launches} = {sum(iters)} iterations + {gn_warm} warm-ups")
     check(ate <= ATE_MAX_M, f"ATE {ate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
 
     # -- DNN-filtered odometry --------------------------------------------
@@ -4997,6 +5224,19 @@ def main() -> int:
             "plain_ms": tri_plain_ms,
             "bound_ms": tri_bound,
             "bound_by": tri_by,
+            "library_ms": None,
+        },
+        {
+            "name": "gn_assembly",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/gn_assembly.cu",
+            "replaces": None,
+            "launches": gn_launches,
+            "max_rel_err": gn["rel"],
+            "ms": gn["times"]["75x24"]["ms"],
+            "plain_ms": gn["times"]["75x24"]["plain_ms"],
+            "bound_ms": gn["times"]["75x24"]["bound_ms"],
+            "bound_by": gn["times"]["75x24"]["bound_by"],
             "library_ms": None,
         },
         {

@@ -5,8 +5,9 @@
    at X = 0), 3x3 eigendecomposition and the extended-surface axis mask.
 2. :func:`register` runs Gauss-Newton iterations: each one is a fused
    moments pass over scan 2 at the current X (the CUDA kernel on the
-   card), the plane-form normal equations, a 6x6 Jacobi eigensystem and a
-   condition-pruned update.
+   card), the plane-form normal equations (``ops.gn_assembly``: one CUDA
+   kernel on the card), a 6x6 Jacobi eigensystem and a condition-pruned
+   update.
 
 Early exit: the JAX package runs the iterations in a device-side
 ``lax.while_loop``; here a Python loop reads ``|dx|`` and the exit
@@ -66,6 +67,7 @@ from icet_tpu_torch.ops.geometry import (
     rotation_jacobian,
     transform_points,
 )
+from icet_tpu_torch.ops.gn_assembly import gn_assembly
 from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors, voxel_ids
 from icet_tpu_torch.ops.linalg import eigh_small, eigh_small_warm_safe
 from icet_tpu_torch.ops.moments import (
@@ -73,11 +75,7 @@ from icet_tpu_torch.ops.moments import (
     finalize_moments_planes,
     voxel_moment_sums,
 )
-from icet_tpu_torch.ops.wls_planes import (
-    assemble_normal_equations,
-    eigh3_planes,
-    residual_compact_planes,
-)
+from icet_tpu_torch.ops.wls_planes import eigh3_planes
 
 
 class VoxelModel(NamedTuple):
@@ -335,14 +333,6 @@ def prepare_reference(scan1, cfg: ICETConfig, axis=None) -> VoxelModel:
 # ---------------------------------------------------------------------------
 
 
-def _covariance_yaw(cov: torch.Tensor) -> torch.Tensor:
-    """Moving-object heuristic: yaw of the covariance's first row,
-    ``atan2(-cov[0,1], cov[0,0])``; (V, 3, 3) or (V, 6) packed input."""
-    if cov.ndim == 2:
-        return torch.atan2(-cov[:, 3], cov[:, 0])
-    return torch.atan2(-cov[..., 0, 1], cov[..., 0, 0])
-
-
 def _iteration(
     model: VoxelModel,
     scan2,
@@ -372,36 +362,10 @@ def iteration_from_sums(
     at X: correspondences, the moving-object test, the normal equations,
     the 6x6 eigensystem and the pruned update (the replicated math of a
     sharded iteration)."""
-    count2, mean2, cov2 = finalize_moments_planes(sums, model.anchors)
-
-    corr = model.valid & (count2 >= cfg.min_pts)
-    if corr_mask is not None:
-        corr = corr & corr_mask
-
-    n_rejected = torch.zeros((), dtype=torch.int32, device=X.device)
-    if cfg.remove_moving and it >= cfg.rm_start_iter:
-        res_compact = residual_compact_planes(model.basis, model.lmask, model.mean, mean2)
-        bad_res = torch.any(torch.abs(res_compact) > cfg.rm_residual_thresh, dim=-1)
-        yaw_delta = torch.abs(_covariance_yaw(model.cov) - _covariance_yaw(cov2))
-        bad = corr & (bad_res | (yaw_delta > cfg.rm_yaw_thresh))
-        n_rejected = torch.sum(bad, dtype=torch.int32)
-        corr = corr & ~bad
-
-    cm = corr.to(X.dtype)
     dR = rotation_jacobian(X[3:6])
-    args = (model.basis, model.lmask, model.cov, model.count, cov2, count2,
-            model.mean, mean2, dR, cm, cfg.pinv_rcond)
-    htwg = None
-    if want_range_sens:
-        # A common-mode range offset moves the transformed voxel means along
-        # (mu2 - t) / |mu2 - t|.
-        d3 = [mean2[:, j] - X[j] for j in range(3)]
-        gn = torch.sqrt(torch.clamp(d3[0] ** 2 + d3[1] ** 2 + d3[2] ** 2, min=1e-12))
-        HTWH, HTWdz, _, htwg = assemble_normal_equations(
-            *args, extra_dz=[dj / gn for dj in d3]
-        )
-    else:
-        HTWH, HTWdz, _ = assemble_normal_equations(*args)
+    corr, n_corr, n_rejected, HTWH, HTWdz, htwg = gn_assembly(
+        model, sums, X, dR, it, cfg, corr_mask, want_range_sens
+    )
 
     if U2_warm is None:
         w6, U2 = eigh_small(HTWH)
@@ -413,7 +377,7 @@ def iteration_from_sums(
     )
     dx = U2 @ (_inverse_where(w6, keep) * (U2.T @ HTWdz))
     diag = (
-        torch.sum(corr, dtype=torch.int32),
+        n_corr,
         cond_full,
         torch.linalg.norm(dx),
         torch.sum(~keep, dtype=torch.int32),
