@@ -150,6 +150,19 @@ class DnnFilterResult(NamedTuple):
     dnn_shift: torch.Tensor  # (V+1, 3) network-estimated voxel translations
     icet_shift: torch.Tensor  # (V+1, 3) mean-residual shift compared with it
     n_rejected: torch.Tensor  # () int32
+    # Of a filtered solve (``register_with_dnn``), every pass in order, the
+    # last one the fields above; None from a single pass (dnn_reject_mask).
+    keeps: torch.Tensor | None = None  # (P, V+1)
+    dnn_shifts: torch.Tensor | None = None  # (P, V+1, 3)
+    icet_shifts: torch.Tensor | None = None  # (P, V+1, 3)
+
+
+def _passes(filts: list) -> DnnFilterResult:
+    """The last of a solve's passes ``filts``, with every pass's keep mask
+    and both shifts."""
+    return filts[-1]._replace(keeps=torch.stack([f.keep for f in filts]),
+                              dnn_shifts=torch.stack([f.dnn_shift for f in filts]),
+                              icet_shifts=torch.stack([f.icet_shift for f in filts]))
 
 
 def dnn_reject_mask(
@@ -224,7 +237,9 @@ def register_with_dnn(
     one mask at the boundary serves them all.  Every phase carries the
     global iteration index.  With ``n_iters < 2`` the solve runs once and
     the mask is only reported.  The result's ``iterations`` counts the
-    iterations of all phases.
+    iterations of all phases; the filter's result is the last pass, with
+    every pass's mask and shifts (``keeps``, ``dnn_shifts``,
+    ``icet_shifts``).
     """
     scan2 = scan2.contiguous()
     if cfg.n_iters < 2:
@@ -232,7 +247,7 @@ def register_with_dnn(
                        want_static_mask=want_static_mask)
         filt = dnn_reject_mask(net, model, scan1, transform_points(scan2, pre.X), cfg,
                                samples1=samples1)
-        return pre, filt
+        return pre, _passes([filt])
     n_pre = max(min(cfg.dnn_start_iter, cfg.n_iters - 1), 1)
     n_post = cfg.n_iters - n_pre
     # Results that only carry X skip the range-sensitivity pass: it cannot
@@ -246,20 +261,22 @@ def register_with_dnn(
         post = register(model, scan2, pre.X, cfg.replace(n_iters=n_post),
                         corr_mask=filt.keep, want_static_mask=want_static_mask,
                         it_offset=n_pre)
-        return post._replace(iterations=pre.iterations + post.iterations), filt
+        return post._replace(iterations=pre.iterations + post.iterations), _passes([filt])
 
     step_cfg = cfg.replace(n_iters=1, convergence_tol=0.0)
     s1 = samples1 if samples1 is not None else model_voxel_samples(model, scan1, cfg)
-    X = pre.X
+    X, filts = pre.X, []
     for k in range(n_post - 1):
-        filt = dnn_reject_mask(net, model, scan1, transform_points(scan2, X), cfg, samples1=s1)
+        filts.append(dnn_reject_mask(net, model, scan1, transform_points(scan2, X), cfg,
+                                     samples1=s1))
         X = register(model, scan2, X, step_cfg.replace(range_sigma=0.0),
-                     corr_mask=filt.keep, want_static_mask=False,
+                     corr_mask=filts[-1].keep, want_static_mask=False,
                      it_offset=n_pre + k).X
-    filt = dnn_reject_mask(net, model, scan1, transform_points(scan2, X), cfg, samples1=s1)
-    res = register(model, scan2, X, step_cfg, corr_mask=filt.keep,
+    filts.append(dnn_reject_mask(net, model, scan1, transform_points(scan2, X), cfg,
+                                 samples1=s1))
+    res = register(model, scan2, X, step_cfg, corr_mask=filts[-1].keep,
                    want_static_mask=want_static_mask, it_offset=cfg.n_iters - 1)
-    return res._replace(iterations=pre.iterations + n_post), filt
+    return res._replace(iterations=pre.iterations + n_post), _passes(filts)
 
 
 def register_pair_with_dnn(
@@ -343,15 +360,20 @@ def _stage_samples(b, cfg: ICETConfig, src: str) -> None:
     b.samples_next["counts"].copy_(counts)
 
 
-def _stage_filter(b, cfg: ICETConfig, net: BiasNet) -> None:
+def _stage_filter(b, cfg: ICETConfig, net: BiasNet, k: int) -> None:
     """:func:`dnn_reject_mask` of ``b.scan`` aligned by ``b.X`` against
     ``b.model``, scan 1 given by its samples ``b.samples1``, into
-    ``b.filt``: the sampling pass, kernel #1's moments pass at X = 0,
-    ``dnn_refine_steps`` launches of kernel #4, the comparison."""
+    ``b.filt`` as the solve's pass ``k``: the sampling pass, kernel #1's
+    moments pass at X = 0, ``dnn_refine_steps`` launches of kernel #4, the
+    comparison."""
     filt = dnn_reject_mask(net, b.model, None, transform_points(b.scan, b.X), cfg,
                            samples1=(b.samples1["samples"], b.samples1["counts"]))
     for name, t in zip(DnnFilterResult._fields, filt):
-        b.filt[name].copy_(t)
+        if t is not None:
+            b.filt[name].copy_(t)
+    b.filt["keeps"][k].copy_(filt.keep)
+    b.filt["dnn_shifts"][k].copy_(filt.dnn_shift)
+    b.filt["icet_shifts"][k].copy_(filt.icet_shift)
 
 
 def _stage_handover(b) -> None:
@@ -366,36 +388,38 @@ def solve_dnn(fg, net: BiasNet, want_static_mask: bool) -> int:
     and scan-1 samples, from the loaded x0, as one graph of the set: the
     same phases, each the schedule of a register call of its derived
     config (its early exit guarded on the device, its iterations with their
-    global indices), the filter stage between them.  The keep mask and
-    ``n_rejected`` of the last filter pass stay in ``b.filt``; the
+    global indices), the filter stage between them (each pass a span
+    ``dnn_filter`` of the frame log: ``graphs.Span``).  The last filter
+    pass, and every pass's keep mask and shifts, stay in ``b.filt``; the
     iterations of all phases are counted in ``b.iters``.  Returns the
     ``n_iters`` of the finished call."""
     cfg = fg.cfg
     fg.pin(net)
     versions = tuple(t._version for t in net.encoder_weights())
 
-    def filt(b):
-        _stage_filter(b, cfg, net)
+    def filt(k):
+        return graphs.Span("dnn_filter", lambda b: _stage_filter(b, cfg, net, k))
 
     if cfg.n_iters < 2:
-        schedule, n_final = fg.solve_schedule(want_static_mask, cfg.replace(n_iters=1)) + [filt], 1
+        schedule = fg.solve_schedule(want_static_mask, cfg.replace(n_iters=1)) + [filt(0)]
+        n_final = 1
     else:
         n_pre, n_post = graphs.dnn_phases(cfg)
         schedule = fg.solve_schedule(False, cfg.replace(n_iters=n_pre, range_sigma=0.0),
                                      finish=False)
         if not cfg.dnn_in_loop:
-            schedule += [filt] + fg.solve_schedule(want_static_mask, cfg.replace(n_iters=n_post),
-                                                   it_offset=n_pre, masked=True, start="X")
+            schedule += [filt(0)] + fg.solve_schedule(
+                want_static_mask, cfg.replace(n_iters=n_post), it_offset=n_pre, masked=True,
+                start="X")
             n_final = n_post
         else:
             step_cfg = cfg.replace(n_iters=1, convergence_tol=0.0)
             for k in range(n_post - 1):
-                schedule += [filt] + fg.solve_schedule(
+                schedule += [filt(k)] + fg.solve_schedule(
                     False, step_cfg.replace(range_sigma=0.0), it_offset=n_pre + k, masked=True,
                     start="X", finish=False)
-            schedule += [filt] + fg.solve_schedule(want_static_mask, step_cfg,
-                                                   it_offset=cfg.n_iters - 1, masked=True,
-                                                   start="X")
+            schedule += [filt(n_post - 1)] + fg.solve_schedule(
+                want_static_mask, step_cfg, it_offset=cfg.n_iters - 1, masked=True, start="X")
             n_final = 1
     fg.run_schedule(("dnn", id(net), versions, want_static_mask), schedule)
     return n_final

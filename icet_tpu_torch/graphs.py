@@ -25,7 +25,8 @@ cfg)`` (:func:`frame_graphs`) and replayed afterwards:
 * with the DNN filter (``filters``): ``dnn``, the filtered solve as one
   graph (its phases' schedules, each of its derived config, with the
   ``filter`` stage between them: the reject mask at the current X,
-  kernels #1 and #4), ``samples`` and the frame's ``handover``;
+  kernels #1 and #4, each pass a :class:`Span` ``dnn_filter`` of the
+  frame log), ``samples`` and the frame's ``handover``;
 * for the keyframe path (``keyframe``): ``kf_predict``, ``kf_post`` (the
   covariance propagation, the delta guard, the spawn flag and the map
   insert staged under the device flag ``~spawn``), ``kf_spawn``, and the
@@ -152,6 +153,8 @@ from icet_tpu_torch.solver import (
     exit_schedule,
 )
 from icet_tpu_torch.utils.profiling import frame_log as _flog
+from icet_tpu_torch.utils.profiling import graph_events as _flog_events
+from icet_tpu_torch.utils.profiling import record_in_capture
 
 #: the kernel wrappers whose launches a graph records and its replays count
 COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
@@ -367,11 +370,16 @@ def samples_layout(cfg: ICETConfig) -> Layout:
                    ("counts", (v1,), torch.int32)])
 
 
-def filter_layout(n_voxels: int) -> Layout:
-    """One DNN filter pass: the keep mask, both shifts and ``n_rejected``."""
+def filter_layout(n_voxels: int, passes: int) -> Layout:
+    """A filtered solve's DNN filter: its last pass (the keep mask, both
+    shifts, ``n_rejected``) and the keep mask and both shifts of each of
+    its ``passes`` passes."""
     v1 = n_voxels + 1
     return Layout([("keep", (v1,), torch.bool), ("dnn_shift", (v1, 3), torch.float32),
-                   ("icet_shift", (v1, 3), torch.float32), ("n_rejected", (), torch.int32)])
+                   ("icet_shift", (v1, 3), torch.float32), ("n_rejected", (), torch.int32),
+                   ("keeps", (passes, v1), torch.bool),
+                   ("dnn_shifts", (passes, v1, 3), torch.float32),
+                   ("icet_shifts", (passes, v1, 3), torch.float32)])
 
 
 def dnn_phases(cfg: ICETConfig) -> tuple[int, int]:
@@ -379,6 +387,14 @@ def dnn_phases(cfg: ICETConfig) -> tuple[int, int]:
     iterations (``filters.register_with_dnn``)."""
     n_pre = max(min(cfg.dnn_start_iter, cfg.n_iters - 1), 1)
     return n_pre, cfg.n_iters - n_pre
+
+
+def dnn_passes(cfg: ICETConfig) -> int:
+    """Filter passes of one filtered solve: one a filtered iteration in the
+    loop (``dnn_in_loop``), else one."""
+    if cfg.n_iters >= 2 and cfg.dnn_in_loop:
+        return dnn_phases(cfg)[1]
+    return 1
 
 
 def result_iters(cfg: ICETConfig) -> tuple[int, ...]:
@@ -550,7 +566,7 @@ class FrameBuffers:
         self.samples_layout = samples_layout(cfg)
         self.samples1_buf, self.samples1 = packed(self.samples_layout)
         self.samples_next_buf, self.samples_next = packed(self.samples_layout)
-        self.filt_layout = filter_layout(cfg.n_voxels)
+        self.filt_layout = filter_layout(cfg.n_voxels, dnn_passes(cfg))
         self.filt_buf, self.filt = packed(self.filt_layout)
         self.raw = z(n, 3)
         self.kf_buf, self.kf = packed(KF_CARRY_LAYOUT)
@@ -578,6 +594,23 @@ class If(NamedTuple):
     body: Callable
     orelse: Callable | None = None
     reads: str = "flag_reads"
+
+
+class Span(NamedTuple):
+    """A stage of a schedule that the frame log times apart, ``name``:
+    on the CPU a host span around ``fn(buffers)``; on CUDA two timing
+    events recorded inside the graph around the stage's work
+    (:func:`~icet_tpu_torch.utils.profiling.graph_events`), whose device
+    milliseconds each logged replay adds to the frame's value ``name``.
+    Not inside a guarded body: an IF node's body holds no event."""
+
+    name: str
+    fn: Callable
+
+    def __call__(self, b) -> None:
+        span = _flog.begin(self.name)
+        self.fn(b)
+        _flog.end(span)
 
 
 def _go(b) -> torch.Tensor:
@@ -612,8 +645,9 @@ class _Captured(NamedTuple):
     """A captured schedule: its graph, the counts its unconditional stages
     add a replay, the device tally of its guarded bodies (one slot a body,
     None without one) with each body's counts and the tally's value at the
-    last :func:`settle`, and the bodies' own graphs (kept: an IF node holds
-    a clone, which may still refer to what a body's graph owns)."""
+    last :func:`settle`, the bodies' own graphs (kept: an IF node holds
+    a clone, which may still refer to what a body's graph owns), and the
+    timed :class:`Span` stages as ``(name, start event, end event)``."""
 
     graph: object
     counts: tuple
@@ -621,6 +655,7 @@ class _Captured(NamedTuple):
     body_counts: list
     seen: list
     bodies: list
+    spans: list
 
 
 #: graph sets whose guarded bodies may have run since the last settle
@@ -659,10 +694,10 @@ class GraphSet:
         self.run_schedule(key, [stage])
 
     def run_schedule(self, key, schedule: list) -> None:
-        """Run a schedule of stages and :class:`If` entries: on CUDA replay
-        its one graph (``key`` names it; captured at first use, the guards
-        as IF nodes), on the CPU call its stages with the guards read on
-        the host."""
+        """Run a schedule of stages, :class:`If` and :class:`Span` entries:
+        on CUDA replay its one graph (``key`` names it; captured at first
+        use, the guards as IF nodes, the spans' timing events as nodes),
+        on the CPU call its stages with the guards read on the host."""
         if self.device.type != "cuda":
             span = _flog.begin(key[0]) if _flog.active else -1
             run_on_host(self.buffers, schedule, lambda _, fn: fn(self.buffers))
@@ -673,6 +708,8 @@ class GraphSet:
             entry = self._graphs[key] = self._capture(schedule)
         span = _flog.begin(key[0], timed=True) if _flog.active else -1
         entry.graph.replay()
+        if entry.spans:
+            _flog.add_device(entry.spans)
         _flog.end(span)
         host_ops["replays"] += 1
         for (obj, attr), k in zip(self.counters(), entry.counts):
@@ -701,7 +738,8 @@ class GraphSet:
         """Warm every body up on the scratch buffers, capture each guarded
         body as a graph of its own, then the schedule, each guard an IF node
         (an if/else two, on the predicate and on its negation, both computed
-        before either body runs)."""
+        before either body runs), each :class:`Span` between two timing
+        events recorded in the graph."""
         scratch = self.scratch()
         counters = self.counters()
 
@@ -720,7 +758,8 @@ class GraphSet:
             with torch.cuda.stream(self._stream):
                 # Every body, guarded or not: as if each guard held.
                 for e in schedule:
-                    for fn in ((e.body, e.orelse) if isinstance(e, If) else (e,)):
+                    for fn in ((e.body, e.orelse) if isinstance(e, If) else
+                               (e.fn if isinstance(e, Span) else e,)):
                         if fn is not None:
                             fn(scratch)
             torch.cuda.current_stream().wait_stream(self._stream)
@@ -732,6 +771,8 @@ class GraphSet:
             negated = {id(e): torch.zeros((), dtype=torch.bool, device=self.device)
                        for e, _ in guarded if e.orelse is not None}
             body_counts, bodies = [], []
+            spans = [e for e in schedule if isinstance(e, Span)]
+            events = _flog_events(self.device, len(spans)) if spans else []
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
                 for slot, (_, fn) in enumerate(guarded):
@@ -751,8 +792,14 @@ class GraphSet:
                 with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                       capture_error_mode=self.capture_mode):
                     with _debug_mode():
-                        slot = 0
+                        slot, timed_spans = 0, iter(events)
                         for e in schedule:
+                            if isinstance(e, Span):
+                                start, end = next(timed_spans)
+                                record_in_capture(start, self._stream.cuda_stream)
+                                e.fn(self.buffers)
+                                record_in_capture(end, self._stream.cuda_stream)
+                                continue
                             if not isinstance(e, If):
                                 e(self.buffers)
                                 continue
@@ -778,7 +825,8 @@ class GraphSet:
         capture_stats["capture_s"] += t1 - t0
         capture_stats["instantiate_s"] += t2 - t1
         counts = tuple(t - sum(c[i] for c in body_counts) for i, t in enumerate(total))
-        return _Captured(graph, counts, tally, body_counts, [0] * len(body_counts), bodies)
+        return _Captured(graph, counts, tally, body_counts, [0] * len(body_counts), bodies,
+                         [(e.name, *ev) for e, ev in zip(spans, events)])
 
 
 def settle() -> None:
@@ -1422,7 +1470,8 @@ def clear(device=None) -> None:
 __all__ = ["COUNTED", "MAP_OUT_LAYOUT", "NODE_TYPES", "FrameBuffers", "FrameGraphs", "GraphSet",
            "If", "Layout", "MapBuffers", "PoseBuffers", "PoseGraphs", "RingBuffers", "RowBuffers",
            "PoseRepBuffers", "PoseShardBuffers", "RowGraphs", "ShardBuffers", "ShardedBuffers",
-           "ShardedGraphs", "ShardedPoseBuffers", "ShardedPoseGraphs", "TrainBuffers", "TrainGraphs",
-           "capture_stats", "clear", "clone_out", "copy_in", "dnn_phases", "frame_graphs", "graph_nodes",
-           "host_ops", "node_types", "packed_result", "pose_graphs", "result_iters", "run_on_host",
-           "settle", "sharded_pose_graphs", "sync_debug", "train_graphs", "warmup_launches"]
+           "ShardedGraphs", "ShardedPoseBuffers", "ShardedPoseGraphs", "Span", "TrainBuffers",
+           "TrainGraphs", "capture_stats", "clear", "clone_out", "copy_in", "dnn_passes",
+           "dnn_phases", "frame_graphs", "graph_nodes", "host_ops", "node_types", "packed_result",
+           "pose_graphs", "result_iters", "run_on_host", "settle", "sharded_pose_graphs",
+           "sync_debug", "train_graphs", "warmup_launches"]

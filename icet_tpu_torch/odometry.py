@@ -33,12 +33,15 @@ from icet_tpu_torch import graphs
 from icet_tpu_torch.config import ICETConfig, OdometryConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.filters import (
+    DnnFilterResult,
     model_voxel_samples,
     model_voxel_samples_jit,
     odometry_step_dnn,
     odometry_step_dnn_jit,
     pretrained_dnn,
 )
+from icet_tpu_torch.models.bias_net import BiasNet
+from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool
 from icet_tpu_torch.ops.geometry import (
     compose_pose,
     compose_states,
@@ -95,14 +98,18 @@ class OdometryFrame:
     #: voxels the DNN filter rejected at the frame's last filtered
     #: iteration (0 without the filter)
     n_rejected: int = 0
+    #: the DNN filter's last pass, on the device (None without the filter)
+    dnn_filter: DnnFilterResult | None = None
 
 
 class OdometryPipeline:
     """Streaming odometry over scans of one static (N, 3) shape: each frame
     registers against the previous scan's voxel model, then fits its own.
-    With ``cfg.dnn_filter`` the bundled bias network (loaded once) filters
-    each registration, sampling the previous scan, whose samples are kept
-    from its own frame.  Runs on ``device`` (CUDA unless told otherwise).
+    With ``cfg.dnn_filter`` a bias network filters each registration,
+    sampling the previous scan, whose samples are kept from its own frame:
+    ``net`` where given (moved to ``device``), else the bundled one for
+    ``cfg.dnn_sample_pts`` (loaded once a process).  Runs on ``device``
+    (CUDA unless told otherwise).
 
     On a captured moment route (``solver.compiled_route``) each frame is
     one :func:`~icet_tpu_torch.solver.odometry_step_jit`, with the filter
@@ -114,11 +121,15 @@ class OdometryPipeline:
         cfg: ICETConfig | None = None,
         odo_cfg: OdometryConfig | None = None,
         device: str | torch.device | None = None,
+        net: BiasNet | None = None,
     ):
         self.cfg = cfg or ICETConfig()
         self.odo_cfg = odo_cfg or OdometryConfig()
         self.device = resolve_device(device)
-        self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
+        self._dnn = None
+        if self.cfg.dnn_filter:
+            self._dnn = pretrained_dnn(self.cfg, self.device) if net is None else net.to(
+                self.device)
         self._compiled = compiled_route(self.cfg)
         self.reset()
 
@@ -153,7 +164,9 @@ class OdometryPipeline:
         (:func:`~icet_tpu_torch.utils.checkpoint.restore_odometry`).
 
         Each call is one frame of the frame log (``utils.profiling``), root
-        ``odometry.step``, failed or not."""
+        ``odometry.step``, failed or not; a filtered frame adds its counters
+        ``filter_passes``, ``encoder_launches`` (kernel #4's, counted by its
+        wrapper: 0 on the CPU) and ``n_rejected`` (the last pass's)."""
         token = _flog.open("odometry.step", self._index, self.device)
         frame, failed = None, True
         try:
@@ -226,12 +239,15 @@ class OdometryPipeline:
         if self._dnn is not None:
             args = (self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
                     self.cfg, self._dnn)
+            launches = bias_encoder_pool.launches
             if self._compiled:
                 out = odometry_step_dnn_jit(*args, return_filter=True)
             else:
                 out = odometry_step_dnn(*args)
             res, next_model, self._samples_prev, filt = out
             self._scan_prev = scan_dev
+            _flog.add("filter_passes", graphs.dnn_passes(self.cfg))
+            _flog.add("encoder_launches", bias_encoder_pool.launches - launches)
         elif self._compiled:
             res, next_model = odometry_step_jit(self._model, scan_dev, x0, self.cfg)
         else:
@@ -276,7 +292,10 @@ class OdometryPipeline:
             solve_ms=(time.perf_counter() - t0) * 1000.0,
             iterations=int(host[34]),
             n_rejected=int(host[35]) if filt is not None else 0,
+            dnn_filter=filt,
         )
+        if filt is not None:
+            _flog.add("n_rejected", frame.n_rejected)
         self._index += 1
         return frame
 

@@ -5,7 +5,8 @@
 card and by the host clock for CPU tensors, (c) a ``torch.profiler``
 trace of a block, written as a Chrome trace, and (d) the frame log
 (:class:`FrameLog`, the process's :data:`frame_log`): the runners' frames
-as spans and counts in fixed arrays, on by default.
+as spans and counts in fixed arrays, on by default, with the timing
+events a captured graph records inside itself (:func:`graph_events`).
 """
 
 from __future__ import annotations
@@ -139,6 +140,11 @@ def trace(log_dir: str = "icet_torch_trace"):
 FRAMES = 8192
 #: span slots a frame record holds, its root among them
 SPANS = 32
+#: named values a frame record holds
+VALUES = 8
+#: ``CU_EVENT_RECORD_EXTERNAL``: an event recorded during stream capture
+#: becomes an event-record node of the graph
+_RECORD_EXTERNAL = 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,12 +156,22 @@ def _driver() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.cuEventCreate.argtypes = [ctypes.POINTER(p), ctypes.c_uint]
     lib.cuEventRecord.argtypes = [p, p]
+    lib.cuEventRecordWithFlags.argtypes = [p, p, ctypes.c_uint]
     lib.cuEventSynchronize.argtypes = [p]
     lib.cuEventElapsedTime.argtypes = [ctypes.POINTER(ctypes.c_float), p, p]
-    for f in (lib.cuEventCreate, lib.cuEventRecord, lib.cuEventSynchronize,
-              lib.cuEventElapsedTime):
+    for f in (lib.cuEventCreate, lib.cuEventRecord, lib.cuEventRecordWithFlags,
+              lib.cuEventSynchronize, lib.cuEventElapsedTime):
         f.restype = ctypes.c_int
     return lib
+
+
+def _timing_event() -> int:
+    """A CUDA timing event of the current device's context (a driver handle)."""
+    ev = ctypes.c_void_p()
+    err = _driver().cuEventCreate(ctypes.byref(ev), 0)
+    if err:
+        raise RuntimeError(f"cuEventCreate failed: CUDA driver error {err}")
+    return ev.value
 
 
 class _Events:
@@ -163,18 +179,27 @@ class _Events:
     slot, on one device, made once and kept for the process."""
 
     def __init__(self, device: int, spans: int):
-        drv = _driver()
-
-        def event() -> int:
-            ev = ctypes.c_void_p()
-            err = drv.cuEventCreate(ctypes.byref(ev), 0)
-            if err:
-                raise RuntimeError(f"cuEventCreate failed: CUDA driver error {err}")
-            return ev.value
-
         with torch.cuda.device(device):  # the device's context is current
-            self.start = [event() for _ in range(spans)]
-            self.end = [event() for _ in range(spans)]
+            self.start = [_timing_event() for _ in range(spans)]
+            self.end = [_timing_event() for _ in range(spans)]
+
+
+def graph_events(device, n: int) -> list[tuple[int, int]]:
+    """``n`` pairs of CUDA timing events (driver handles) on ``device`` for
+    a graph to record inside itself (:func:`record_in_capture`), made for
+    one capture and kept for the process; :meth:`FrameLog.add_device`
+    reads them after each replay."""
+    with torch.cuda.device(device):
+        return [(_timing_event(), _timing_event()) for _ in range(n)]
+
+
+def record_in_capture(event: int, stream: int) -> None:
+    """Record ``event`` on the capturing ``stream`` (a raw stream handle):
+    an event-record node of the graph being captured, which each replay
+    records again at that point of its work."""
+    err = _driver().cuEventRecordWithFlags(event, stream, _RECORD_EXTERNAL)
+    if err:
+        raise RuntimeError(f"cuEventRecordWithFlags failed: CUDA driver error {err}")
 
 
 class FrameLog:
@@ -197,6 +222,12 @@ class FrameLog:
     goes on.  :meth:`read` counts a blocking device-to-host read of the
     runner's own in the innermost open span.
 
+    Besides its spans a frame holds named values: counts (:meth:`add`)
+    and the device milliseconds between timing events that a replayed
+    graph records inside itself (:meth:`add_device`).  Those lie inside a
+    replay's span, so they are values and not spans: the spans' device
+    times never overlap.
+
     While ``torch.profiler`` records, each span is also a profiler record
     ``icet.<name>`` (``record_function``'s fast form), so a trace shows the
     program's phases inside each frame; the log's host span lies inside
@@ -205,17 +236,20 @@ class FrameLog:
     test.  :meth:`records` returns the
     frames the ring holds in ``seq`` order."""
 
-    def __init__(self, frames: int = FRAMES, spans: int = SPANS):
+    def __init__(self, frames: int = FRAMES, spans: int = SPANS, values: int = VALUES):
         #: whether :meth:`open` opens a frame
         self.enabled = True
         self._ids: dict[str, int] = {}
         self._labels: list[str] = []
+        self._value_ids: dict[str, int] = {}
         self._pools: dict[int, _Events | None] = {}
         self._device = None
         self._device_index = -1
         self._ms = ctypes.c_float()
         #: span slots a frame record holds
         self.spans = spans
+        #: named values a frame record holds
+        self.n_values = values
         self.reset(frames)
 
     def reset(self, frames: int | None = None) -> None:
@@ -241,11 +275,14 @@ class FrameLog:
         self.end_ns = np.zeros((f, n), np.int64)
         self.device_ms = np.full((f, n), np.nan)
         self.reads = np.zeros((f, n), np.int16)
+        self.values = np.zeros((f, self.n_values))
         # The open frame: its spans' record_function, whether each is
         # timed, the timed slots, the open spans.
         self._rf: list = [None] * n
         self._timed = [False] * n
         self._timing: list[int] = []
+        #: the open frame's device values: (value, start event, end event)
+        self._graph_events: list[tuple[int, int, int]] = []
         self._stack: list[int] = []
         self._n = self._row = self._dropped = 0
         self._events = None
@@ -271,6 +308,7 @@ class FrameLog:
         self.seq[row] = self.count
         self.index[row] = index
         self.device_ms[row] = np.nan
+        self.values[row] = 0.0
         self._events = None
         if device is not self._device:
             self._device = device
@@ -294,6 +332,7 @@ class FrameLog:
         self._n = self._dropped = 0
         self._stack.clear()
         self._timing.clear()
+        self._graph_events.clear()
         return self.begin(root)
 
     def close(self, token: int, failed: bool = False, iterations: int = 0) -> None:
@@ -310,7 +349,8 @@ class FrameLog:
             self.dropped[row] = self._dropped
             self.failed[row] = failed
             self.iterations[row] = iterations
-            if self._timing and self._events is not None and not failed:
+            if (self._timing or self._graph_events) and self._events is not None \
+                    and not failed:
                 self._device_times()
         finally:
             self.active = False
@@ -359,6 +399,35 @@ class FrameLog:
         if self.active:
             self.reads[self._row, self._stack[-1]] += 1
 
+    def _value(self, name: str) -> int:
+        """The column of the value ``name``; -1 past the record's values."""
+        vid = self._value_ids.get(name)
+        if vid is None:
+            if len(self._value_ids) == self.n_values:
+                return -1
+            vid = self._value_ids[name] = len(self._value_ids)
+        return vid
+
+    def add(self, name: str, k: float = 1) -> None:
+        """Add ``k`` to the open frame's value ``name`` (a count)."""
+        if self.active:
+            vid = self._value(name)
+            if vid >= 0:
+                self.values[self._row, vid] += k
+
+    def add_device(self, spans) -> None:
+        """Add to the open frame's value ``name`` the device milliseconds
+        between the two events of each ``(name, start event, end event)``
+        that the graph just replayed records inside itself
+        (:func:`graph_events`), read at the close; NaN where a driver call
+        fails.  Nothing is added where the frame has no device times."""
+        if not self.active or self._events is None:
+            return
+        for name, start, end in spans:
+            vid = self._value(name)
+            if vid >= 0:
+                self._graph_events.append((vid, start, end))
+
     def _pop(self, slot: int) -> None:
         """End ``slot`` and the spans above it on the stack."""
         stack, row = self._stack, self._row
@@ -389,17 +458,23 @@ class FrameLog:
         return True
 
     def _device_times(self) -> None:
-        """The timed spans' device milliseconds, once the last end event has
-        completed (at once after the runner's last blocking read); all NaN
-        where a driver call fails."""
+        """The timed spans' and the device values' milliseconds, once the
+        last end event has completed (at once after the runner's last
+        blocking read); all NaN where a driver call fails."""
         drv, pool, row, ms = _driver(), self._events, self._row, self._ms
-        if drv.cuEventSynchronize(pool.end[self._timing[-1]]):
-            return
+        # Every event is on the frame's stream, and a replay's events lie
+        # inside its span: the last recorded ends last.
+        last = pool.end[self._timing[-1]] if self._timing else self._graph_events[-1][2]
+        ok = not drv.cuEventSynchronize(last)
         for slot in self._timing:
-            if drv.cuEventElapsedTime(ctypes.byref(ms), pool.start[slot], pool.end[slot]):
-                self.device_ms[row] = np.nan
-                return
-            self.device_ms[row, slot] = ms.value
+            ok = ok and not drv.cuEventElapsedTime(ctypes.byref(ms), pool.start[slot],
+                                                    pool.end[slot])
+            self.device_ms[row, slot] = ms.value if ok else np.nan
+        for vid, start, end in self._graph_events:
+            ok = ok and not drv.cuEventElapsedTime(ctypes.byref(ms), start, end)
+            self.values[row, vid] += ms.value if ok else np.nan
+        if not ok:
+            self.device_ms[row] = np.nan
 
     # -- reading ----------------------------------------------------------
 
@@ -413,13 +488,15 @@ class FrameLog:
         (an index into ``names``; slot 0 is the root), ``parent`` (a slot,
         -1 for the root), ``start_ns`` and ``end_ns``
         (``time.perf_counter_ns()``), ``device_ms`` (NaN where the span has
-        no device time) and ``reads``."""
+        no device time) and ``reads``; ``values`` ``(frames, values)``,
+        its columns named by ``value_names``."""
         lo = max(0, self.count - self.frames + int(self.active))
         rows = np.arange(lo, self.count) % self.frames
         out = {k: getattr(self, k)[rows].copy() for k in (
             "seq", "index", "failed", "iterations", "clock_offset_ns", "n_spans", "dropped",
-            "name", "parent", "start_ns", "end_ns", "device_ms", "reads")}
+            "name", "parent", "start_ns", "end_ns", "device_ms", "reads", "values")}
         out["names"] = list(self._labels)
+        out["value_names"] = list(self._value_ids)
         return out
 
 

@@ -6,7 +6,11 @@ marked failed; the ring wraps at its size; with ``enabled`` off nothing is
 recorded and no profiler record is made; under ``torch.profiler``
 each ``icet.*`` span starts where the log's span of the same name does, on
 the ``time.time_ns()`` clock, and the Chrome trace of ``profiling.trace``
-nests the spans inside the frame's root.  On the CPU no span has a device
+nests the spans inside the frame's root.  A DNN-filtered odometry frame
+records a ``dnn_filter`` span a filter pass inside its ``dnn`` span (on
+the CPU; on the card the passes' device time is the frame's value
+``dnn_filter``) and the values ``filter_passes``, ``encoder_launches`` and
+``n_rejected``; a plain frame records none of them.  On the CPU no span has a device
 time (those come from CUDA events on the card); a stub of the CUDA driver
 stands in for the card where the log's own driver calls fail, which leaves
 the frame's device times NaN and closes the frame all the same."""
@@ -24,6 +28,7 @@ from icet_tpu_torch import odometry as todo
 from icet_tpu_torch.config import ICETConfig, MapConfig, OdometryConfig
 from icet_tpu_torch.datasets.replay import SyntheticTrajectorySource
 from icet_tpu_torch.mapping import MapMaker
+from icet_tpu_torch.models.bias_net import load_pretrained
 from icet_tpu_torch.utils import profiling
 from icet_tpu_torch.utils.profiling import FrameLog, frame_log
 
@@ -172,6 +177,60 @@ def test_disabled_log_records_nothing(log, scans, monkeypatch):
     assert log.count == 0
 
 
+#: the filter in the loop from iteration 7 of 12: five passes a frame
+DNN_CFG = CFG.replace(n_iters=12, dnn_filter=True, dnn_start_iter=7, dnn_sample_pts=16,
+                      dnn_refine_steps=2, dnn_in_loop=True)
+
+
+def test_dnn_frame_records_filter_spans_and_counters(log, scans):
+    pipe = todo.OdometryPipeline(DNN_CFG, OdometryConfig(), device="cpu",
+                                 net=load_pretrained(100))
+    frames = [pipe.step(s) for s in scans[:3]]
+    rec = log.records()
+    names = rec["value_names"]
+    assert set(names) == {"filter_passes", "encoder_launches", "n_rejected"}
+    col = {n: rec["values"][:, names.index(n)] for n in names}
+    assert not rec["values"][0].any()  # the first frame fits its model only
+    dnn = rec["names"].index("dnn")
+    for i in (1, 2):
+        spans = _spans(rec, i)
+        assert spans.count("dnn_filter") == 5 and spans.count("dnn") == 1
+        slots = [k for k, name in enumerate(spans) if name == "dnn_filter"]
+        assert all(rec["name"][i, rec["parent"][i, k]] == dnn for k in slots)
+        assert col["filter_passes"][i] == 5
+        # Plain calls on the CPU launch no kernel, so the wrapper counts none.
+        assert col["encoder_launches"][i] == 0
+        assert col["n_rejected"][i] == frames[i].n_rejected
+        assert frames[i].n_rejected == int((~frames[i].dnn_filter.keep).sum()) > 0
+        # Every pass's flags and shifts, the last pass's among them.
+        filt = frames[i].dnn_filter
+        assert filt.keeps.shape[0] == filt.dnn_shifts.shape[0] == filt.icet_shifts.shape[0] == 5
+        assert torch.equal(filt.keeps[-1], filt.keep)
+        assert torch.equal(filt.dnn_shifts[-1], filt.dnn_shift)
+        assert torch.equal(filt.icet_shifts[-1], filt.icet_shift)
+
+
+def test_plain_frame_records_no_filter_span_or_counter(log, scans):
+    pipe = _pipe()
+    for s in scans[:2]:
+        pipe.step(s)
+    rec = log.records()
+    assert not any("dnn_filter" in _spans(rec, i) for i in range(2))
+    assert not rec["values"].any()
+
+
+def test_counters_past_the_record_are_not_kept():
+    log = FrameLog(frames=2, spans=4, values=2)
+    log.add("outside", 5)  # no frame open: nothing
+    root = log.open("runner.step", 0)
+    for name, k in (("a", 1), ("b", 2), ("a", 3), ("c", 4)):
+        log.add(name, k)
+    log.close(root)
+    rec = log.records()
+    assert rec["value_names"] == ["a", "b"]
+    assert rec["values"].tolist() == [[4, 2]]
+
+
 def test_nested_spans_reads_and_dropped_slots():
     log = FrameLog(frames=4, spans=4)
     assert log.begin("outside") == -1  # no frame open
@@ -221,6 +280,9 @@ class StubDriver:
         self.events[ev] = self.clock
         return self._err("record")
 
+    def cuEventRecordWithFlags(self, ev, stream, flags):
+        return self.cuEventRecord(ev, stream)
+
     def cuEventSynchronize(self, ev):
         return self._err("synchronize")
 
@@ -267,6 +329,54 @@ def test_device_times_and_a_failing_driver(stub_card, fail):
     else:  # start and end of each replay: one stub millisecond apart
         assert dev[:, 1:3].tolist() == [[1.0, 1.0]] * 2
         assert np.isnan(dev[:, [0, 3]]).all()
+
+
+def test_device_spans_read_the_events_a_graph_records(stub_card):
+    """The events a replayed graph records (two pairs here, each recorded
+    as the replay would: start, then end two stub milliseconds later) add
+    their device times to the frame's value, not as spans: they lie inside
+    the replay's span, whose device time already holds them, and the spans'
+    device times add up to the replays' alone.  A frame without device
+    times adds nothing."""
+    driver = StubDriver()
+    log = stub_card(driver)
+    pairs = profiling.graph_events(0, 2)
+    root = log.open("runner.step", 0, torch.device("cuda", 0))
+    span = log.begin("dnn", timed=True)
+    for start, end in pairs:
+        profiling.record_in_capture(start, 0)
+        driver.clock += 1.0
+        profiling.record_in_capture(end, 0)
+    log.add_device([("dnn_filter", *p) for p in pairs])
+    log.end(span)
+    log.close(root)
+    rec = log.records()
+    assert _spans(rec, 0) == ["runner.step", "dnn"]
+    assert rec["value_names"] == ["dnn_filter"]
+    assert rec["values"][0].tolist() == [4.0] + [0.0] * (log.n_values - 1)
+    assert rec["device_ms"][0, 1] == 7.0  # the replay's own events bracket both
+    root = log.open("runner.step", 1)  # on the CPU: no device times
+    log.add_device([("dnn_filter", *pairs[0])])
+    log.close(root)
+    rec = log.records()
+    assert _spans(rec, 1) == ["runner.step"] and not rec["values"][1].any()
+
+
+@pytest.mark.parametrize("fail", [("synchronize",), ("elapsed",)])
+def test_device_values_are_nan_where_the_driver_fails(stub_card, fail):
+    log = stub_card(StubDriver(fail))
+    pairs = profiling.graph_events(0, 1)
+    root = log.open("runner.step", 0, torch.device("cuda", 0))
+    span = log.begin("dnn", timed=True)
+    for ev in pairs[0]:
+        profiling.record_in_capture(ev, 0)
+    log.add_device([("dnn_filter", *pairs[0])])
+    log.add("filter_passes", 5)
+    log.end(span)
+    log.close(root)
+    rec = log.records()
+    assert np.isnan(rec["values"][0, 0]) and rec["values"][0, 1] == 5
+    assert np.isnan(rec["device_ms"][0]).all()
 
 
 def test_a_close_whose_driver_call_raises_still_closes_the_frame(stub_card):

@@ -2,9 +2,11 @@
 """The frame log (``utils/profiling.py``) of the two runners on one GPU.
 
 Drives ``OdometryPipeline`` (75x24 bins, 7 fixed Gauss-Newton iterations
-warm-started, min range 2 m) and ``MapMaker`` (``PROFILES["mapping"]`` at
-12 fixed iterations, min range 0.2 m) over the first frames of the 64x1024
-city drive (``CityDriveSource``, repeated), and for each:
+warm-started, min range 2 m), the same with the DNN filter in the loop (12
+iterations, the last 5 filtered, 2 refinement passes, the bundled weights)
+and ``MapMaker`` (``PROFILES["mapping"]`` at 12 fixed iterations, min range
+0.2 m) over the first frames of the 64x1024 city drive (``CityDriveSource``,
+repeated), and for each (or for those ``--runner`` names):
 
 1. the cost of the log: after a warm-up of ``--warmup-s`` seconds of
    frames (a process runs slow for its first tens of seconds on the card),
@@ -12,8 +14,9 @@ city drive (``CityDriveSource``, repeated), and for each:
    ...), each frame timed on the host around ``step`` (which ends in a
    blocking read), the medians a mode;
 2. the log's frames: each span's host and device milliseconds (medians
-   over the logged frames), the runner's reads and the iterations a
-   frame, and the device spans' sum against the root's;
+   over the logged frames), each named value's median (the filter's
+   device ms and counts), the runner's reads and the iterations a frame,
+   and the device spans' sum against the root's;
 3. three frames under ``profiling.trace()``: every ``icet.*`` span of the
    Chrome trace lies inside its frame's root span.
 
@@ -21,7 +24,7 @@ Prints one JSON object a runner; exits 1 where the trace does not nest.
 Run from the repository root (it imports nothing of JAX or ``icet_tpu``):
 
     python3 tools/trace_frames.py [--frames 12] [--warmup-s 60] [--rounds 64]
-        [--per-round 5] [--out DIR]
+        [--per-round 5] [--runner NAME ...] [--out DIR]
 
 The Chrome traces (tens of MB each) go under ``--out``, by default the
 temporary directory.
@@ -53,9 +56,13 @@ def runners(device):
     odo = ICETConfig(n_iters=7, min_range=2.0, convergence_tol=0.0, convergence_stat_scale=0.0)
     mapping = PROFILES["mapping"].replace(n_iters=12, min_range=0.2, convergence_tol=0.0,
                                           convergence_stat_scale=0.0)
+    dnn = odo.replace(n_iters=12, dnn_filter=True, dnn_start_iter=7, dnn_refine_steps=2,
+                      dnn_in_loop=True)
     return {
         "odometry": lambda: OdometryPipeline(odo, OdometryConfig(divergence_clamp=2.5),
                                              device=device),
+        "odometry_dnn": lambda: OdometryPipeline(dnn, OdometryConfig(divergence_clamp=2.5),
+                                                 device=device),
         "mapping": lambda: MapMaker(mapping, MapConfig(), OdometryConfig(divergence_clamp=2.5),
                                     device=device),
     }
@@ -111,7 +118,10 @@ def spans(make, scans) -> dict:
     used[:, 0] = False
     device = np.where(used & ~np.isnan(rec["device_ms"]), rec["device_ms"], 0.0).sum(axis=1)
     root = (rec["end_ns"][:, 0] - rec["start_ns"][:, 0]) * 1e-6
-    return {"frames": n, "spans": out, "iterations_per_frame": float(rec["iterations"].mean()),
+    vals = {name: float(np.median(rec["values"][:, k]))
+            for k, name in enumerate(rec.get("value_names", ()))}
+    return {"frames": n, "spans": out, "values": vals,
+            "iterations_per_frame": float(rec["iterations"].mean()),
             "device_spans_ms_per_frame": float(device.mean()),
             "root_ms_per_frame": float(root.mean()),
             "device_idle_pct": float(100.0 * (1.0 - device.sum() / root.sum()))}
@@ -144,6 +154,7 @@ def main() -> int:
     ap.add_argument("--warmup-s", type=float, default=60.0)
     ap.add_argument("--rounds", type=int, default=64)
     ap.add_argument("--per-round", type=int, default=5)
+    ap.add_argument("--runner", nargs="*", default=None, help="the runners to drive (all)")
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "icet_trace_frames"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -154,6 +165,8 @@ def main() -> int:
     scans = [np.asarray(s, np.float32) for s, _ in src]
     ok = True
     for name, make in runners(device).items():
+        if args.runner and name not in args.runner:
+            continue
         rec = {"runner": name, "card": torch.cuda.get_device_name(0)}
         rec["cost"] = cost(make, scans, args.warmup_s, args.rounds, args.per_round)
         rec["log"] = spans(make, scans)
