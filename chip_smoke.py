@@ -262,6 +262,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     once an iteration (and once for the range sensitivity); its
     ``-Xptxas -v``, ms a launch, bound and the plain chain's ms.
 
+32. kernel #7, the 6x6 eigensystem and its pruned update: against its
+    plain version on the iterations of lap solves at 75x24 and 150x48, on
+    random SPD matrices at condition numbers 1e2-1e9 and on one with a
+    repeated eigenvalue, cold and warm (both outcomes of the warm test):
+    w6 within ``EIGH6_W_RTOL`` of max |w|, keep and the dropped count
+    equal, the reconstructions, the separated eigenvectors (up to sign) and
+    X + dx within their limits; two launches and two graph replays equal
+    bit for bit; one device operation a call; the compiled odometry and
+    mapping runners launch it 7 and 12 times a frame; its ``-Xptxas -v``
+    and ms cold and warm beside the plain chain's.
+
 ``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
 runs none of these phases: it times that tree's compiled paths against
 this one's (among them the fixed-radial-mode and 150x48 frames, which an
@@ -3809,6 +3820,307 @@ def phase_gn_assembly(scan1, scan2, cfg, dev, card) -> dict:
     return {"rel": rel, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# Kernel #7: the Gauss-Newton 6x6 eigensystem and its pruned update
+# ---------------------------------------------------------------------------
+
+#: kernel #7 vs its plain version: the eigenvalues agree to this share of
+#: the largest |w| (float32 rotations whose sums the kernel adds in its
+#: fixed order and cuBLAS, behind the plain version, in its own)
+EIGH6_W_RTOL = 1e-6
+#: the two routes' U2 diag(w6) U2^T agree to this share of the largest |w|
+#: (each is within ~1e-6 of the symmetrised input after 40 rounds)
+EIGH6_RECON_RTOL = 2e-6
+#: an eigenvector is compared where its eigenvalue stands apart from the
+#: others by EIGH6_GAP of the largest |w|; there the two agree, up to the
+#: column's sign, within EIGH6_VEC_TOL over that gap (the Davis-Kahan bound
+#: of a difference of EIGH6_VEC_TOL of the largest |w| between the inputs
+#: the two routes' rounding leaves)
+EIGH6_GAP, EIGH6_VEC_TOL = 1e-3, 1e-5
+#: X + dx agrees within EIGH6_DX_RTOL times the kept axes' condition times
+#: |dx| (a relative difference of the system, amplified by its condition),
+#: plus two float32 ulps of X
+EIGH6_DX_RTOL = 1e-5
+#: condition numbers of the random symmetric positive definite inputs; the
+#: cutoff's 1e6 itself is left out (an eigenvalue ratio of exactly the
+#: cutoff is kept or dropped by its last bit, in either route)
+EIGH6_CONDS = (1e2, 1e3, 1e4, 1e5, 3e6, 1e7, 1e8, 1e9)
+#: the lap frames of the solves whose iterations give inputs: pairs
+#: (k, k + 1) from EIGH6_LAP_FIRST
+EIGH6_LAP_FIRST, EIGH6_LAP_PAIRS = 100, 2
+#: frames each runner steps in the launch count (the first two capture)
+EIGH6_RUNNER_FRAMES = 5
+
+
+def bench_config(name: str) -> dict:
+    """``benchmark/configs/<name>.json``."""
+    with open(os.path.join(ROOT, "benchmark", "configs", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def lap_scans(dev, first: int, n: int) -> list[torch.Tensor]:
+    """Frames ``first`` .. ``first + n - 1`` of the benchmark's stream lap
+    (``benchmark/traffic/stream.json``) as the OS1-64 of
+    ``os1-64.odo.json`` sees them, without range noise, on ``dev``."""
+    from benchmark import lap as lapgen
+
+    with open(os.path.join(ROOT, "benchmark", "traffic", "stream.json")) as f:
+        traffic = json.load(f)
+    sensor = bench_config("os1-64.odo")["sensor"]
+    circuit = lapgen.Circuit(tuple(traffic["rect"]), traffic["corner_radius"])
+    step = circuit.length / int(traffic["frames_per_lap"])
+    R, t = zip(*(circuit.pose(step * i) for i in range(first, first + n)))
+    R = torch.from_numpy(np.stack(R)).to(dev)
+    t = torch.from_numpy(np.stack(t)).to(dev)
+    d = lapgen.beam_directions(sensor["n_beams"], sensor["n_azimuth"], sensor["elev_min"],
+                               sensor["elev_max"], dev)
+    rng = lapgen.raycast(R, t, d, lapgen.city_boxes(int(traffic["scene_seed"])),
+                         traffic["ground_z"], traffic["max_range"])
+    scans = (d[None] * rng[..., None]).float()
+    return [s.contiguous() for s in scans]
+
+
+def eigh6_solve_inputs(scan1, scan2, cfg) -> list[tuple]:
+    """``gn_eigh6``'s arguments at every iteration of an eager solve of the
+    pair on the card: the first cold, the others warm."""
+    from icet_tpu_torch import solver
+
+    model = solver.prepare_reference(scan1, cfg)
+    with spy(solver, "gn_eigh6") as calls:
+        solver.register(model, scan2, torch.zeros(6, device=scan1.device), cfg,
+                        want_static_mask=False)
+    return [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            for args, _ in calls.args]
+
+
+def eigh6_random_inputs(dev, cutoff: float) -> list[tuple[str, tuple]]:
+    """Random symmetric positive definite H^T W H at the condition numbers
+    of :data:`EIGH6_CONDS`, and one with a repeated eigenvalue, each cold,
+    warm from its own eigenbasis (the warm test passes) and warm from a
+    random orthogonal basis (the second sweep runs)."""
+    rng = np.random.default_rng(23)
+    spectra = [(f"cond {c:.0e}", 1e4 * np.logspace(0, -np.log10(c), 6)) for c in EIGH6_CONDS]
+    spectra.append(("repeated eigenvalue", np.array([1e4, 1e4, 2e2, 50.0, 3.0, 0.5])))
+    cases = []
+    for name, w in spectra:
+        Q = np.linalg.qr(rng.standard_normal((6, 6)))[0]
+        H = (Q * w) @ Q.T
+        b, X = rng.standard_normal(6) * 1e2, rng.standard_normal(6) * 0.1
+        bases = [("cold", None), ("warm from its eigenbasis", Q[:, np.argsort(w, kind="stable")]),
+                 ("warm from a random basis", np.linalg.qr(rng.standard_normal((6, 6)))[0])]
+        for how, U in bases:
+            args = tuple(None if a is None else torch.tensor(a, dtype=torch.float32, device=dev)
+                         for a in (H, b, X, U))
+            cases.append((f"{name}, {how}", (*args, cutoff)))
+    return cases
+
+
+def eigh6_converged(H, V0) -> bool:
+    """``eigh_small_warm_safe``'s test on the card's plain route, read on
+    the host."""
+    from icet_tpu_torch.ops.linalg import eigh_small
+
+    A0 = V0.T @ H @ V0
+    _, V1 = eigh_small(A0, sweeps=1)
+    R = V1.T @ A0 @ V1
+    dg = torch.diagonal(R)
+    off = torch.linalg.norm(R - dg[:, None] * torch.eye(6, device=H.device))
+    return bool(off <= 1e-5 * torch.clamp(torch.linalg.norm(dg), min=1e-30))
+
+
+def eigh6_compare(what: str, args: tuple, report: list) -> dict:
+    """Kernel #7 against its plain version on the card, launched twice: w6
+    within :data:`EIGH6_W_RTOL`, keep and the dropped count equal, the
+    reconstructions within :data:`EIGH6_RECON_RTOL`, separated columns up to
+    sign (:data:`EIGH6_GAP`, :data:`EIGH6_VEC_TOL`), X + dx and |dx| within
+    :data:`EIGH6_DX_RTOL` of their condition; the condition from its own
+    w6; the two launches equal bit for bit."""
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6, gn_eigh6_reference
+
+    got = gn_eigh6(*args)
+    again = gn_eigh6(*args)
+    Xr, wr, kr, Ur, _, dr, nr = gn_eigh6_reference(*args)
+    Xk, wk, kk, Uk, ck, dk, nk = got
+    X = args[2]
+    scale = float(wr.abs().max())
+    w_err = float((wk - wr).abs().max()) / scale
+    check(w_err <= EIGH6_W_RTOL, f"{what}: w6 {w_err:.3e} of max |w| off the plain version's "
+          f"(limit {EIGH6_W_RTOL})")
+    check(torch.equal(kk, kr) and int(nk) == int(nr),
+          f"{what}: keep {kk.tolist()} / {kr.tolist()}, dropped {int(nk)} / {int(nr)} "
+          "(kernel / plain)")
+    r_err = float(((Uk * wk) @ Uk.T - (Ur * wr) @ Ur.T).abs().max()) / scale
+    check(r_err <= EIGH6_RECON_RTOL, f"{what}: U2 diag(w6) U2^T {r_err:.3e} of max |w| off "
+          f"the plain version's (limit {EIGH6_RECON_RTOL})")
+    v_ratio, flips, compared = 0.0, 0, 0
+    w_host = wr.double().cpu().numpy()
+    for c in range(6):
+        gap = min(abs(w_host[c] - w_host[k]) for k in range(6) if k != c) / scale
+        if gap < EIGH6_GAP:
+            continue
+        sign = 1.0 if float(Uk[:, c] @ Ur[:, c]) >= 0 else -1.0
+        flips += sign < 0
+        compared += 1
+        err = float((Uk[:, c] - sign * Ur[:, c]).abs().max())
+        v_ratio = max(v_ratio, err * gap / EIGH6_VEC_TOL)
+    check(v_ratio <= 1.0, f"{what}: an eigenvector {v_ratio:.3f} of its limit off the plain "
+          "version's")
+    kappa = scale / float(wr.abs()[kr].min())
+    dx = float((Xr - X).abs().max())
+    x_lim = EIGH6_DX_RTOL * kappa * dx + 2 * 2.0**-23 * float(Xr.abs().max())
+    x_err = float((Xk - Xr).abs().max())
+    check(x_err <= x_lim, f"{what}: X + dx {x_err:.3e} off the plain version's (limit "
+          f"{x_lim:.3e}, condition {kappa:.3e})")
+    d_err = abs(float(dk) - float(dr))
+    check(d_err <= math.sqrt(6) * x_lim, f"{what}: |dx| {d_err:.3e} off the plain version's")
+    cond = torch.abs(wk[-1]) / torch.clamp(torch.abs(wk[0]), min=1e-30)
+    check(torch.equal(ck, cond), f"{what}: the condition is not |w6[5]| / |w6[0]| of its w6")
+    check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(got, again)),
+          f"{what}: two launches differ")
+    report.append(f"{what}: w6 {w_err:.2e}, U2 diag(w6) U2^T {r_err:.2e} of max |w|, "
+                  f"{compared} columns within {v_ratio:.3f} of their limit ({flips} of opposite "
+                  f"sign), X + dx {x_err:.2e} ({x_err / x_lim:.3f} of its limit), "
+                  f"{int(nk)} dropped, two launches equal")
+    return {"w": w_err, "recon": r_err, "vec": v_ratio, "x": x_err / x_lim}
+
+
+def eigh6_replays(what: str, args: tuple, dev, report: list) -> None:
+    """One launch captured in a CUDA graph: two replays give the eager
+    launch's bits."""
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
+
+    eager_out = [t.clone() for t in gn_eigh6(*args)]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gn_eigh6(*args)  # the warm-up the capture needs
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gn_eigh6(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(out, eager_out)),
+              f"{what}: a graph replay differs from the eager launch")
+    report.append(f"{what}: two graph replays equal the eager launch bit for bit")
+
+
+def eigh6_runner_launches(scans, dev, report: list) -> dict:
+    """#7's launches a frame of the compiled ``OdometryPipeline`` and
+    ``MapMaker`` at the benchmark's configurations, on lap frames, once
+    their graphs are captured: one an iteration, 7 and 12."""
+    from icet_tpu_torch.config import MapConfig, OdometryConfig
+    from icet_tpu_torch.mapping import MapMaker
+    from icet_tpu_torch.odometry import OdometryPipeline
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
+    from icet_tpu_torch import graphs
+    from benchmark.common import solver_config
+
+    odo_c, map_c = bench_config("os1-64.odo"), bench_config("os1-64.map")
+    runners = {
+        "odometry": (OdometryPipeline(
+            solver_config(odo_c), OdometryConfig(
+                divergence_clamp=odo_c["divergence_clamp"], warm_start=odo_c["warm_start"],
+                warm_start_mode=odo_c["warm_start_mode"],
+                sensor_hz=odo_c["sensor"]["rate_hz"]), device=dev), odo_c["n_iters"]),
+        "mapping": (MapMaker(
+            solver_config(map_c), MapConfig(capacity=map_c["capacity"],
+                                            points_per_scan=map_c["points_per_scan"]),
+            OdometryConfig(divergence_clamp=map_c["divergence_clamp"]), seed=1, device=dev,
+            snapshot_every=map_c["snapshot_every"]), map_c["n_iters"]),
+    }
+    per_frame = {}
+    for name, (runner, want) in runners.items():
+        counts = []
+        for s in scans:
+            settle()
+            before = gn_eigh6.launches
+            runner.step(s.cpu().numpy())
+            settle()
+            counts.append(gn_eigh6.launches - before)
+        check(all(k == want for k in counts[2:]),
+              f"{name}: #7 launches a frame {counts} (after two frames {want} each expected)")
+        per_frame[name] = counts
+        report.append(f"compiled {name} at the benchmark's configuration: #7 launches a "
+                      f"frame {counts} (the first two capture)")
+        graphs.clear(dev)
+    return per_frame
+
+
+def eigh6_timing(cold: tuple, warm: tuple) -> dict:
+    """Kernel #7 and its plain chain, cold and warm: device ms a call and
+    device operations a call (torch.profiler), CUDA-event ms a call of
+    back-to-back launches."""
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6, gn_eigh6_reference
+
+    out = {}
+    for name, args in (("cold", cold), ("warm", warm)):
+        k_ms, k_event_ms = kernel_times(lambda: gn_eigh6(*args), 50)
+        plain_ops = device_profile(lambda: gn_eigh6_reference(*args), 3)
+        out[name] = {"ms": k_ms, "event_ms": k_event_ms,
+                     "plain_ms": sum(ms for ms, _ in plain_ops.values()),
+                     "plain_launches": sum(k for _, k in plain_ops.values())}
+    return out
+
+
+def phase_gn_eigh6(dev, card) -> dict:
+    """Kernel #7 against its plain version on the card: the iterations of
+    lap solves at 75x24 and 150x48, random SPD matrices at condition numbers
+    1e2-1e9 and one with a repeated eigenvalue, cold and warm with both
+    outcomes of the warm test; two launches and two graph replays bit for
+    bit; one device operation a call; the launches a frame of the compiled
+    runners; its ms cold and warm beside the plain chain's."""
+    from icet_tpu_torch import _build
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
+    from benchmark.common import solver_config
+
+    t0 = time.perf_counter()
+    for name, usage in ptxas_usage(_build.build(["gn_eigh6"])).items():
+        print(f"ptxas {name}: {usage}")
+    report, worst = [], {"w": 0.0, "recon": 0.0, "vec": 0.0, "x": 0.0}
+    outcomes = {True: 0, False: 0}
+    scans = lap_scans(dev, EIGH6_LAP_FIRST, max(EIGH6_LAP_PAIRS + 1, EIGH6_RUNNER_FRAMES))
+    cfg = solver_config(bench_config("os1-64.odo"))
+    cases = []
+    for grid, kw in (("75x24", {}), ("150x48", {"n_theta": 150, "n_phi": 48})):
+        for k in range(EIGH6_LAP_PAIRS):
+            for it, args in enumerate(eigh6_solve_inputs(scans[k], scans[k + 1],
+                                                         cfg.replace(**kw))):
+                cases.append((f"lap {grid} frames {EIGH6_LAP_FIRST + k}-"
+                              f"{EIGH6_LAP_FIRST + k + 1} iteration {it}", args))
+    check(len(cases) == 2 * EIGH6_LAP_PAIRS * cfg.n_iters,
+          f"{len(cases)} eigensystems in the lap solves")
+    cases += eigh6_random_inputs(dev, cfg.condition_cutoff)
+    for what, args in cases:
+        if args[3] is not None:
+            flag = eigh6_converged(args[0], args[3])
+            outcomes[flag] += 1
+            what = f"{what} (warm test {'passes' if flag else 'fails'})"
+        r = eigh6_compare(what, args, report)
+        worst = {k: max(v, r[k]) for k, v in worst.items()}
+    check(outcomes[True] > 0 and outcomes[False] > 0,
+          f"the warm test's outcomes {outcomes}: one branch untested")
+    cold, warm = cases[0][1], cases[1][1]
+    for name, args in (("cold", cold), ("warm", warm)):
+        check_one_launch(f"lap 75x24 {name}", lambda: gn_eigh6(*args), gn_eigh6,
+                         "gn_eigh6_kernel", report)
+        eigh6_replays(f"lap 75x24 {name}", args, dev, report)
+    launches = eigh6_runner_launches(scans[:EIGH6_RUNNER_FRAMES], dev, report)
+    times = eigh6_timing(cold, warm)
+    for line in report:
+        print(f"gn_eigh6 vs plain, {line}")
+    print(f"gn_eigh6: warm test passed {outcomes[True]}, failed {outcomes[False]}; worst w6 "
+          f"{worst['w']:.3e}, reconstruction {worst['recon']:.3e} of max |w|, eigenvectors "
+          f"{worst['vec']:.3f} and X + dx {worst['x']:.3f} of their limits")
+    for name, t in times.items():
+        print(f"gn_eigh6 {name} ({card}): {t['ms']:.5f} ms a launch (CUDA events "
+              f"{t['event_ms']:.5f}); plain chain {t['plain_ms']:.4f} ms in "
+              f"{t['plain_launches']:g} device operations")
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s")
+    return {"worst": worst, "times": times, "launches": launches, "outcomes": outcomes}
+
+
 def time_tree(spec: dict) -> int:
     """A spawned process of phase 28c: the compiled entry points of the tree
     at ``spec["root"]`` (this one or an earlier one; only the entry points
@@ -4050,6 +4362,7 @@ def main() -> int:
     from icet_tpu_torch.scan_matcher import ScanMatcher
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.ops.gn_assembly import gn_assembly
+    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
     from icet_tpu_torch import graphs
@@ -4255,11 +4568,15 @@ def main() -> int:
     gn = phase_gn_assembly(torch.from_numpy(scans[0]).to(dev), torch.from_numpy(scans[1]).to(dev),
                            cfg, dev, card)
 
+    # -- 32. kernel #7, the 6x6 eigensystem and its update, vs plain -------
+    eigh6 = phase_gn_eigh6(dev, card)
+
     # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
     settle()
     fused_moment_sums.launches = 0
     gn_assembly.launches = 0
+    gn_eigh6.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
@@ -4269,6 +4586,7 @@ def main() -> int:
     fused_launches = fused_moment_sums.launches
     seq_warm = warmups()
     gn_launches, gn_warm = gn_assembly.launches, warmups("gn_assembly")
+    eigh6_launches, eigh6_warm = gn_eigh6.launches, warmups("gn_eigh6")
     iters = [f.iterations for f in out]
     check(len(out) == len(scans) - 1, f"{len(out)} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in out),
@@ -4279,12 +4597,15 @@ def main() -> int:
           f"+ warm-ups before capture {seq_warm}")
     check(gn_launches == sum(iters) + gn_warm,
           f"#6 launches {gn_launches} != iterations {sum(iters)} + warm-ups {gn_warm}")
+    check(eigh6_launches == sum(iters) + eigh6_warm,
+          f"#7 launches {eigh6_launches} != iterations {sum(iters)} + warm-ups {eigh6_warm}")
     ate = trajectory_ate(out, gt)
     print(f"sequence odometry (compiled): {len(out)} frames in {path_s:.2f} s with the graphs' "
           f"capture, fused launches {fused_launches} = {sum(iters)} iterations + {len(scans)} "
           f"prepares + {seq_warm} warm-ups before capture, "
           f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm; "
-          f"#6 launches {gn_launches} = {sum(iters)} iterations + {gn_warm} warm-ups")
+          f"#6 launches {gn_launches} = {sum(iters)} iterations + {gn_warm} warm-ups; "
+          f"#7 launches {eigh6_launches} = {sum(iters)} iterations + {eigh6_warm} warm-ups")
     check(ate <= ATE_MAX_M, f"ATE {ate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
 
     # -- DNN-filtered odometry --------------------------------------------
@@ -5237,6 +5558,21 @@ def main() -> int:
             "plain_ms": gn["times"]["75x24"]["plain_ms"],
             "bound_ms": gn["times"]["75x24"]["bound_ms"],
             "bound_by": gn["times"]["75x24"]["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "gn_eigh6",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/gn_eigh6.cu",
+            "replaces": None,
+            "launches": eigh6_launches,
+            "max_w_rel_err": eigh6["worst"]["w"],
+            "ms": eigh6["times"]["cold"]["ms"],
+            "warm_ms": eigh6["times"]["warm"]["ms"],
+            "plain_ms": eigh6["times"]["cold"]["plain_ms"],
+            "warm_plain_ms": eigh6["times"]["warm"]["plain_ms"],
+            "bound_ms": None,
+            "bound_by": "a dependent chain of Jacobi rounds",
             "library_ms": None,
         },
         {

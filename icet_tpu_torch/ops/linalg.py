@@ -149,12 +149,17 @@ def eigh_small_warm_safe(A: torch.Tensor, V0: torch.Tensor, rtol: float = 1e-5):
             torch.where(converged, V0 @ V1, V0 @ (V1 @ V2)))
 
 
+def inverse_where(w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """``1 / w`` where ``ok``, 0 elsewhere (no division by the others)."""
+    return torch.where(ok, 1.0 / torch.where(ok, w, torch.ones_like(w)),
+                       torch.zeros_like(w))
+
+
 def psd_pinv(A: torch.Tensor, rcond: float = 1e-7, sweeps: int = 8) -> torch.Tensor:
     """Pseudo-inverse of batched small symmetric PSD matrices: eigenvalues
     below ``rcond * max |w|`` (or 1e-12) are truncated to zero."""
     w, V = eigh_small(A, sweeps)
     wmax = torch.amax(torch.abs(w), dim=-1, keepdim=True)
     keep = torch.abs(w) > torch.clamp(rcond * wmax, min=1e-12)
-    inv_w = torch.where(keep, 1.0 / torch.where(keep, w, torch.ones_like(w)),
-                        torch.zeros_like(w))
+    inv_w = inverse_where(w, keep)
     return small_matmul(V * inv_w[..., None, :], torch.swapaxes(V, -1, -2))

@@ -7,7 +7,7 @@
    moments pass over scan 2 at the current X (the CUDA kernel on the
    card), the plane-form normal equations (``ops.gn_assembly``: one CUDA
    kernel on the card), a 6x6 Jacobi eigensystem and a condition-pruned
-   update.
+   update (``ops.gn_eigh6``: one CUDA kernel on the card).
 
 Early exit: the JAX package runs the iterations in a device-side
 ``lax.while_loop``; here a Python loop reads ``|dx|`` and the exit
@@ -68,8 +68,9 @@ from icet_tpu_torch.ops.geometry import (
     transform_points,
 )
 from icet_tpu_torch.ops.gn_assembly import gn_assembly
+from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
 from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors, voxel_ids
-from icet_tpu_torch.ops.linalg import eigh_small, eigh_small_warm_safe
+from icet_tpu_torch.ops.linalg import inverse_where
 from icet_tpu_torch.ops.moments import (
     cov6_to_matrix,
     finalize_moments_planes,
@@ -367,29 +368,11 @@ def iteration_from_sums(
         model, sums, X, dR, it, cfg, corr_mask, want_range_sens
     )
 
-    if U2_warm is None:
-        w6, U2 = eigh_small(HTWH)
-    else:
-        w6, U2 = eigh_small_warm_safe(HTWH, U2_warm)
-    cond_full = torch.abs(w6[-1]) / torch.clamp(torch.abs(w6[0]), min=1e-30)
-    keep = (torch.abs(w6[-1]) <= cfg.condition_cutoff * torch.abs(w6)) & (
-        torch.abs(w6) > 1e-30
+    X_new, w6, keep, U2, cond_full, dx_norm, n_dropped = gn_eigh6(
+        HTWH, HTWdz, X, U2_warm, cfg.condition_cutoff
     )
-    dx = U2 @ (_inverse_where(w6, keep) * (U2.T @ HTWdz))
-    diag = (
-        n_corr,
-        cond_full,
-        torch.linalg.norm(dx),
-        torch.sum(~keep, dtype=torch.int32),
-        n_rejected,
-    )
-    return X + dx, w6, keep, corr, U2, diag, htwg
-
-
-def _inverse_where(w: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """``1 / w`` where ``ok``, 0 elsewhere (no division by the others)."""
-    return torch.where(ok, 1.0 / torch.where(ok, w, torch.ones_like(w)),
-                       torch.zeros_like(w))
+    diag = (n_corr, cond_full, dx_norm, n_dropped, n_rejected)
+    return X_new, w6, keep, corr, U2, diag, htwg
 
 
 def _exit_threshold(w6, U2, cfg: ICETConfig) -> torch.Tensor:
@@ -397,7 +380,7 @@ def _exit_threshold(w6, U2, cfg: ICETConfig) -> torch.Tensor:
     t = torch.full((), cfg.convergence_tol, dtype=w6.dtype, device=w6.device)
     if cfg.convergence_stat_scale > 0.0:
         wmax = torch.amax(torch.abs(w6))
-        inv = _inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
+        inv = inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
         var = torch.sum(U2 * U2 * inv[None, :], dim=1)
         t = torch.maximum(t, cfg.convergence_stat_scale * torch.sqrt(torch.sum(torch.abs(var))))
     return t
@@ -407,7 +390,7 @@ def _predicted_covariance(w6, U2, keep, cfg: ICETConfig, htwg=None):
     """Predicted solution covariance and per-component stds from the final
     eigensystem; pruned axes inflate the stds by ``|U2| @ dropped``."""
     wmax = torch.amax(torch.abs(w6))
-    inv_all = _inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
+    inv_all = inverse_where(w6, torch.abs(w6) > cfg.pinv_rcond * wmax)
     Q = (U2 * inv_all[None, :]) @ U2.T
     if htwg is not None:
         inv_kept = torch.where(keep, inv_all, torch.zeros_like(inv_all))

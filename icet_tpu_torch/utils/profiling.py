@@ -136,8 +136,9 @@ def trace(log_dir: str = "icet_torch_trace"):
     prof.export_chrome_trace(path)
 
 
-#: frames the frame log's ring holds
-FRAMES = 8192
+#: frames the frame log's ring holds: a 50-s stretch of frames at up to
+#: ~650 frames a second (~1.1 KB a frame, ~35 MB in all)
+FRAMES = 32768
 #: span slots a frame record holds, its root among them
 SPANS = 32
 #: named values a frame record holds

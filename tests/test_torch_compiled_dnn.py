@@ -366,4 +366,5 @@ def test_counted_wrappers_include_the_encoder():
     assert bias_encoder.bias_encoder_pool in graphs.COUNTED
     assert set(graphs.warmup_launches) == {"fused_moment_sums", "bias_encoder_pool",
                                            "tridiag_factor", "tridiag_apply",
-                                           "moment_scatter_sums", "gn_assembly"}
+                                           "moment_scatter_sums", "gn_assembly",
+                                           "gn_eigh6"}

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Device time of one Gauss-Newton iteration, split by function.
+"""Device time of one Gauss-Newton iteration, split by function, cold and
+warm.
 
 Builds two consecutive scans of the benchmark's lap (``benchmark/lap.py``,
-the OS1-64 pattern), fits the model to the first at each benchmark
-configuration (``benchmark/configs/*.json``), solves once to warm up, then
-runs ``--iters`` warm iterations eagerly (``solver._iteration`` from the
-solution and its eigenbasis) under ``torch.profiler``, each function of the
-iteration inside a ``record_function`` region of its own.  Prints one JSON
-line a configuration: for each region the device ms and the kernels
-launched an iteration, and their share of the iteration's.  Regions:
-``moments`` (scan 2's moment sums), ``finalize``, ``residual``,
-``assembly`` (``assemble_normal_equations``), ``gn_assembly`` (its kernel
-wrapper, where the program has one), ``eigh`` (the 6x6 eigensystem),
-``dR`` (the rotation derivative), ``rest`` (the iteration less all these).
-Run from the repository root, on a machine with a CUDA card:
+the OS1-64 pattern; ``chip_smoke.lap_scans``), fits the model to the first
+at each benchmark configuration (``benchmark/configs/*.json``), solves once
+to warm up, then runs ``--iters`` cold iterations (``solver._iteration``
+from X = 0 without a basis, as a solve's first) and ``--iters`` warm ones
+(from the solution and its eigenbasis) eagerly under ``torch.profiler``,
+each function of the iteration inside a ``record_function`` region of its
+own.  Prints one JSON line a configuration: for each kind of iteration and
+each region the device ms and the kernels launched an iteration, and their
+share of the iteration's.  Regions: ``moments`` (scan 2's moment sums),
+``finalize``, ``residual``, ``assembly`` (``assemble_normal_equations``),
+``gn_assembly`` and ``gn_eigh6`` (the kernel wrappers, where the program
+has them), ``eigh`` (the 6x6 eigensystem as plain operations, where the
+program has no kernel for it), ``dR`` (the rotation derivative), ``rest``
+(the iteration less all these).  The kernels launched through ctypes (#1,
+#6, #7) are not attributed to a region: their device ms and launches an
+iteration are given apart, from the trace's records of their symbols
+(``kernels``), and ``iteration_ms`` adds them.  Run from the repository
+root, on a machine with a CUDA card:
 
     python3 tools/profile_gn_split.py [--iters 5]
 
@@ -29,13 +36,12 @@ import os
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from benchmark import lap as lapgen  # noqa: E402
 from benchmark.common import solver_config  # noqa: E402
+from chip_smoke import lap_scans  # noqa: E402
 from icet_tpu_torch import solver  # noqa: E402
 
 #: region -> the solver module's names it wraps (those the module has)
@@ -45,31 +51,13 @@ REGIONS = {
     "residual": ("residual_compact_planes",),
     "assembly": ("assemble_normal_equations",),
     "gn_assembly": ("gn_assembly",),
+    "gn_eigh6": ("gn_eigh6",),
     "eigh": ("eigh_small", "eigh_small_warm_safe"),
     "dR": ("rotation_jacobian",),
 }
 CONFIGS = ("os1-64.odo", "os1-64.map")
-
-
-def two_scans(device, first: int = 100) -> tuple[torch.Tensor, torch.Tensor]:
-    """Frames ``first`` and ``first + 1`` of the stream traffic's lap, as
-    the OS1-64 sees them (no range noise)."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(root, "benchmark", "traffic", "stream.json")) as f:
-        traffic = json.load(f)
-    with open(os.path.join(root, "benchmark", "configs", "os1-64.odo.json")) as f:
-        sensor = json.load(f)["sensor"]
-    circuit = lapgen.Circuit(tuple(traffic["rect"]), traffic["corner_radius"])
-    step = circuit.length / int(traffic["frames_per_lap"])
-    R, t = zip(*(circuit.pose(step * i) for i in (first, first + 1)))
-    R = torch.from_numpy(np.stack(R)).to(device)
-    t = torch.from_numpy(np.stack(t)).to(device)
-    d = lapgen.beam_directions(sensor["n_beams"], sensor["n_azimuth"], sensor["elev_min"],
-                               sensor["elev_max"], device)
-    rng = lapgen.raycast(R, t, d, lapgen.city_boxes(int(traffic["scene_seed"])),
-                         traffic["ground_z"], traffic["max_range"])
-    scans = (d[None] * rng[..., None]).float()
-    return scans[0].contiguous(), scans[1].contiguous()
+#: the symbols of the kernels launched through ctypes (#1, #6, #7)
+KERNELS = ("fused_moments_kernel", "gn_assembly_kernel", "gn_eigh6_kernel")
 
 
 @contextlib.contextmanager
@@ -106,38 +94,75 @@ def _device(e) -> tuple[float, int]:
     return us, n
 
 
-def split(cfg, scan1, scan2, iters: int) -> dict:
-    model = solver.prepare_reference(scan1, cfg)
-    res = solver.register(model, scan2, torch.zeros(6, device=scan1.device), cfg,
-                          want_static_mask=False)
-    X = res.X.clone()
-    _, _, _, _, U2, _, _ = solver._iteration(model, scan2, X, 1, cfg)
-    torch.cuda.synchronize()
+def _kernel_names(e) -> list[str]:
+    """The names of the kernels under ``e``."""
+    names = [k.name for k in e.kernels]
+    for c in e.cpu_children:
+        names += _kernel_names(c)
+    return names
+
+
+def profile(model, scan2, X, U2, cfg, iters: int) -> dict:
+    """``iters`` iterations from X (warm from ``U2``, cold where it is None)
+    under the profiler: each region's and each ctypes kernel's device ms and
+    launches an iteration."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    it = 0 if U2 is None else 1
     with regions(), torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
             with torch.profiler.record_function("gn.iteration"):
-                out = solver._iteration(model, scan2, X, 1, cfg, None, U2)
+                out = solver._iteration(model, scan2, X, it, cfg, None, U2)
         torch.cuda.synchronize()
     totals: dict = {}
+    kernels = {k: [0.0, 0] for k in KERNELS}
+    attributed = False
     for e in prof.events():
         if e.name.startswith("gn."):
             us, n = _device(e)
+            if e.name == "gn.iteration":
+                attributed |= any(k in name for k in KERNELS for name in _kernel_names(e))
             t = totals.setdefault(e.name[3:], [0.0, 0])
             t[0] += us
             t[1] += n
+        elif e.device_type == torch.autograd.DeviceType.CUDA:
+            for k in KERNELS:
+                if k in e.name:
+                    kernels[k][0] += e.time_range.end - e.time_range.start
+                    kernels[k][1] += 1
     it_us, it_n = totals.pop("iteration", [0.0, 0])
+    # Where the profiler does attribute them, the regions hold them already.
+    lib_us = 0.0 if attributed else sum(us for us, _ in kernels.values())
+    lib_n = 0 if attributed else sum(n for _, n in kernels.values())
+    whole_us = it_us + lib_us
     out_rows = {}
     rest_us, rest_n = it_us, it_n
     for region, (us, n) in totals.items():
         rest_us -= us
         rest_n -= n
         out_rows[region] = {"ms": us / iters / 1e3, "kernels": n / iters,
-                            "share": us / it_us if it_us else None}
+                            "share": us / whole_us if whole_us else None}
     out_rows["rest"] = {"ms": rest_us / iters / 1e3, "kernels": rest_n / iters,
-                        "share": rest_us / it_us if it_us else None}
-    return {"iteration_ms": it_us / iters / 1e3, "iteration_kernels": it_n / iters,
-            "regions": out_rows, "n_corr": int(out[5][0])}
+                        "share": rest_us / whole_us if whole_us else None}
+    return {"iteration_ms": whole_us / iters / 1e3, "iteration_kernels": (it_n + lib_n) / iters,
+            "regions": out_rows,
+            "kernels_in_regions": attributed,
+            "kernels": {k: {"ms": us / iters / 1e3, "launches": n / iters,
+                            "share": us / whole_us if whole_us else None}
+                        for k, (us, n) in kernels.items()},
+            "n_corr": int(out[5][0])}
+
+
+def split(cfg, scan1, scan2, iters: int) -> dict:
+    """A cold iteration (X = 0, no basis) and a warm one (from the
+    solution and its eigenbasis), profiled ``iters`` times each."""
+    model = solver.prepare_reference(scan1, cfg)
+    x0 = torch.zeros(6, device=scan1.device)
+    res = solver.register(model, scan2, x0, cfg, want_static_mask=False)
+    X = res.X.clone()
+    _, _, _, _, U2, _, _ = solver._iteration(model, scan2, X, 1, cfg)
+    torch.cuda.synchronize()
+    return {"cold": profile(model, scan2, x0, None, cfg, iters),
+            "warm": profile(model, scan2, X, U2, cfg, iters)}
 
 
 def main() -> int:
@@ -150,7 +175,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    scan1, scan2 = two_scans(dev)
+    scan1, scan2 = lap_scans(dev, 100, 2)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name in CONFIGS:
         with open(os.path.join(root, "benchmark", "configs", f"{name}.json")) as f:
