@@ -71,19 +71,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``KeyframeOdometry`` at bench.py's keyframe config (both compiled);
    keyframe indices of the two equal, fused-moments launches counted with
    the warm-ups, the block map's fill, ATE gated at the JAX package's CPU
-   figure plus 0.5 cm, the eager host loop's beside it;
+   figure plus 0.5 cm, the eager chain's (``tests/eager_chains.py``)
+   beside it;
 10. DNN-filtered keyframe odometry: ``KeyframeOdometry`` with the filter
     (compiled); encoder and fused-moments launches counted with the
-    warm-ups, ATE gated likewise, the eager run's beside it;
+    warm-ups, ATE gated likewise, the eager chain's beside it;
 11. MapMaker at ``PROFILES["mapping"]`` on the compiled route
     (``map_step_jit``; its graphs captured under
-    ``set_sync_debug_mode("error")``) against the eager route frame by
+    ``set_sync_debug_mode("error")``) against the eager chain frame by
     frame (X within 1e-6 m, flags, fill and counters equal; bit-identical
     or not, and the rings): launches counted with the warm-ups, ring fill
     exact, trajectory ATE gated likewise;
 12. ScanMatcher: 6 frames, statuses and aligned clouds;
 13. times: CUDA-event times (one round after a warm-up) of the eager
-    odometry, DNN, keyframe, DNN keyframe and pallas-moments frames; for each kernel, its plain version and, where one exists, the
+    odometry, DNN, keyframe, DNN keyframe and pallas-moments frames (the
+    eager chains); for each kernel, its plain version and, where one exists, the
     one PyTorch call that computes the same function, the device time a
     call by torch.profiler (what the JSON line reports) and the CUDA-event
     time over back-to-back calls; the encoder's LayerNorm-epilogue floor;
@@ -126,7 +128,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     robust_delta=3.5)``, all compiled; launches counted, at least 30 loops,
     the refined ATE below the odometry ATE and within ATE_SLACK_M of the
     JAX package's CPU figure; the loop factors of the first 16 candidates
-    against the eager route's;
+    against the eager chain's;
 18. the in-process mesh (``parallel.sharding``) on repeats of the card at
     (dp, sp) in SHARD_SHAPES, 4 pairs of the drive, the compiled step
     (captured under ``set_sync_debug_mode("error")``) and the eager one:
@@ -138,7 +140,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     2.0 and 0.02, beam-major and shuffled; ms a pair per shape; no
     exit-flag or overflow read on a captured row; the keyframe drive with
     its block map over two repeats of the card (``shard_blockmap``) on the
-    compiled step against the eager step over the same map and against
+    compiled step against the eager chain over the same map and against
     the unsharded map;
 19. ``run_distributed_registration`` as spawned processes (this script
     with ``--worker``), each joined with a timeout: two over gloo at
@@ -160,8 +162,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     compiled pipelines' graphs captured anew; the MapMaker's kept, its
     ring restored in place), the frames against a clean run within a
     bound from two clean runs (the keyframe runner re-seeds a keyframe
-    there, as the JAX package's does), ATE and ms a recovery (the eager
-    route's beside it); then a
+    there, as the JAX package's does), ATE and ms a recovery; then a
     resume of the odometry and keyframe runners from a mid-drive
     checkpoint;
 22. KITTI evaluation at KITTI scale: the 24-frame city drive at 64x2048
@@ -170,8 +171,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     queue: plain (TUM files and the HTML map written), ``--keyframe``,
     ``--dnn`` and ``--refine --strict-real``; launches of #1, #4 and the
     backbone counted (every mode through the compiled pipelines, graph
-    replays counted, warm-ups added; --keyframe and --dnn once more on the
-    eager route, their times beside), ATE gated at the JAX package's CPU figure
+    replays counted, warm-ups added), ATE gated at the JAX package's CPU figure
     (tools/kitti_eval_ate_cpu.py) plus 0.5 cm, the TUM files read back,
     ms a frame by CUDA events and the StageTimer split;
 23. replay and prefetch: the sequence's first 8 scans as .bin and .npy;
@@ -199,9 +199,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 27. the compiled DNN and keyframe paths: the graphs of ``OdometryPipeline``
     (DNN), ``KeyframeOdometry`` (plain and DNN) and ``run_keyframe_device``
     captured under ``set_sync_debug_mode("error")``, each drive against the
-    eager route (ATE gated and within 1e-4 cm of it, iterations and
-    keyframes equal, kernel #1's and #4's launches equal to the eager
-    drive's plus the warm-ups), ``run_keyframe_device``'s keyframes equal to
+    eager chain with its semantics (ATE gated and within 1e-4 cm of it,
+    iterations and keyframes equal, kernel #1's and #4's launches equal to
+    the eager chain's plus the warm-ups), ``run_keyframe_device``'s keyframes equal to
     ``KeyframeOdometry``'s; ``odometry_step_dnn_jit``, ``keyframe_step_jit``
     and ``keyframe_step_dnn_jit`` (and ``keyframe_spawn_jit``,
     ``model_voxel_samples_jit``) against the eager functions on every frame
@@ -212,9 +212,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     compiled eval_kitti --dnn and --keyframe; the DNN, keyframe and DNN
     keyframe frames compiled and eager in turns at 64x1024 and 64x2048
     (CUDA events), host operations a frame, device operations and idle
-    share (torch.profiler); then the HD-mapping back end compiled and eager
-    in turns: the MapMaker frame, a loop pair (phase 17's first 16
-    candidates) and phase 17's K = 250 solve; the dense solve of that graph
+    share (torch.profiler); then the HD-mapping back end: the MapMaker
+    frame and phase 17's K = 250 solve compiled and eager in turns, a loop
+    pair (phase 17's first 16 candidates) in two turns; the dense solve of that graph
     captured under a global ``preferred_linalg_library("magma")``;
 28. the IF nodes: the captured solve's and the DNN-filtered solve's graphs
     (node types of the graph and of its guarded bodies, no host or event
@@ -229,8 +229,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     against its stages replayed one by one;
 29. the keyframe spawn decided on the card: ``run_keyframe_device`` on the
     drive at 64x1024 and at 64x2048 (phase 22's sequence), compiled (its
-    graphs captured under ``set_sync_debug_mode("error")``) against eager,
-    bit for bit (frames, map tables and counters), a second compiled drive
+    graphs captured under ``set_sync_debug_mode("error")``) against the
+    eager chain, bit for bit (frames, map tables and counters), a second
+    compiled drive
     against the first and a second eager drive against the first; no spawn-flag, exit-flag or map write on the
     host inside a block, one read a block; kernel #1's settled launches
     equal to the eager drive's plus the warm-ups, one of them in the
@@ -293,6 +294,7 @@ nothing of JAX or of ``icet_tpu``.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -426,12 +428,27 @@ def warmups(kernel: str = "fused_moment_sums") -> int:
     return graphs.warmup_launches[kernel]
 
 
-def eager(runner):
-    """``runner`` (an ``OdometryPipeline``, ``KeyframeOdometry`` or
-    ``MapMaker``) on the eager functions: its frames are the plain version
-    the compiled route is held to."""
-    runner._compiled = False
-    return runner
+def load_eager_chains() -> types.ModuleType:
+    """``tests/eager_chains.py``: the eager functions chained with each
+    runner's semantics, the plain version the compiled runners are held
+    to.  Loaded from its file, once: an installed package named ``tests``
+    can shadow the repository's directory of that name."""
+    mod = sys.modules.get("eager_chains")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "eager_chains", os.path.join(ROOT, "tests", "eager_chains.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["eager_chains"] = mod
+    return mod
+
+
+def on_device(scans, dev) -> torch.Tensor:
+    """``scans`` as one float32 tensor on ``dev``: the eager chains
+    (:func:`load_eager_chains`) run on the device of their scans."""
+    if isinstance(scans, torch.Tensor):
+        return scans.to(dev)
+    return torch.from_numpy(np.asarray(scans, np.float32)).to(dev)
 
 
 @contextlib.contextmanager
@@ -1216,33 +1233,37 @@ def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
     """Phase 18's block map: the keyframe drive with the map's block axis
     over two repeats of the card, on the compiled step (its graphs captured
     under ``set_sync_debug_mode("error")``, no exit-flag read) against the
-    eager step over the same sharded map (bit-identical) and against the
+    eager chain over the same sharded map (bit-identical) and against the
     unsharded map."""
     from icet_tpu_torch import graphs
-    from icet_tpu_torch.keyframe import KeyframeOdometry, shard_blockmap, whole_table
+    from icet_tpu_torch.keyframe import (
+        KeyframeOdometry,
+        blockmap_init,
+        shard_blockmap,
+        whole_table,
+    )
     from icet_tpu_torch.parallel.sharding import registration_mesh
+    eager_chains = load_eager_chains()
 
     plain = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
-    runs = {}
-    for mode in ("compiled", "eager"):
-        odo = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
-        if mode == "eager":
-            eager(odo)
-        odo.blockmap = shard_blockmap(odo.blockmap, registration_mesh(2, 1, [dev] * 2))
-        reads = graphs.host_ops["flag_reads"]
-        with graphs.sync_debug("error" if mode == "compiled" else None):
-            frames = odo.run(scans)
-        runs[mode] = (odo, frames, graphs.host_ops["flag_reads"] - reads)
-    sharded, b, reads = runs["compiled"]
-    eodo, eb, _ = runs["eager"]
+    mesh = registration_mesh(2, 1, [dev] * 2)
+    sharded = KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)
+    sharded.blockmap = shard_blockmap(sharded.blockmap, mesh)
+    reads = graphs.host_ops["flag_reads"]
+    with graphs.sync_debug("error"):
+        b = sharded.run(scans)
+    reads = graphs.host_ops["flag_reads"] - reads
+    eb, ebm, ekfs = eager_chains.keyframe_odometry(
+        on_device(scans, dev), cfg, kf_cfg, bm_cfg,
+        blockmap=shard_blockmap(blockmap_init(bm_cfg, dev), mesh))
     check(reads == 0, f"sharded block map (compiled): {reads} exit-flag reads")
-    check(eodo.keyframe_indices == sharded.keyframe_indices
+    check(ekfs == sharded.keyframe_indices
           and [f.iterations for f in b] == [f.iterations for f in eb],
           "sharded block map: the compiled drive's keyframes or iterations differ from the "
-          "eager drive's")
+          "eager chain's")
     dT_e = max(float(np.abs(f.T_world - g.T_world).max()) for f, g in zip(b, eb))
     dP_e = max(float((whole_table(getattr(sharded.blockmap, k)).float()
-                      - whole_table(getattr(eodo.blockmap, k)).float()).abs().max())
+                      - whole_table(getattr(ebm, k)).float()).abs().max())
                for k in ("points", "valid", "poses"))
     check(dT_e <= 1e-6 and dP_e <= 1e-5, f"sharded block map: the compiled drive is {dT_e:.3e} "
           f"(poses), {dP_e:.3e} (map) from the eager drive")
@@ -1259,7 +1280,7 @@ def phase_sharded_blockmap(scans, cfg, kf_cfg, bm_cfg, dev) -> None:
     check(dP <= 1e-3, f"sharded block map: points differ by {dP:.3e}")
     print(f"sharded block map over 2 x {dev}, compiled step: {len(b)} keyframe frames, "
           f"keyframes {sharded.keyframe_indices}, {pts[1].shape[0]} points, 0 exit-flag reads; "
-          f"against the eager step over the same map: iterations equal, max |dT| {dT_e:.3e}, "
+          f"against the eager chain over the same map: iterations equal, max |dT| {dT_e:.3e}, "
           f"map {dP_e:.3e} (bit-identical: {dT_e == 0.0 and dP_e == 0.0}); max |dT| {dT:.3e}, "
           f"max |dp| {dP:.3e} vs the unsharded map")
 
@@ -1634,14 +1655,10 @@ def phase_recovery(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, mcfg, map_cfg, odo, dev
             ate_clean = indexed_ate(c1, composed(c1) if what == "mapmaker" else None)
         recoveries = runner.recoveries
         rec_ms = wall_ms(runner._recover)
-        plain = eager(make())
-        for s in scans[:3]:
-            plain.step(s)
-        eager_ms = f"; eager route {wall_ms(plain._recover):.2f} ms"
         print(f"recovery {what}: recoveries {recoveries}, {len(frames)} frames, "
               f"max |dX| vs clean {dx:.3e} m (two clean runs {spread:.3e} m, bound "
               f"{bound_m:.3e} m), ATE {ate * 100:.4f} cm (clean {ate_clean * 100:.4f} cm), "
-              f"{rec_ms:.2f} ms a recovery{eager_ms} ({card})")
+              f"{rec_ms:.2f} ms a recovery ({card})")
 
     # Resume from a mid-drive checkpoint, on the checkpointed frame itself
     # (its re-seed advances the frame index by one, as in the JAX package).
@@ -1800,22 +1817,6 @@ def phase_kitti(tmp: str, dev, card) -> dict:
               f"{s['rpe_r_deg']} deg, {s['iterations']} iterations, launches {lc} ({what}), "
               f"{ms:.3f} ms a frame by CUDA events ({card})"
               + (f", keyframes {s['keyframes']}" if mode == "keyframe" else ""))
-    # The eager route of the modes this PR put on graphs, beside them.
-    import icet_tpu_torch.keyframe as kf_mod
-    import icet_tpu_torch.odometry as odo_mod
-
-    routes = (odo_mod.compiled_route, kf_mod.compiled_route)
-    odo_mod.compiled_route = kf_mod.compiled_route = lambda c: False
-    try:
-        for mode in ("keyframe", "dnn"):
-            s, lc, ms = run([f"--{mode}"])
-            check(lc["replays"] == 0, f"eval_kitti --{mode}, eager route: {lc['replays']} replays")
-            print(f"eval_kitti {mode} at 64x2048, eager route: ATE {s['ate_odometry_cm']} cm, "
-                  f"{s['iterations']} iterations, launches of #1 {lc['fused']}, of #4 "
-                  f"{lc['encoder']}, {ms:.3f} ms a frame by CUDA events ({card}; compiled: "
-                  f"{runs[mode][2]:.3f})")
-    finally:
-        odo_mod.compiled_route, kf_mod.compiled_route = routes
     s, lc, _ = runs["refine"]
     # The compiled solve: its graphs' replays, and the warm-ups before its
     # captures beside them.
@@ -2058,45 +2059,17 @@ def phase_leftovers(kitti: dict, scans, cfg, dev, card, fused_ev: float, timed) 
           f"eval_kitti's HTML map {os.path.getsize(html) / 1e6:.1f} MB, layers {layers}")
 
 
-def eager_drive(drive, cfg, odo):
-    """The sequence drive chained through the eager ``odometry_step`` with
-    ``run_odometry_device``'s semantics (one block): ``(world poses,
-    iterations)``."""
-    from icet_tpu_torch.odometry import warm_start_seed
-    from icet_tpu_torch.ops.geometry import compose_pose
-    from icet_tpu_torch.solver import odometry_step, prepare_reference
-
-    dev = drive.device
-    model = prepare_reference(drive[0], cfg)
-    x = torch.zeros(6, device=dev)
-    T = torch.eye(4, device=dev)
-    xprev = xprev2 = x
-    poses, iters = [], []
-    for k in range(1, drive.shape[0]):
-        seed = (warm_start_seed(xprev, xprev2, odo.warm_start_mode) if odo.warm_start
-                else torch.zeros_like(xprev))
-        res, model = odometry_step(model, drive[k], seed, cfg)
-        diverged = torch.any(torch.abs(res.X) > odo.divergence_clamp)
-        X = torch.where(diverged, torch.zeros_like(res.X), res.X)
-        T = compose_pose(T, X)
-        xprev2 = torch.where(diverged, X, xprev)
-        xprev = X
-        poses.append(T)
-        iters.append(res.iterations)
-    return [p.cpu().numpy() for p in poses], iters
-
-
 def route_drive(scans, c, odo, compiled: bool):
-    """``run_odometry_device`` on the compiled route or, with
-    ``compiled_route`` forced False, on the eager one."""
-    import icet_tpu_torch.odometry as odometry
+    """``run_odometry_device`` or, with ``compiled`` False, the eager chain
+    with its semantics."""
     from icet_tpu_torch import graphs
+    from icet_tpu_torch.odometry import run_odometry_device
+    eager_chains = load_eager_chains()
 
-    with patched(odometry, "compiled_route", lambda cc: compiled):
-        if not compiled:
-            return odometry.run_odometry_device(scans, c, odo, device="cuda")
-        with graphs.sync_debug("error"):
-            return odometry.run_odometry_device(scans, c, odo, device="cuda")
+    if not compiled:
+        return eager_chains.odometry_device(on_device(scans, "cuda"), c, odo)
+    with graphs.sync_debug("error"):
+        return run_odometry_device(scans, c, odo, device="cuda")
 
 
 def route_turns(name, scans, gt, c, odo, kernel=None):
@@ -2190,10 +2163,12 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
     of graphs), each compiled against eager bit for bit.  Returns the first compiled scatter drive's #3
     launches (through the replays and the warm-ups)."""
     from icet_tpu_torch import graphs
+    from icet_tpu_torch.filters import pretrained_dnn
     from icet_tpu_torch.odometry import OdometryPipeline
     from icet_tpu_torch.ops.bias_encoder import bias_encoder_pool
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
     from icet_tpu_torch.solver import moment_route, register_pair_impl, register_pair_jit
+    eager_chains = load_eager_chains()
 
     pcfg, ocfg = cfg.replace(moment_method="pallas"), cfg.replace(moment_method="onehot")
     check(moment_route(pcfg) == "scatter" and moment_route(ocfg) == "onehot", "routes")
@@ -2271,13 +2246,12 @@ def phase_routes(scans, gt, cfg, dcfg, odo, dev, card) -> int:
         settle()
         moment_scatter_sums.launches = bias_encoder_pool.launches = 0
         zero_warmups()
-        pipe = OdometryPipeline(dpcfg, odo, device=dev)
         if mode == "eager":
-            eager(pipe)
-            frames = list(pipe.run(drive))
+            frames = eager_chains.odometry(on_device(drive, dev), dpcfg, odo,
+                                           pretrained_dnn(dpcfg, dev))
         else:
             with graphs.sync_debug("error"):
-                frames = list(pipe.run(drive))
+                frames = list(OdometryPipeline(dpcfg, odo, device=dev).run(drive))
         torch.cuda.synchronize()
         n = len(frames)
         its = sum(f.iterations for f in frames)
@@ -2447,6 +2421,7 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
         prepare_reference,
         prepare_reference_jit,
     )
+    eager_chains = load_eager_chains()
 
     drive = torch.from_numpy(scans).to(dev)
     zero6 = torch.zeros(6, device=dev)
@@ -2501,7 +2476,8 @@ def phase_compiled(scans, gt, cfg, odo, dev, card, kitti: dict) -> None:
     torch.cuda.synchronize()
     settle()
     fused_moment_sums.launches = 0
-    poses_e, iters_e = eager_drive(drive, cfg, odo)
+    frames_e = eager_chains.odometry_device(drive, cfg, odo, block=drive.shape[0])
+    poses_e, iters_e = [f.T_world for f in frames_e], [f.iterations for f in frames_e]
     torch.cuda.synchronize()
     settle()
     eager_launches = fused_moment_sums.launches
@@ -2722,9 +2698,9 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
     """Phase 27: the compiled DNN and keyframe paths.  Their graphs captured
     under ``set_sync_debug_mode("error")`` in the drives through
     ``OdometryPipeline`` (DNN), ``KeyframeOdometry`` (plain and DNN) and
-    ``run_keyframe_device``, each against the eager route (ATE gated,
-    kernels #1's and #4's launches equal to the eager drive's plus the
-    warm-ups); step against step on every frame; phase 22's compiled
+    ``run_keyframe_device``, each against the eager functions chained with
+    its semantics (ATE gated, kernels #1's and #4's launches equal to the
+    eager chain's plus the warm-ups); step against step on every frame; phase 22's compiled
     eval_kitti --dnn and --keyframe; frame times compiled and eager in turns
     at 64x1024 and 64x2048 with host operations, device operations and idle
     share."""
@@ -2736,10 +2712,12 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
         model_voxel_samples_jit,
         odometry_step_dnn,
         odometry_step_dnn_jit,
+        pretrained_dnn,
     )
     from icet_tpu_torch.keyframe import KeyframeOdometry, run_keyframe_device
     from icet_tpu_torch.odometry import OdometryPipeline
     from icet_tpu_torch.solver import prepare_reference, prepare_reference_jit
+    eager_chains = load_eager_chains()
 
     drive = torch.from_numpy(scans).to(dev)
     zero6 = torch.zeros(6, device=dev)
@@ -2755,6 +2733,14 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
         "OdometryPipeline (DNN)": lambda: OdometryPipeline(dcfg, odo, device=dev),
         "KeyframeOdometry": lambda: KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev),
         "KeyframeOdometry (DNN)": lambda: KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev),
+    }
+    # The eager chains with the runners' semantics: (frames, keyframes).
+    chains = {
+        "OdometryPipeline (DNN)": lambda: (eager_chains.odometry(drive, dcfg, odo, net), None),
+        "KeyframeOdometry": lambda: eager_chains.keyframe_odometry(drive, cfg, kf_cfg,
+                                                                   bm_cfg)[::2],
+        "KeyframeOdometry (DNN)": lambda: eager_chains.keyframe_odometry(drive, dcfg, kf_cfg,
+                                                                         bm_cfg, net)[::2],
     }
     refs = {"OdometryPipeline (DNN)": DNN_ATE_REF_M, "KeyframeOdometry": KF_ATE_REF_M,
             "KeyframeOdometry (DNN)": DNN_KF_ATE_REF_M}
@@ -2773,9 +2759,9 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
     print(f"compiled DNN and keyframe paths: {captures} graphs captured under "
           f"set_sync_debug_mode('error') in the first drives ({time.perf_counter() - t0:.2f} s "
           f"with the four drives themselves)")
-    for name, make in drives.items():
+    for name in drives:
         (runner, out), fused, enc, (w1, w4) = compiled[name]
-        (eager_runner, eout), efused, eenc, ew = drive_launches(lambda m=make: run(eager(m())))
+        (eout, ekfs), efused, eenc, ew = drive_launches(chains[name])
         check(ew == (0, 0), f"{name}: the eager drive warmed up {ew}")
         its, eits = [f.iterations for f in out], [f.iterations for f in eout]
         check(its == eits, f"{name}: compiled iterations {its}, eager {eits}")
@@ -2787,7 +2773,7 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
               f"compiled {name}: ATE {ate * 100:.4f} cm above {(refs[name] + ATE_SLACK_M) * 100:.4f}")
         check(abs(ate - eate) <= 1e-6,
               f"compiled {name}: ATE {ate * 100:.6f} cm, eager {eate * 100:.6f} cm")
-        kfs, ekfs = (getattr(r, "keyframe_indices", None) for r in (runner, eager_runner))
+        kfs = getattr(runner, "keyframe_indices", None)
         check(kfs == ekfs, f"{name}: keyframes {kfs} compiled, {ekfs} eager")
         print(f"compiled {name}: ATE {ate * 100:.6f} cm, eager {eate * 100:.6f} cm (JAX "
               f"package on the CPU: {refs[name] * 100:.4f} cm); launches of #1 {fused} = eager "
@@ -2852,8 +2838,11 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
             mm, ss, xx = out[1], out[2], out[0].X
 
     def kf_chain(frames, c, kc, comp):
-        runner = KeyframeOdometry(c, kc, bm_cfg, device=dev)
-        (runner if comp else eager(runner)).run(frames)
+        if comp:
+            KeyframeOdometry(c, kc, bm_cfg, device=dev).run(frames)
+        else:
+            eager_chains.keyframe_odometry(frames, c, kc, bm_cfg,
+                                           pretrained_dnn(c, dev) if c.dnn_filter else None)
 
     for size, frames, c, kc, rounds in (("64x1024, N = 65,536", drive[:TIMED_FRAMES], cfg,
                                          kf_cfg, 1),
@@ -2901,14 +2890,28 @@ def phase_compiled_dnn_keyframe(scans, gt, cfg, dcfg, kf_cfg, bm_cfg, odo, net, 
 def map_frames_ms(drive, mcfg, map_cfg, odo, compiled: bool) -> tuple[float, dict]:
     """ms a ``MapMaker`` frame by CUDA events over frames 2 onward of
     ``drive`` (the seed frame and the first step, where a new ring's map
-    graphs are captured, go untimed), and the compiled route's host
-    operations a frame."""
+    graphs are captured, go untimed), and its host operations a frame; with
+    ``compiled`` False the eager chain's frames 2 onward (the chain over
+    ``drive`` less the chain over its first two frames) and no host
+    operations."""
     from icet_tpu_torch import graphs
     from icet_tpu_torch.mapping import MapMaker
+    eager_chains = load_eager_chains()
 
-    maker = MapMaker(mcfg, map_cfg, odo, device=drive.device)
+    n = drive.shape[0] - 2
     if not compiled:
-        eager(maker)
+        ms = []
+        for frames in (drive, drive[:2]):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eager_chains.map_maker(frames, mcfg, map_cfg, odo)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return (ms[0] - ms[1]) / n, {}
+    maker = MapMaker(mcfg, map_cfg, odo, device=drive.device)
     maker.step(drive[0])
     maker.step(drive[1])
     torch.cuda.synchronize()
@@ -2919,15 +2922,15 @@ def map_frames_ms(drive, mcfg, map_cfg, odo, compiled: bool) -> tuple[float, dic
         maker.step(d)
     end.record()
     torch.cuda.synchronize()
-    n = drive.shape[0] - 2
     return start.elapsed_time(end) / n, {k: (graphs.host_ops[k] - ops0[k]) / n for k in ops0}
 
 
 def phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev, card) -> None:
-    """Phase 27, the HD-mapping back end: the MapMaker frame, a loop pair of
-    phase 17's drive (its first 16 candidates, one chunk) and phase 17's
-    K = 250 solve, compiled and eager in turns (CUDA events); the dense
-    solve of that graph captured under a global MAGMA preference."""
+    """Phase 27, the HD-mapping back end: the MapMaker frame and phase 17's
+    K = 250 solve, compiled and eager in turns, and a loop pair of phase
+    17's drive (its first 16 candidates, one chunk) in two turns (CUDA
+    events); the dense solve of that graph captured under a global MAGMA
+    preference."""
     import icet_tpu_torch.pose_graph as pose_graph
     from icet_tpu_torch import graphs
 
@@ -2948,27 +2951,23 @@ def phase_compiled_back_end(scans, mcfg, map_cfg, odo, lc_loops, lc_solves, dev,
     ((scans_lc, cands, cfg), kw), = lc_loops.args
     pairs = cands[:16]
 
-    def loops(compiled):
-        with patched(pose_graph, "compiled_route", lambda c: compiled):
-            return pose_graph.close_loops(scans_lc, pairs, cfg, batch=16, **kw)
-
-    ms = {"eager": [], "compiled": []}
-    out = {}
-    for mode in ("eager", "compiled", "compiled", "eager"):
-        # One call a turn: phase 17 captured the compiled pairs' graphs.
+    ms = []
+    for _ in range(2):
+        # One call a turn: phase 17 captured the pairs' graphs.
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out[mode] = loops(mode == "compiled")
+        kept = pose_graph.close_loops(scans_lc, pairs, cfg, batch=16, **kw)
         end.record()
         torch.cuda.synchronize()
-        ms[mode].append(start.elapsed_time(end) / len(pairs))
-    print(f"loop pair of the loop-closure drive ({card}), eager/compiled/compiled/eager: "
-          f"{' / '.join(f'{t:.3f}' for t in (ms['eager'][0], *ms['compiled'], ms['eager'][1]))}"
-          f" ms a pair (CUDA events over close_loops of {len(pairs)} candidates, batch 16, one "
-          f"read back; {len(out['compiled'])} loops kept both ways)")
+        ms.append(start.elapsed_time(end) / len(pairs))
+    print(f"loop pair of the loop-closure drive ({card}): "
+          f"{' / '.join(f'{t:.3f}' for t in ms)} ms a pair in two turns (CUDA events over "
+          f"close_loops of {len(pairs)} candidates, batch 16, one read back; {len(kept)} loops "
+          f"kept)")
 
     (args, kw), = lc_solves.args
     ms = {"eager": [], "compiled": []}
+    out = {}
     for mode in ("eager", "compiled", "compiled", "eager"):
         solve = (pose_graph.optimize_poses_sparse if mode == "compiled"
                  else pose_graph.optimize_poses_sparse_eager)
@@ -3267,7 +3266,8 @@ def blocks_equal(what: str, got, want) -> None:
 def phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card) -> None:
     """Phase 29: the keyframe spawn decided on the card.  ``run_keyframe_device``
     on the drive at 64x1024 and at 64x2048, compiled (captured under
-    ``set_sync_debug_mode("error")``) against eager, bit for bit, twice;
+    ``set_sync_debug_mode("error")``) against the eager chain with its
+    semantics, bit for bit, twice;
     host operations (no spawn, exit-flag or map write inside a block, one
     read a block); kernel #1's launches (settled) equal to eager's plus the
     warm-ups, and its one launch in the spawn's IF body; a block with a
@@ -3285,6 +3285,7 @@ def phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card) -> None:
     from icet_tpu_torch.ops.fused_moments import fused_moment_sums
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
     from icet_tpu_torch.parallel.sharding import registration_mesh
+    eager_chains = load_eager_chains()
 
     kcfg = ICETConfig(n_iters=7, min_range=2.0, convergence_tol=1e-4)  # phase 27's at 64x2048
     keys = ("replays", "flag_reads", "spawn_reads", "block_reads", "copies", "draws")
@@ -3294,8 +3295,10 @@ def phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card) -> None:
     def at() -> str:
         return f"[{time.perf_counter() - t0:.1f} s]"
 
-    def run(sc, c):
-        return kfm.run_keyframe_device(sc, c, kf_cfg, bm_cfg, device=dev)
+    def run(sc, c, compiled=True):
+        if compiled:
+            return kfm.run_keyframe_device(sc, c, kf_cfg, bm_cfg, device=dev)
+        return eager_chains.keyframe_device(on_device(sc, dev), c, kf_cfg, bm_cfg)
 
     # -- the drives, compiled against eager -----------------------------------
     for size, sc, c in (("64x1024", scans, cfg), ("64x2048", wide, kcfg)):
@@ -3304,9 +3307,9 @@ def phase_device_spawn(scans, wide, gt, cfg, kf_cfg, bm_cfg, dev, card) -> None:
         runs = {}
         for turn, mode in enumerate(("compiled", "eager", "compiled", "eager")):
             ops0 = dict(graphs.host_ops)
-            with graphs.sync_debug("error" if turn == 0 else None), \
-                    patched(kfm, "compiled_route", lambda _c, m=mode: m == "compiled"):
-                (frames, bm), fused, _, (w1, _) = drive_launches(lambda: run(sc, c))
+            with graphs.sync_debug("error" if turn == 0 else None):
+                (frames, bm), fused, _, (w1, _) = drive_launches(
+                    lambda m=mode: run(sc, c, m == "compiled"))
             ops = {k: graphs.host_ops[k] - ops0[k] for k in keys}
             runs.setdefault(mode, []).append((frames, bm, fused, w1, ops))
         (got, bm_g, fused, w1, ops), (again, bm_a, fused2, w1b, ops2) = runs["compiled"]
@@ -4366,6 +4369,7 @@ def main() -> int:
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
     from icet_tpu_torch import graphs
+    eager_chains = load_eager_chains()
 
     dev = resolve_device("cuda")
     card = device_line()
@@ -4642,7 +4646,7 @@ def main() -> int:
           f"passes {n_frames * n_post} + prepares {len(scans)} + warm-ups {dnn_warm}")
     dnn_ate = trajectory_ate(dout, gt)
     t0 = time.perf_counter()
-    dout_eager = list(eager(OdometryPipeline(dcfg, odo, device="cuda")).run(scans))
+    dout_eager = eager_chains.odometry(on_device(scans, "cuda"), dcfg, odo, net)
     torch.cuda.synchronize()
     dnn_eager_s = time.perf_counter() - t0
     dnn_eager_ate = trajectory_ate(dout_eager, gt)
@@ -4782,17 +4786,18 @@ def main() -> int:
           f"keyframe indices: host loop {kodo.keyframe_indices}, device runner {kf_idx}")
     check(not any(f.diverged for f in khost), "keyframe host loop: a frame diverged")
     kf_ate, kf_host_ate = trajectory_ate(kout, gt), trajectory_ate(khost, gt)
-    keager = eager(KeyframeOdometry(cfg, kf_cfg, bm_cfg, device="cuda"))
-    kf_eager_ate = trajectory_ate(keager.run(scans), gt)
+    keager, _, keager_kfs = eager_chains.keyframe_odometry(on_device(scans, "cuda"), cfg,
+                                                           kf_cfg, bm_cfg)
+    kf_eager_ate = trajectory_ate(keager, gt)
     print(f"keyframe odometry (compiled): {len(kout)} frames in {kf_s:.2f} s with the graphs' "
           f"capture, keyframes {kf_idx} (JAX package on the CPU: {KF_INDICES_REF}), fused "
           f"launches {kf_fused} = {kiters} iterations + {len(kf_idx)} keyframe prepares + "
           f"{kf_warm} warm-ups, block map {fill} points in {bm.n_blocks} blocks (expected "
           f"{want_fill:.1f}), ATE {kf_ate * 100:.4f} cm, host loop {kf_host_ate * 100:.4f} cm "
-          f"(eager host loop: {kf_eager_ate * 100:.4f} cm, keyframes "
-          f"{keager.keyframe_indices}; JAX package on the CPU: {KF_ATE_REF_M * 100:.4f} cm)")
+          f"(eager chain: {kf_eager_ate * 100:.4f} cm, keyframes "
+          f"{keager_kfs}; JAX package on the CPU: {KF_ATE_REF_M * 100:.4f} cm)")
     for name, a in (("device runner", kf_ate), ("host loop", kf_host_ate),
-                    ("eager host loop", kf_eager_ate)):
+                    ("eager chain", kf_eager_ate)):
         check(a <= KF_ATE_REF_M + ATE_SLACK_M,
               f"keyframe {name} ATE {a * 100:.4f} cm above "
               f"{(KF_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
@@ -4826,15 +4831,16 @@ def main() -> int:
           f"DNN keyframe drive: fused launches {dkf_fused} != iterations {dk_iters} + filter "
           f"passes {len(dkout) * n_post} + keyframe prepares {n_kf} + warm-ups {dkf_warm}")
     dkf_ate = trajectory_ate(dkout, gt)
-    dkeager = eager(KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device="cuda"))
-    dkf_eager_ate = trajectory_ate(dkeager.run(scans), gt)
+    dkeager, _, dkeager_kfs = eager_chains.keyframe_odometry(on_device(scans, "cuda"), dcfg,
+                                                             kf_cfg, bm_cfg, net)
+    dkf_eager_ate = trajectory_ate(dkeager, gt)
     print(f"DNN-filtered keyframe odometry (compiled): {len(dkout)} frames in {dkf_s:.2f} s "
           f"with the graphs' capture, keyframes {dkodo.keyframe_indices} (JAX package on the "
           f"CPU: {DNN_KF_INDICES_REF}), encoder launches {dkf_enc} = {want_enc} + "
           f"{dkf_enc_warm} warm-ups, fused launches {dkf_fused} = {dk_iters} iterations + "
           f"{len(dkout) * n_post} filter passes + {n_kf} keyframe prepares + {dkf_warm} "
           f"warm-ups, ATE {dkf_ate * 100:.4f} cm (eager: {dkf_eager_ate * 100:.4f} cm, "
-          f"keyframes {dkeager.keyframe_indices}; JAX package on the CPU: "
+          f"keyframes {dkeager_kfs}; JAX package on the CPU: "
           f"{DNN_KF_ATE_REF_M * 100:.4f} cm)")
     for what, a in (("compiled", dkf_ate), ("eager", dkf_eager_ate)):
         check(a <= DNN_KF_ATE_REF_M + ATE_SLACK_M,
@@ -4843,7 +4849,7 @@ def main() -> int:
 
     # -- MapMaker -----------------------------------------------------------
     # The compiled route (map_step_jit), its graphs captured here with no
-    # host synchronisation, against the eager route frame by frame.
+    # host synchronisation, against the eager chain frame by frame.
     mcfg, map_cfg = PROFILES["mapping"], MapConfig()
     torch.cuda.synchronize()
     settle()
@@ -4860,8 +4866,7 @@ def main() -> int:
     settle()
     fused_moment_sums.launches = 0
     t0 = time.perf_counter()
-    maker_e = eager(MapMaker(mcfg, map_cfg, odo, device="cuda"))
-    mout_e = [f for f in (maker_e.step(s) for s in scans) if f is not None]
+    mout_e, maker_e_state = eager_chains.map_maker(on_device(scans, "cuda"), mcfg, map_cfg, odo)
     torch.cuda.synchronize()
     settle()
     map_eager_s, map_eager_fused = time.perf_counter() - t0, fused_moment_sums.launches
@@ -4883,25 +4888,25 @@ def main() -> int:
     map_diff = [f.index for f, g in zip(mout, mout_e)
                 if not (np.array_equal(f.X, g.X) and np.array_equal(f.pred_stds, g.pred_stds)
                         and (f.diverged, f.n_map_points) == (g.diverged, g.n_map_points))]
-    ring_equal = all(torch.equal(getattr(maker.state, k), getattr(maker_e.state, k))
+    ring_equal = all(torch.equal(getattr(maker.state, k), getattr(maker_e_state, k))
                      for k in ("points", "valid", "trail"))
     check((maker.state.write_ptr, maker.state.trail_len)
-          == (maker_e.state.write_ptr, maker_e.state.trail_len)
+          == (maker_e_state.write_ptr, maker_e_state.trail_len)
           and [(f.diverged, f.n_map_points) for f in mout]
           == [(f.diverged, f.n_map_points) for f in mout_e],
-          "MapMaker: compiled flags, fill or counters differ from the eager route's")
-    check(map_dx <= 1e-6, f"MapMaker: compiled X {map_dx:.3e} m from the eager route's")
+          "MapMaker: compiled flags, fill or counters differ from the eager chain's")
+    check(map_dx <= 1e-6, f"MapMaker: compiled X {map_dx:.3e} m from the eager chain's")
     poses = [np.eye(4)]
     for f in mout:
         poses.append(poses[-1] @ np_pose_matrix(f.X))
     map_ate = pose_ate(poses[1:], gt)
     print(f"MapMaker (compiled, graphs captured under set_sync_debug_mode('error')): "
-          f"{len(mout)} frames in {map_s:.2f} s with the captures (eager route "
+          f"{len(mout)} frames in {map_s:.2f} s with the captures (eager chain "
           f"{map_eager_s:.2f} s), fused launches {map_fused} = {len(mout)} x {mcfg.n_iters} "
           f"iterations + {len(scans)} prepares + {map_warm} warm-ups (eager "
           f"{map_eager_fused}), ring fill {mout[-1].n_map_points} (expected {want_fill}), ATE "
           f"{map_ate * 100:.4f} cm (JAX package on the CPU: {MAP_ATE_REF_M * 100:.4f} cm); "
-          f"against the eager route frame by frame: max |dX| {map_dx:.3e} m, bit-identical "
+          f"against the eager chain frame by frame: max |dX| {map_dx:.3e} m, bit-identical "
           f"frames: {not map_diff}" + (f" (first differing: {map_diff[:3]})" if map_diff else "")
           + f", rings equal: {ring_equal}")
     check(map_ate <= MAP_ATE_REF_M + ATE_SLACK_M,
@@ -4938,15 +4943,15 @@ def main() -> int:
     steps = drive.shape[0] - 1
     frame_ms = median_ms(odometry_pass, reps=1, rounds=1) / steps
     dnn_frame_ms = median_ms(dnn_pass, reps=1, rounds=1) / steps
-    # Keyframe frames: the whole drive through a fresh runner (its first
+    # Keyframe frames: the whole drive through the eager chain (its first
     # frame is the seed spawn, no solve).  One round each: phase 27 times
     # these frames again, in turns with the compiled ones, and the MapMaker
     # frame only there.
     kf_frame_ms = median_ms(
-        lambda: eager(KeyframeOdometry(cfg, kf_cfg, bm_cfg, device=dev)).run(drive),
+        lambda: eager_chains.keyframe_odometry(drive, cfg, kf_cfg, bm_cfg),
         reps=1, rounds=1) / steps
     dkf_frame_ms = median_ms(
-        lambda: eager(KeyframeOdometry(dcfg, kf_cfg, bm_cfg, device=dev)).run(drive),
+        lambda: eager_chains.keyframe_odometry(drive, dcfg, kf_cfg, bm_cfg, net),
         reps=1, rounds=1) / steps
 
     def pallas_pass():
@@ -5359,12 +5364,11 @@ def main() -> int:
     check(lc["ate_refined_cm"] <= (LC_ATE_REF_M + ATE_SLACK_M) * 100,
           f"refined ATE {lc['ate_refined_cm']} cm above "
           f"{(LC_ATE_REF_M + ATE_SLACK_M) * 100:.4f} cm")
-    # The compiled loop verification against the eager route on the first
-    # 16 candidates (one chunk), factor by factor.
+    # The loop verification against the eager chain on the first 16
+    # candidates (one chunk), factor by factor.
     ((lc_args, lc_kw),), (lc_factors,) = lc_loops.args, lc_loops.results
     cands16 = lc_args[1][:16]
-    with patched(pose_graph, "compiled_route", lambda c: False):
-        eager16 = pose_graph.close_loops(lc_args[0], cands16, *lc_args[2:], **lc_kw)
+    eager16 = eager_chains.close_loops(lc_args[0], cands16, *lc_args[2:], **lc_kw)
     comp16 = [f for f in lc_factors if (f[0], f[1]) in set(cands16)]
     check([f[:2] for f in comp16] == [f[:2] for f in eager16],
           f"loop factors of the first 16 candidates: compiled {[f[:2] for f in comp16]}, "

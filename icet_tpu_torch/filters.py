@@ -54,7 +54,6 @@ from icet_tpu_torch.solver import (
     VoxelModel,
     _moment_sums,
     compiled_graphs,
-    compiled_route,
     prepare_reference,
     prepare_reference_jit,
     register,
@@ -289,15 +288,11 @@ def register_pair_with_dnn(
 ) -> tuple[RegistrationResult, DnnFilterResult]:
     """Pair-level entry on ``device`` (CUDA unless told otherwise; ``net``
     must be there too): fit scan 1's model, then register scan 2 with the
-    filter.  Where ``solver.compiled_route(cfg)`` holds this is the
-    compiled path (scan 1's model and samples, then the filtered solve, as
-    captured graphs); otherwise :func:`register_with_dnn`."""
+    filter: scan 1's model and samples, then the filtered solve, as
+    captured graphs (:func:`register_with_dnn` is the plain version)."""
     dev = resolve_device(device)
     s1, s2 = as_points(scan1, dev), as_points(scan2, dev)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
-    if not compiled_route(cfg):
-        model = prepare_reference(s1, cfg)
-        return register_with_dnn(model, s1, s2, x0, cfg, net)
     model = prepare_reference_jit(s1, cfg)
     samples1 = model_voxel_samples_jit(model, s1, cfg)
     fg = compiled_graphs(s2, cfg)

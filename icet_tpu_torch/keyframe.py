@@ -49,8 +49,8 @@ into the map, so the frame's graphs depend on no map: a sharded map
 whether its chunk holds the active block.  A ``torch.Generator`` (or the
 uniforms themselves) stands where the JAX functions take a PRNG key,
 drawn on the device before the replay, in the eager order.
-``KeyframeOdometry`` and :func:`run_keyframe_device` take them where
-``solver.compiled_route(cfg)`` holds.
+``KeyframeOdometry`` and :func:`run_keyframe_device` run on them; the eager
+functions stay as the plain version the tests hold them to.
 """
 
 from __future__ import annotations
@@ -66,7 +66,6 @@ from icet_tpu_torch import graphs
 from icet_tpu_torch.config import BlockMapConfig, ICETConfig, KeyframeConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.filters import (
-    model_voxel_samples,
     model_voxel_samples_jit,
     pretrained_dnn,
     register_with_dnn,
@@ -85,7 +84,7 @@ from icet_tpu_torch.solver import (
     VoxelModel,
     _stage_prepare,
     compiled_graphs,
-    compiled_route,
+    moment_route,
     prepare_reference,
     register,
 )
@@ -917,11 +916,9 @@ def run_keyframe_device(
     """Run a recorded ``(F, N, 3)`` sequence on ``device`` (CUDA unless told
     otherwise) in ``block``-frame uploads, chained on the device; results
     come back once per block.  Returns the same :class:`KeyframeFrame`
-    records as :class:`KeyframeOdometry` and the final block map.  Where
-    ``solver.compiled_route(cfg)`` holds, the seed spawn is
-    :func:`keyframe_spawn_jit` and each block one
-    :func:`keyframe_sequence_jit`, one host read a block; otherwise the
-    eager functions chain it.
+    records as :class:`KeyframeOdometry` and the final block map.  The
+    seed spawn is :func:`keyframe_spawn_jit` and each block one
+    :func:`keyframe_sequence_jit`, one host read a block.
     ``cfg.dnn_filter`` raises NotImplementedError: use
     :class:`KeyframeOdometry`, whose DNN step carries the keyframe's
     per-voxel samples."""
@@ -939,26 +936,15 @@ def run_keyframe_device(
     scans = np.asarray(scans, np.float32)
     bm = blockmap_init(bm_cfg, dev)
     zero6 = torch.zeros(6, device=dev)
-    compiled = compiled_route(cfg)
-    spawn = keyframe_spawn_jit if compiled else keyframe_spawn
-    model, bm = spawn(bm, as_points(scans[0], dev), zero6,
-                      _uniforms(gen, bm_cfg.points_per_scan, dev), True, cfg, bm_cfg)
+    model, bm = keyframe_spawn_jit(bm, as_points(scans[0], dev), zero6,
+                                   _uniforms(gen, bm_cfg.points_per_scan, dev), True, cfg, bm_cfg)
     carry = (zero6, zero6, zero6, gen, torch.zeros(2, device=dev), zero6)
     frames: list[KeyframeFrame] = []
     for s in range(1, scans.shape[0], block):
         blk = torch.from_numpy(scans[s : s + block]).to(dev)
-        if compiled:
-            (model, bm, carry), outs, iters = keyframe_sequence_jit(
-                blk, model, bm, carry, cfg, kf_cfg, bm_cfg, return_iterations=True)
-            d2, stds, world6, div, x2, is_kf, n_corr, iters = (
-                o.numpy() for o in (*outs, iters))
-        else:
-            x_rel, delta, world_key, _, h0, prev_stds = carry
-            (model, bm, (x_rel, delta, world_key, h0, prev_stds)), outs = keyframe_sequence(
-                blk, model, bm, (x_rel, delta, world_key, h0, prev_stds), gen,
-                cfg, kf_cfg, bm_cfg)
-            carry = (x_rel, delta, world_key, gen, h0, prev_stds)
-            d2, stds, world6, div, x2, n_corr, is_kf, iters = (o.cpu().numpy() for o in outs)
+        (model, bm, carry), outs, iters = keyframe_sequence_jit(
+            blk, model, bm, carry, cfg, kf_cfg, bm_cfg, return_iterations=True)
+        d2, stds, world6, div, x2, is_kf, n_corr, iters = (o.numpy() for o in (*outs, iters))
         for j in range(d2.shape[0]):
             frames.append(KeyframeFrame(
                 index=s + j,
@@ -987,12 +973,12 @@ class KeyframeOdometry:
     the perspective-shift rejection (the bundled bias network, loaded
     once), sampling the keyframe scan, whose samples are taken at spawn.
 
-    On a captured moment route (``solver.compiled_route``), the map
-    sharded or not, each frame is one :func:`keyframe_step_jit` (or
+    The map sharded or not, each frame is one :func:`keyframe_step_jit` (or
     :func:`keyframe_step_dnn_jit`) and each keyframe one
     :func:`keyframe_spawn_jit` (and :func:`~icet_tpu_torch.filters.
-    model_voxel_samples_jit`); otherwise the eager functions.  The config
-    decides, before any launch."""
+    model_voxel_samples_jit`); they draw their uniforms from the runner's
+    generator.  An unknown ``cfg.moment_method`` raises ValueError here,
+    before any frame."""
 
     def __init__(
         self,
@@ -1014,13 +1000,8 @@ class KeyframeOdometry:
         #: every ``snapshot_every`` frames); inserts since it are lost.
         self.snapshot_every = snapshot_every
         self._dnn = pretrained_dnn(self.cfg, self.device) if self.cfg.dnn_filter else None
-        self._compiled = compiled_route(self.cfg)
+        moment_route(self.cfg)
         self.reset()
-
-    def _captured(self) -> bool:
-        """Whether this frame takes the compiled functions (a captured
-        route; a test may clear ``_compiled``)."""
-        return self._compiled
 
     def reset(self) -> None:
         dev = self.device
@@ -1049,26 +1030,17 @@ class KeyframeOdometry:
         self._T_world_host = np.eye(4)
         self.recoveries = 0
 
-    def _draw(self, captured: bool):
-        """The insert's uniforms (the compiled functions draw them from the
-        generator themselves, in the same order)."""
-        return self._gen if captured else _uniforms(self._gen, self.bm_cfg.points_per_scan,
-                                                   self.device)
-
     def _spawn(self, scan_dev: torch.Tensor, T_world: np.ndarray) -> None:
         state = np_pose_to_state(T_world).astype(np.float32)
-        captured = self._captured()
-        spawn = keyframe_spawn_jit if captured else keyframe_spawn
-        self._model, self.blockmap = spawn(
-            self.blockmap, scan_dev, torch.from_numpy(state).to(self.device),
-            self._draw(captured), self._resume_seed_insert, self.cfg, self.bm_cfg,
+        self._model, self.blockmap = keyframe_spawn_jit(
+            self.blockmap, scan_dev, torch.from_numpy(state).to(self.device), self._gen,
+            self._resume_seed_insert, self.cfg, self.bm_cfg,
         )
         self._resume_seed_insert = True
         self._T_key = T_world
         if self._dnn is not None:
             self._key_scan = scan_dev
-            samples = model_voxel_samples_jit if captured else model_voxel_samples
-            self._key_samples = samples(self._model, scan_dev, self.cfg)
+            self._key_samples = model_voxel_samples_jit(self._model, scan_dev, self.cfg)
         self._x_rel = torch.zeros(6, device=self.device)
         # Right after a spawn x_prev_rel is exactly zero, so the previous
         # solve's stds are zero too.
@@ -1132,31 +1104,22 @@ class KeyframeOdometry:
 
         health0 = (self._health0 if self._health0 is not None
                    else torch.zeros(2, device=self.device))  # fresh keyframe: tests off
-        captured = self._captured()
-        # The compiled step reads its outputs once and hands them over.
-        kw = {"host_out": True} if captured else {}
+        # The step reads its outputs once and hands them over.
         if self._dnn is not None:
-            step = (keyframe_step_dnn_jit if captured else keyframe_step_dnn)(
+            step = keyframe_step_dnn_jit(
                 self._model, self.blockmap, scan_dev, self._key_scan, self._key_samples,
-                self._x_rel, self._delta, self._draw(captured), health0,
-                self.cfg, self.kf_cfg, self.bm_cfg, self._dnn, **kw,
+                self._x_rel, self._delta, self._gen, health0,
+                self.cfg, self.kf_cfg, self.bm_cfg, self._dnn, host_out=True,
             )
         else:
-            step = (keyframe_step_jit if captured else keyframe_step)(
+            step = keyframe_step_jit(
                 self._model, self.blockmap, scan_dev, self._x_rel, self._delta,
-                self._draw(captured), health0, self.cfg, self.kf_cfg, self.bm_cfg, **kw,
+                self._gen, health0, self.cfg, self.kf_cfg, self.bm_cfg, host_out=True,
             )
-        res, x_rel, delta, diverged, spawn, health, self.blockmap = step[:7]
+        _, x_rel, delta, _, spawn, health, self.blockmap, host = step
         self._health0 = update_health0(health0, health)
         self._x_rel = x_rel
         self._delta = delta
-        if captured:
-            host = step[7]
-        else:
-            h = torch.cat([x_rel, delta, res.pred_stds, diverged[None].float(), health[:1],
-                           torch.as_tensor(res.iterations).reshape(1).to(x_rel)]).cpu().numpy()
-            host = {"X": h[0:6], "delta": h[6:12], "pred_stds": h[12:18], "diverged": h[18],
-                    "health": h[19:20], "iterations": h[20]}
         X_rel, delta_np, cur_stds = host["X"], host["delta"], host["pred_stds"]
         T_world = self._T_key @ np_pose_matrix(X_rel)
         self._T_world_host = T_world

@@ -24,7 +24,8 @@ as the JAX package's donated argument: the ring is written in place, so
 the graph that writes it is captured once a ring (keyed by its addresses)
 and replayed for every later frame.  On the CPU the stages run as plain
 calls; they equal :func:`map_update` and :func:`map_step` bit for bit.
-:class:`MapMaker` takes them where ``solver.compiled_route(cfg)`` holds.
+:class:`MapMaker` runs on them; the eager functions stay as the plain
+version the tests hold them to.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.ops.geometry import euler_R
 from icet_tpu_torch.solver import (
     compiled_graphs,
-    compiled_route,
+    moment_route,
     prepare_reference,
     prepare_reference_jit,
     register,
@@ -290,11 +291,10 @@ class MapMaker:
     register each scan against the previous one, guard divergence, and fold
     the scan into the device-resident ring map.
 
-    On a captured moment route (``solver.compiled_route``) each frame is
-    one :func:`map_step_jit` (the seed frame ``prepare_reference_jit`` and
-    :func:`map_update_jit`), captured graphs on CUDA writing the runner's
-    own ring in place; otherwise the eager functions.  The config decides,
-    once."""
+    Each frame is one :func:`map_step_jit` (the seed frame
+    ``prepare_reference_jit`` and :func:`map_update_jit`), captured graphs
+    on CUDA writing the runner's own ring in place.  An unknown
+    ``cfg.moment_method`` raises ValueError here, before any frame."""
 
     def __init__(
         self,
@@ -313,8 +313,8 @@ class MapMaker:
         self._gen.manual_seed(seed)
         self._model = None
         self._index = 0
-        self._compiled = compiled_route(self.cfg)
-        #: the graph set of the compiled route's last frame
+        moment_route(self.cfg)
+        #: the graph set of the last frame
         self._fg = None
         self.state = init_map(self.map_cfg, device=self.device)
         # Recovery: the ring map is copied to the host every
@@ -379,8 +379,8 @@ class MapMaker:
         self.recoveries += 1
         dev = self.device
         self._gen.set_state(self._gen_host)
-        # The snapshot goes back into the ring itself, so the compiled
-        # route's graphs, keyed by the ring's addresses, keep replaying.
+        # The snapshot goes back into the ring itself, so the graphs, keyed
+        # by the ring's addresses, keep replaying.
         snap = self._snapshot or init_map(self.map_cfg, self.state.trail.shape[0], "cpu")
         for k in ("points", "valid", "trail"):
             getattr(self.state, k).copy_(getattr(snap, k))
@@ -390,8 +390,7 @@ class MapMaker:
         if self._last_scan is None:
             self._model = None
         else:
-            prepare = prepare_reference_jit if self._compiled else prepare_reference
-            self._model = prepare(as_points(self._last_scan, dev), self.cfg)
+            self._model = prepare_reference_jit(as_points(self._last_scan, dev), self.cfg)
 
     def _step_device(self, scan) -> MapFrame | None:
         span = _flog.begin("upload")
@@ -402,14 +401,9 @@ class MapMaker:
         _flog.end(span)
         if self._model is None:
             zero = torch.zeros(6, device=self.device)
-            if self._compiled:
-                self._model = prepare_reference_jit(scan_dev, self.cfg)
-                self._fg = compiled_graphs(scan_dev, self.cfg)
-                self.state = _map_update_on(self._fg, self.state, scan_dev, zero, u,
-                                            self.map_cfg, self.cfg.min_range)
-            else:
-                self._model = prepare_reference(scan_dev, self.cfg)
-                self.state = map_update(self.state, scan_dev, zero, u, self.map_cfg,
+            self._model = prepare_reference_jit(scan_dev, self.cfg)
+            self._fg = compiled_graphs(scan_dev, self.cfg)
+            self.state = _map_update_on(self._fg, self.state, scan_dev, zero, u, self.map_cfg,
                                         self.cfg.min_range)
             self._index += 1
             return None
@@ -418,29 +412,17 @@ class MapMaker:
         # (simpleMapMaker.cpp:113-119).
         args = (self._model, self.state, scan_dev, u, self.odo_cfg.divergence_clamp,
                 self.cfg, self.map_cfg)
-        if self._compiled:
-            _, X, _, self.state, self._model = map_step_jit(*args)
-            self._fg = compiled_graphs(scan_dev, self.cfg)
-            # X, pred_stds, the flag, the fill and the iterations: one
-            # packed buffer, one copy.
-            span = _flog.begin("readback")
-            _flog.read()
-            v = graphs.MAP_OUT_LAYOUT.views(graphs.MAP_OUT_LAYOUT.buffer(X).cpu())
-            _flog.end(span)
-            X, stds = v["X"].numpy(), v["pred_stds"].numpy()
-            diverged, n_points = bool(v["diverged"]), int(v["n_valid"])
-            iterations = int(v["iterations"])
-        else:
-            res, X, diverged, self.state, self._model = map_step(*args)
-            packed = torch.cat([X, res.pred_stds, diverged[None].float(),
-                                self.state.valid.sum()[None].float(),
-                                torch.as_tensor(res.iterations).reshape(1).to(X)])
-            span = _flog.begin("readback")
-            _flog.read()
-            host = packed.cpu().numpy()
-            _flog.end(span)
-            X, stds, diverged, n_points = host[:6], host[6:12], bool(host[12]), int(host[13])
-            iterations = int(host[14])
+        _, X, _, self.state, self._model = map_step_jit(*args)
+        self._fg = compiled_graphs(scan_dev, self.cfg)
+        # X, pred_stds, the flag, the fill and the iterations: one packed
+        # buffer, one copy.
+        span = _flog.begin("readback")
+        _flog.read()
+        v = graphs.MAP_OUT_LAYOUT.views(graphs.MAP_OUT_LAYOUT.buffer(X).cpu())
+        _flog.end(span)
+        X, stds = v["X"].numpy(), v["pred_stds"].numpy()
+        diverged, n_points = bool(v["diverged"]), int(v["n_valid"])
+        iterations = int(v["iterations"])
         frame = MapFrame(index=self._index, X=X, pred_stds=stds, diverged=diverged,
                          n_map_points=n_points, iterations=iterations)
         self._index += 1

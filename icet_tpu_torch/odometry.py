@@ -8,15 +8,15 @@ block.  Both give the same :class:`OdometryFrame` records.  With
 runner refuses it, as the JAX package's does.  The pipeline survives a
 failed step (:meth:`OdometryPipeline.step`).
 
-Where ``solver.compiled_route(cfg)`` holds (every moment route: fused,
-plain, scatter and one-hot), both run the compiled step: the pipeline
-:func:`~icet_tpu_torch.solver.odometry_step_jit` a frame (with the filter
-:func:`~icet_tpu_torch.filters.odometry_step_dnn_jit`), the sequence
-runner :func:`odometry_sequence_jit` a block, whose warm start, divergence
-guard, world pose and model hand-over are captured graphs too.  The eager
-steps stay as the plain version the compiled ones are held to (reached
-where ``compiled_route`` is forced False).  The choice is made from the
-config, never as a fallback on failure.
+Both run the compiled step on every moment route (fused, plain, scatter
+and one-hot): the pipeline :func:`~icet_tpu_torch.solver.odometry_step_jit`
+a frame (with the filter :func:`~icet_tpu_torch.filters.
+odometry_step_dnn_jit`), the sequence runner :func:`odometry_sequence_jit`
+a block, whose warm start, divergence guard, world pose and model
+hand-over are captured graphs too.  The eager steps
+(:func:`~icet_tpu_torch.solver.odometry_step`, :func:`~icet_tpu_torch.
+filters.odometry_step_dnn`) stay as the plain version the tests hold the
+compiled ones to.
 """
 
 from __future__ import annotations
@@ -34,9 +34,7 @@ from icet_tpu_torch.config import ICETConfig, OdometryConfig
 from icet_tpu_torch.device import as_points, resolve_device
 from icet_tpu_torch.filters import (
     DnnFilterResult,
-    model_voxel_samples,
     model_voxel_samples_jit,
-    odometry_step_dnn,
     odometry_step_dnn_jit,
     pretrained_dnn,
 )
@@ -50,10 +48,8 @@ from icet_tpu_torch.ops.geometry import (
 )
 from icet_tpu_torch.solver import (
     compiled_graphs,
-    compiled_route,
-    odometry_step,
+    moment_route,
     odometry_step_jit,
-    prepare_reference,
     prepare_reference_jit,
 )
 from icet_tpu_torch.utils.profiling import frame_log as _flog
@@ -111,10 +107,10 @@ class OdometryPipeline:
     ``cfg.dnn_sample_pts`` (loaded once a process).  Runs on ``device``
     (CUDA unless told otherwise).
 
-    On a captured moment route (``solver.compiled_route``) each frame is
-    one :func:`~icet_tpu_torch.solver.odometry_step_jit`, with the filter
-    one :func:`~icet_tpu_torch.filters.odometry_step_dnn_jit` (captured
-    graphs on CUDA); otherwise the eager step.  The config decides, once."""
+    Each frame is one :func:`~icet_tpu_torch.solver.odometry_step_jit`,
+    with the filter one :func:`~icet_tpu_torch.filters.odometry_step_dnn_jit`
+    (captured graphs on CUDA).  An unknown ``cfg.moment_method`` raises
+    ValueError here, before any frame."""
 
     def __init__(
         self,
@@ -130,7 +126,7 @@ class OdometryPipeline:
         if self.cfg.dnn_filter:
             self._dnn = pretrained_dnn(self.cfg, self.device) if net is None else net.to(
                 self.device)
-        self._compiled = compiled_route(self.cfg)
+        moment_route(self.cfg)
         self.reset()
 
     def reset(self) -> None:
@@ -210,14 +206,10 @@ class OdometryPipeline:
     def _refit(self, scan_dev) -> None:
         """The reference model of ``scan_dev`` (and, with the filter, its
         samples) for the next frame."""
-        if self._compiled:
-            self._model = prepare_reference_jit(scan_dev, self.cfg)
-        else:
-            self._model = prepare_reference(scan_dev, self.cfg)
+        self._model = prepare_reference_jit(scan_dev, self.cfg)
         if self._dnn is not None:
             self._scan_prev = scan_dev
-            samples = model_voxel_samples_jit if self._compiled else model_voxel_samples
-            self._samples_prev = samples(self._model, scan_dev, self.cfg)
+            self._samples_prev = model_voxel_samples_jit(self._model, scan_dev, self.cfg)
 
     def _step_device(self, scan) -> OdometryFrame | None:
         t0 = time.perf_counter()
@@ -240,18 +232,13 @@ class OdometryPipeline:
             args = (self._model, self._scan_prev, self._samples_prev, scan_dev, x0,
                     self.cfg, self._dnn)
             launches = bias_encoder_pool.launches
-            if self._compiled:
-                out = odometry_step_dnn_jit(*args, return_filter=True)
-            else:
-                out = odometry_step_dnn(*args)
-            res, next_model, self._samples_prev, filt = out
+            res, next_model, self._samples_prev, filt = odometry_step_dnn_jit(
+                *args, return_filter=True)
             self._scan_prev = scan_dev
             _flog.add("filter_passes", graphs.dnn_passes(self.cfg))
             _flog.add("encoder_launches", bias_encoder_pool.launches - launches)
-        elif self._compiled:
-            res, next_model = odometry_step_jit(self._model, scan_dev, x0, self.cfg)
         else:
-            res, next_model = odometry_step(self._model, scan_dev, x0, self.cfg)
+            res, next_model = odometry_step_jit(self._model, scan_dev, x0, self.cfg)
         X = res.X
         span = _flog.begin("divergence_read")
         _flog.read()
@@ -265,8 +252,8 @@ class OdometryPipeline:
         self._X_prev = X
         self._model = next_model
 
-        # One read-back of the frame's values (the iterations of a compiled
-        # step and the filter's n_rejected too), and the correspondences.
+        # One read-back of the frame's values (the step's iterations and the
+        # filter's n_rejected too), and the correspondences.
         parts = [X, res.pred_stds, self._T_world.reshape(-1), pose_to_state(self._T_world),
                  torch.as_tensor(res.iterations).reshape(1).to(X)]
         if filt is not None:
@@ -412,8 +399,7 @@ def run_odometry_device(
     pose accumulation) kept on the device; results come back once per
     block.  As in the JAX package's runner, the velocity history of
     ``warm_start_mode="extrapolate"`` restarts at each block boundary.
-    Where ``solver.compiled_route(cfg)`` holds, each block is one
-    :func:`odometry_sequence_jit`; otherwise the eager step chains it.
+    Each block is one :func:`odometry_sequence_jit`.
     ``cfg.dnn_filter`` raises NotImplementedError: use the pipeline."""
     cfg = cfg or ICETConfig()
     odo_cfg = odo_cfg or OdometryConfig()
@@ -425,41 +411,17 @@ def run_odometry_device(
         )
     dev = resolve_device(device)
     scans = np.asarray(scans, np.float32)
-    compiled = compiled_route(cfg)
-    scan0 = as_points(scans[0], dev)
-    model = prepare_reference_jit(scan0, cfg) if compiled else prepare_reference(scan0, cfg)
+    model = prepare_reference_jit(as_points(scans[0], dev), cfg)
     x = torch.zeros(6, device=dev)
     T = torch.eye(4, device=dev)
-    clamp = odo_cfg.divergence_clamp
     frames: list[OdometryFrame] = []
     for s in range(1, scans.shape[0], block):
         blk = torch.from_numpy(scans[s : s + block]).to(dev)
-        if compiled:
-            (model, x, T), outs, iterations = odometry_sequence_jit(
-                blk, model, x, T, cfg, clamp, odo_cfg.warm_start, odo_cfg.warm_start_mode,
-                return_iterations=True)
-            Xs, stds, divs, Ts, iterations = (o.cpu().numpy() for o in (*outs, iterations))
-            frames += _block_frames(s, Xs, stds, divs, Ts, iterations, odo_cfg)
-            continue
-        xprev, xprev2 = x, x
-        outs = []
-        for k in range(blk.shape[0]):
-            if odo_cfg.warm_start:
-                seed = warm_start_seed(xprev, xprev2, odo_cfg.warm_start_mode)
-            else:
-                seed = torch.zeros_like(xprev)
-            res, model = odometry_step(model, blk[k], seed, cfg)
-            diverged = torch.any(torch.abs(res.X) > clamp)
-            X = torch.where(diverged, torch.zeros_like(res.X), res.X)
-            T = compose_pose(T, X)
-            xprev2 = torch.where(diverged, X, xprev)
-            xprev = X
-            outs.append((X, res.pred_stds, diverged, T, res.iterations))
-        x = xprev
-        Xs, stds, divs, Ts = (
-            torch.stack([o[i] for o in outs]).cpu().numpy() for i in range(4)
-        )
-        frames += _block_frames(s, Xs, stds, divs, Ts, [o[4] for o in outs], odo_cfg)
+        (model, x, T), outs, iterations = odometry_sequence_jit(
+            blk, model, x, T, cfg, odo_cfg.divergence_clamp, odo_cfg.warm_start,
+            odo_cfg.warm_start_mode, return_iterations=True)
+        Xs, stds, divs, Ts, iterations = (o.cpu().numpy() for o in (*outs, iterations))
+        frames += _block_frames(s, Xs, stds, divs, Ts, iterations, odo_cfg)
     return frames
 
 

@@ -25,7 +25,7 @@ replayed; on the CPU the stages run as plain calls on the same buffers.
 They equal :func:`optimize_poses_eager` and
 :func:`optimize_poses_sparse_eager`, the plain loops, bit for bit.
 :func:`close_loops` registers each pair through
-``solver.register_pair_jit`` where ``solver.compiled_route(cfg)`` holds.
+``solver.register_pair_jit``.
 
 * :func:`optimize_poses_sharded` and :func:`optimize_poses_sparse_sharded`
   shard the factors over a mesh's first axis (``icet_tpu_torch.parallel``),
@@ -53,10 +53,8 @@ from icet_tpu_torch.ops.geometry import _homogeneous_row, pose_matrix, pose_to_s
 from icet_tpu_torch.ops.linalg import psd_pinv
 from icet_tpu_torch.ops.tridiag import cholesky, tridiag_apply, tridiag_factor
 from icet_tpu_torch.solver import (  # noqa: F401 (prepare_reference, register: re-exported)
-    compiled_route,
     prepare_reference,
     register,
-    register_pair_impl,
     register_pair_jit,
 )
 
@@ -961,17 +959,15 @@ def close_loops(
     :data:`LOOP_DX_GATE`, with ``info = psd_pinv(Q)``.
 
     The pairs run in chunks of ``batch``, and each chunk's results are read
-    back to the host once.  Where ``solver.compiled_route(cfg)`` holds each
-    pair is ``solver.register_pair_jit`` without the static mask (captured
-    graphs on CUDA, one set for every pair of one scan size and config),
-    otherwise the eager ``register_pair_impl``.  The JAX package runs each
-    chunk as one vmapped program; the port registers its pairs back to
-    back.  The solve is unfiltered whatever ``cfg.dnn_filter`` says, as in
-    the JAX package."""
+    back to the host once.  Each pair is ``solver.register_pair_jit``
+    without the static mask (captured graphs on CUDA, one set for every
+    pair of one scan size and config).  The JAX package runs each chunk as
+    one vmapped program; the port registers its pairs back to back.  The
+    solve is unfiltered whatever ``cfg.dnn_filter`` says, as in the JAX
+    package."""
     dev = resolve_device(device)
     if not candidates:
         return []
-    pair = register_pair_jit if compiled_route(cfg) else register_pair_impl
     factors = []
     for k0 in range(0, len(candidates), batch):
         chunk = candidates[k0:k0 + batch]
@@ -979,8 +975,8 @@ def close_loops(
         for i, j in chunk:
             x0 = (np.zeros(6, np.float32) if x0_fn is None
                   else np.asarray(x0_fn(i, j), np.float32))
-            res = pair(as_points(scans[i], dev), as_points(scans[j], dev),
-                       torch.from_numpy(x0).to(dev), cfg, want_static_mask=False)
+            res = register_pair_jit(as_points(scans[i], dev), as_points(scans[j], dev),
+                                    torch.from_numpy(x0).to(dev), cfg, want_static_mask=False)
             X.append(res.X)
             Q.append(res.Q)
             dx.append(res.diagnostics.dx_norm[-1])

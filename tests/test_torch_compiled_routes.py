@@ -18,7 +18,9 @@ capture-safe stages run as plain calls on the static buffers of
    mode on the CPU).
 3. The runners (``OdometryPipeline`` plain and DNN, ``KeyframeOdometry``
    plain and DNN, ``run_keyframe_device``, ``MapMaker``) take the compiled
-   steps on both routes and equal their eager routes bit for bit.
+   steps on both routes (the pipeline on the default route too) and equal
+   the eager functions chained with their semantics (``tests/
+   eager_chains.py``) bit for bit.
 
 Drive A is tests/test_torch_compiled.py's (48x512 sweeps, 49 azimuth
 bins); drive B tests/test_torch_compiled_keyframe.py's (32x256 sweeps, 25
@@ -50,6 +52,7 @@ from icet_tpu_torch.convert import config_from_icet, voxel_model_from_numpy
 from icet_tpu_torch.keyframe import np_pose_to_state
 from icet_tpu_torch.models.bias_net import load_pretrained
 from icet_tpu_torch.ops.moment_scatter import SHARED_ROWS
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -184,9 +187,7 @@ def test_sequence_runner_equals_eager_chain(scans, monkeypatch, method):
     calls = _spy(monkeypatch, todo, ["odometry_sequence_jit"])
     got = todo.run_odometry_device(scans, cfg, odo, block=3, device="cpu")
     assert calls == ["odometry_sequence_jit"] * 2
-    monkeypatch.setattr(todo, "compiled_route", lambda c: False)
-    want = todo.run_odometry_device(scans, cfg, odo, block=3, device="cpu")
-    assert len(calls) == 2
+    want = eager_chains.odometry_device(_t(scans), cfg, odo, block=3)
     _frames_equal(got, want, ("X", "pred_stds", "T_world", "pose"))
 
 
@@ -372,8 +373,7 @@ def test_close_loops_equals_pair_by_pair(drive, monkeypatch, method):
     calls = _spy(monkeypatch, tp, ["register_pair_jit"])
     got = tp.close_loops(list(scans), cands, cfg, x0_fn, batch=3, device="cpu")
     assert calls == ["register_pair_jit"] * len(cands)
-    monkeypatch.setattr(tp, "compiled_route", lambda c: False)
-    want = tp.close_loops(list(scans), cands, cfg, x0_fn, batch=3, device="cpu")
+    want = eager_chains.close_loops(list(scans), cands, cfg, x0_fn, batch=3)
     assert len(got) == len(want) == len(cands)
     for (i, j, gx, gi), (k, m, wx, wi) in zip(got, want):
         assert (i, j) == (k, m) and np.array_equal(gx, wx) and np.array_equal(gi, wi)
@@ -419,18 +419,20 @@ def test_compiled_matches_jax(scans, method):
 # ---------------------------------------------------------------------------
 
 
-@METHODS
+@pytest.mark.parametrize("method", [None, "pallas", "onehot"],
+                         ids=["default", "scatter", "onehot"])
 @pytest.mark.parametrize("dnn", [False, True], ids=["plain", "dnn"])
 def test_pipeline_takes_the_compiled_step(scans, net, monkeypatch, method, dnn):
-    cfg = _a(method, **DNN) if dnn else _a(method)
+    """The pipeline takes the compiled step on every route (``None``: the
+    config's default ``moment_method``) and equals the eager chain."""
+    cfg = TCFG_A if method is None else _a(method)
+    cfg = cfg.replace(**DNN) if dnn else cfg
     monkeypatch.setitem(tf._PRETRAINED_CACHE, (32, "cpu"), net)
     step = "odometry_step_dnn_jit" if dnn else "odometry_step_jit"
     calls = _spy(monkeypatch, todo, [step])
     got = list(todo.OdometryPipeline(cfg, device="cpu").run(scans[:4]))
     assert calls == [step] * 3
-    monkeypatch.setattr(todo, "compiled_route", lambda c: False)
-    want = list(todo.OdometryPipeline(cfg, device="cpu").run(scans[:4]))
-    assert len(calls) == 3
+    want = eager_chains.odometry(_t(scans[:4]), cfg, OdometryConfig(), net if dnn else None)
     _frames_equal(got, want)
 
 
@@ -440,32 +442,39 @@ def test_mapping_runners_take_the_compiled_steps(drive, net, monkeypatch, method
     scans, _ = drive
     monkeypatch.setitem(tf._PRETRAINED_CACHE, (32, "cpu"), net)
     cfg = _b(method, **DNN) if runner == "keyframe_dnn" else _b(method)
+    odo = OdometryConfig(divergence_clamp=0.9)
     if runner == "mapmaker":
         module, jit = tmap, ["map_step_jit"]
 
         def run():
-            maker = tmap.MapMaker(cfg, MCFG, OdometryConfig(divergence_clamp=0.9),
-                                  device="cpu")
+            maker = tmap.MapMaker(cfg, MCFG, odo, device="cpu")
             return [f for f in (maker.step(s) for s in scans[:4]) if f is not None]
+
+        def chain():
+            return eager_chains.map_maker(_t(scans[:4]), cfg, MCFG, odo)[0]
     elif runner == "device":
         module, jit = tkf, ["keyframe_sequence_jit"]
 
         def run():
             return tkf.run_keyframe_device(scans[:5], cfg, KCFG, BCFG, block=2,
                                            device="cpu")[0]
+
+        def chain():
+            return eager_chains.keyframe_device(_t(scans[:5]), cfg, KCFG, BCFG, block=2)[0]
     else:
         module = tkf
         jit = ["keyframe_step_dnn_jit" if runner == "keyframe_dnn" else "keyframe_step_jit"]
 
         def run():
             return tkf.KeyframeOdometry(cfg, KCFG, BCFG, device="cpu").run(scans[:5])
+
+        def chain():
+            return eager_chains.keyframe_odometry(_t(scans[:5]), cfg, KCFG, BCFG,
+                                                  net if runner == "keyframe_dnn" else None)[0]
     calls = _spy(monkeypatch, module, jit)
     got = run()
     assert calls and set(calls) == set(jit)
-    n = len(calls)
-    monkeypatch.setattr(module, "compiled_route", lambda c: False)
-    want = run()
-    assert len(calls) == n
+    want = chain()
     names = ("X", "pred_stds") if runner == "mapmaker" else ("X", "pred_stds", "T_world")
     for g, w in zip(got, want):
         for name in names:

@@ -16,8 +16,9 @@ guard read on the host.
    and insert write it; chunks on another device than the frame's take a
    copy of the staging there.
 3. ``KeyframeOdometry``'s compiled step reads once a frame and writes
-   nothing into the map from the host; what it hands over equals the
-   step's device outputs.
+   nothing into the map from the host; its frames and map equal the eager
+   functions chained with its semantics (``tests/eager_chains.py``); what
+   it hands over equals the step's device outputs.
 4. ``run_keyframe_device`` against the JAX package's, at
    tests/test_torch_compiled_keyframe.py's tolerances.
 5. A mirror that disagrees with the block's keyframes raises.
@@ -39,6 +40,7 @@ from icet_tpu_torch import graphs
 from icet_tpu_torch import keyframe as tkf
 from icet_tpu_torch.config import BlockMapConfig, KeyframeConfig
 from icet_tpu_torch.convert import config_from_icet
+from tests import eager_chains
 
 torch.set_num_threads(2)
 
@@ -260,31 +262,28 @@ def test_write_map_copies_the_staging_to_another_device(drive, spawn):
 @pytest.mark.parametrize("sharded", [False, True], ids=["whole", "sharded"])
 def test_keyframe_odometry_reads_once_a_frame(drive, sharded):
     """The compiled frame reads its outputs once (``spawn_reads``) and the
-    host issues no map write; the frames and map equal the eager route's."""
-    runs = []
-    for compiled in (True, False):
-        odo = tkf.KeyframeOdometry(TCFG, BENCH_KF, BCFG, device="cpu")
-        odo._compiled = compiled
-        if sharded:
-            odo.blockmap = _shard(odo.blockmap)
-        ops0 = dict(graphs.host_ops)
-        frames = odo.run(drive)
-        runs.append((frames, odo, {k: graphs.host_ops[k] - ops0[k] for k in ops0}))
-    (got, odo_g, ops), (want, odo_w, ops_w) = runs
+    host issues no map write; the frames and map equal the eager chain's."""
+    odo_g = tkf.KeyframeOdometry(TCFG, BENCH_KF, BCFG, device="cpu")
+    if sharded:
+        odo_g.blockmap = _shard(odo_g.blockmap)
+    ops0 = dict(graphs.host_ops)
+    got = odo_g.run(drive)
+    ops = {k: graphs.host_ops[k] - ops0[k] for k in ops0}
+    bm0 = tkf.blockmap_init(BCFG, "cpu")
+    want, bm_w, keyframes = eager_chains.keyframe_odometry(
+        _t(drive), TCFG, BENCH_KF, BCFG, blockmap=_shard(bm0) if sharded else bm0)
     assert ops["spawn_reads"] == len(drive) - 1
-    assert ops_w["spawn_reads"] == 0
     assert 2 <= len(odo_g.keyframe_indices) < len(drive)
-    assert odo_g.keyframe_indices == odo_w.keyframe_indices
+    assert odo_g.keyframe_indices == keyframes
     for g, w in zip(got, want):
         for name in ("X", "pred_stds", "T_world", "X_rel", "n_corr"):
             np.testing.assert_array_equal(getattr(g, name), getattr(w, name), err_msg=name)
         assert (g.index, g.is_keyframe, g.diverged, g.iterations) == (
             w.index, w.is_keyframe, w.diverged, w.iterations)
     for name in ("points", "valid", "poses"):
-        _assert_equal(getattr(_whole(odo_g.blockmap), name),
-                      getattr(_whole(odo_w.blockmap), name), f"bm.{name}")
-    assert (odo_g.blockmap.n_blocks, odo_g.blockmap.cursor) == (odo_w.blockmap.n_blocks,
-                                                               odo_w.blockmap.cursor)
+        _assert_equal(getattr(_whole(odo_g.blockmap), name), getattr(_whole(bm_w), name),
+                      f"bm.{name}")
+    assert (odo_g.blockmap.n_blocks, odo_g.blockmap.cursor) == (bm_w.n_blocks, bm_w.cursor)
 
 
 def test_step_hands_over_its_read(drive):

@@ -72,6 +72,18 @@ def test_moment_route_refuses_unported():
         ts.moment_route(ICETConfig(moment_method="dense"))
 
 
+@pytest.mark.parametrize("runner", ["OdometryPipeline", "MapMaker", "KeyframeOdometry"])
+def test_runners_refuse_an_unknown_route_when_built(runner):
+    """The streaming runners check the moments route when they are built,
+    not at their first frame."""
+    from icet_tpu_torch import keyframe, mapping, odometry
+
+    make = {"OdometryPipeline": odometry.OdometryPipeline, "MapMaker": mapping.MapMaker,
+            "KeyframeOdometry": keyframe.KeyframeOdometry}[runner]
+    with pytest.raises(ValueError, match="unknown moment_method 'dense'"):
+        make(ICETConfig(moment_method="dense"), device="cpu")
+
+
 def _edge_distance(scan, cfg):
     """The least distance of a raw point past ``min_range`` to an azimuth or
     polar bin edge (rad), and in fixed radial mode also to its radial

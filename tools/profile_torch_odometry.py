@@ -3,26 +3,26 @@
 
 Runs the 24-frame 64x1024 city drive (the drive chip_smoke.py drives) at the
 sequence-odometry config through ``odometry_step`` (with ``--dnn``, the
-DNN-filtered ``odometry_step_dnn``; with ``--keyframe``, ``KeyframeOdometry``
-at bench.py's keyframe config on its eager route, filtered too with both;
+DNN-filtered ``odometry_step_dnn``; with ``--keyframe``,
+``KeyframeOdometry`` at bench.py's keyframe config, filtered too with both;
 with ``--mapmaker``, ``MapMaker`` at ``PROFILES["mapping"]`` and
-``MapConfig()``, its frames 2-23: the seed frame and the first step, where
-a new ring's map graphs are captured, run before), or with ``--solve`` one
-pose-graph solve of the loop-closure drive's size (250 poses, 94 loop
-factors, ``optimize_poses_sparse(..., 10, 50, robust_delta=3.5)``, a
-synthetic ring), once to warm up and once under ``torch.profiler``, and
-prints one JSON object: wall ms per frame (CUDA events), CUDA kernels
-launched per frame, device busy ms per frame (union of kernel and copy
-intervals), the device's idle share, each hand-written kernel's launches
-and device time, and the kernels with the most device time.  ``--mapmaker``
-and ``--solve`` take the eager route, or with ``--compiled`` the captured
-graphs.  With ``--dnn`` it also profiles the filter's point sampling
-(``model_voxel_samples``, called twice a frame) on its own, and reports its
-device time and that of its sort as shares of the frame's busy time.  Run
-from the repository root:
+``MapConfig()``, its frames 2-23: the seed frame and the first step, where a
+new ring's map graphs are captured, run before; both runners on their
+captured graphs), or with ``--solve`` one pose-graph solve of the
+loop-closure drive's size (250 poses, 94 loop factors,
+``optimize_poses_sparse(..., 10, 50, robust_delta=3.5)``, a synthetic
+ring), once to warm up and once under ``torch.profiler``, and prints one
+JSON object: wall ms per frame (CUDA events), CUDA kernels launched per
+frame, device busy ms per frame (union of kernel and copy intervals), the
+device's idle share, each hand-written kernel's launches and device time,
+and the kernels with the most device time.  ``--solve`` takes the eager
+loop, or with ``--compiled`` the captured graphs.  With ``--dnn`` it also
+profiles the filter's point sampling (``model_voxel_samples``, called twice
+a frame) on its own, and reports its device time and that of its sort as
+shares of the frame's busy time.  Run from the repository root:
 
     python3 tools/profile_torch_odometry.py [--dnn] [--keyframe]
-    python3 tools/profile_torch_odometry.py --mapmaker [--compiled]
+    python3 tools/profile_torch_odometry.py --mapmaker
     python3 tools/profile_torch_odometry.py --solve [--compiled]
 
 It imports nothing of JAX or of ``icet_tpu``.
@@ -140,10 +140,10 @@ def main() -> int:
     ap.add_argument("--solve", action="store_true",
                     help="profile a 250-pose pose-graph solve instead")
     ap.add_argument("--compiled", action="store_true",
-                    help="with --mapmaker or --solve: the compiled route (captured graphs)")
+                    help="with --solve: the captured graphs, not the eager loop")
     args = ap.parse_args()
-    if args.compiled and not (args.mapmaker or args.solve):
-        ap.error("--compiled goes with --mapmaker or --solve")
+    if args.compiled and not args.solve:
+        ap.error("--compiled goes with --solve")
     if not torch.cuda.is_available():
         print("profile_torch_odometry: CUDA is not available", file=sys.stderr)
         return 1
@@ -164,13 +164,11 @@ def main() -> int:
 
     def keyframe_pass():
         runner = KeyframeOdometry(cfg, kf_cfg, BlockMapConfig(), device=dev)
-        runner._compiled = False  # the eager route; chip_smoke.py phase 27 profiles the graphs
         return sum(f.iterations for f in runner.run(drive))
 
     def mapmaker_pass():
         maker = MapMaker(PROFILES["mapping"], MapConfig(), OdometryConfig(divergence_clamp=2.5),
                          device=dev)
-        maker._compiled = args.compiled
         maker.step(drive[0])
         maker.step(drive[1])
         torch.cuda.synchronize()
