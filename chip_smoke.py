@@ -274,6 +274,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
     mapping runners launch it 7 and 12 times a frame; its ``-Xptxas -v``
     and ms cold and warm beside the plain chain's.
 
+33. kernel #8, the prepare's voxel-model fit: against its plain version
+    on the fits of lap frames at 75x24, 150x48 and fixed radial mode, with
+    the NDT test and with the clip-fill guard, and on fits whose safeguard
+    commits 0, 1 and 2 extra sweeps (one of them held only by the sentinel
+    or by an invalid row): every field of the model bit for bit; two
+    launches and two graph replays bit for bit; two device operations a
+    fit; the compiled odometry, filtered odometry and mapping runners
+    launch it twice a frame; its ``-Xptxas -v`` and ms at 1,801, 7,201 and
+    90,001 rows beside the plain chain's.
+
 ``python3 chip_smoke.py --parent DIR`` (an earlier tree unpacked in DIR)
 runs none of these phases: it times that tree's compiled paths against
 this one's (among them the fixed-radial-mode and 150x48 frames, which an
@@ -684,16 +694,17 @@ def windowed_compare(name, pts, X, bounds, anchors, cfg, report, block=WIN_BLOCK
 
 
 def check_one_launch(what: str, fn, wrapper, kernel: str, report, reps: int = 10,
-                     records_required: bool = True) -> None:
+                     records_required: bool = True, launches: int = 1) -> None:
     """``fn`` runs ``kernel`` and no other device operation (no memset, no
-    copy, no second kernel), at most once a call, with any host
-    synchronisation an error (``torch.cuda.set_sync_debug_mode``), and
-    ``wrapper``'s launch counter rises by one a call.  The profiler can
-    miss a record (:func:`device_profile`), so fewer than one recorded a
-    call is reported, not failed; with ``records_required`` False, none
-    recorded at all is reported too (the backbone's long launches, of
-    which the profiler recorded about one in ten on the H100), and every
-    operation it does record must still be ``kernel``."""
+    copy, no other kernel), at most ``launches`` times a call (kernels
+    whose names hold ``kernel``), with any host synchronisation an error
+    (``torch.cuda.set_sync_debug_mode``), and ``wrapper``'s launch counter
+    rises by ``launches`` a call.  The profiler can miss a record
+    (:func:`device_profile`), so fewer than ``launches`` recorded a call is
+    reported, not failed; with ``records_required`` False, none recorded
+    at all is reported too (the backbone's long launches, of which the
+    profiler recorded about one in ten on the H100), and every operation
+    it does record must still be ``kernel``."""
 
     def strict():
         torch.cuda.set_sync_debug_mode("error")
@@ -709,8 +720,8 @@ def check_one_launch(what: str, fn, wrapper, kernel: str, report, reps: int = 10
     launched = wrapper.launches - before
     ops = sum(k for _, k in prof.values())
     others = sorted(name for name in prof if kernel not in name)
-    check(not others and (0 < ops or not records_required) and ops <= 1
-          and launched == reps + 1,
+    check(not others and (0 < ops or not records_required) and ops <= launches
+          and launched == launches * (reps + 1),
           f"{what}: {ops} device operations a call, others than {kernel}: {others}, "
           f"{launched} launches counted in {reps + 1} calls")
     report.append(f"{what}: only {kernel} on the device ({ops:g} recorded a call), "
@@ -3707,27 +3718,23 @@ def gn_single_rows(what: str, args: tuple, report: list) -> None:
     report.append(f"{what}: {len(picks)} rows alone equal the plain version bit for bit")
 
 
-def gn_replays(what: str, args: tuple, dev, report: list) -> None:
-    """One launch captured in a CUDA graph: two replays give the eager
-    launch's bits."""
-    from icet_tpu_torch.ops.gn_assembly import gn_assembly
-
-    eager_out = [t.clone() for t in gn_outputs(gn_assembly(*args))]
+def graph_replays(what: str, fn, dev, report: list) -> None:
+    """``fn`` (a kernel wrapper's call; its outputs, None left out)
+    captured once in a CUDA graph: two replays give an eager call's
+    bits."""
+    eager_out = [t.clone() for t in fn() if t is not None]
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        gn_assembly(*args)  # the warm-up the capture needs
+        fn()  # the warm-up the capture needs
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = gn_outputs(gn_assembly(*args))
-    replays = []
+        out = [t for t in fn() if t is not None]
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize(dev)
-        replays.append([t.clone() for t in out])
-    for rep in replays:
-        check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(rep, eager_out)),
+        check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(out, eager_out)),
               f"{what}: a graph replay differs from the eager launch")
     report.append(f"{what}: two graph replays equal the eager launch bit for bit")
 
@@ -3805,10 +3812,10 @@ def phase_gn_assembly(scan1, scan2, cfg, dev, card) -> dict:
                 check_one_launch(what, lambda: gn_assembly(*args), gn_assembly,
                                  "gn_assembly_kernel", report)
                 gn_single_rows(what, args, report)
-                gn_replays(what, args, dev, report)
+                graph_replays(what, lambda: gn_assembly(*args), dev, report)
                 times[grid] = gn_timing(args, rows)
             if name.startswith("mask + moving"):
-                gn_replays(what, args, dev, report)
+                graph_replays(what, lambda: gn_assembly(*args), dev, report)
     check(rejected > 0, "the moving-object test rejected nothing: its branch is untested")
     gn_solve_launches(scan1, scan2, cfg, report)
     gn_solve_launches(scan1, scan2, cfg.replace(range_sigma=0.02, convergence_tol=0.0,
@@ -3987,66 +3994,47 @@ def eigh6_compare(what: str, args: tuple, report: list) -> dict:
     return {"w": w_err, "recon": r_err, "vec": v_ratio, "x": x_err / x_lim}
 
 
-def eigh6_replays(what: str, args: tuple, dev, report: list) -> None:
-    """One launch captured in a CUDA graph: two replays give the eager
-    launch's bits."""
-    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
-
-    eager_out = [t.clone() for t in gn_eigh6(*args)]
-    stream = torch.cuda.Stream(dev)
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        gn_eigh6(*args)  # the warm-up the capture needs
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = gn_eigh6(*args)
-    for _ in range(2):
-        graph.replay()
-        torch.cuda.synchronize(dev)
-        check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(out, eager_out)),
-              f"{what}: a graph replay differs from the eager launch")
-    report.append(f"{what}: two graph replays equal the eager launch bit for bit")
-
-
-def eigh6_runner_launches(scans, dev, report: list) -> dict:
-    """#7's launches a frame of the compiled ``OdometryPipeline`` and
-    ``MapMaker`` at the benchmark's configurations, on lap frames, once
-    their graphs are captured: one an iteration, 7 and 12."""
+def runner_launches(label: str, wrapper, wants: dict, scans, dev, report: list) -> dict:
+    """``wrapper``'s launches a frame of the compiled runners named in
+    ``wants`` (``"odometry"``, ``"filtered odometry"``, ``"mapping"``) at
+    the benchmark's configurations, on lap frames: ``wants[name]`` a frame
+    once the first two frames have captured the runner's graphs."""
+    from icet_tpu_torch import graphs
     from icet_tpu_torch.config import MapConfig, OdometryConfig
     from icet_tpu_torch.mapping import MapMaker
     from icet_tpu_torch.odometry import OdometryPipeline
-    from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
-    from icet_tpu_torch import graphs
     from benchmark.common import solver_config
 
-    odo_c, map_c = bench_config("os1-64.odo"), bench_config("os1-64.map")
-    runners = {
-        "odometry": (OdometryPipeline(
-            solver_config(odo_c), OdometryConfig(
-                divergence_clamp=odo_c["divergence_clamp"], warm_start=odo_c["warm_start"],
-                warm_start_mode=odo_c["warm_start_mode"],
-                sensor_hz=odo_c["sensor"]["rate_hz"]), device=dev), odo_c["n_iters"]),
-        "mapping": (MapMaker(
-            solver_config(map_c), MapConfig(capacity=map_c["capacity"],
-                                            points_per_scan=map_c["points_per_scan"]),
-            OdometryConfig(divergence_clamp=map_c["divergence_clamp"]), seed=1, device=dev,
-            snapshot_every=map_c["snapshot_every"]), map_c["n_iters"]),
-    }
+    def odometry(c):
+        return OdometryPipeline(solver_config(c), OdometryConfig(
+            divergence_clamp=c["divergence_clamp"], warm_start=c["warm_start"],
+            warm_start_mode=c["warm_start_mode"], sensor_hz=c["sensor"]["rate_hz"]), device=dev)
+
+    def mapping(c):
+        return MapMaker(solver_config(c), MapConfig(capacity=c["capacity"],
+                                                    points_per_scan=c["points_per_scan"]),
+                        OdometryConfig(divergence_clamp=c["divergence_clamp"]), seed=1,
+                        device=dev, snapshot_every=c["snapshot_every"])
+
+    makers = {"odometry": lambda: odometry(bench_config("os1-64.odo")),
+              "filtered odometry": lambda: odometry(bench_config("os1-64.odo-dnn")),
+              "mapping": lambda: mapping(bench_config("os1-64.map"))}
     per_frame = {}
-    for name, (runner, want) in runners.items():
-        counts = []
+    for name, want in wants.items():
+        runner, counts = makers[name](), []
         for s in scans:
             settle()
-            before = gn_eigh6.launches
+            before = wrapper.launches
             runner.step(s.cpu().numpy())
             settle()
-            counts.append(gn_eigh6.launches - before)
+            counts.append(wrapper.launches - before)
         check(all(k == want for k in counts[2:]),
-              f"{name}: #7 launches a frame {counts} (after two frames {want} each expected)")
+              f"{name}: {label} launches a frame {counts} (after two frames {want} each "
+              "expected)")
         per_frame[name] = counts
-        report.append(f"compiled {name} at the benchmark's configuration: #7 launches a "
+        report.append(f"compiled {name} at the benchmark's configuration: {label} launches a "
                       f"frame {counts} (the first two capture)")
+        del runner
         graphs.clear(dev)
     return per_frame
 
@@ -4108,8 +4096,11 @@ def phase_gn_eigh6(dev, card) -> dict:
     for name, args in (("cold", cold), ("warm", warm)):
         check_one_launch(f"lap 75x24 {name}", lambda: gn_eigh6(*args), gn_eigh6,
                          "gn_eigh6_kernel", report)
-        eigh6_replays(f"lap 75x24 {name}", args, dev, report)
-    launches = eigh6_runner_launches(scans[:EIGH6_RUNNER_FRAMES], dev, report)
+        graph_replays(f"lap 75x24 {name}", lambda: gn_eigh6(*args), dev, report)
+    odo_c, map_c = bench_config("os1-64.odo"), bench_config("os1-64.map")
+    launches = runner_launches("#7", gn_eigh6, {"odometry": odo_c["n_iters"],
+                                                "mapping": map_c["n_iters"]},
+                               scans[:EIGH6_RUNNER_FRAMES], dev, report)
     times = eigh6_timing(cold, warm)
     for line in report:
         print(f"gn_eigh6 vs plain, {line}")
@@ -4122,6 +4113,165 @@ def phase_gn_eigh6(dev, card) -> dict:
               f"{t['plain_launches']:g} device operations")
     print(f"phase 32: {time.perf_counter() - t0:.1f} s")
     return {"worst": worst, "times": times, "launches": launches, "outcomes": outcomes}
+
+
+# ---------------------------------------------------------------------------
+# Kernel #8: the prepare's voxel-model fit
+# ---------------------------------------------------------------------------
+
+#: the fit's grids on lap frames: the benchmark's 75x24, 150x48, fixed radial
+#: mode, and 75x24 with the NDT test and with the clip-fill guard
+FIT_GRIDS = (("75x24", {}), ("150x48", {"n_theta": 150, "n_phi": 48}),
+             ("fixed", {"radial_mode": "fixed"}), ("75x24 ndt", {"suppression": "ndt"}),
+             ("75x24 clip_fill 0.6", {"clip_fill": 0.6}))
+#: the lap frames whose fits are compared
+FIT_LAP_FIRST, FIT_LAP_FRAMES = 100, 2
+#: the model's fields as ``model_fit`` returns them
+FIT_FIELDS = ("count", "mean", "cov", "basis", "lmask", "valid")
+
+
+def fit_inputs(scan, cfg) -> tuple:
+    """``model_fit``'s arguments in ``prepare_reference`` of ``scan`` on the
+    card."""
+    from icet_tpu_torch import solver
+
+    with spy(solver, "model_fit") as calls:
+        solver.prepare_reference(scan, cfg)
+    (sums, clusters, anchors, c), _ = calls.args[0]
+    return sums.clone(), type(clusters)(*(t.clone() for t in clusters)), anchors.clone(), c
+
+
+def fit_extra_sweeps(sums, anchors, sweeps: int) -> int:
+    """The extra sweeps ``eigh3_planes`` commits after ``sweeps`` on these
+    sums, its flags read on the host."""
+    from icet_tpu_torch.ops import wls_planes
+    from icet_tpu_torch.ops.model_fit import RTOL
+    from icet_tpu_torch.ops.moments import finalize_moments_planes
+
+    A = [list(r) for r in wls_planes._sym_planes(finalize_moments_planes(sums, anchors)[2])]
+    V = wls_planes._identity_planes(A[0][0])
+    for _ in range(sweeps):
+        A, V = wls_planes._sweep3(A, V)
+    extra = 0
+    while extra < 2 and bool(wls_planes._unconverged3(A, RTOL)):
+        A, V = wls_planes._sweep3(A, V)
+        extra += 1
+    return extra
+
+
+def fit_safeguard_cases(sums, clusters, anchors, cfg) -> list[tuple[str, tuple, int]]:
+    """``(name, model_fit arguments, extra sweeps wanted)``: the lap fit at
+    4 sweeps (its rows converge: none), at 0 sweeps (two); every row made
+    diagonal (its mean at the anchor, no cross moments) but one whose x-y
+    block needs one rotation, at 0 sweeps (one), that row the sentinel or
+    an invalid row in the middle of the table."""
+    cases = [("lap, 4 sweeps", (sums, clusters, anchors, cfg, 4), 0),
+             ("lap, 0 sweeps", (sums, clusters, anchors, cfg, 0), 2)]
+    diag = sums.clone()
+    diag[:, 1:4] = 0.0
+    diag[:, 7:10] = 0.0
+    one = torch.tensor([30.0, 0.0, 0.0, 0.0, 2.0, 1.0, 1.0, 0.5], device=sums.device)
+    for where, row in (("the sentinel", sums.shape[0] - 1), ("an invalid row",
+                                                             sums.shape[0] // 2)):
+        s = diag.clone()
+        s[row, :8] = one
+        found = clusters.found.clone()
+        found[row] = False
+        cases.append((f"diagonal but {where}, 0 sweeps",
+                      (s, type(clusters)(clusters.bounds, found), anchors, cfg, 0), 1))
+    return cases
+
+
+def fit_compare(what: str, args: tuple, report: list) -> None:
+    """Kernel #8 against its plain version on the card, twice: every field
+    of the model equal bit for bit, and the two launches too."""
+    from icet_tpu_torch.ops.model_fit import model_fit, model_fit_reference
+
+    got = model_fit(*args)
+    again = model_fit(*args)
+    want = model_fit_reference(*args)
+    for name, g, w in zip(FIT_FIELDS, got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(gn_bits(g), gn_bits(w)),
+              f"{what}: {name} differs from the plain version's in "
+              f"{int((g != w).reshape(g.shape[0], -1).any(-1).sum())} rows")
+    check(all(torch.equal(gn_bits(a), gn_bits(b)) for a, b in zip(got, again)),
+          f"{what}: two launches differ")
+    report.append(f"{what}: {int(got[5].sum())} valid of {got[0].shape[0]} rows, "
+                  f"{int(got[4].sum())} axes kept, every field equal to the plain version's "
+                  "bit for bit, two launches equal")
+
+
+def fit_timing(args: tuple) -> dict:
+    """Kernel #8 and its plain chain on one fit: device ms a call and device
+    operations a call (torch.profiler), CUDA-event ms a call of
+    back-to-back calls, and the bound (the sums, bounds, found flags and
+    anchors read once, the model written, at 3.35 TB/s)."""
+    from icet_tpu_torch.ops.model_fit import model_fit, model_fit_reference
+
+    rows = args[0].shape[0]
+    k_ms, k_event_ms = kernel_times(lambda: model_fit(*args), 50)
+    plain_ops = device_profile(lambda: model_fit_reference(*args), 3)
+    b_ms, by = bound(rows * ((16 + 2 + 3) * 4 + 1 + (1 + 3 + 9 + 9 + 3) * 4 + 1), 0,
+                     PEAK_FP32_PER_S)
+    return {"rows": rows, "ms": k_ms, "event_ms": k_event_ms,
+            "plain_ms": sum(ms for ms, _ in plain_ops.values()),
+            "plain_launches": sum(k for _, k in plain_ops.values()),
+            "bound_ms": b_ms, "bound_by": by}
+
+
+def phase_model_fit(dev, card) -> dict:
+    """Kernel #8 against its plain version on the card: the fits of lap
+    frames at 75x24, 150x48, fixed radial mode, with the NDT test and with
+    the clip-fill guard, and fits whose safeguard commits 0, 1 and 2 extra
+    sweeps (one held only by the sentinel or an invalid row), every field
+    bit for bit; two launches and two graph replays bit for bit; two device
+    operations a fit; the launches a frame of the compiled runners; its ms
+    at 1,801, 7,201 and 90,001 rows beside the plain chain's."""
+    from icet_tpu_torch import _build
+    from icet_tpu_torch.ops.model_fit import LAUNCHES, model_fit
+    from benchmark.common import solver_config
+
+    t0 = time.perf_counter()
+    for name, usage in ptxas_usage(_build.build(["model_fit"])).items():
+        print(f"ptxas {name}: {usage}")
+    report, extras, timed = [], {}, {}
+    scans = lap_scans(dev, FIT_LAP_FIRST, max(FIT_LAP_FRAMES, EIGH6_RUNNER_FRAMES))
+    cfg = solver_config(bench_config("os1-64.odo"))
+    for k in range(FIT_LAP_FRAMES):
+        for grid, kw in FIT_GRIDS:
+            sums, clusters, anchors, c = fit_inputs(scans[k], cfg.replace(**kw))
+            args = (sums, clusters, anchors, c)
+            what = f"lap frame {FIT_LAP_FIRST + k} {grid} (V+1={sums.shape[0]})"
+            extras[what] = fit_extra_sweeps(sums, anchors, 4)
+            fit_compare(f"{what}, {extras[what]} extra sweeps", args, report)
+            if k == 0 and not kw.get("suppression") and not kw.get("clip_fill"):
+                timed[grid] = args
+            if k == 0 and grid == "75x24":
+                for name, sargs, want in fit_safeguard_cases(*args):
+                    got = fit_extra_sweeps(sargs[0], sargs[2], sargs[4])
+                    check(got == want, f"{name}: the plain version commits {got} extra "
+                          f"sweeps, the case wants {want}")
+                    extras[name] = got
+                    fit_compare(f"{name} ({got} extra sweeps)", sargs, report)
+    check({0, 1, 2} <= set(extras.values()), f"extra sweeps {sorted(set(extras.values()))}: "
+          "a branch of the safeguard is untested")
+    args = timed["75x24"]
+    check_one_launch("lap 75x24", lambda: model_fit(*args), model_fit, "model_fit_kernel",
+                     report, launches=LAUNCHES)
+    graph_replays("lap 75x24", lambda: model_fit(*args), dev, report)
+    graph_replays("lap fixed", lambda: model_fit(*timed["fixed"]), dev, report)
+    launches = runner_launches("#8", model_fit, dict.fromkeys(
+        ("odometry", "filtered odometry", "mapping"), LAUNCHES), scans[:EIGH6_RUNNER_FRAMES],
+        dev, report)
+    times = {grid: fit_timing(a) for grid, a in timed.items()}
+    for line in report:
+        print(f"model_fit vs plain, {line}")
+    for grid, t in times.items():
+        print(f"model_fit {grid} ({t['rows']} rows, {card}): {t['ms']:.5f} ms a fit (CUDA "
+              f"events {t['event_ms']:.5f}), bound {t['bound_ms']:.6f} ({t['bound_by']}); "
+              f"plain chain {t['plain_ms']:.4f} ms in {t['plain_launches']:g} device operations")
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s")
+    return {"times": times, "launches": launches, "extras": extras}
 
 
 def time_tree(spec: dict) -> int:
@@ -4366,6 +4516,8 @@ def main() -> int:
     from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors
     from icet_tpu_torch.ops.gn_assembly import gn_assembly
     from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
+    from icet_tpu_torch.ops.model_fit import LAUNCHES as FIT_LAUNCHES
+    from icet_tpu_torch.ops.model_fit import model_fit
     from icet_tpu_torch.ops.moment_scatter import moment_scatter_reference, moment_scatter_sums
     from icet_tpu_torch.solver import odometry_step, prepare_reference, register_pair
     from icet_tpu_torch import graphs
@@ -4575,12 +4727,16 @@ def main() -> int:
     # -- 32. kernel #7, the 6x6 eigensystem and its update, vs plain -------
     eigh6 = phase_gn_eigh6(dev, card)
 
+    # -- 33. kernel #8, the prepare's voxel-model fit, vs plain -------------
+    fit = phase_model_fit(dev, card)
+
     # -- sequence odometry ------------------------------------------------
     torch.cuda.synchronize()
     settle()
     fused_moment_sums.launches = 0
     gn_assembly.launches = 0
     gn_eigh6.launches = 0
+    model_fit.launches = 0
     zero_warmups()
     t0 = time.perf_counter()
     out = run_odometry_device(scans, cfg, odo, device="cuda")
@@ -4591,6 +4747,7 @@ def main() -> int:
     seq_warm = warmups()
     gn_launches, gn_warm = gn_assembly.launches, warmups("gn_assembly")
     eigh6_launches, eigh6_warm = gn_eigh6.launches, warmups("gn_eigh6")
+    fit_launches, fit_warm = model_fit.launches, warmups("model_fit")
     iters = [f.iterations for f in out]
     check(len(out) == len(scans) - 1, f"{len(out)} frames out of {len(scans) - 1}")
     check(all(np.isfinite(f.X).all() and np.isfinite(f.pred_stds).all() for f in out),
@@ -4603,13 +4760,18 @@ def main() -> int:
           f"#6 launches {gn_launches} != iterations {sum(iters)} + warm-ups {gn_warm}")
     check(eigh6_launches == sum(iters) + eigh6_warm,
           f"#7 launches {eigh6_launches} != iterations {sum(iters)} + warm-ups {eigh6_warm}")
+    check(fit_launches == FIT_LAUNCHES * len(scans) + fit_warm,
+          f"#8 launches {fit_launches} != {FIT_LAUNCHES} x prepares {len(scans)} + warm-ups "
+          f"{fit_warm}")
     ate = trajectory_ate(out, gt)
     print(f"sequence odometry (compiled): {len(out)} frames in {path_s:.2f} s with the graphs' "
           f"capture, fused launches {fused_launches} = {sum(iters)} iterations + {len(scans)} "
           f"prepares + {seq_warm} warm-ups before capture, "
           f"mean iterations/frame {np.mean(iters):.3f}, ATE {ate * 100:.3f} cm; "
           f"#6 launches {gn_launches} = {sum(iters)} iterations + {gn_warm} warm-ups; "
-          f"#7 launches {eigh6_launches} = {sum(iters)} iterations + {eigh6_warm} warm-ups")
+          f"#7 launches {eigh6_launches} = {sum(iters)} iterations + {eigh6_warm} warm-ups; "
+          f"#8 launches {fit_launches} = {FIT_LAUNCHES} x {len(scans)} prepares + {fit_warm} "
+          "warm-ups")
     check(ate <= ATE_MAX_M, f"ATE {ate * 100:.3f} cm above {ATE_MAX_M * 100} cm")
 
     # -- DNN-filtered odometry --------------------------------------------
@@ -5577,6 +5739,19 @@ def main() -> int:
             "warm_plain_ms": eigh6["times"]["warm"]["plain_ms"],
             "bound_ms": None,
             "bound_by": "a dependent chain of Jacobi rounds",
+            "library_ms": None,
+        },
+        {
+            "name": "model_fit",
+            "route": "cuda",
+            "source": "icet_tpu_torch/csrc/model_fit.cu",
+            "replaces": None,
+            "launches": fit_launches,
+            "bits_equal": True,
+            "ms": fit["times"]["75x24"]["ms"],
+            "plain_ms": fit["times"]["75x24"]["plain_ms"],
+            "bound_ms": fit["times"]["75x24"]["bound_ms"],
+            "bound_by": fit["times"]["75x24"]["bound_by"],
             "library_ms": None,
         },
         {

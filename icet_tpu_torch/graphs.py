@@ -141,6 +141,7 @@ from icet_tpu_torch.ops.clustering import cluster_plan
 from icet_tpu_torch.ops.fused_moments import fused_moment_sums
 from icet_tpu_torch.ops.gn_assembly import gn_assembly
 from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
+from icet_tpu_torch.ops.model_fit import model_fit
 from icet_tpu_torch.ops.moment_scatter import moment_scatter_sums
 from icet_tpu_torch.ops.tridiag import tridiag_apply, tridiag_factor
 from icet_tpu_torch.solver import (
@@ -159,7 +160,7 @@ from icet_tpu_torch.utils.profiling import record_in_capture
 
 #: the kernel wrappers whose launches a graph records and its replays count
 COUNTED = (fused_moment_sums, bias_encoder_pool, tridiag_factor, tridiag_apply,
-           moment_scatter_sums, gn_assembly, gn_eigh6)
+           moment_scatter_sums, gn_assembly, gn_eigh6, model_fit)
 #: launches of each counted wrapper made by warm-ups before a capture
 warmup_launches = {f.__name__: 0 for f in COUNTED}
 #: host operations of the compiled path: graph replays, exit-flag reads,

@@ -2,7 +2,8 @@
 
 1. :func:`prepare_reference` fits the dense voxel model to scan 1:
    spherical binning, radial clustering, anchored moments (the fused pass
-   at X = 0), 3x3 eigendecomposition and the extended-surface axis mask.
+   at X = 0), 3x3 eigendecomposition and the extended-surface axis mask
+   (``ops.model_fit``: two CUDA kernel launches on the card).
 2. :func:`register` runs Gauss-Newton iterations: each one is a fused
    moments pass over scan 2 at the current X (the CUDA kernel on the
    card), the plane-form normal equations (``ops.gn_assembly``: one CUDA
@@ -47,7 +48,6 @@ the same math split at its sums: :func:`model_from_sums`,
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import torch
@@ -71,12 +71,8 @@ from icet_tpu_torch.ops.gn_assembly import gn_assembly
 from icet_tpu_torch.ops.gn_eigh6 import gn_eigh6
 from icet_tpu_torch.ops.grid import fixed_shell_bounds, voxel_anchors, voxel_ids
 from icet_tpu_torch.ops.linalg import inverse_where
-from icet_tpu_torch.ops.moments import (
-    cov6_to_matrix,
-    finalize_moments_planes,
-    voxel_moment_sums,
-)
-from icet_tpu_torch.ops.wls_planes import eigh3_planes
+from icet_tpu_torch.ops.model_fit import model_fit
+from icet_tpu_torch.ops.moments import voxel_moment_sums
 
 
 class VoxelModel(NamedTuple):
@@ -120,68 +116,6 @@ class RegistrationResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # Scan-1 preparation
 # ---------------------------------------------------------------------------
-
-
-def _sigma_axis_mask(model_mean, eigvals, basis, bounds, valid, cfg: ICETConfig):
-    """Keep eigen-axis k iff an endpoint ``mu +- s sqrt(lam_k) u_k`` lies
-    inside the voxel (same bin, within the radial bounds)."""
-    sq = torch.sqrt(torch.clamp(eigvals, min=0.0))
-    offsets = cfg.sigma_scale * sq[:, None, :] * basis  # (V+1, 3, 3)
-    endpoints = torch.stack(
-        [model_mean[:, :, None] + offsets, model_mean[:, :, None] - offsets], dim=0
-    )  # (2, V+1, coord, axis)
-    ep = torch.movedim(endpoints, 2, 3)  # (2, V+1, axis, coord)
-    rtp = cart_to_spherical(ep)
-    ep_vid = voxel_ids(rtp, cfg)
-    own_vid = torch.arange(
-        model_mean.shape[0], dtype=torch.int32, device=model_mean.device
-    )[None, :, None]
-    b = bounds[None, :, None, :]
-    inside = (ep_vid == own_vid) & (rtp[..., 0] >= b[..., 0]) & (rtp[..., 0] <= b[..., 1])
-    keep = inside[0] | inside[1]
-    return torch.where(valid[:, None], keep.to(model_mean.dtype), 0.0)
-
-
-def _clip_fill_mask(model_mean, eigvals, basis, bounds, valid, cfg: ICETConfig):
-    """Clip-fill guard: prune axis k when ``sigma_scale sqrt(lam_k)``
-    exceeds ``clip_fill / 2`` of the cell's extent along it (L1 box bound
-    in the local spherical frame).  Projections in float32."""
-    r = torch.linalg.norm(model_mean, dim=-1)
-    safe_r = torch.clamp(r, min=1e-6)
-    rhat = model_mean / safe_r[:, None]
-    sin_phi = torch.sqrt(
-        torch.clamp(model_mean[:, 0] ** 2 + model_mean[:, 1] ** 2, min=1e-12)
-    ) / safe_r
-    cos_th = model_mean[:, 0] / torch.clamp(sin_phi * safe_r, min=1e-9)
-    sin_th = model_mean[:, 1] / torch.clamp(sin_phi * safe_r, min=1e-9)
-    that = torch.stack([-sin_th, cos_th, torch.zeros_like(sin_th)], dim=-1)
-    phat = torch.linalg.cross(that, rhat)
-
-    d_theta = 2.0 * math.pi / cfg.n_theta
-    d_phi = (cfg.phi_max - cfg.phi_min) / cfg.n_phi
-    w_r = bounds[:, 1] - bounds[:, 0]
-    w_t = r * sin_phi * d_theta
-    w_p = r * d_phi
-
-    def proj(nv):
-        return torch.abs(torch.sum(nv[:, :, None] * basis, dim=1))
-
-    extent = (
-        proj(rhat) * w_r[:, None] + proj(that) * w_t[:, None] + proj(phat) * w_p[:, None]
-    )
-    span = cfg.sigma_scale * torch.sqrt(torch.clamp(eigvals, min=0.0))
-    keep = span <= 0.5 * cfg.clip_fill * extent
-    return torch.where(valid[:, None], keep.to(model_mean.dtype), 0.0)
-
-
-def _ndt_axis_mask(eigvals, basis, bounds, valid, cfg: ICETConfig):
-    """NDT-style test: prune axis k when any component of
-    ``|u_k| lam_k`` exceeds the voxel's radial width squared."""
-    width = bounds[:, 1] - bounds[:, 0]
-    thr = width * width
-    rotated = torch.abs(basis) * torch.clamp(eigvals, min=0.0)[:, None, :]
-    extended = torch.any(rotated > thr[:, None, None], dim=1)
-    return torch.where(valid[:, None], (~extended).to(eigvals.dtype), 0.0)
 
 
 def _scatter_sums(pts, X, bounds, anchors, cfg: ICETConfig, method: str) -> torch.Tensor:
@@ -278,24 +212,12 @@ def fixed_clusters(cfg: ICETConfig, dev) -> ClusterResult:
 
 def model_from_sums(sums, clusters: ClusterResult, anchors, cfg: ICETConfig) -> VoxelModel:
     """The voxel model from scan 1's ``(V+1, 16)`` moment sums at X = 0, its
-    clusters and anchors: finalize, validity, eigensystems and axis masks."""
-    count, mean, cov6 = finalize_moments_planes(sums, anchors)
-
-    valid = (
-        clusters.found
-        & (count >= cfg.min_pts)
-        & (clusters.bounds[:, 1] > cfg.min_outer_range)
-    )
-    eigvals, basis = eigh3_planes(cov6)
-    if cfg.suppression == "ndt":
-        lmask = _ndt_axis_mask(eigvals, basis, clusters.bounds, valid, cfg)
-    else:
-        lmask = _sigma_axis_mask(mean, eigvals, basis, clusters.bounds, valid, cfg)
-    if cfg.clip_fill > 0.0:
-        lmask = lmask * _clip_fill_mask(mean, eigvals, basis, clusters.bounds, valid, cfg)
+    clusters and anchors: finalize, validity, eigensystems and axis masks
+    (``ops.model_fit``: two CUDA kernel launches on the card)."""
+    count, mean, cov, basis, lmask, valid = model_fit(sums, clusters, anchors, cfg)
     return VoxelModel(
         bounds=clusters.bounds, anchors=anchors, count=count, mean=mean,
-        cov=cov6_to_matrix(cov6), basis=basis, lmask=lmask, valid=valid,
+        cov=cov, basis=basis, lmask=lmask, valid=valid,
     )
 
 

@@ -368,4 +368,4 @@ def test_counted_wrappers_include_the_encoder():
     assert set(graphs.warmup_launches) == {"fused_moment_sums", "bias_encoder_pool",
                                            "tridiag_factor", "tridiag_apply",
                                            "moment_scatter_sums", "gn_assembly",
-                                           "gn_eigh6"}
+                                           "gn_eigh6", "model_fit"}

@@ -19,10 +19,16 @@ program has no kernel for it), ``dR`` (the rotation derivative), ``rest``
 (the iteration less all these).  The kernels launched through ctypes (#1,
 #6, #7) are not attributed to a region: their device ms and launches an
 iteration are given apart, from the trace's records of their symbols
-(``kernels``), and ``iteration_ms`` adds them.  Run from the repository
-root, on a machine with a CUDA card:
+(``kernels``), and ``iteration_ms`` adds them.  With ``--prepare`` it
+splits the prepare (``solver.prepare_reference`` of the first scan) the
+same way: ``clustering`` (``radial_cluster_bounds``), ``anchors``
+(``voxel_anchors``), ``moments`` (#1's wrapper), ``fit``
+(``model_from_sums``: the voxel-model fit, kernel #8 where the program has
+it), ``rest`` (the scan's spherical coordinates and voxel ids); it runs on
+an earlier tree's solver too.  Run from the repository root, on a machine
+with a CUDA card:
 
-    python3 tools/profile_gn_split.py [--iters 5]
+    python3 tools/profile_gn_split.py [--iters 5] [--prepare]
 
 It imports nothing of JAX or of ``icet_tpu``.
 """
@@ -55,14 +61,22 @@ REGIONS = {
     "eigh": ("eigh_small", "eigh_small_warm_safe"),
     "dR": ("rotation_jacobian",),
 }
+#: the prepare's regions (``--prepare``)
+PREPARE_REGIONS = {
+    "clustering": ("radial_cluster_bounds",),
+    "anchors": ("voxel_anchors",),
+    "moments": ("_sums",),
+    "fit": ("model_from_sums",),
+}
 CONFIGS = ("os1-64.odo", "os1-64.map")
-#: the symbols of the kernels launched through ctypes (#1, #6, #7)
-KERNELS = ("fused_moments_kernel", "gn_assembly_kernel", "gn_eigh6_kernel")
+#: the symbols of the kernels launched through ctypes (#1, #6, #7, #8)
+KERNELS = ("fused_moments_kernel", "gn_assembly_kernel", "gn_eigh6_kernel", "model_fit_kernel")
 
 
 @contextlib.contextmanager
-def regions():
-    """Wrap each function of :data:`REGIONS` in ``record_function``."""
+def regions(table=None):
+    """Wrap each function of ``table`` (default :data:`REGIONS`) in
+    ``record_function``."""
     saved = {}
 
     def wrap(region, fn):
@@ -71,7 +85,7 @@ def regions():
                 return fn(*a, **k)
         return inner
 
-    for region, names in REGIONS.items():
+    for region, names in (table or REGIONS).items():
         for name in names:
             if hasattr(solver, name):
                 saved[name] = getattr(solver, name)
@@ -113,6 +127,27 @@ def profile(model, scan2, X, U2, cfg, iters: int) -> dict:
             with torch.profiler.record_function("gn.iteration"):
                 out = solver._iteration(model, scan2, X, it, cfg, None, U2)
         torch.cuda.synchronize()
+    return {**tally(prof, iters), "n_corr": int(out[5][0])}
+
+
+def profile_prepare(scan, cfg, reps: int) -> dict:
+    """``reps`` prepares of ``scan`` under the profiler, split as
+    :func:`profile` splits an iteration (the keys ``iteration_*`` are a
+    prepare's)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    solver.prepare_reference(scan, cfg)
+    torch.cuda.synchronize()
+    with regions(PREPARE_REGIONS), torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            with torch.profiler.record_function("gn.iteration"):
+                solver.prepare_reference(scan, cfg)
+        torch.cuda.synchronize()
+    return tally(prof, reps)
+
+
+def tally(prof, iters: int) -> dict:
+    """The regions' and the ctypes kernels' device ms and launches a call
+    from a profile of ``iters`` calls in ``gn.iteration`` regions."""
     totals: dict = {}
     kernels = {k: [0.0, 0] for k in KERNELS}
     attributed = False
@@ -148,8 +183,7 @@ def profile(model, scan2, X, U2, cfg, iters: int) -> dict:
             "kernels_in_regions": attributed,
             "kernels": {k: {"ms": us / iters / 1e3, "launches": n / iters,
                             "share": us / whole_us if whole_us else None}
-                        for k, (us, n) in kernels.items()},
-            "n_corr": int(out[5][0])}
+                        for k, (us, n) in kernels.items()}}
 
 
 def split(cfg, scan1, scan2, iters: int) -> dict:
@@ -168,6 +202,8 @@ def split(cfg, scan1, scan2, iters: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--prepare", action="store_true",
+                    help="split the prepare instead of the iterations")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -180,7 +216,10 @@ def main() -> int:
     for name in CONFIGS:
         with open(os.path.join(root, "benchmark", "configs", f"{name}.json")) as f:
             cfg = solver_config(json.load(f))
-        row = split(cfg, scan1, scan2, args.iters)
+        if args.prepare:
+            row = {"prepare": profile_prepare(scan1, cfg, args.iters)}
+        else:
+            row = split(cfg, scan1, scan2, args.iters)
         print(json.dumps({"config": name, "card": card, "torch": torch.__version__, **row}),
               flush=True)
     return 0
